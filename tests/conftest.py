@@ -74,3 +74,11 @@ def ray_batch():
     rays = targets - origins
     rays /= np.linalg.norm(rays, axis=1, keepdims=True)
     return origins, rays.astype(np.float32)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); "
+        "skipped where torch.cuda.is_available() is false",
+    )

@@ -1,0 +1,87 @@
+"""Runtime configuration for the PyTorch port.
+
+Counterpart of :mod:`voxelengine_tpu.config`.  Same enums, constants and
+field names; ``Environment`` holds torch tensors and is built for an
+explicit ``device``.
+
+Left out of :class:`RenderConfig` on purpose: the knobs that only tune the
+TPU kernel's VMEM line cache or the XLA staging (``trace_tile``,
+``trace_slots``, ``trace_shortlist``, ``trace_stage_steps``,
+``trace_tail_frac``, ``staged_trace``, ``stage_iters``, ``tail_frac``,
+``stage_schedule``).  The Hopper traversal has no line cache and no
+straggler staging, so they have nothing to tune here.  ``reflectivity``
+and ``debug_pos_mod`` come with the reflection and DEBUG views they tune,
+``trace_use_macro`` with the Hopper kernel's macro skip levels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from voxelengine_tpu_torch.core.exact import fdiv
+
+FLT_EPS_DDA = 1e-6  # VolumeRaytracer.cuh:20
+MAX_STEPS = 2048  # VolumeRaytracer.cuh:235
+
+
+class DebugView(enum.Enum):
+    """Render modes (``Renderer.cu:215-252``).  This slice renders
+    ``SHADED``; the others raise until they are ported."""
+
+    SHADED = 0
+    DEBUG = 1
+    NORMALS = 2
+    DEPTH = 3
+    STEPS = 4
+
+
+class Projection(enum.Enum):
+    PERSPECTIVE = 0  # Renderer.cu:44-59
+    ORTHOGRAPHIC = 1  # Renderer.cu:61-70
+
+
+@dataclasses.dataclass(frozen=True)
+class Environment:
+    """Lighting environment (``Renderer.cuh:33-37``): three f32[3] tensors."""
+
+    light_direction: torch.Tensor  # normalized, world space
+    light_color: torch.Tensor
+    ambient_color: torch.Tensor
+
+    @staticmethod
+    def default(device="cpu") -> "Environment":
+        """The VoxelApp demo environment (``main.cu:58-63``)."""
+        d = torch.tensor([1.0, 1.0, 1.0], dtype=torch.float32, device=device)
+        return Environment(
+            light_direction=fdiv(d, float(np.sqrt(np.float32(3.0)))),  # d / |d|
+            light_color=torch.tensor([2.0, 2.0, 2.0], dtype=torch.float32, device=device),
+            ambient_color=torch.tensor([0.5, 0.5, 0.5], dtype=torch.float32, device=device),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static per-renderer configuration."""
+
+    width: int = 1280  # main.cu:15
+    height: int = 720  # main.cu:16
+    fov_degrees: float = 90.0  # main.cu:64
+    projection: Projection = Projection.PERSPECTIVE
+    ortho_size: Tuple[float, float] = (10.0, 10.0)  # main.cu:65
+    checkerboard: bool = True  # Renderer.cu:5
+    debug_view: DebugView = DebugView.SHADED
+    max_steps: int = MAX_STEPS
+    # secondary rays: present in the reference but off by default there
+    # (Renderer.cu:102,123); not ported yet, so render_frame raises on them
+    shadow_rays: bool = False
+    ao_samples: int = 0
+    reflections: bool = False
+    crosshair: bool = True  # Renderer.cu:260-268
+    # order rays as ~32x32 pixel blocks so neighbouring threads share
+    # table lines in L1/L2
+    tile_order: bool = False

@@ -1,0 +1,190 @@
+"""Two-level brickmap world: counterpart of :mod:`voxelengine_tpu.core.brickmap`.
+
+Three flat tensors on one device:
+
+* ``meta`` — ``int32[num_chunks]``: occupancy bit 30 and the chunk's tight
+  AABB in six 5-bit fields (:func:`pack_meta`);
+* ``brick_idx`` — ``int32[num_chunks]``: chunk -> brick slot.  In the
+  compact form slot 0 is the shared all-full brick and -1 an empty chunk;
+* ``bricks`` — ``int32[num_bricks, words_per_brick]``: packed per-chunk
+  occupancy in brick-layout order (uint32 bit patterns held as int32).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from voxelengine_tpu_torch.core.bitgrid import layout_order_bits, pack_bits, words_for_bits
+from voxelengine_tpu_torch.core.layout import Layout
+
+# meta word: [4:0]=min_x [9:5]=min_y [14:10]=min_z [19:15]=max_x
+# [24:20]=max_y [29:25]=max_z [30]=occupied (factor <= 32)
+META_OCC_BIT = 30
+
+
+def choose_layout(dims: Tuple[int, int, int], want: Layout) -> Layout:
+    """Fall back to LINEAR when dims aren't tileable by 8."""
+    if want is Layout.LINEAR or all(d % 8 == 0 for d in dims):
+        return want
+    return Layout.LINEAR
+
+
+def _full_brick_words(factor: int) -> np.ndarray:
+    """The canonical all-full brick (``int32[wpb]`` bit patterns): all ones,
+    with the tail bits beyond ``factor^3`` masked off for tiny bricks."""
+    wpb = words_for_bits(factor**3)
+    bits = np.arange(wpb * 32) < factor**3
+    words = np.packbits(bits.reshape(wpb, 32), axis=1, bitorder="little")
+    return words.view("<u4").reshape(wpb).astype(np.uint32).view(np.int32)
+
+
+def pack_meta(occ: torch.Tensor, bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Tensor:
+    """Pack occupancy + tight bounds (int ``[..., 3]``, chunk-local voxels)
+    into the int32 meta word."""
+    bmin = bmin.to(torch.int32)
+    bmax = bmax.to(torch.int32)
+    return (
+        bmin[..., 0]
+        | (bmin[..., 1] << 5)
+        | (bmin[..., 2] << 10)
+        | (bmax[..., 0] << 15)
+        | (bmax[..., 1] << 20)
+        | (bmax[..., 2] << 25)
+        | (occ.to(torch.int32) << META_OCC_BIT)
+    )
+
+
+def unpack_meta(meta: torch.Tensor):
+    """Inverse of :func:`pack_meta` -> (occ bool, bmin [...,3], bmax [...,3])."""
+    occ = ((meta >> META_OCC_BIT) & 1) == 1
+    bmin = torch.stack([meta & 31, (meta >> 5) & 31, (meta >> 10) & 31], dim=-1)
+    bmax = torch.stack([(meta >> 15) & 31, (meta >> 20) & 31, (meta >> 25) & 31], dim=-1)
+    return occ, bmin, bmax
+
+
+@dataclasses.dataclass(frozen=True)
+class BrickMap:
+    """Two-level brickmap world state (see module doc)."""
+
+    meta: torch.Tensor  # int32[num_chunks]
+    brick_idx: torch.Tensor  # int32[num_chunks]
+    bricks: torch.Tensor  # int32[num_bricks, words_per_brick]
+    grid_dims: Tuple[int, int, int]
+    factor: int
+    coarse_layout: Layout
+    brick_layout: Layout
+    dense_slots: bool
+
+    @property
+    def world_dims(self) -> Tuple[int, int, int]:
+        gx, gy, gz = self.grid_dims
+        return (gx * self.factor, gy * self.factor, gz * self.factor)
+
+    @property
+    def num_chunks(self) -> int:
+        gx, gy, gz = self.grid_dims
+        return gx * gy * gz
+
+    @property
+    def words_per_brick(self) -> int:
+        return words_for_bits(self.factor**3)
+
+
+def _slab_to_chunks(slab: torch.Tensor, factor: int, chunks_y: int, chunks_x: int, brick_layout: Layout):
+    """Reduce one dense z-slab ``bool[factor, Y, X]`` to per-chunk
+    (occ [cy*cx], bmin [cy*cx, 3], bmax [cy*cx, 3], words [cy*cx, wpb]),
+    chunks in (cy, cx) row-major order."""
+    f = factor
+    # [f(z), cy, f(y), cx, f(x)] -> chunk-major [cy, cx, f(z), f(y), f(x)]
+    c = slab.reshape(f, chunks_y, f, chunks_x, f).permute(1, 3, 0, 2, 4)
+    occ = c.any(dim=4).any(dim=3).any(dim=2)
+
+    def axis_bounds(axis):  # axis: 2=z, 3=y, 4=x within c
+        line = c
+        for a in sorted((a for a in (2, 3, 4) if a != axis), reverse=True):
+            line = line.any(dim=a)
+        line = line.to(torch.uint8)  # [cy, cx, f]; argmax takes the first max
+        lo = torch.argmax(line, dim=-1)
+        hi = f - 1 - torch.argmax(line.flip(-1), dim=-1)
+        return lo.to(torch.int32), hi.to(torch.int32)
+
+    zlo, zhi = axis_bounds(2)
+    ylo, yhi = axis_bounds(3)
+    xlo, xhi = axis_bounds(4)
+    # empty chunks: min=0, max=-1 (VolumeRaytracer.cuh:454-463); read only if occ
+    bmin = torch.stack([xlo, ylo, zlo], dim=-1) * occ[..., None]
+    bmax = torch.where(occ[..., None], torch.stack([xhi, yhi, zhi], dim=-1), -1)
+
+    bits = layout_order_bits(c.reshape(chunks_y * chunks_x, f, f, f), brick_layout)
+    nbits = words_for_bits(f**3) * 32
+    if bits.shape[1] < nbits:
+        pad = torch.zeros((bits.shape[0], nbits - bits.shape[1]), dtype=torch.bool, device=bits.device)
+        bits = torch.cat([bits, pad], dim=1)
+    return occ.reshape(-1), bmin.reshape(-1, 3), bmax.reshape(-1, 3), pack_bits(bits)
+
+
+def build_brickmap_terrain_compact(
+    world_dims: Tuple[int, int, int],
+    factor: int,
+    seed: int = 0x71889283,
+    octaves: int = 32,
+    brick_layout: Layout = Layout.TILED_LINEAR,
+    device="cpu",
+) -> BrickMap:
+    """Terrain world straight to compact indirection, one chunk-row z-slab
+    at a time on ``device`` (worldgen, reduction and brick selection all
+    stay there).  All-full chunks share slot 0, empty chunks get -1, and
+    each non-uniform occupied chunk keeps its own brick, in chunk order.
+    Coarse layout LINEAR (build order).  Matches
+    :func:`voxelengine_tpu.core.brickmap.build_brickmap_terrain_compact`
+    bit for bit."""
+    from voxelengine_tpu_torch.worldgen.terrain import solid_at
+
+    X, Y, Z = world_dims
+    f = factor
+    if X % f or Y % f or Z % f or f > 32:
+        raise ValueError(f"world dims {world_dims} must be multiples of factor {f} <= 32")
+    gx, gy, gz = X // f, Y // f, Z // f
+    brick_layout = choose_layout((f, f, f), brick_layout)
+    full = torch.as_tensor(_full_brick_words(f), device=device)
+
+    y = torch.arange(Y, device=device)[None, :, None]
+    x = torch.arange(X, device=device)[None, None, :]
+    occ_parts, bmin_parts, bmax_parts, slot_parts = [], [], [], []
+    brick_parts = [full[None, :]]
+    next_slot = 1  # slot 0 = shared all-full brick
+    for cz in range(gz):
+        z = cz * f + torch.arange(f, device=device)[:, None, None]
+        slab = solid_at(x, y, z, seed, octaves)
+        occ, bmn, bmx, words = _slab_to_chunks(slab, f, gy, gx, brick_layout)
+        keep = occ & ~(words == full[None, :]).all(dim=1)
+        cnt = int(keep.sum())
+        slots = torch.full((gy * gx,), -1, dtype=torch.int32, device=device)
+        slots[occ & ~keep] = 0
+        slots[keep] = next_slot + torch.arange(cnt, dtype=torch.int32, device=device)
+        next_slot += cnt
+        brick_parts.append(words[keep])
+        slot_parts.append(slots)
+        occ_parts.append(occ)
+        bmin_parts.append(bmn)
+        bmax_parts.append(bmx)
+
+    meta = pack_meta(
+        torch.cat(occ_parts),
+        torch.clamp_min(torch.cat(bmin_parts), 0),
+        torch.clamp_min(torch.cat(bmax_parts), 0),
+    )
+    return BrickMap(
+        meta=meta,
+        brick_idx=torch.cat(slot_parts),
+        bricks=torch.cat(brick_parts, dim=0),
+        grid_dims=(gx, gy, gz),
+        factor=f,
+        coarse_layout=Layout.LINEAR,
+        brick_layout=brick_layout,
+        dense_slots=False,
+    )

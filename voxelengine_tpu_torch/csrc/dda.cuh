@@ -1,0 +1,252 @@
+// Per-ray two-level brickmap DDA over the line table.
+//
+// One ray, one plain loop, one DDA event per iteration: the scalar form of
+// voxelengine_tpu_torch/ops/trace.py (and of the JAX state machine it
+// mirrors, voxelengine_tpu/ops/trace.py::_run_loop).  Coarse steps read the
+// packed meta word of the current chunk; a descend starts a fine DDA at the
+// chunk's tight-AABB entry; fine steps read brick words; an ascend resumes
+// the coarse walk with one normal step.  Tie-breaks, edge pads and the
+// degenerate start hit follow VolumeRaytracer.cu:176-525.
+//
+// Every function here is __host__ __device__: nvcc builds it into the
+// Hopper kernel (bigtrace.cu) and a C++ compiler builds it into a host
+// library for the CPU tests (dda_host.cpp).  Both builds must keep every
+// float operation separately rounded: nvcc --fmad=false, g++
+// -ffp-contract=off, no fast-math, IEEE division.
+//
+// Table addressing (the line-table contract of make_line_table):
+//   region r = (cx>>3) + RX*((cy>>3) + RY*(cz>>3)),
+//   local    = (cx&7) + ((cy&7)<<3) + ((cz&7)<<6),
+//   meta word  at region_lines[r*1024 + local],
+//   brick slot at region_lines[r*1024 + 512 + local],
+//   brick word at brick_lines[slot*wpb + (bit>>5)].
+#pragma once
+
+#include <math.h>
+
+#ifdef __CUDACC__
+#define VX_HD __host__ __device__ __forceinline__
+#else
+#define VX_HD inline
+#endif
+
+namespace vx {
+
+// Layout enum values of voxelengine_tpu_torch.core.layout.Layout.
+enum BrickLayout { LAYOUT_LINEAR = 0, LAYOUT_TILED_LINEAR = 1, LAYOUT_TILED_MORTON = 2 };
+
+struct TraceParams {
+  int gx, gy, gz;    // chunk grid
+  int rx, ry, rz;    // region grid, ceil(g / 8)
+  int factor;        // voxels per chunk edge
+  int wpb;           // words per brick
+  int max_steps;     // step budget
+  int brick_layout;  // BrickLayout
+  int iter_limit;    // iteration cap; a ray still active there reports max_steps
+};
+
+struct TraceResult {
+  int flags;  // hit | hit_imm << 1
+  float px, py, pz;
+  float nx, ny, nz;
+  int steps;
+};
+
+VX_HD int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
+
+VX_HD int part1by2(int x) {
+  x &= 0x7;
+  x = (x | (x << 8)) & 0x0000F00F;
+  x = (x | (x << 4)) & 0x000C30C3;
+  x = (x | (x << 2)) & 0x00249249;
+  return x;
+}
+
+// Bit index of a (clamped) voxel within its brick (core/layout.py::sample_index).
+VX_HD int brick_bit(int x, int y, int z, int f, int layout) {
+  if (layout == LAYOUT_LINEAR) return x + y * f + z * (f * f);
+  const int tf = f >> 3;
+  const int tile = (x >> 3) + (y >> 3) * tf + (z >> 3) * (tf * tf);
+  if (layout == LAYOUT_TILED_MORTON)
+    return tile * 512 + (part1by2(x & 7) | (part1by2(y & 7) << 1) | (part1by2(z & 7) << 2));
+  return tile * 512 + (x & 7) + ((y & 7) << 3) + ((z & 7) << 6);
+}
+
+// Advance axis with the reference's tie-break: x if strictly smallest,
+// else y if ty <= tx && ty < tz, else z (VolumeRaytracer.cu:293-313).
+VX_HD int axis_pick(float tx, float ty, float tz) {
+  if (tx < ty && tx < tz) return 0;
+  if (ty <= tx && ty < tz) return 1;
+  return 2;
+}
+
+VX_HD float fmin2(float a, float b) { return b < a ? b : a; }
+VX_HD float fmax2(float a, float b) { return b > a ? b : a; }
+
+// tMax initialization (VolumeRaytracer.cu:203-205).
+VX_HD float init_tmax(int cell, int step, float start, float d) {
+  return d != 0.0f ? ((float)(cell + (step > 0 ? 1 : 0)) - start) / d : INFINITY;
+}
+
+// One coarse Amanatides-Woo step; returns the crossing time.
+VX_HD float coarse_advance(int& cx, int& cy, int& cz, float& tx, float& ty, float& tz,
+                           int sx, int sy, int sz, float dtx, float dty, float dtz) {
+  const int a = axis_pick(tx, ty, tz);
+  if (a == 0) { const float t = tx; cx += sx; tx = tx + dtx; return t; }
+  if (a == 1) { const float t = ty; cy += sy; ty = ty + dty; return t; }
+  const float t = tz; cz += sz; tz = tz + dtz; return t;
+}
+
+// Trace one ray.  (sx, sy, sz) is the world-clipped start in chunk units,
+// (dx, dy, dz) the normalized direction, (padx, pady, padz) the coarse
+// edge pad; all three come from the wrapper's ray setup.
+VX_HD TraceResult trace_ray(const TraceParams& P, const int* region_lines, const int* brick_lines,
+                            float sx, float sy, float sz, float dx, float dy, float dz,
+                            int active, int padx, int pady, int padz) {
+  TraceResult r = {0, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0};
+  if (!active) return r;
+  const int f = P.factor;
+  const float ff = (float)f;
+  const float flt_eps = 1.1920929e-07f;  // FLT_EPSILON, ops/aabb.py
+  const int stx = dx > 0.0f ? 1 : -1, sty = dy > 0.0f ? 1 : -1, stz = dz > 0.0f ? 1 : -1;
+  const float tdx = dx != 0.0f ? fabsf(1.0f / dx) : INFINITY;
+  const float tdy = dy != 0.0f ? fabsf(1.0f / dy) : INFINITY;
+  const float tdz = dz != 0.0f ? fabsf(1.0f / dz) : INFINITY;
+  // ray_aabb's reciprocals: a zero component becomes FLT_EPSILON
+  const float ivx = 1.0f / (dx == 0.0f ? flt_eps : dx);
+  const float ivy = 1.0f / (dy == 0.0f ? flt_eps : dy);
+  const float ivz = 1.0f / (dz == 0.0f ? flt_eps : dz);
+
+  int ccx = (int)sx, ccy = (int)sy, ccz = (int)sz;  // trunc toward zero
+  float ctx = init_tmax(ccx, stx, sx, dx);
+  float cty = init_tmax(ccy, sty, sy, dy);
+  float ctz = init_tmax(ccz, stz, sz, dz);
+  float centry = 0.0f;
+
+  bool in_fine = false, hit = false, imm = false, hit_imm = false;
+  int steps = 0;
+  int fcx = 0, fcy = 0, fcz = 0, fpadx = 0, fpady = 0, fpadz = 0, fsteps = 0, slot = 0;
+  float ftx = 0.0f, fty = 0.0f, ftz = 0.0f;
+  float fsx = 0.0f, fsy = 0.0f, fsz = 0.0f;
+  float fpx = 0.0f, fpy = 0.0f, fpz = 0.0f;
+  float cnx = 0.0f, cny = 0.0f, cnz = 0.0f;
+  float fnx = 0.0f, fny = 0.0f, fnz = 0.0f;
+
+  for (int it = 0; active && it < P.iter_limit; ++it) {
+    bool cadv = false;  // coarse advance this event (coarse miss of the box, or ascend)
+    if (!in_fine) {
+      const bool in_range = ccx >= 0 && ccx < P.gx + padx && ccy >= 0 && ccy < P.gy + pady &&
+                            ccz >= 0 && ccz < P.gz + padz;
+      if (!in_range) { active = 0; break; }  // left the world: miss
+      const int clx = clampi(ccx, 0, P.gx - 1), cly = clampi(ccy, 0, P.gy - 1),
+                clz = clampi(ccz, 0, P.gz - 1);
+      const long long base =
+          (long long)((clx >> 3) + P.rx * ((cly >> 3) + P.ry * (clz >> 3))) * 1024;
+      const int local = (clx & 7) + ((cly & 7) << 3) + ((clz & 7) << 6);
+      const int meta = region_lines[base + local];
+      bool descend = false;
+      if ((meta >> 30) & 1) {
+        // ray vs the chunk's tight AABB (ops/aabb.py::ray_aabb)
+        const float bx0 = (float)clx + (float)(meta & 31) / ff;
+        const float by0 = (float)cly + (float)((meta >> 5) & 31) / ff;
+        const float bz0 = (float)clz + (float)((meta >> 10) & 31) / ff;
+        const float bx1 = (float)clx + ((float)((meta >> 15) & 31) + 1.0f) / ff;
+        const float by1 = (float)cly + ((float)((meta >> 20) & 31) + 1.0f) / ff;
+        const float bz1 = (float)clz + ((float)((meta >> 25) & 31) + 1.0f) / ff;
+        const float lx = (bx0 - sx) * ivx, hx = (bx1 - sx) * ivx;
+        const float ly = (by0 - sy) * ivy, hy = (by1 - sy) * ivy;
+        const float lz = (bz0 - sz) * ivz, hz = (bz1 - sz) * ivz;
+        const float t1x = fmin2(lx, hx), t1y = fmin2(ly, hy), t1z = fmin2(lz, hz);
+        const float t2x = fmax2(lx, hx), t2y = fmax2(ly, hy), t2z = fmax2(lz, hz);
+        const float btmin = fmax2(fmax2(t1x, t1y), t1z);
+        const float btmax = fmin2(fmin2(t2x, t2y), t2z);
+        if (btmax >= fmax2(btmin, 0.0f)) {
+          // descend: fine DDA from the box entry, or from the current
+          // position when already inside the box
+          descend = true;
+          imm = steps == 0 && btmin <= 0.0f;
+          float ex, ey, ez;
+          if (btmin > 0.0f) {
+            ex = sx + btmin * dx; ey = sy + btmin * dy; ez = sz + btmin * dz;
+          } else {
+            ex = sx + dx * centry; ey = sy + dy * centry; ez = sz + dz * centry;
+          }
+          fsx = (ex - (float)clx) * ff;
+          fsy = (ey - (float)cly) * ff;
+          fsz = (ez - (float)clz) * ff;
+          fcx = (int)fsx; fcy = (int)fsy; fcz = (int)fsz;
+          ftx = init_tmax(fcx, stx, fsx, dx);
+          fty = init_tmax(fcy, sty, fsy, dy);
+          ftz = init_tmax(fcz, stz, fsz, dz);
+          const bool on_edge = fcx == f || fcy == f || fcz == f;
+          fpadx = on_edge && dx < 0.0f; fpady = on_edge && dy < 0.0f; fpadz = on_edge && dz < 0.0f;
+          fpx = fsx; fpy = fsy; fpz = fsz;
+          fsteps = 0;
+          const bool is_x = btmin == t1x;
+          const bool is_y = !is_x && btmin == t1y;
+          cnx = is_x ? (ivx < 0.0f ? -1.0f : 1.0f) : 0.0f;
+          cny = is_y ? (ivy < 0.0f ? -1.0f : 1.0f) : 0.0f;
+          cnz = (is_x || is_y) ? 0.0f : (ivz < 0.0f ? -1.0f : 1.0f);
+          const int s = region_lines[base + 512 + local];
+          slot = s > 0 ? s : 0;
+          in_fine = true;
+        }
+      }
+      cadv = !descend;
+    } else {
+      const bool in_range_f = fcx >= 0 && fcx < f + fpadx && fcy >= 0 && fcy < f + fpady &&
+                              fcz >= 0 && fcz < f + fpadz;
+      bool ascend = !in_range_f;
+      if (in_range_f) {
+        const int bit = brick_bit(clampi(fcx, 0, f - 1), clampi(fcy, 0, f - 1),
+                                  clampi(fcz, 0, f - 1), f, P.brick_layout);
+        const int word = brick_lines[(long long)slot * P.wpb + (bit >> 5)];
+        if ((word >> (bit & 31)) & 1) {
+          // hit: position = fine entry + chunk offset (VolumeRaytracer.cu:427-429),
+          // normal of the last crossing (VolumeRaytracer.cu:495-503)
+          hit = true;
+          r.px = fpx + (float)(ccx * f);
+          r.py = fpy + (float)(ccy * f);
+          r.pz = fpz + (float)(ccz * f);
+          if (fsteps == 0) { r.nx = cnx; r.ny = cny; r.nz = cnz; }
+          else { r.nx = fnx; r.ny = fny; r.nz = fnz; }
+          hit_imm = hit_imm || (fsteps == 0 && imm);
+          active = 0;
+          break;
+        }
+        const int a = axis_pick(ftx, fty, ftz);
+        const float tc = a == 0 ? ftx : (a == 1 ? fty : ftz);
+        const float ix = a == 0 ? (float)(fcx + (stx > 0 ? 1 : 0)) : fsx + tc * dx;
+        const float iy = a == 1 ? (float)(fcy + (sty > 0 ? 1 : 0)) : fsy + tc * dy;
+        const float iz = a == 2 ? (float)(fcz + (stz > 0 ? 1 : 0)) : fsz + tc * dz;
+        if (ix < 0.0f || ix > ff || iy < 0.0f || iy > ff || iz < 0.0f || iz > ff) {
+          ascend = true;
+        } else {
+          if (a == 0) { fcx += stx; ftx = ftx + tdx; }
+          else if (a == 1) { fcy += sty; fty = fty + tdy; }
+          else { fcz += stz; ftz = ftz + tdz; }
+          fpx = ix; fpy = iy; fpz = iz;
+          fnx = a == 0 ? (float)stx : 0.0f;
+          fny = a == 1 ? (float)sty : 0.0f;
+          fnz = a == 2 ? (float)stz : 0.0f;
+          ++fsteps;
+          ++steps;
+        }
+      }
+      if (ascend) in_fine = false;
+      cadv = ascend;
+    }
+    if (cadv) {
+      centry = coarse_advance(ccx, ccy, ccz, ctx, cty, ctz, stx, sty, stz, tdx, tdy, tdz);
+      ++steps;
+    }
+    if (steps >= P.max_steps) active = 0;
+  }
+  r.flags = (hit ? 1 : 0) | (hit_imm ? 2 : 0);
+  // a ray cut by the iteration cap reports the full budget, never a fake
+  // low-steps miss (pallas_bigtrace.py:1507-1512)
+  r.steps = active ? P.max_steps : steps;
+  return r;
+}
+
+}  // namespace vx

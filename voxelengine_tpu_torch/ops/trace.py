@@ -1,0 +1,281 @@
+"""Two-level brickmap ray traversal in plain torch.
+
+Counterpart of :func:`voxelengine_tpu.ops.trace.trace_brickmap`: the same
+flattened state machine (coarse DDA over chunks; descend into a chunk's
+tight AABB; fine DDA over brick bits; resume the coarse walk on ascend),
+one DDA event per ray per iteration, with the reference's tie-breaks and
+max-edge padding (``VolumeRaytracer.cu:176-525``).  The ``lax.while_loop``
+becomes a Python loop; every few iterations the still-active rays are
+compacted, which changes no result (a finished ray's state is frozen).
+
+This is the plain version of the Hopper kernel in
+:mod:`voxelengine_tpu_torch.kernels.bigtrace` and the reference of its
+exactness gate.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from voxelengine_tpu_torch.config import FLT_EPS_DDA, MAX_STEPS
+from voxelengine_tpu_torch.core.brickmap import BrickMap, unpack_meta
+from voxelengine_tpu_torch.core.exact import dot3, fdiv, sqrt_rn
+from voxelengine_tpu_torch.core.layout import sample_index
+from voxelengine_tpu_torch.ops.aabb import ray_aabb
+
+F32 = torch.float32
+I32 = torch.int32
+INF = float("inf")
+_COMPACT_EVERY = 16  # iterations between active-ray compactions
+
+
+class TraceOut(NamedTuple):
+    """Per-ray trace results (``DDARayResults``, ``VolumeRaytracer.cuh:179-275``)."""
+
+    hit: torch.Tensor  # bool[N]
+    position: torch.Tensor  # f32[N,3], world voxel coords
+    normal: torch.Tensor  # f32[N,3], step-sign convention (renderer negates)
+    steps: torch.Tensor  # i32[N]
+
+
+def _dims(dims, dtype, device) -> torch.Tensor:
+    """A small constant vector on ``device``, copied without the stream
+    synchronisation that ``torch.tensor(..., device=cuda)`` performs."""
+    return torch.tensor(dims, dtype=dtype).to(device, non_blocking=True)
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    """``v / |v|`` with the squared norm summed as ``x*x + y*y + z*z``."""
+    return v / sqrt_rn(dot3(v, v))[..., None]
+
+
+def _axis_pick3(tx, ty, tz):
+    """Advance-axis choice with the reference's tie-breaking
+    (``VolumeRaytracer.cu:293-313``): x if strictly smallest, else y if
+    ``ty <= tx && ty < tz``, else z."""
+    ax = (tx < ty) & (tx < tz)
+    ay = ~ax & (ty <= tx) & (ty < tz)
+    az = ~(ax | ay)
+    return ax, ay, az
+
+
+def _advance(cell, tmax, tdelta, step_sign, start, d):
+    """One Amanatides-Woo step.  Returns (axis_onehot, t_cross, isect,
+    new_cell, new_tmax, step_normal)."""
+    axis = torch.stack(_axis_pick3(tmax[:, 0], tmax[:, 1], tmax[:, 2]), dim=-1)
+    t_cross = torch.where(axis, tmax, 0.0).sum(dim=-1)  # one nonzero term: exact
+    boundary = (cell + (step_sign > 0)).to(F32)
+    linear = start + t_cross[:, None] * d
+    isect = torch.where(axis, boundary, linear)
+    new_cell = cell + torch.where(axis, step_sign, 0)
+    new_tmax = tmax + torch.where(axis, tdelta, 0.0)
+    step_normal = torch.where(axis, step_sign.to(F32), 0.0)
+    return axis, t_cross, isect, new_cell, new_tmax, step_normal
+
+
+def _init_tmax(cell, start, d, step_sign):
+    """tMax initialization (``VolumeRaytracer.cu:203-205``)."""
+    return torch.where(d != 0.0, ((cell + (step_sign > 0)).to(F32) - start) / d, INF)
+
+
+def _edge_pad(cell, dims, d):
+    """Max-edge padding: when a coordinate sits exactly on a maximal face,
+    widen the in-range test by one on every axis with a negative direction
+    (``VolumeRaytracer.cu:216-232``)."""
+    on_edge = (cell == dims).any(dim=-1, keepdim=True)
+    return (on_edge & (d < 0.0)).to(I32)
+
+
+def _ray_setup(grid_dims, factor: int, origins: torch.Tensor, rays: torch.Tensor):
+    """Normalize, move to chunk units and clip to the world AABB
+    (``VolumeRaytracer.cu:354-381``).  Returns ``(d, start_c,
+    start_normal, active0)``; shared by the plain trace and the line-table
+    kernel's wrapper."""
+    gdims_f = _dims(grid_dims, F32, origins.device)
+    d = _normalize(rays.to(F32))
+    start_c = fdiv(origins.to(F32), float(factor))
+    inside = ((start_c >= 0.0) & (start_c < gdims_f)).all(dim=-1)
+    eps = torch.full((3,), FLT_EPS_DDA, dtype=F32, device=origins.device)
+    whit, _, wpt, wnrm = ray_aabb(start_c, d, eps, gdims_f - eps)
+    start_c = torch.where(inside[:, None], start_c, torch.where(whit[:, None], wpt, start_c))
+    start_normal = torch.where(inside[:, None], 0.0, wnrm)
+    return d, start_c, start_normal, inside | whit
+
+
+def _init_state(bm: BrickMap, origins, rays) -> Dict[str, torch.Tensor]:
+    """Ray setup plus the DDA init (``VolumeRaytracer.cu:195-232``)."""
+    dev = origins.device
+    gdims = _dims(bm.grid_dims, I32, dev)
+    d, start_c, start_normal, active = _ray_setup(bm.grid_dims, bm.factor, origins, rays)
+    n = origins.shape[0]
+    step_sign = torch.where(d > 0.0, 1, -1).to(I32)
+    tdelta = torch.where(d != 0.0, torch.abs(fdiv(1.0, d)), INF)
+    ccell = start_c.to(I32)  # trunc toward zero, like (int)x
+    zeros3 = torch.zeros((n, 3), dtype=F32, device=dev)
+    zeros3i = torch.zeros((n, 3), dtype=I32, device=dev)
+    zb = torch.zeros((n,), dtype=torch.bool, device=dev)
+    return dict(
+        active=active,
+        in_fine=zb,
+        hit=zb,
+        imm=zb,
+        hit_imm=zb,
+        steps=torch.zeros((n,), dtype=I32, device=dev),
+        ccell=ccell,
+        ctmax=_init_tmax(ccell, start_c, d, step_sign),
+        centry_t=torch.zeros((n,), dtype=F32, device=dev),
+        fcell=zeros3i,
+        ftmax=zeros3,
+        fstart=zeros3,
+        fpos=zeros3,
+        fpad=zeros3i,
+        fsteps=torch.zeros((n,), dtype=I32, device=dev),
+        cnorm=zeros3,
+        fnorm=zeros3,
+        pos_out=zeros3,
+        norm_out=zeros3,
+        start_c=start_c,
+        d=d,
+        tdelta=tdelta,
+        step_sign=step_sign,
+        cpad=_edge_pad(ccell, gdims, d),
+        start_normal=start_normal,
+    )
+
+
+def _step(bm: BrickMap, st: Dict[str, torch.Tensor], max_steps: int) -> Dict[str, torch.Tensor]:
+    """Advance every active ray by one DDA event (coarse step, descend,
+    fine step, ascend or hit)."""
+    dev = st["active"].device
+    f = bm.factor
+    gx, gy, gz = bm.grid_dims
+    gdims = _dims(bm.grid_dims, I32, dev)
+    wpb = bm.words_per_brick
+    active, in_fine = st["active"], st["in_fine"]
+    ccell, fcell, d, start_c = st["ccell"], st["fcell"], st["d"], st["start_c"]
+    coarse_phase = active & ~in_fine
+    fine_phase = active & in_fine
+
+    # ---------------- coarse level ----------------
+    in_range_c = ((ccell >= 0) & (ccell < gdims + st["cpad"])).all(dim=-1)
+    cl = torch.clamp(ccell, min=torch.zeros_like(gdims), max=gdims - 1)
+    ci = sample_index(cl[:, 0], cl[:, 1], cl[:, 2], gx, gy, bm.coarse_layout)
+    ci_safe = torch.where(active, ci, 0)
+    cl_f = torch.clamp(fcell, 0, f - 1)
+    bit = sample_index(cl_f[:, 0], cl_f[:, 1], cl_f[:, 2], f, f, bm.brick_layout)
+    slot = ci_safe if bm.dense_slots else torch.clamp_min(bm.brick_idx[ci_safe], 0)
+    occ_c, bmn, bmx = unpack_meta(bm.meta[ci_safe])
+    clf = cl.to(F32)
+    box_min = clf + fdiv(bmn.to(F32), float(f))
+    box_max = clf + fdiv(bmx.to(F32) + 1.0, float(f))
+    bhit, btmin, bpos, bnrm = ray_aabb(start_c, d, box_min, box_max)
+
+    occupied = in_range_c & occ_c & bhit
+    descend = coarse_phase & occupied
+    coarse_miss = coarse_phase & ~in_range_c
+    coarse_adv = coarse_phase & in_range_c & ~occupied
+
+    # descend: fine DDA starts at the tight-box entry, or at the current
+    # position when already inside the box; a descend at the ray start is
+    # the reference's degenerate case (VolumeRaytracer.cu:518-522)
+    imm_new = (st["steps"] == 0) & (btmin <= 0.0)
+    entry_c = torch.where((btmin > 0.0)[:, None], bpos, start_c + d * st["centry_t"][:, None])
+    fstart_new = (entry_c - clf) * float(f)
+    fcell_new = fstart_new.to(I32)
+    ftmax_new = _init_tmax(fcell_new, fstart_new, d, st["step_sign"])
+    fdims = torch.full((3,), f, dtype=I32, device=dev)
+    fpad_new = _edge_pad(fcell_new, fdims, d)
+
+    # ---------------- fine level ----------------
+    in_range_f = ((fcell >= 0) & (fcell < fdims + st["fpad"])).all(dim=-1)
+    word = bm.bricks.reshape(-1)[torch.where(fine_phase, slot * wpb + (bit >> 5), 0)]
+    occ_f = ((word >> (bit & 31)) & 1) == 1
+    fine_hit = fine_phase & in_range_f & occ_f
+    fine_try = fine_phase & in_range_f & ~occ_f
+    _, _, isect_f, fcell_adv, ftmax_adv, fnorm_adv = _advance(
+        fcell, st["ftmax"], st["tdelta"], st["step_sign"], st["fstart"], d
+    )
+    oob_f = ((isect_f < 0.0) | (isect_f > float(f))).any(dim=-1)
+    fine_step = fine_try & ~oob_f
+    ascend = (fine_phase & ~in_range_f) | (fine_try & oob_f)
+
+    # ---------------- coarse advance (coarse_adv | ascend) ----------------
+    do_cadv = coarse_adv | ascend
+    _, tcross_c, _, ccell_adv, ctmax_adv, _ = _advance(
+        ccell, st["ctmax"], st["tdelta"], st["step_sign"], start_c, d
+    )
+    dc, ds, fs = descend[:, None], do_cadv[:, None], fine_step[:, None]
+
+    new_steps = st["steps"] + (do_cadv | fine_step).to(I32)
+    # hit bookkeeping (VolumeRaytracer.cu:427-429,495-503)
+    hit_pos = st["fpos"] + (ccell * f).to(F32)
+    hit_nrm = torch.where((st["fsteps"] == 0)[:, None], st["cnorm"], st["fnorm"])
+    out = dict(st)
+    out.update(
+        active=active & ~fine_hit & ~coarse_miss & ~(new_steps >= max_steps),
+        in_fine=(in_fine | descend) & ~ascend & ~fine_hit,
+        hit=st["hit"] | fine_hit,
+        imm=torch.where(descend, imm_new, st["imm"]),
+        hit_imm=st["hit_imm"] | (fine_hit & (st["fsteps"] == 0) & st["imm"]),
+        steps=new_steps,
+        ccell=torch.where(ds, ccell_adv, ccell),
+        ctmax=torch.where(ds, ctmax_adv, st["ctmax"]),
+        centry_t=torch.where(do_cadv, tcross_c, st["centry_t"]),
+        fcell=torch.where(dc, fcell_new, torch.where(fs, fcell_adv, fcell)),
+        ftmax=torch.where(dc, ftmax_new, torch.where(fs, ftmax_adv, st["ftmax"])),
+        fstart=torch.where(dc, fstart_new, st["fstart"]),
+        fpos=torch.where(dc, fstart_new, torch.where(fs, isect_f, st["fpos"])),
+        fpad=torch.where(dc, fpad_new, st["fpad"]),
+        fsteps=torch.where(descend, 0, st["fsteps"] + fine_step.to(I32)),
+        cnorm=torch.where(dc, bnrm, st["cnorm"]),
+        fnorm=torch.where(fs, fnorm_adv, st["fnorm"]),
+        pos_out=torch.where(fine_hit[:, None], hit_pos, st["pos_out"]),
+        norm_out=torch.where(fine_hit[:, None], hit_nrm, st["norm_out"]),
+    )
+    return out
+
+
+_RESULT_KEYS = ("hit", "hit_imm", "steps", "pos_out", "norm_out")
+
+
+def _run_loop(bm: BrickMap, st: Dict[str, torch.Tensor], max_steps: int, iter_limit: int):
+    """Advance every active ray by up to ``iter_limit`` DDA events.  Works
+    on the compacted set of active rays and writes their results back."""
+    idx = torch.arange(st["active"].shape[0], device=st["active"].device)
+    res = {k: st[k].clone() for k in _RESULT_KEYS}
+    work = st
+    for it in range(iter_limit):
+        if it % _COMPACT_EVERY == 0:
+            for k in _RESULT_KEYS:
+                res[k][idx] = work[k]
+            keep = torch.nonzero(work["active"]).squeeze(1)
+            if keep.numel() == 0:
+                return res
+            if keep.numel() < idx.numel():
+                work = {k: v[keep] for k, v in work.items()}
+                idx = idx[keep]
+        work = _step(bm, work, max_steps)
+    for k in _RESULT_KEYS:
+        res[k][idx] = work[k]
+    return res
+
+
+def trace_brickmap(bm: BrickMap, origins: torch.Tensor, rays: torch.Tensor, max_steps: int = MAX_STEPS) -> TraceOut:
+    """Trace a batch of rays through a two-level brickmap.
+
+    ``origins``/``rays`` are ``f32[N, 3]`` in world voxel units on the
+    brickmap's device; rays need not be normalized
+    (``VolumeRaytracer.cu:367``).  Runs at most ``2 * max_steps + 8``
+    iterations, a bound no ray reaches: every descend is followed by a
+    charged step or a hit.
+    """
+    st = _init_state(bm, origins, rays)
+    res = _run_loop(bm, st, max_steps, 2 * max_steps + 8)
+    # degenerate hit at the ray start: clipped entry point + world-AABB
+    # entry normal (VolumeRaytracer.cu:518-522)
+    imm = res["hit_imm"][:, None]
+    pos = torch.where(imm, st["start_c"] * float(bm.factor), res["pos_out"])
+    nrm = torch.where(imm, st["start_normal"], res["norm_out"])
+    return TraceOut(hit=res["hit"], position=pos, normal=nrm, steps=res["steps"])
