@@ -76,7 +76,7 @@ def test_slab_to_chunks_bit_equal(rng, factor, layout):
 
 def test_build_brickmap_terrain_compact_bit_equal():
     """The main path's builder at 128x64x128, factor 32, 3 octaves."""
-    t = TB.build_brickmap_terrain_compact((128, 64, 128), 32, octaves=3)
+    t = TB.build_brickmap_terrain_compact((128, 64, 128), 32, octaves=3, device="cpu")
     j = JB.build_brickmap_terrain_compact((128, 64, 128), 32, octaves=3)
     _assert_bm_equal(t, j)
     assert bool((t.brick_idx == -1).any())  # empty chunks keep no brick
@@ -97,7 +97,7 @@ def test_make_line_table_bit_equal(rng, dims, factor, coarse):
     dense[:, :3, :] = rng.random((Z, 3, X)) < 0.5
     layout = JL.TILED_LINEAR if all(d % 8 == 0 for d in dims) else JL.LINEAR
     j = JB.build_brickmap(BitGrid.from_dense(dense, layout=layout), factor, coarse_layout=JL[coarse])
-    t = brickmap_from_numpy(_np_bm(j))
+    t = brickmap_from_numpy(_np_bm(j), device="cpu")
     jl, tl = JP.make_line_table(j), TP.make_line_table(t)
     _assert_lt_equal(tl, jl)
     tl = TP.materialize_brick_lines(t, tl)
@@ -117,7 +117,7 @@ def test_make_line_table_macro_levels_over_budget(rng, grid):
         bricks=jnp.zeros((1, 16), jnp.uint32), grid_dims=grid, factor=8,
         coarse_layout=JL.LINEAR, brick_layout=JL.TILED_LINEAR, dense_slots=False,
     )
-    t = brickmap_from_numpy(_np_bm(j))
+    t = brickmap_from_numpy(_np_bm(j), device="cpu")
     tl = TP.make_line_table(t)
     _assert_lt_equal(tl, JP.make_line_table(j))
     assert (tl.macro2[TP.MACRO2_WORDS:] == -1).all()

@@ -62,10 +62,11 @@ def test_render_config_keeps_the_reference_fields():
 
 
 def test_environment_default_bit_equal():
-    t, j = tcfg.Environment.default(), jcfg.Environment.default()
+    t, j = tcfg.Environment.default(device="cpu"), jcfg.Environment.default()
     for k in ("light_direction", "light_color", "ambient_color"):
         np.testing.assert_array_equal(getattr(t, k).numpy(), np.asarray(getattr(j, k)), err_msg=k)
-    e = environment_from_numpy({k: np.asarray(getattr(j, k)) for k in ("light_direction", "light_color", "ambient_color")})
+    e = environment_from_numpy({k: np.asarray(getattr(j, k)) for k in ("light_direction", "light_color", "ambient_color")},
+                              device="cpu")
     assert torch.equal(e.light_direction, t.light_direction)
 
 
@@ -128,18 +129,18 @@ def test_brickmap_from_numpy_takes_save_world_keys():
         grid_dims=np.asarray(bm.grid_dims), factor=bm.factor, coarse_layout=bm.coarse_layout.value,
         brick_layout=bm.brick_layout.value, dense_slots=bm.dense_slots,
     )
-    t = brickmap_from_numpy(d)
+    t = brickmap_from_numpy(d, device="cpu")
     assert t.grid_dims == bm.grid_dims and t.factor == 8 and t.dense_slots
     assert t.coarse_layout.value == bm.coarse_layout.value and t.brick_layout.value == bm.brick_layout.value
     assert t.bricks.dtype == torch.int32
     np.testing.assert_array_equal(t.bricks.numpy(), np.asarray(bm.bricks).view(np.int32))
     np.testing.assert_array_equal(t.meta.numpy(), d["meta"])
     with pytest.raises(KeyError):
-        brickmap_from_numpy({k: v for k, v in d.items() if k != "bricks"})
+        brickmap_from_numpy({k: v for k, v in d.items() if k != "bricks"}, device="cpu")
 
     lt = make_line_table(bm)
     tl = line_table_from_numpy(dict(region_lines=np.asarray(lt.region_lines), macro=np.asarray(lt.macro),
                                     macro2=np.asarray(lt.macro2), num_regions=lt.num_regions,
-                                    region_dims=lt.region_dims))
+                                    region_dims=lt.region_dims), device="cpu")
     assert tl.region_dims == lt.region_dims and tl.brick_lines is None
     np.testing.assert_array_equal(tl.region_lines.numpy(), np.asarray(lt.region_lines))

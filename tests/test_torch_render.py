@@ -171,7 +171,7 @@ def test_primary_rays(ref, name):
 
 
 def test_shading_bit_equal(ref):
-    env = Environment.default()
+    env = Environment.default(device="cpu")
     normal, pos, cam = (_t(ref[f"shade/{k}"]) for k in ("normal", "pos", "cam"))
     c = shading.calculate_color(cam, normal, pos, env)
     np.testing.assert_array_equal(c.numpy(), ref["shade/color"])
@@ -183,12 +183,12 @@ def test_shading_bit_equal(ref):
 def test_render_frame_bit_equal(ref, name):
     """The slice end to end: chained frames through the line-table entry
     (the plain trace on the CPU) equal JAX's ``render_frame`` exactly."""
-    bm = brickmap_from_numpy({k: ref[f"bm/{k}"] for k in BM_KEYS})
+    bm = brickmap_from_numpy({k: ref[f"bm/{k}"] for k in BM_KEYS}, device="cpu")
     lt = make_line_table(bm)
     cfg = _cfg(name)
-    fb = frame.make_framebuffer(cfg)
+    fb = frame.make_framebuffer(cfg, device="cpu")
     for fn in FRAMES[name][5]:
-        out = frame.render_frame(bm, fb, _t(ORIGIN), _t(EULERS[1]), Environment.default(), fn, cfg, lt=lt)
+        out = frame.render_frame(bm, fb, _t(ORIGIN), _t(EULERS[1]), Environment.default(device="cpu"), fn, cfg, lt=lt)
         assert out is fb  # updated in place
         np.testing.assert_array_equal(fb.numpy(), ref[f"{name}/{fn}/frame"])
     if cfg.tile_order:
@@ -199,10 +199,10 @@ def test_render_frame_non_power_of_two_width(ref):
     """96x64: the frame equals JAX's exactly, and the port renders JAX's
     frame exactly from JAX's rays as well."""
     name = "cb_tile_96"
-    bm = brickmap_from_numpy({k: ref[f"bm/{k}"] for k in BM_KEYS})
-    cfg, env = _cfg(name), Environment.default()
+    bm = brickmap_from_numpy({k: ref[f"bm/{k}"] for k in BM_KEYS}, device="cpu")
+    cfg, env = _cfg(name), Environment.default(device="cpu")
     p = f"{name}/1"
-    fb = frame.render_frame(bm, frame.make_framebuffer(cfg), _t(ORIGIN), _t(EULERS[1]), env, 1, cfg)
+    fb = frame.render_frame(bm, frame.make_framebuffer(cfg, device="cpu"), _t(ORIGIN), _t(EULERS[1]), env, 1, cfg)
     want = ref[f"{p}/frame"]
     np.testing.assert_array_equal(fb.numpy(), want)
 
@@ -210,7 +210,7 @@ def test_render_frame_non_power_of_two_width(ref):
     o, dj = _t(ref[f"{p}/origins"]), _t(ref[f"{p}/dirs"])
     px, py, py_r = (_t(ref[f"{p}/{k}"]).long() for k in ("px", "py", "py_r"))
     color, write = frame.shade_pixels(bm, o, dj, px, py, py_r, _t(ORIGIN), env, cfg)
-    fb2 = frame.composite_frame(frame.make_framebuffer(cfg), color, write, cfg, 1)
+    fb2 = frame.composite_frame(frame.make_framebuffer(cfg, device="cpu"), color, write, cfg, 1)
     np.testing.assert_array_equal(fb2.numpy(), want)
 
 
@@ -249,16 +249,17 @@ def test_unported_render_options_raise(change):
     bm = brickmap_from_numpy(dict(
         meta=np.zeros(1, np.int32), brick_idx=np.full(1, -1, np.int32), bricks=np.zeros((1, 16), np.uint32),
         grid_dims=(1, 1, 1), factor=8, coarse_layout=0, brick_layout=1, dense_slots=False,
-    ))
+    ), device="cpu")
     cfg = dataclasses.replace(RenderConfig(width=8, height=8), **change)
     with pytest.raises(NotImplementedError):
-        frame.render_frame(bm, frame.make_framebuffer(cfg), _t(ORIGIN), _t(EULERS[0]), Environment.default(), 0, cfg)
+        frame.render_frame(bm, frame.make_framebuffer(cfg, device="cpu"), _t(ORIGIN), _t(EULERS[0]),
+                           Environment.default(device="cpu"), 0, cfg)
 
 
 def test_odd_height_checkerboard_raises():
     cfg = RenderConfig(width=8, height=7)
     with pytest.raises(NotImplementedError):
-        frame.composite_frame(frame.make_framebuffer(cfg), torch.zeros(24, 3),
+        frame.composite_frame(frame.make_framebuffer(cfg, device="cpu"), torch.zeros(24, 3),
                               torch.ones(24, dtype=torch.bool), cfg, 0)
 
 

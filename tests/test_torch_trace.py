@@ -171,7 +171,7 @@ def ref(tmp_path_factory):
 
 
 def _bm(ref, name):
-    return brickmap_from_numpy({k: ref[f"{name}/{k}"] for k in BM_KEYS})
+    return brickmap_from_numpy({k: ref[f"{name}/{k}"] for k in BM_KEYS}, device="cpu")
 
 
 def _assert_trace_equal(got, ref, name):
@@ -234,10 +234,10 @@ def _host_trace(bm, origins, rays, max_steps):
     flags = torch.empty(n, dtype=torch.int32)
     pos, nrm = torch.empty(n, 3), torch.empty(n, 3)
     steps = torch.empty(n, dtype=torch.int32)
-    (gx, gy, gz), (rx, ry, rz) = bm.grid_dims, lt.region_dims
+    (gx, gy, gz), (rx, ry, _) = bm.grid_dims, lt.region_dims
     lib.vx_trace_host(
         start_c.data_ptr(), d.data_ptr(), active.data_ptr(), pad.data_ptr(),
-        lt.region_lines.data_ptr(), bl.data_ptr(), n, gx, gy, gz, rx, ry, rz,
+        lt.region_lines.data_ptr(), bl.data_ptr(), n, gx, gy, gz, rx, ry,
         bm.factor, bm.words_per_brick, max_steps, bm.brick_layout.value, 3 * max_steps + 64,
         flags.data_ptr(), pos.data_ptr(), nrm.data_ptr(), steps.data_ptr(),
     )

@@ -1,8 +1,9 @@
 """Runtime configuration for the PyTorch port.
 
 Counterpart of :mod:`voxelengine_tpu.config`.  Same enums, constants and
-field names; ``Environment`` holds torch tensors and is built for an
-explicit ``device``.
+field names; ``Environment`` holds torch tensors.  Entry points that make
+tensors take a ``device`` that defaults to :func:`default_device`, the
+card; the CPU is used only when the caller names it.
 
 Left out of :class:`RenderConfig` on purpose: the knobs that only tune the
 TPU kernel's VMEM line cache or the XLA staging (``trace_tile``,
@@ -27,6 +28,12 @@ from voxelengine_tpu_torch.core.exact import fdiv
 
 FLT_EPS_DDA = 1e-6  # VolumeRaytracer.cuh:20
 MAX_STEPS = 2048  # VolumeRaytracer.cuh:235
+
+
+def default_device() -> torch.device:
+    """The device entry points use unless the caller names one: the card.
+    Nothing is probed; without a card the first allocation there raises."""
+    return torch.device("cuda")
 
 
 class DebugView(enum.Enum):
@@ -54,7 +61,7 @@ class Environment:
     ambient_color: torch.Tensor
 
     @staticmethod
-    def default(device="cpu") -> "Environment":
+    def default(device=default_device()) -> "Environment":
         """The VoxelApp demo environment (``main.cu:58-63``)."""
         d = torch.tensor([1.0, 1.0, 1.0], dtype=torch.float32, device=device)
         return Environment(

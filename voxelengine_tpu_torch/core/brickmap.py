@@ -13,13 +13,14 @@ Three flat tensors on one device:
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
 
-from voxelengine_tpu_torch.core.bitgrid import layout_order_bits, pack_bits, words_for_bits
-from voxelengine_tpu_torch.core.layout import Layout
+from voxelengine_tpu_torch.config import default_device
+from voxelengine_tpu_torch.core.bitgrid import BitGrid, layout_order_bits, pack_bits, words_for_bits
+from voxelengine_tpu_torch.core.layout import Layout, sample_index
 
 # meta word: [4:0]=min_x [9:5]=min_y [14:10]=min_z [19:15]=max_x
 # [24:20]=max_y [29:25]=max_z [30]=occupied (factor <= 32)
@@ -127,13 +128,124 @@ def _slab_to_chunks(slab: torch.Tensor, factor: int, chunks_y: int, chunks_x: in
     return occ.reshape(-1), bmin.reshape(-1, 3), bmax.reshape(-1, 3), pack_bits(bits)
 
 
+def build_brickmap_from_fn(
+    slab_fn: Callable[[int], torch.Tensor],
+    world_dims: Tuple[int, int, int],
+    factor: int,
+    coarse_layout: Layout = Layout.TILED_LINEAR,
+    brick_layout: Layout = Layout.TILED_LINEAR,
+    dense_slots: bool = False,
+    dedupe_uniform: bool = True,
+    device=default_device(),
+) -> BrickMap:
+    """Build a :class:`BrickMap` on ``device`` by streaming dense z-slabs.
+
+    ``slab_fn(z0)`` returns the dense occupancy slab ``bool[factor, Y, X]``
+    of world rows ``z0 .. z0+factor`` (a tensor or array; it is moved to
+    ``device``).  The reduction, brick packing and slot assignment of each
+    slab stay on ``device``.
+
+    dense_slots: every chunk owns the brick slot of its chunk index.
+    dedupe_uniform: in compact mode, all-full bricks share slot 0; empty
+      chunks get -1 either way.  Kept bricks are numbered in build order
+      (z-slab, then chunk row), as in the JAX builder.
+    """
+    X, Y, Z = world_dims
+    f = factor
+    if X % f or Y % f or Z % f or f > 32:
+        raise ValueError(f"world dims {world_dims} must be multiples of factor {f} <= 32")
+    gx, gy, gz = X // f, Y // f, Z // f
+    coarse_layout = choose_layout((gx, gy, gz), coarse_layout)
+    brick_layout = choose_layout((f, f, f), brick_layout)
+    wpb = words_for_bits(f**3)
+    full = torch.as_tensor(_full_brick_words(f), device=device)
+    dedupe = dedupe_uniform and not dense_slots
+
+    occ_parts, bmin_parts, bmax_parts, slot_parts = [], [], [], []
+    brick_parts = [full[None, :]] if dedupe else []
+    next_slot = 1 if dedupe else 0
+    for cz in range(gz):
+        slab = torch.as_tensor(slab_fn(cz * f), device=device)
+        occ, bmn, bmx, words = _slab_to_chunks(slab, f, gy, gx, brick_layout)
+        occ_parts.append(occ)
+        bmin_parts.append(bmn)
+        bmax_parts.append(bmx)
+        if dense_slots:
+            brick_parts.append(words)
+            continue
+        keep = occ
+        slots = torch.full((gy * gx,), -1, dtype=torch.int32, device=device)
+        if dedupe:
+            is_full = (words == full[None, :]).all(dim=1)
+            slots[occ & is_full] = 0
+            keep = occ & ~is_full
+        cnt = int(keep.sum())
+        slots[keep] = next_slot + torch.arange(cnt, dtype=torch.int32, device=device)
+        next_slot += cnt
+        brick_parts.append(words[keep])
+        slot_parts.append(slots)
+
+    # build order (cz, cy, cx) is the LINEAR chunk index; other coarse
+    # layouts gather into their order
+    perm = None
+    if coarse_layout is not Layout.LINEAR:
+        cz_, cy_, cx_ = torch.meshgrid(*(torch.arange(n, device=device) for n in (gz, gy, gx)), indexing="ij")
+        perm = torch.empty((gx * gy * gz,), dtype=torch.int64, device=device)
+        perm[sample_index(cx_, cy_, cz_, gx, gy, coarse_layout).reshape(-1)] = torch.arange(
+            perm.numel(), device=device
+        )
+
+    def ordered(parts):
+        a = torch.cat(parts)
+        return a if perm is None else a[perm]
+
+    meta = pack_meta(ordered(occ_parts), ordered(bmin_parts).clamp_min(0), ordered(bmax_parts).clamp_min(0))
+    if dense_slots:
+        bricks = ordered(brick_parts)
+        brick_idx = torch.arange(gx * gy * gz, dtype=torch.int32, device=device)
+    else:
+        bricks = torch.cat(brick_parts)
+        if bricks.shape[0] == 0:
+            bricks = torch.zeros((1, wpb), dtype=torch.int32, device=device)
+        brick_idx = ordered(slot_parts)
+    return BrickMap(
+        meta=meta,
+        brick_idx=brick_idx,
+        bricks=bricks,
+        grid_dims=(gx, gy, gz),
+        factor=f,
+        coarse_layout=coarse_layout,
+        brick_layout=brick_layout,
+        dense_slots=dense_slots,
+    )
+
+
+def build_brickmap(
+    grid: BitGrid,
+    factor: int,
+    dense_slots: bool = True,
+    dedupe_uniform: bool = False,
+    coarse_layout: Layout = Layout.TILED_LINEAR,
+    brick_layout: Layout = Layout.TILED_LINEAR,
+) -> BrickMap:
+    """A brickmap of an in-memory :class:`BitGrid`, on the grid's device
+    (``GenerateLowresVoxelBuffer``, ``VolumeRaytracer.cuh:379``).  Defaults
+    to dense slots, like the reference demo's always-allocated chunks."""
+    dense = grid.to_dense()  # [Z, Y, X]
+    return build_brickmap_from_fn(
+        lambda z0: dense[z0 : z0 + factor], grid.dims, factor,
+        coarse_layout=coarse_layout, brick_layout=brick_layout,
+        dense_slots=dense_slots, dedupe_uniform=dedupe_uniform, device=grid.words.device,
+    )
+
+
 def build_brickmap_terrain_compact(
     world_dims: Tuple[int, int, int],
     factor: int,
     seed: int = 0x71889283,
     octaves: int = 32,
     brick_layout: Layout = Layout.TILED_LINEAR,
-    device="cpu",
+    device=default_device(),
 ) -> BrickMap:
     """Terrain world straight to compact indirection, one chunk-row z-slab
     at a time on ``device`` (worldgen, reduction and brick selection all
@@ -145,46 +257,13 @@ def build_brickmap_terrain_compact(
     from voxelengine_tpu_torch.worldgen.terrain import solid_at
 
     X, Y, Z = world_dims
-    f = factor
-    if X % f or Y % f or Z % f or f > 32:
-        raise ValueError(f"world dims {world_dims} must be multiples of factor {f} <= 32")
-    gx, gy, gz = X // f, Y // f, Z // f
-    brick_layout = choose_layout((f, f, f), brick_layout)
-    full = torch.as_tensor(_full_brick_words(f), device=device)
-
     y = torch.arange(Y, device=device)[None, :, None]
     x = torch.arange(X, device=device)[None, None, :]
-    occ_parts, bmin_parts, bmax_parts, slot_parts = [], [], [], []
-    brick_parts = [full[None, :]]
-    next_slot = 1  # slot 0 = shared all-full brick
-    for cz in range(gz):
-        z = cz * f + torch.arange(f, device=device)[:, None, None]
-        slab = solid_at(x, y, z, seed, octaves)
-        occ, bmn, bmx, words = _slab_to_chunks(slab, f, gy, gx, brick_layout)
-        keep = occ & ~(words == full[None, :]).all(dim=1)
-        cnt = int(keep.sum())
-        slots = torch.full((gy * gx,), -1, dtype=torch.int32, device=device)
-        slots[occ & ~keep] = 0
-        slots[keep] = next_slot + torch.arange(cnt, dtype=torch.int32, device=device)
-        next_slot += cnt
-        brick_parts.append(words[keep])
-        slot_parts.append(slots)
-        occ_parts.append(occ)
-        bmin_parts.append(bmn)
-        bmax_parts.append(bmx)
 
-    meta = pack_meta(
-        torch.cat(occ_parts),
-        torch.clamp_min(torch.cat(bmin_parts), 0),
-        torch.clamp_min(torch.cat(bmax_parts), 0),
-    )
-    return BrickMap(
-        meta=meta,
-        brick_idx=torch.cat(slot_parts),
-        bricks=torch.cat(brick_parts, dim=0),
-        grid_dims=(gx, gy, gz),
-        factor=f,
-        coarse_layout=Layout.LINEAR,
-        brick_layout=brick_layout,
-        dense_slots=False,
+    def slab_fn(z0):
+        return solid_at(x, y, z0 + torch.arange(factor, device=device)[:, None, None], seed, octaves)
+
+    return build_brickmap_from_fn(
+        slab_fn, world_dims, factor, coarse_layout=Layout.LINEAR, brick_layout=brick_layout,
+        dense_slots=False, dedupe_uniform=True, device=device,
     )

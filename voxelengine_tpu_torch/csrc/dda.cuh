@@ -1,4 +1,5 @@
-// Per-ray two-level brickmap DDA over the line table.
+// Per-ray two-level brickmap DDA, over the line table (K1) or over dense-slot
+// tables (K4).
 //
 // One ray, one plain loop, one DDA event per iteration: the scalar form of
 // voxelengine_tpu_torch/ops/trace.py (and of the JAX state machine it
@@ -9,17 +10,23 @@
 // degenerate start hit follow VolumeRaytracer.cu:176-525.
 //
 // Every function here is __host__ __device__: nvcc builds it into the
-// Hopper kernel (bigtrace.cu) and a C++ compiler builds it into a host
-// library for the CPU tests (dda_host.cpp).  Both builds must keep every
-// float operation separately rounded: nvcc --fmad=false, g++
+// Hopper kernels (bigtrace.cu, bmtrace.cu) and a C++ compiler builds it
+// into a host library for the CPU tests (dda_host.cpp).  Both builds must
+// keep every float operation separately rounded: nvcc --fmad=false, g++
 // -ffp-contract=off, no fast-math, IEEE division.
 //
-// Table addressing (the line-table contract of make_line_table):
-//   region r = (cx>>3) + RX*((cy>>3) + RY*(cz>>3)),
-//   local    = (cx&7) + ((cy&7)<<3) + ((cz&7)<<6),
-//   meta word  at region_lines[r*1024 + local],
-//   brick slot at region_lines[r*1024 + 512 + local],
-//   brick word at brick_lines[slot*wpb + (bit>>5)].
+// trace_ray is one DDA body for both table forms; a fetch policy maps a
+// clamped chunk to a cell handle and reads its meta word, its brick slot
+// and a brick word:
+//   LineTableFetch (K1, the line-table contract of make_line_table):
+//     region r = (cx>>3) + RX*((cy>>3) + RY*(cz>>3)),
+//     local    = (cx&7) + ((cy&7)<<3) + ((cz&7)<<6),
+//     meta word  at region_lines[r*1024 + local],
+//     brick slot at region_lines[r*1024 + 512 + local] (-1 -> 0),
+//     brick word at brick_lines[slot*wpb + (bit>>5)];
+//   DenseSlotFetch (K4, pallas_trace2.py:78-90,130-132,201):
+//     chunk index ci = sample_index(cx, cy, cz) in the coarse layout,
+//     meta word at meta[ci], brick slot ci, brick word at bricks[ci*wpb + (bit>>5)].
 #pragma once
 
 #include <math.h>
@@ -37,9 +44,7 @@ enum BrickLayout { LAYOUT_LINEAR = 0, LAYOUT_TILED_LINEAR = 1, LAYOUT_TILED_MORT
 
 struct TraceParams {
   int gx, gy, gz;    // chunk grid
-  int rx, ry, rz;    // region grid, ceil(g / 8)
   int factor;        // voxels per chunk edge
-  int wpb;           // words per brick
   int max_steps;     // step budget
   int brick_layout;  // BrickLayout
   int iter_limit;    // iteration cap; a ray still active there reports max_steps
@@ -62,15 +67,49 @@ VX_HD int part1by2(int x) {
   return x;
 }
 
-// Bit index of a (clamped) voxel within its brick (core/layout.py::sample_index).
-VX_HD int brick_bit(int x, int y, int z, int f, int layout) {
-  if (layout == LAYOUT_LINEAR) return x + y * f + z * (f * f);
-  const int tf = f >> 3;
-  const int tile = (x >> 3) + (y >> 3) * tf + (z >> 3) * (tf * tf);
+// Bit index of an in-range (x, y, z) in a w x h x . grid of the given
+// layout (core/layout.py::sample_index; tiled layouts need w, h % 8 == 0).
+VX_HD int sample_index(int x, int y, int z, int w, int h, int layout) {
+  if (layout == LAYOUT_LINEAR) return x + y * w + z * (w * h);
+  const int tx = w >> 3, ty = h >> 3;
+  const int tile = (x >> 3) + (y >> 3) * tx + (z >> 3) * (tx * ty);
   if (layout == LAYOUT_TILED_MORTON)
     return tile * 512 + (part1by2(x & 7) | (part1by2(y & 7) << 1) | (part1by2(z & 7) << 2));
   return tile * 512 + (x & 7) + ((y & 7) << 3) + ((z & 7) << 6);
 }
+
+// K1's tables: region lines and brick lines.
+struct LineTableFetch {
+  const int* region_lines;
+  const int* brick_lines;
+  int rx, ry;  // region grid, ceil(g / 8)
+  int wpb;     // words per brick
+  VX_HD long long cell(int cx, int cy, int cz) const {
+    return (long long)((cx >> 3) + rx * ((cy >> 3) + ry * (cz >> 3))) * 1024 +
+           ((cx & 7) + ((cy & 7) << 3) + ((cz & 7) << 6));
+  }
+  VX_HD int meta(long long c) const { return region_lines[c]; }
+  VX_HD int slot(long long c) const {
+    const int s = region_lines[c + 512];
+    return s > 0 ? s : 0;
+  }
+  VX_HD int word(int slot, int w) const { return brick_lines[(long long)slot * wpb + w]; }
+};
+
+// K4's tables: meta and bricks of a dense-slot brickmap, by chunk index.
+struct DenseSlotFetch {
+  const int* meta_words;
+  const int* bricks;
+  int gx, gy;         // chunk grid (x, y)
+  int coarse_layout;  // BrickLayout of the chunk index
+  int wpb;            // words per brick
+  VX_HD long long cell(int cx, int cy, int cz) const {
+    return sample_index(cx, cy, cz, gx, gy, coarse_layout);
+  }
+  VX_HD int meta(long long c) const { return meta_words[c]; }
+  VX_HD int slot(long long c) const { return (int)c; }
+  VX_HD int word(int slot, int w) const { return bricks[(long long)slot * wpb + w]; }
+};
 
 // Advance axis with the reference's tie-break: x if strictly smallest,
 // else y if ty <= tx && ty < tz, else z (VolumeRaytracer.cu:293-313).
@@ -100,7 +139,8 @@ VX_HD float coarse_advance(int& cx, int& cy, int& cz, float& tx, float& ty, floa
 // Trace one ray.  (sx, sy, sz) is the world-clipped start in chunk units,
 // (dx, dy, dz) the normalized direction, (padx, pady, padz) the coarse
 // edge pad; all three come from the wrapper's ray setup.
-VX_HD TraceResult trace_ray(const TraceParams& P, const int* region_lines, const int* brick_lines,
+template <class Fetch>
+VX_HD TraceResult trace_ray(const TraceParams& P, const Fetch& F,
                             float sx, float sy, float sz, float dx, float dy, float dz,
                             int active, int padx, int pady, int padz) {
   TraceResult r = {0, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0};
@@ -140,10 +180,8 @@ VX_HD TraceResult trace_ray(const TraceParams& P, const int* region_lines, const
       if (!in_range) { active = 0; break; }  // left the world: miss
       const int clx = clampi(ccx, 0, P.gx - 1), cly = clampi(ccy, 0, P.gy - 1),
                 clz = clampi(ccz, 0, P.gz - 1);
-      const long long base =
-          (long long)((clx >> 3) + P.rx * ((cly >> 3) + P.ry * (clz >> 3))) * 1024;
-      const int local = (clx & 7) + ((cly & 7) << 3) + ((clz & 7) << 6);
-      const int meta = region_lines[base + local];
+      const long long c = F.cell(clx, cly, clz);
+      const int meta = F.meta(c);
       bool descend = false;
       if ((meta >> 30) & 1) {
         // ray vs the chunk's tight AABB (ops/aabb.py::ray_aabb)
@@ -187,8 +225,7 @@ VX_HD TraceResult trace_ray(const TraceParams& P, const int* region_lines, const
           cnx = is_x ? (ivx < 0.0f ? -1.0f : 1.0f) : 0.0f;
           cny = is_y ? (ivy < 0.0f ? -1.0f : 1.0f) : 0.0f;
           cnz = (is_x || is_y) ? 0.0f : (ivz < 0.0f ? -1.0f : 1.0f);
-          const int s = region_lines[base + 512 + local];
-          slot = s > 0 ? s : 0;
+          slot = F.slot(c);
           in_fine = true;
         }
       }
@@ -198,9 +235,9 @@ VX_HD TraceResult trace_ray(const TraceParams& P, const int* region_lines, const
                               fcz >= 0 && fcz < f + fpadz;
       bool ascend = !in_range_f;
       if (in_range_f) {
-        const int bit = brick_bit(clampi(fcx, 0, f - 1), clampi(fcy, 0, f - 1),
-                                  clampi(fcz, 0, f - 1), f, P.brick_layout);
-        const int word = brick_lines[(long long)slot * P.wpb + (bit >> 5)];
+        const int bit = sample_index(clampi(fcx, 0, f - 1), clampi(fcy, 0, f - 1),
+                                     clampi(fcz, 0, f - 1), f, f, P.brick_layout);
+        const int word = F.word(slot, bit >> 5);
         if ((word >> (bit & 31)) & 1) {
           // hit: position = fine entry + chunk offset (VolumeRaytracer.cu:427-429),
           // normal of the last crossing (VolumeRaytracer.cu:495-503)

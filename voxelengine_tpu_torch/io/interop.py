@@ -4,7 +4,9 @@
 ``voxelengine_tpu/io/checkpoint.py::save_world`` writes, so a world cache
 loads with ``brickmap_from_numpy(numpy.load(path), device)`` (the brick
 words go in the ``.bricks.npy`` sidecar; add them under ``bricks``).
-Brick words arrive as uint32 and are kept as their int32 bit patterns.
+Brick and grid words arrive as uint32 and are kept as their int32 bit
+patterns.  :func:`bitgrid_from_numpy` takes a dense
+:class:`~voxelengine_tpu_torch.core.bitgrid.BitGrid`'s fields.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from voxelengine_tpu_torch.config import Environment
+from voxelengine_tpu_torch.config import Environment, default_device
+from voxelengine_tpu_torch.core.bitgrid import BitGrid
 from voxelengine_tpu_torch.core.brickmap import BrickMap
 from voxelengine_tpu_torch.core.layout import Layout
 from voxelengine_tpu_torch.ops.bigtrace import LineTable
@@ -37,7 +40,7 @@ def _layout(v) -> Layout:
     return Layout(int(getattr(v, "value", v)))
 
 
-def brickmap_from_numpy(d: Mapping, device="cpu") -> BrickMap:
+def brickmap_from_numpy(d: Mapping, device=default_device()) -> BrickMap:
     """A :class:`BrickMap` on ``device`` from ``save_world``'s mapping."""
     missing = [k for k in BRICKMAP_KEYS if k not in d]
     if missing:
@@ -54,7 +57,18 @@ def brickmap_from_numpy(d: Mapping, device="cpu") -> BrickMap:
     )
 
 
-def line_table_from_numpy(d: Mapping, device="cpu") -> LineTable:
+def bitgrid_from_numpy(d: Mapping, device=default_device()) -> BitGrid:
+    """A :class:`BitGrid` on ``device`` from a mapping with the JAX grid's
+    fields: ``words`` (uint32 or int32), ``dims`` ``(X, Y, Z)`` and
+    ``layout`` (a Layout, its name's value or an int)."""
+    return BitGrid(
+        words=_i32(np.asarray(d["words"]).reshape(-1), device),
+        dims=tuple(int(v) for v in np.asarray(d["dims"]).reshape(-1)),
+        layout=_layout(d["layout"]),
+    )
+
+
+def line_table_from_numpy(d: Mapping, device=default_device()) -> LineTable:
     """A :class:`LineTable` from a mapping with keys ``region_lines``,
     ``macro``, ``macro2``, ``num_regions``, ``region_dims`` and optionally
     ``brick_lines``."""
@@ -69,7 +83,7 @@ def line_table_from_numpy(d: Mapping, device="cpu") -> LineTable:
     )
 
 
-def environment_from_numpy(d: Mapping, device="cpu") -> Environment:
+def environment_from_numpy(d: Mapping, device=default_device()) -> Environment:
     """An :class:`Environment` from a mapping of three float32[3] arrays."""
     def f32(k):
         return torch.from_numpy(np.array(d[k], dtype=np.float32, order="C")).to(device)

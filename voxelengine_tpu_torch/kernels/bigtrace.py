@@ -17,16 +17,6 @@ from voxelengine_tpu_torch.kernels import build
 launches = 0
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(
-            f"bigtrace: {name} must be a contiguous {dtype} tensor on {device}, "
-            f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-        )
-    if any(want is not None and got != want for got, want in zip(t.shape, shape)) or t.dim() != len(shape):
-        raise ValueError(f"bigtrace: {name} must have shape {shape}, got {tuple(t.shape)}")
-
-
 def bigtrace(
     start: torch.Tensor,
     d: torch.Tensor,
@@ -53,38 +43,24 @@ def bigtrace(
     synchronising and raises if the launch is refused.
     """
     global launches
-    dev = start.device
-    if dev.type != "cuda":
-        raise ValueError(f"bigtrace: tensors must be on a CUDA device, got {dev}")
-    n = start.shape[0]
+    dev = build.check_rays("bigtrace", start, d, active, pad)
     rx, ry, rz = region_dims
-    _check("start", start, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
-    _check("active", active, torch.int32, (n,), dev)
-    _check("pad", pad, torch.int32, (n, 3), dev)
-    _check("region_lines", region_lines, torch.int32, (rx * ry * rz * 8, 128), dev)
-    _check("brick_lines", brick_lines, torch.int32, (None, 128), dev)
+    build.check("bigtrace", "region_lines", region_lines, torch.int32, (rx * ry * rz * 8, 128), dev)
+    build.check("bigtrace", "brick_lines", brick_lines, torch.int32, (None, 128), dev)
     if not 1 <= factor <= 32:
         raise ValueError(f"bigtrace: factor {factor} outside 1..32")
-
-    flags = torch.empty((n,), dtype=torch.int32, device=dev)
-    pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    steps = torch.empty((n,), dtype=torch.int32, device=dev)
+    n = start.shape[0]
+    outs = build.ray_outputs(n, dev)
     if n == 0:
-        return flags, pos, normal, steps
-    lib = build.load_bigtrace()
+        return outs
     gx, gy, gz = grid_dims
-    with torch.cuda.device(dev):
-        err = lib.vx_bigtrace(
-            start.data_ptr(), d.data_ptr(), active.data_ptr(), pad.data_ptr(),
-            region_lines.data_ptr(), brick_lines.data_ptr(),
-            n, gx, gy, gz, rx, ry, rz, factor, wpb, max_steps, brick_layout.value,
-            3 * max_steps + 64,  # iteration cap (pallas_bigtrace.py:1488)
-            flags.data_ptr(), pos.data_ptr(), normal.data_ptr(), steps.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"bigtrace: kernel launch failed with cudaError {err}")
+    build.launch(
+        "bigtrace", build.load_kernel("bigtrace").vx_bigtrace,
+        start.data_ptr(), d.data_ptr(), active.data_ptr(), pad.data_ptr(),
+        region_lines.data_ptr(), brick_lines.data_ptr(),
+        n, gx, gy, gz, rx, ry, factor, wpb, max_steps, brick_layout.value,
+        3 * max_steps + 64,  # iteration cap (pallas_bigtrace.py:1488)
+        *(o.data_ptr() for o in outs), dev=dev,
+    )
     launches += 1
-    return flags, pos, normal, steps
+    return outs

@@ -1,0 +1,58 @@
+"""Wrapper of K4, the Hopper dense-slot brickmap traversal kernel
+(``csrc/bmtrace.cu``).
+
+It replaces ``voxelengine_tpu/ops/pallas_trace2.py::_bm_kernel``; its plain
+version is :func:`voxelengine_tpu_torch.ops.trace.trace_brickmap`, which
+:func:`voxelengine_tpu_torch.ops.trace2.trace_brickmap_mxu` runs for rays
+on the CPU.  ``launches`` counts the launches made through :func:`bmtrace`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from voxelengine_tpu_torch.core.layout import Layout
+from voxelengine_tpu_torch.kernels import build
+
+launches = 0
+
+
+def bmtrace(
+    start, d, active, pad, meta: torch.Tensor, bricks: torch.Tensor, *,
+    grid_dims, factor: int, max_steps: int, coarse_layout: Layout, brick_layout: Layout,
+):
+    """Trace N rays through a dense-slot brickmap on the card, one thread a
+    ray.
+
+    Ray inputs as for :func:`voxelengine_tpu_torch.kernels.bigtrace.
+    bigtrace` (chunk units); ``meta`` is ``int32[num_chunks]`` and
+    ``bricks`` ``int32[num_chunks, wpb]``, both indexed by chunk index in
+    ``coarse_layout``.  Returns ``(flags i32[N], position f32[N, 3],
+    normal f32[N, 3], steps i32[N])`` with ``flags = hit | hit_imm << 1``;
+    the caller applies the ``hit_imm`` fix-up.  Launches on the current
+    stream without synchronising and raises if the launch is refused.
+    """
+    global launches
+    dev = build.check_rays("bmtrace", start, d, active, pad)
+    gx, gy, gz = grid_dims
+    nc = gx * gy * gz
+    wpb = (factor**3 + 31) // 32
+    if nc * wpb >= 2**31 or not 1 <= factor <= 32:
+        raise ValueError(f"bmtrace: grid {grid_dims} at factor {factor} is outside the kernel's int32 indices")
+    if coarse_layout is not Layout.LINEAR and any(g % 8 for g in grid_dims):
+        raise ValueError(f"bmtrace: coarse layout {coarse_layout.name} needs a chunk grid divisible by 8")
+    build.check("bmtrace", "meta", meta, torch.int32, (nc,), dev)
+    build.check("bmtrace", "bricks", bricks, torch.int32, (nc, wpb), dev)
+    n = start.shape[0]
+    outs = build.ray_outputs(n, dev)
+    if n == 0:
+        return outs
+    build.launch(
+        "bmtrace", build.load_kernel("bmtrace").vx_trace_brickmap_dense,
+        start.data_ptr(), d.data_ptr(), active.data_ptr(), pad.data_ptr(), meta.data_ptr(), bricks.data_ptr(),
+        n, gx, gy, gz, factor, wpb, max_steps, coarse_layout.value, brick_layout.value,
+        3 * max_steps + 64,  # iteration cap, as K1's: never reached (ops/trace.py)
+        *(o.data_ptr() for o in outs), dev=dev,
+    )
+    launches += 1
+    return outs

@@ -2,10 +2,11 @@
 
 Each library is compiled from ``voxelengine_tpu_torch/csrc`` into
 ``voxelengine_tpu_torch/kernels/_build/`` (ignored by git), named by a hash
-of its sources and flags, so a source change rebuilds and an unchanged
-tree reuses the library.  Libraries have a plain C interface and are loaded
-with ``ctypes``; nothing includes PyTorch's headers, so a build takes
-seconds.  Nothing is built when this module is imported.
+of its source, every header in ``csrc`` and the flags, so any source change
+rebuilds and an unchanged tree reuses the library.  Libraries have a plain
+C interface and are loaded with ``ctypes``; nothing includes PyTorch's
+headers, so a build takes seconds.  Nothing is built when this module is
+imported.  The wrappers' shared argument checks live here too.
 """
 
 from __future__ import annotations
@@ -18,28 +19,50 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # --fmad=false and no fast-math: every float op separately and IEEE rounded,
-# as in the plain torch trace (csrc/bigtrace.cu, top note)
+# as in the plain torch traces (csrc/bigtrace.cu, top note)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# start, dir, active, pad, region_lines, brick_lines; n, grid xyz, region
-# xyz, factor, wpb, max_steps, brick_layout, iter_limit; flags, pos,
-# normal, steps
-_TRACE_ARGS = [_P] * 6 + [_I] * 12 + [_P] * 4
+# library name -> source; each CUDA library holds the kernels of one source
+KERNEL_SOURCES = {"bigtrace": "bigtrace.cu", "gridtrace": "gridtrace.cu", "bmtrace": "bmtrace.cu"}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_RAYS = [_P] * 4  # start, dir, active, pad
+_OUTS = [_P] * 4  # flags (or hit), pos, normal, steps
+# C signatures, stream excluded (the host builds take none)
+SIGNATURES = {
+    # region_lines, brick_lines; n, gx, gy, gz, rx, ry, factor, wpb, max_steps,
+    # brick_layout, iter_limit
+    "vx_bigtrace": _RAYS + [_P] * 2 + [_I] * 11 + _OUTS,
+    # words; n, X, Y, Z, layout, max_steps
+    "vx_trace_grid": _RAYS + [_P] + [_I] * 6 + _OUTS,
+    # limbs, plane; n, X, Y, Z, layout, max_steps
+    "vx_trace_grid_limbs": _RAYS + [_P, _L] + [_I] * 6 + _OUTS,
+    # meta, bricks; n, gx, gy, gz, factor, wpb, max_steps, coarse_layout,
+    # brick_layout, iter_limit
+    "vx_trace_brickmap_dense": _RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
+}
+HOST_ENTRIES = {  # host-build entry -> the kernel launcher it mirrors
+    "vx_trace_host": "vx_bigtrace",
+    "vx_trace_grid_host": "vx_trace_grid",
+    "vx_trace_grid_limbs_host": "vx_trace_grid_limbs",
+    "vx_trace_brickmap_dense_host": "vx_trace_brickmap_dense",
+}
 
 
 def _build(name: str, compiler: str, flags, source: Path) -> Path:
     """Compile ``source`` into a shared library unless the hashed one exists."""
     h = hashlib.sha256(" ".join([Path(compiler).name, *flags]).encode())
-    for dep in (source, CSRC / "dda.cuh"):
+    for dep in (source, *sorted(CSRC.glob("*.cuh"))):
         h.update(dep.name.encode())
         h.update(dep.read_bytes())
     out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
@@ -63,32 +86,86 @@ def _nvcc() -> str:
     return nvcc
 
 
-def bigtrace_library() -> Path:
-    """Build (if needed) the Hopper traversal kernel; returns its path."""
-    return _build("bigtrace", _nvcc(), NVCC_FLAGS, CSRC / "bigtrace.cu")
+def kernel_library(name: str) -> Path:
+    """Build (if needed) the Hopper library ``name`` of :data:`KERNEL_SOURCES`."""
+    return _build(name, _nvcc(), NVCC_FLAGS, CSRC / KERNEL_SOURCES[name])
 
 
 def dda_host_library() -> Path:
-    """Build (if needed) the host C++ build of ``dda.cuh``; returns its path."""
+    """Build (if needed) the host C++ build of the kernels' step logic."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++) found")
     return _build("dda_host", cxx, HOST_FLAGS, CSRC / "dda_host.cpp")
 
 
+def _declare(lib: ctypes.CDLL, fn: str, argtypes) -> None:
+    f = getattr(lib, fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+
+
 @functools.cache
-def load_bigtrace() -> ctypes.CDLL:
-    """The kernel library with ``vx_bigtrace``'s signature declared."""
-    lib = ctypes.CDLL(str(bigtrace_library()))
-    lib.vx_bigtrace.argtypes = _TRACE_ARGS + [_P]  # + stream
-    lib.vx_bigtrace.restype = ctypes.c_int
+def load_kernel(name: str) -> ctypes.CDLL:
+    """The Hopper library ``name`` with its launchers' signatures declared
+    (each takes the stream last)."""
+    lib = ctypes.CDLL(str(kernel_library(name)))
+    for fn, args in SIGNATURES.items():
+        if hasattr(lib, fn):
+            _declare(lib, fn, args + [_P])
     return lib
 
 
 @functools.cache
 def load_dda_host() -> ctypes.CDLL:
-    """The host library with ``vx_trace_host``'s signature declared."""
+    """The host library with every entry's signature declared."""
     lib = ctypes.CDLL(str(dda_host_library()))
-    lib.vx_trace_host.argtypes = _TRACE_ARGS
-    lib.vx_trace_host.restype = ctypes.c_int
+    for fn, kernel in HOST_ENTRIES.items():
+        _declare(lib, fn, SIGNATURES[kernel])
     return lib
+
+
+def check(kernel: str, name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device`` of
+    ``shape`` (``None`` entries match any size)."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"{kernel}: {name} must be a contiguous {dtype} tensor on {device}, "
+            f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+    if t.dim() != len(shape) or any(want is not None and got != want for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{kernel}: {name} must have shape {shape}, got {tuple(t.shape)}")
+
+
+def check_rays(kernel: str, start, d, active, pad) -> torch.device:
+    """Check a kernel's ray inputs (start and direction ``f32[N, 3]``,
+    ``active`` ``i32[N]``, edge pad ``i32[N, 3]``, all on one CUDA
+    device); returns that device."""
+    dev = start.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: tensors must be on a CUDA device, got {dev}")
+    n = start.shape[0]
+    check(kernel, "start", start, torch.float32, (n, 3), dev)
+    check(kernel, "d", d, torch.float32, (n, 3), dev)
+    check(kernel, "active", active, torch.int32, (n,), dev)
+    check(kernel, "pad", pad, torch.int32, (n, 3), dev)
+    return dev
+
+
+def ray_outputs(n: int, dev):
+    """Empty ``(flags i32[N], position f32[N, 3], normal f32[N, 3], steps i32[N])``."""
+    return (
+        torch.empty((n,), dtype=torch.int32, device=dev),
+        torch.empty((n, 3), dtype=torch.float32, device=dev),
+        torch.empty((n, 3), dtype=torch.float32, device=dev),
+        torch.empty((n,), dtype=torch.int32, device=dev),
+    )
+
+
+def launch(kernel: str, fn, *args, dev) -> None:
+    """Call the launcher ``fn(*args, stream)`` on ``dev``'s current stream;
+    raise if the launch was refused (its ``cudaGetLastError``)."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with cudaError {err}")

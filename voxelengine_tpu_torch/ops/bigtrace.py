@@ -21,7 +21,7 @@ from voxelengine_tpu_torch.config import MAX_STEPS
 from voxelengine_tpu_torch.core.bitgrid import pack_bits
 from voxelengine_tpu_torch.core.brickmap import BrickMap
 from voxelengine_tpu_torch.core.layout import Layout, sample_index
-from voxelengine_tpu_torch.ops.trace import TraceOut, _dims, _edge_pad, _ray_setup, trace_brickmap
+from voxelengine_tpu_torch.ops.trace import TraceOut, _dims, _edge_pad, _ray_setup, kernel_result, trace_brickmap
 
 I32 = torch.int32
 MACRO2_WORDS = 32  # L2 capacity: 1024 super-regions
@@ -173,8 +173,4 @@ def trace_brickmap_hbm(
         grid_dims=bm.grid_dims, region_dims=lt.region_dims, factor=f,
         wpb=bm.words_per_brick, max_steps=max_steps, brick_layout=bm.brick_layout,
     )
-    hit = (flags & 1) == 1
-    hit_imm = ((flags & 2) == 2)[:, None]
-    pos = torch.where(hit_imm, start_c * float(f), pos)
-    nrm = torch.where(hit_imm, start_normal, nrm)
-    return TraceOut(hit=hit, position=pos, normal=nrm, steps=steps)
+    return kernel_result(flags, pos, nrm, steps, start_c, start_normal, f)

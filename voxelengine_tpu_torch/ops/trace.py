@@ -1,4 +1,4 @@
-"""Two-level brickmap ray traversal in plain torch.
+"""Brickmap and dense-grid ray traversal in plain torch.
 
 Counterpart of :func:`voxelengine_tpu.ops.trace.trace_brickmap`: the same
 flattened state machine (coarse DDA over chunks; descend into a chunk's
@@ -8,18 +8,22 @@ max-edge padding (``VolumeRaytracer.cu:176-525``).  The ``lax.while_loop``
 becomes a Python loop; every few iterations the still-active rays are
 compacted, which changes no result (a finished ray's state is frozen).
 
-This is the plain version of the Hopper kernel in
-:mod:`voxelengine_tpu_torch.kernels.bigtrace` and the reference of its
-exactness gate.
+This is the plain version of the Hopper kernels in
+:mod:`voxelengine_tpu_torch.kernels.bigtrace` and
+:mod:`voxelengine_tpu_torch.kernels.bmtrace` and the reference of their
+exactness gates.  :func:`trace_grid`, the single-level DDA over a dense
+:class:`~voxelengine_tpu_torch.core.bitgrid.BitGrid`, is the plain version
+of :mod:`voxelengine_tpu_torch.kernels.gridtrace`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Sequence
 
 import torch
 
 from voxelengine_tpu_torch.config import FLT_EPS_DDA, MAX_STEPS
+from voxelengine_tpu_torch.core.bitgrid import BitGrid
 from voxelengine_tpu_torch.core.brickmap import BrickMap, unpack_meta
 from voxelengine_tpu_torch.core.exact import dot3, fdiv, sqrt_rn
 from voxelengine_tpu_torch.core.layout import sample_index
@@ -102,6 +106,19 @@ def _ray_setup(grid_dims, factor: int, origins: torch.Tensor, rays: torch.Tensor
     start_c = torch.where(inside[:, None], start_c, torch.where(whit[:, None], wpt, start_c))
     start_normal = torch.where(inside[:, None], 0.0, wnrm)
     return d, start_c, start_normal, inside | whit
+
+
+def kernel_result(flags, pos, nrm, steps, start_c, start_normal, factor: int) -> TraceOut:
+    """A brickmap kernel's outputs, ``flags = hit | hit_imm << 1``, as a
+    :class:`TraceOut`: a hit at the ray start reports the clipped start and
+    the world-entry normal (``VolumeRaytracer.cu:518-522``)."""
+    hit_imm = ((flags & 2) == 2)[:, None]
+    return TraceOut(
+        hit=(flags & 1) == 1,
+        position=torch.where(hit_imm, start_c * float(factor), pos),
+        normal=torch.where(hit_imm, start_normal, nrm),
+        steps=steps,
+    )
 
 
 def _init_state(bm: BrickMap, origins, rays) -> Dict[str, torch.Tensor]:
@@ -240,15 +257,16 @@ def _step(bm: BrickMap, st: Dict[str, torch.Tensor], max_steps: int) -> Dict[str
 _RESULT_KEYS = ("hit", "hit_imm", "steps", "pos_out", "norm_out")
 
 
-def _run_loop(bm: BrickMap, st: Dict[str, torch.Tensor], max_steps: int, iter_limit: int):
-    """Advance every active ray by up to ``iter_limit`` DDA events.  Works
-    on the compacted set of active rays and writes their results back."""
+def _run_loop(step: Callable, st: Dict[str, torch.Tensor], iter_limit: int, keys: Sequence[str]):
+    """Run ``work = step(work, it)`` for up to ``iter_limit`` iterations.
+    Works on the compacted set of active rays and writes their ``keys``
+    back."""
     idx = torch.arange(st["active"].shape[0], device=st["active"].device)
-    res = {k: st[k].clone() for k in _RESULT_KEYS}
+    res = {k: st[k].clone() for k in keys}
     work = st
     for it in range(iter_limit):
         if it % _COMPACT_EVERY == 0:
-            for k in _RESULT_KEYS:
+            for k in keys:
                 res[k][idx] = work[k]
             keep = torch.nonzero(work["active"]).squeeze(1)
             if keep.numel() == 0:
@@ -256,8 +274,8 @@ def _run_loop(bm: BrickMap, st: Dict[str, torch.Tensor], max_steps: int, iter_li
             if keep.numel() < idx.numel():
                 work = {k: v[keep] for k, v in work.items()}
                 idx = idx[keep]
-        work = _step(bm, work, max_steps)
-    for k in _RESULT_KEYS:
+        work = step(work, it)
+    for k in keys:
         res[k][idx] = work[k]
     return res
 
@@ -272,10 +290,81 @@ def trace_brickmap(bm: BrickMap, origins: torch.Tensor, rays: torch.Tensor, max_
     charged step or a hit.
     """
     st = _init_state(bm, origins, rays)
-    res = _run_loop(bm, st, max_steps, 2 * max_steps + 8)
+    res = _run_loop(lambda s, _: _step(bm, s, max_steps), st, 2 * max_steps + 8, _RESULT_KEYS)
     # degenerate hit at the ray start: clipped entry point + world-AABB
     # entry normal (VolumeRaytracer.cu:518-522)
     imm = res["hit_imm"][:, None]
     pos = torch.where(imm, st["start_c"] * float(bm.factor), res["pos_out"])
     nrm = torch.where(imm, st["start_normal"], res["norm_out"])
     return TraceOut(hit=res["hit"], position=pos, normal=nrm, steps=res["steps"])
+
+
+def _grid_step(grid: BitGrid, st: Dict[str, torch.Tensor], max_steps: int, skip: bool):
+    """One dense-grid DDA event per active ray: a hit, a miss (left the
+    grid) or a step.  ``skip`` ignores the start cell (``take_initial_step``)."""
+    gdims = _dims(grid.dims, I32, st["cell"].device)
+    active, cell = st["active"], st["cell"]
+    in_range = ((cell >= 0) & (cell < gdims + st["pad"])).all(dim=-1)
+    cl = torch.clamp(cell, min=torch.zeros_like(gdims), max=gdims - 1)
+    occ = grid.get_bits(cl[:, 0], cl[:, 1], cl[:, 2]) & in_range & (not skip)
+    this_hit = active & occ
+    this_miss = active & ~in_range & (not skip)
+    _, _, isect, cell_adv, tmax_adv, step_nrm = _advance(
+        cell, st["tmax"], st["tdelta"], st["step_sign"], st["start"], st["d"]
+    )
+    adv = active & ~this_hit & ~this_miss
+    a3 = adv[:, None]
+    steps = st["steps"] + adv.to(I32)
+    out = dict(st)
+    out.update(
+        active=adv & (steps < max_steps),
+        hit=st["hit"] | this_hit,
+        steps=steps,
+        cell=torch.where(a3, cell_adv, cell),
+        tmax=torch.where(a3, tmax_adv, st["tmax"]),
+        pos=torch.where(a3, isect, st["pos"]),
+        nrm=torch.where(a3, step_nrm, st["nrm"]),
+    )
+    return out
+
+
+def trace_grid(
+    grid: BitGrid, origins: torch.Tensor, rays: torch.Tensor, max_steps: int = MAX_STEPS,
+    take_initial_step: bool = False,
+) -> TraceOut:
+    """Single-level DDA through a dense bit grid (the reference's plain
+    ``DDARayTraversal``, ``VolumeRaytracer.cu:176-352``) with the two-level
+    path's world-AABB entry clip.  Counterpart of
+    :func:`voxelengine_tpu.ops.trace.trace_grid`; ``origins``/``rays`` are
+    ``f32[N, 3]`` in voxel units on the grid's device.  A hit at the start
+    cell reports the clipped start and the world-entry normal.
+    """
+    d, start, start_normal, active = _ray_setup(grid.dims, 1, origins, rays)
+    cell = start.to(I32)  # trunc toward zero, like (int)x
+    step_sign = torch.where(d > 0.0, 1, -1).to(I32)
+    n, dev = origins.shape[0], origins.device
+    st = dict(
+        active=active,
+        hit=torch.zeros((n,), dtype=torch.bool, device=dev),
+        steps=torch.zeros((n,), dtype=I32, device=dev),
+        cell=cell,
+        tmax=_init_tmax(cell, start, d, step_sign),
+        pos=start,
+        nrm=torch.zeros((n, 3), dtype=F32, device=dev),
+        start=start,
+        d=d,
+        tdelta=torch.where(d != 0.0, torch.abs(fdiv(1.0, d)), INF),
+        step_sign=step_sign,
+        pad=_edge_pad(cell, _dims(grid.dims, I32, dev), d),
+    )
+    res = _run_loop(
+        lambda s, it: _grid_step(grid, s, max_steps, take_initial_step and it == 0),
+        st, max_steps + 1, ("hit", "steps", "pos", "nrm"),
+    )
+    zero_step = (res["hit"] & (res["steps"] == 0))[:, None]
+    return TraceOut(
+        hit=res["hit"],
+        position=torch.where(zero_step, start, res["pos"]),
+        normal=torch.where(zero_step, start_normal, res["nrm"]),
+        steps=res["steps"],
+    )

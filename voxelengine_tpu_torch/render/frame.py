@@ -11,6 +11,10 @@ SHADED view:
   checkerboarding (``Renderer.cu:260-268``);
 * normals are negated before shading (``Renderer.cu:212``).
 
+:func:`render_frame` traces a brickmap; :func:`render_frame_dense` traces
+a dense :class:`~voxelengine_tpu_torch.core.bitgrid.BitGrid` world (the
+small-world path, K2 on the card).
+
 Not ported yet, and refused rather than ignored: the DEBUG, NORMALS, DEPTH
 and STEPS views, shadow / AO / reflection rays, block permutations and the
 odd-height checkerboard.
@@ -22,10 +26,12 @@ from typing import Optional
 
 import torch
 
-from voxelengine_tpu_torch.config import DebugView, Environment, Projection, RenderConfig
+from voxelengine_tpu_torch.config import DebugView, Environment, Projection, RenderConfig, default_device
+from voxelengine_tpu_torch.core.bitgrid import BitGrid
 from voxelengine_tpu_torch.core.brickmap import BrickMap
 from voxelengine_tpu_torch.core.exact import fdiv
 from voxelengine_tpu_torch.ops.bigtrace import LineTable, trace_brickmap_hbm
+from voxelengine_tpu_torch.ops.gridtrace import trace_grid_vpu
 from voxelengine_tpu_torch.ops.trace import TraceOut, trace_brickmap
 from voxelengine_tpu_torch.render import camera as cam
 from voxelengine_tpu_torch.render.shading import calculate_color, tonemap
@@ -33,7 +39,7 @@ from voxelengine_tpu_torch.render.shading import calculate_color, tonemap
 F32 = torch.float32
 
 
-def make_framebuffer(cfg: RenderConfig, device="cpu") -> torch.Tensor:
+def make_framebuffer(cfg: RenderConfig, device=default_device()) -> torch.Tensor:
     """Persistent RGB float framebuffer ``[H, W, 3]`` (``SDLRenderer.cpp:19-31``)."""
     return torch.zeros((cfg.height, cfg.width, 3), dtype=F32, device=device)
 
@@ -186,6 +192,26 @@ def render_frame(
     traversal (see :func:`shade_pixels`)."""
     origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number)
     color, write = shade_pixels(bm, origins, dirs, px, py, py_r, origin, env, cfg, lt)
+    return composite_frame(framebuffer, color, write, cfg, frame_number)
+
+
+def render_frame_dense(
+    grid: BitGrid,
+    framebuffer: torch.Tensor,
+    origin: torch.Tensor,
+    euler: torch.Tensor,
+    env: Environment,
+    frame_number: int,
+    cfg: RenderConfig,
+) -> torch.Tensor:
+    """:func:`render_frame` over a dense :class:`BitGrid` world: primary
+    rays, :func:`~voxelengine_tpu_torch.ops.gridtrace.trace_grid_vpu` (K2
+    for CUDA tensors, the plain ``trace_grid`` on the CPU), shading and
+    composite, in place.  Shadow, AO and reflection rays are refused, as on
+    the JAX path."""
+    origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number)
+    out = trace_grid_vpu(grid, origins, dirs, cfg.max_steps)
+    color, write = shade_traced(out, origins, dirs, px, py, py_r, origin, env, cfg)
     return composite_frame(framebuffer, color, write, cfg, frame_number)
 
 
