@@ -7,18 +7,25 @@
 Phases, one stdout line each (plus the kernels' build logs):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile every CUDA kernel (K1-K4) from ``voxelengine_tpu_torch/csrc``,
-   one nvcc per source, all started together;
+2. build: compile every CUDA kernel (K1-K5) from ``voxelengine_tpu_torch/csrc``,
+   one nvcc per source, all started together; ptxas registers and spills of
+   each instantiation;
 3. noise: worldgen noise on the card against ``native/golden_noise.json``;
-4. kernel vs plain: K1 against the plain torch trace on a 128x64x128
-   terrain built on the card and on a random world whose chunk grid is not
-   a multiple of 8 (hits, steps, normals bit-equal; positions equal on hits),
-   and a small frame rendered through K1 against the plain path;
-5. main path: build the terrain world, its line table and brick lines, and
+4. kernel vs plain: K1 (macro levels on and off) against its plain versions
+   on a 128x64x128 terrain built on the card and on a random world whose
+   chunk grid is not a multiple of 8 (hits, steps, normals bit-equal;
+   positions equal on hits), and a small frame rendered through K1 against
+   the plain path;
+5. main path, as ``bench.py:233-297`` runs it: build the terrain world, its
+   line table and brick lines; ``probe_use_macro`` on the frame's rays (its
+   ``mskip`` total and decision), ``cfg.trace_use_macro`` set from it;
    render a warm-up frame plus 8 chained checkerboard frames through
-   ``render_frame(..., lt=lt)``; then the exactness gate (K1 against the
-   plain trace on the full frame of rays, 0 diffs allowed);
-6. times: K1 and the plain trace on that frame's rays, with CUDA events;
+   ``render_frame(..., lt=lt)``; then the exactness gate (K1 against its
+   plain version on the full frame of rays, 0 diffs allowed; the count
+   against the chunk-by-chunk walk printed too), the phase counters and the
+   ``return_iters`` warp-iteration statistics;
+6. times: K1 (macro off and on), K5 and the plain trace on that frame's
+   rays, with CUDA events;
 7. dense kernels vs plain: K2 and K3 against the plain ``trace_grid`` on a
    random 32^3 grid in each layout, and a 96x64 ``render_frame_dense``
    frame through K2 against the plain path;
@@ -29,16 +36,24 @@ Phases, one stdout line each (plus the kernels' build logs):
    ``render_frame_dense`` frames and the exactness gate on the last frame;
 9. on-chip brickmap: K4 (``trace_brickmap_mxu``) against the plain trace on
    1,048,576 rays over a 128^3 terrain at factor 8 and on a small
-   TILED_MORTON world; times.
+   TILED_MORTON world; times;
+10. sparse world: the 16384x512x16384 world at factor 32 of
+   ``tests/test_pallas_bigtrace.py:500-531`` (512x16x512 chunks, 8192
+   regions, L2 and L3 real), 262,144 near, horizon and sky rays: K1 macro
+   off, K1 macro on and K5 (``trace_brickmap_hbm_rr``) each against its
+   plain version and K1 against K5 (0 diffs), the phase counters (``mskip``
+   must be > 0) against the plain walk's; times.
 
 Each kernel's path (phase 5 for K1, the frames of phase 8 for K2, the
-phase-8 batch for K3, the phase-9 batch for K4) runs with the launch counts
-set to 0 just before it and read just after; launches made to compare or
-time a kernel are not counted.  Then one JSON line describing each kernel
-(its time, its plain version's, and its bound: the larger of its bytes
-(rays in and out plus the table words its hits need) over the card's
-memory rate and its float operations over its float32 rate), the card
-line again, and last ``{"ok": true, "device": {...}}``.
+phase-8 batch for K3, the phase-9 batch for K4, the phase-10 batch for K5)
+runs with the launch counts set to 0 just before it and read just after;
+launches made to compare or time a kernel are not counted.  Then one JSON
+line describing each kernel (its time, its plain version's, and its bound:
+the larger of its bytes (rays in and out plus the table words its hits
+need) over the card's memory rate and its float operations over its
+float32 rate; with the macro levels on, the operations of the DDA events
+the diag build counts, since a macro skip charges steps it never walks),
+the card line again, and last ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code != 0) before the last line.  Needs one CUDA
 device; there is no CPU fallback.  Imports nothing of JAX.
 """
@@ -65,6 +80,10 @@ RAY_BYTES = 72
 # coordinates off the stepped axis (2 mul + 2 add), the tMax add; ray setup
 # and the coarse level's box test are not counted
 OPS_PER_STEP = 8
+# the DDA events a run executes (diag counters): each one iteration of work
+EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
+SPARSE_RAYS = 1 << 18
+K5_BATCHES = (32, 128, 512)  # K5's rays per grab: its default first
 WORLDS = {
     # (world dims, width, height): the reference demo (main.cu:15-23) and
     # the bench world (bench.py:127-129) at 1080p
@@ -99,13 +118,13 @@ def cuda_ms(fn, repeats: int = 1) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def bound(rays: int, table_bytes: int, steps_sum: int):
+def bound(rays: int, table_bytes: int, work: int):
     """``(bound_ms, bound_by)``: the larger of the bytes the trace must move
     (rays in and out, and the ``table_bytes`` its hits need, see
-    :func:`hit_table_bytes`) over the memory rate and its DDA float
-    operations over the float32 rate."""
+    :func:`hit_table_bytes`) over the memory rate and the float operations
+    of its ``work`` DDA steps (or executed events) over the float32 rate."""
     bytes_ms = (rays * RAY_BYTES + table_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = steps_sum * OPS_PER_STEP / F32_OPS_PER_S * 1e3
+    ops_ms = work * OPS_PER_STEP / F32_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -141,15 +160,18 @@ def hit_table_bytes(out, world_dims, layout, factor=None, wpb=None):
     return 4 * (int(torch.unique(chunk * wpb + word).numel()) + int(torch.unique(chunk).numel()))
 
 
-def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, rays, table_bytes, steps_sum):
-    """One kernel's record for the ``kernels`` JSON line."""
-    bound_ms, bound_by = bound(rays, table_bytes, steps_sum)
+def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, rays, table_bytes, steps_sum,
+                 events_sum=None):
+    """One kernel's record for the ``kernels`` JSON line.  The bound's
+    operations count ``events_sum`` (the executed DDA events) where given,
+    else ``steps_sum``."""
+    bound_ms, bound_by = bound(rays, table_bytes, steps_sum if events_sum is None else events_sum)
     return {
         "name": name, "route": "cuda", "source": f"voxelengine_tpu_torch/csrc/{source}",
         "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,  # no PyTorch call computes a DDA traversal
-        "rays": rays, "steps_sum": steps_sum, "table_bytes": table_bytes,
+        "rays": rays, "steps_sum": steps_sum, "events_sum": events_sum, "table_bytes": table_bytes,
     }
 
 
@@ -267,7 +289,12 @@ def phase_kernel_vs_plain(dev):
 
     from voxelengine_tpu_torch.config import Environment, RenderConfig
     from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
-    from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines, trace_brickmap_hbm
+    from voxelengine_tpu_torch.ops.bigtrace import (
+        make_line_table,
+        materialize_brick_lines,
+        trace_brickmap_hbm,
+        trace_brickmap_lt,
+    )
     from voxelengine_tpu_torch.ops.trace import trace_brickmap
     from voxelengine_tpu_torch.render.frame import make_framebuffer, render_frame
 
@@ -278,13 +305,11 @@ def phase_kernel_vs_plain(dev):
     for i, (name, (bm, spread, max_steps)) in enumerate(worlds.items()):
         o, d = random_rays(bm.world_dims, 65536, spread, 100 + i, dev)
         lt = materialize_brick_lines(bm, make_line_table(bm))
-        got = trace_brickmap_hbm(bm, lt, o, d, max_steps)
-        want = trace_brickmap(bm, o, d, max_steps)
-        diffs = compare(got, want)
-        say(f"kernel vs plain (tolerance: bit-equal): {name}, {o.shape[0]} rays, hits {int(want.hit.sum())}: "
-            f"hit diffs {diffs[0]}, steps diffs {diffs[1]}, normal diffs {diffs[2]}, position diffs {diffs[3]}")
-        if any(diffs[:4]):
-            raise SystemExit(f"K1 disagrees with the plain trace on {name}")
+        for use_macro, plain in ((False, trace_brickmap(bm, o, d, max_steps)),
+                                 (True, trace_brickmap_lt(bm, lt, o, d, max_steps))):
+            got = trace_brickmap_hbm(bm, lt, o, d, max_steps, use_macro=use_macro)
+            check_diffs(f"kernel vs plain: K1 macro {'on' if use_macro else 'off'}, {name}", compare(got, plain),
+                        o.shape[0], int(plain.hit.sum()))
 
     bm, _, _ = worlds["terrain 128x64x128 f32"]
     lt = materialize_brick_lines(bm, make_line_table(bm))
@@ -300,35 +325,109 @@ def phase_kernel_vs_plain(dev):
         raise SystemExit("a frame rendered through K1 differs from the plain path")
 
 
+def phase_counts(phases, what):
+    """Print the diag build's phase-counter totals; return the executed DDA
+    events (:data:`EVENTS`)."""
+    tot = {k: int(v.sum()) for k, v in phases.items() if k != "iters"}
+    say(f"{what}: phase counters (sum over rays): {json.dumps(tot)}")
+    return sum(tot[k] for k in EVENTS)
+
+
+def check_diag(what, phases, iters, plain_diag):
+    """Hold the diag build's counters against the plain walk's (equal), and
+    its warp iterations against the warp maximum of the plain walk's own."""
+    import torch
+
+    from voxelengine_tpu_torch.ops.bigtrace import PHASES
+
+    bad = [k for i, k in enumerate(PHASES) if not torch.equal(phases[k], plain_diag[i])]
+    if not torch.equal(iters, warp_max(plain_diag[len(PHASES)])):
+        bad.append("iters (warp max of the plain walk's)")
+    say(f"{what}: diag counters vs the plain walk's (tolerance: equal): mismatches {bad or 'none'}")
+    if bad:
+        raise SystemExit(f"{what}: K1's diag counters disagree with the plain walk: {bad}")
+
+
+def warp_iters_line(iters, own, steps, what):
+    """The ``return_iters`` statistics (``bench.py:291-297``), one value per
+    warp of 32 rays (the loop count of its longest lane), and the share of
+    the warps' lane-iterations that rays spend active (``own``: each ray's
+    own loop count)."""
+    import numpy as np
+
+    it = iters[::32].cpu().numpy().astype(np.int64)
+    busy = int(own.sum()) / (32 * int(it.sum()))
+    say(f"{what}: warp iterations (return_iters, {it.size} warps): mean {it.mean():.1f} "
+        f"p50 {np.percentile(it, 50):.0f} p90 {np.percentile(it, 90):.0f} p99 {np.percentile(it, 99):.0f} "
+        f"max {it.max()} sum {it.sum()}; rays' own iterations {int(own.sum())}, so lanes are active "
+        f"{busy:.4f} of the warp-iterations; steps sum {int(steps.sum())}")
+
+
+def k5_times(t):
+    """``{batch: ms}`` as one phrase of a times line."""
+    return ", ".join(f"{ms:.3f} ms at batch {b}" for b, ms in t.items())
+
+
+def line_kernel_args(bm, lt, o, d, max_steps):
+    """K1's and K5's arguments for rays ``o``, ``d`` (ray setup done here,
+    so a timing covers the kernel alone)."""
+    import torch
+
+    from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup
+
+    dd, start_c, _, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
+    pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, o.device), dd)
+    args = (start_c.contiguous(), dd.contiguous(), active.to(torch.int32), pad.contiguous(),
+            lt.region_lines, lt.brick_lines, lt.macro, lt.macro2)
+    kw = dict(grid_dims=bm.grid_dims, region_dims=lt.region_dims, factor=bm.factor,
+              wpb=bm.words_per_brick, max_steps=max_steps, brick_layout=bm.brick_layout)
+    return args, kw
+
+
 def phase_main_path(dev, world: str):
+    import dataclasses
+
     import torch
 
     from voxelengine_tpu_torch.config import Environment, RenderConfig
     from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
-    from voxelengine_tpu_torch.kernels import bigtrace
-    from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines, trace_brickmap_hbm
+    from voxelengine_tpu_torch.kernels import bigtrace, rrtrace
+    from voxelengine_tpu_torch.ops.bigtrace import (
+        make_line_table,
+        materialize_brick_lines,
+        trace_brickmap_hbm,
+        trace_brickmap_lt,
+    )
     from voxelengine_tpu_torch.ops.trace import trace_brickmap
-    from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, render_frame
+    from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, probe_use_macro, render_frame
+    from voxelengine_tpu_torch.utils.profiling import timed
 
     dims, W, H = WORLDS[world]
-    t0 = time.perf_counter()
-    bm = build_brickmap_terrain_compact(dims, 32, device=dev)
-    torch.cuda.synchronize()
-    t_world = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    lt = materialize_brick_lines(bm, make_line_table(bm))
-    torch.cuda.synchronize()
-    t_lt = time.perf_counter() - t0
-    say(f"main path: world {dims[0]}x{dims[1]}x{dims[2]} f32 built in {t_world:.1f} s "
+    ms = {}
+    with timed("world", ms, verbose=False, device=dev):
+        bm = build_brickmap_terrain_compact(dims, 32, device=dev)
+    with timed("line table", ms, verbose=False, device=dev):
+        lt = materialize_brick_lines(bm, make_line_table(bm))
+    say(f"main path: world {dims[0]}x{dims[1]}x{dims[2]} f32 built in {ms['world'] / 1e3:.1f} s "
         f"({bm.bricks.shape[0]} bricks, {bm.bricks.numel() * 4 / 1e9:.3f} GB); "
-        f"line table + brick lines {t_lt:.2f} s ({lt.num_regions} regions)")
+        f"line table + brick lines {ms['line table'] / 1e3:.2f} s ({lt.num_regions} regions)")
 
     cfg = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
     env = Environment.default(dev)
     origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)  # bench.py:191-192
     euler = torch.tensor([-0.25, 0.75, 0.0], device=dev)
-    fb = make_framebuffer(cfg, dev)
     rays_per_frame = W * H // 2
+
+    # the macro probe on the frame's rays (bench.py:232-266)
+    po, pd, _, _, _ = primary_rays(cfg, origin, euler, 1)
+    t0 = time.perf_counter()
+    use_macro = probe_use_macro(bm, lt, po, pd, cfg)
+    t_probe = time.perf_counter() - t0
+    _, ph = trace_brickmap_hbm(bm, lt, po[::4], pd[::4], cfg.max_steps, return_phases=True)
+    say(f"main path: macro probe on every 4th of the frame's {po.shape[0]} rays: mskip total "
+        f"{int(ph['mskip'].sum())}, use_macro={use_macro} ({t_probe * 1e3:.1f} ms)")
+    cfg = dataclasses.replace(cfg, trace_use_macro=use_macro)
+    fb = make_framebuffer(cfg, dev)
 
     bigtrace.launches = 0  # count the main path's launches only
     render_frame(bm, fb, origin, euler, env, 0, cfg, lt=lt)  # warm-up
@@ -352,43 +451,52 @@ def phase_main_path(dev, world: str):
     if float(fb.min()) < 0.0 or float(fb.max()) > 1.0:
         raise SystemExit("framebuffer values outside [0, 1]")
 
-    # exactness gate: K1 against the plain trace on the full frame of rays
+    # exactness gate: K1 against its plain version on the full frame of rays
     o, d, _, _, _ = primary_rays(cfg, origin, euler + 1e-5 * FRAMES, FRAMES)
-    got = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps)
-    want = trace_brickmap(bm, o, d, cfg.max_steps)
+    got = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=use_macro)
+    chunk_walk = trace_brickmap(bm, o, d, cfg.max_steps)
+    lt_walk, pdg = trace_brickmap_lt(bm, lt, o, d, cfg.max_steps, use_macro, diag=True)
+    want = lt_walk if use_macro else chunk_walk
     diffs = compare(got, want)
+    check_diffs(f"main path: exactness gate, K1 (use_macro={use_macro}) vs its plain version", diffs,
+                o.shape[0], int(want.hit.sum()))
+    chunk = compare(got, chunk_walk)
+    say(f"main path: K1 (use_macro={use_macro}) vs the chunk-by-chunk trace_brickmap: hit diffs {chunk[0]}, "
+        f"steps diffs {chunk[1]}, normal diffs {chunk[2]}, position diffs {chunk[3]}")
     hit_frac = float(want.hit.float().mean())
-    say(f"main path: exactness gate (tolerance: bit-equal), {o.shape[0]} rays: "
-        f"hit diffs {diffs[0]}, steps diffs {diffs[1]}, "
-        f"normal diffs {diffs[2]}, position diffs {diffs[3]}")
-    if any(diffs[:4]):
-        raise SystemExit("exactness gate failed: K1 disagrees with the plain trace on the frame")
     if not 0.0 < hit_frac < 1.0:
         raise SystemExit(f"implausible hit fraction {hit_frac}")
-    say(f"main path: {W}x{H} checkerboard tile_order, {FRAMES} chained frames: "
+    say(f"main path: {W}x{H} checkerboard tile_order, use_macro={use_macro}, {FRAMES} chained frames: "
         f"{frame_ms:.3f} ms/frame, {rays_per_frame / frame_ms / 1e3:.3f} Mrays/s primary, "
         f"hit fraction {hit_frac:.4f}, K1 launches {launches}, "
         f"framebuffer checksum {float(fb.double().sum()):.6f}")
 
-    # times: K1 alone (ray setup excluded) and the plain trace, same rays
-    from voxelengine_tpu_torch.ops.trace import _edge_pad, _ray_setup
+    # the diag build on the same rays: counters, warp iterations
+    res, iters, phases = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=use_macro,
+                                            return_iters=True, return_phases=True)
+    check_diffs("main path: K1 diag build vs the production build", compare(res, got), o.shape[0],
+                int(got.hit.sum()))
+    check_diag("main path", phases, iters, pdg)
+    events = phase_counts(phases, "main path")
+    warp_iters_line(iters, pdg[-1], got.steps, "main path")
 
-    dd, start_c, _, active = _ray_setup(bm.grid_dims, 32, o, d)
-    pad = _edge_pad(start_c.to(torch.int32), torch.tensor(bm.grid_dims, dtype=torch.int32, device=dev), dd)
-    args = (start_c.contiguous(), dd.contiguous(), active.to(torch.int32), pad.contiguous(),
-            lt.region_lines, lt.brick_lines)
-    kw = dict(grid_dims=bm.grid_dims, region_dims=lt.region_dims, factor=32,
-              wpb=bm.words_per_brick, max_steps=cfg.max_steps, brick_layout=bm.brick_layout)
-    k_ms = cuda_ms(lambda: bigtrace.bigtrace(*args, **kw), repeats=10)
-    p_ms = cuda_ms(lambda: trace_brickmap(bm, o, d, cfg.max_steps), repeats=1)
-    card = card_line()
+    # times: K1 (macro off, on) and K5 alone (ray setup excluded), the plain trace
+    args, kw = line_kernel_args(bm, lt, o, d, cfg.max_steps)
+    t_off = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
+    t_on = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=True, **kw), repeats=10)
+    t_k5 = {b: cuda_ms(lambda: rrtrace.rrtrace(*args, use_macro=use_macro, batch=b, **kw), repeats=10)
+            for b in K5_BATCHES}
+    k_ms = t_on if use_macro else t_off
+    plain = trace_brickmap_lt if use_macro else (lambda bm, lt, *a: trace_brickmap(bm, *a))
+    p_ms = cuda_ms(lambda: plain(bm, lt, o, d, cfg.max_steps), repeats=1)
     steps_sum = int(got.steps.sum())
-    say(f"times: K1 {k_ms:.3f} ms, plain trace {p_ms:.3f} ms, {o.shape[0]} rays "
-        f"({o.shape[0] / k_ms / 1e3:.3f} vs {o.shape[0] / p_ms / 1e3:.3f} Mrays/s), "
-        f"sum(steps) {steps_sum}, on {card}")
+    say(f"times: K1 macro off {t_off:.3f} ms, K1 macro on {t_on:.3f} ms, K5 (use_macro={use_macro}) {k5_times(t_k5)}, "
+        f"plain {'macro walk' if use_macro else 'trace'} {p_ms:.3f} ms, {o.shape[0]} frame rays, "
+        f"sum(steps) {steps_sum}, executed events {events}, on {card_line()}")
     return kernel_entry(
         "bigtrace", "bigtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1348", launches, diffs[4], k_ms, p_ms,
         o.shape[0], hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick), steps_sum,
+        events if use_macro else None,
     )
 
 
@@ -617,6 +725,140 @@ def phase_bmtrace(dev):
                         steps_sum)
 
 
+def sparse_world(dev):
+    """``tests/test_pallas_bigtrace.py:500-531``'s 16384x512x16384 world at
+    factor 32, built from numpy: 512x16x512 chunks (8192 regions, 16 L2
+    words, L3 real), a floor pad with a small tower at the centre and one
+    far lone chunk, all on one shared full brick."""
+    import numpy as np
+    import torch
+
+    from voxelengine_tpu_torch.core.brickmap import BrickMap, pack_meta
+    from voxelengine_tpu_torch.core.layout import Layout
+
+    gx, gy, gz = 512, 16, 512
+    occ = np.zeros((gz, gy, gx), bool)  # [cz, cy, cx]
+    occ[248:265, 0, 248:265] = True
+    occ[254:257, 1:6, 254:257] = True
+    occ[40, 0, 40] = True
+    flat = torch.from_numpy(occ.reshape(-1)).to(dev)
+    full = pack_meta(torch.tensor(True), torch.zeros(3, dtype=torch.int32), torch.full((3,), 31, dtype=torch.int32))
+    return BrickMap(
+        meta=torch.where(flat, full.to(dev), 0).to(torch.int32),
+        brick_idx=torch.where(flat, 0, -1).to(torch.int32),
+        bricks=torch.full((1, 32**3 // 32), -1, dtype=torch.int32, device=dev),
+        grid_dims=(gx, gy, gz), factor=32, coarse_layout=Layout.LINEAR, brick_layout=Layout.TILED_LINEAR,
+        dense_slots=False,
+    )
+
+
+def sparse_rays(n, dev):
+    """Near rays down at the floor pad, horizon rays from a far corner at
+    the tower (they cross ~300 empty chunks), sky rays
+    (``tests/test_pallas_bigtrace.py:550-577``), from a numpy seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(12)
+    kinds = rng.integers(0, 3, n)
+    o_near = np.stack([rng.uniform(7940, 8480, n), rng.uniform(80, 400, n), rng.uniform(7940, 8480, n)], -1)
+    d_near = np.stack([rng.normal(0, 0.3, n), -np.ones(n), rng.normal(0, 0.3, n)], -1)
+    o_far = np.stack([rng.uniform(800, 2000, n), rng.uniform(100, 480, n), rng.uniform(800, 2000, n)], -1)
+    d_far = np.asarray([8192.0, 120.0, 8192.0]) - o_far
+    d_sky = np.stack([rng.normal(0, 0.2, n), np.ones(n), rng.normal(0, 0.2, n)], -1)
+    o = np.where((kinds == 0)[:, None], o_near, o_far)
+    d = np.where((kinds == 0)[:, None], d_near, np.where((kinds == 1)[:, None], d_far, d_sky))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(o.astype(np.float32)).to(dev), torch.from_numpy(d.astype(np.float32)).to(dev))
+
+
+def warp_max(x):
+    """Each ray's warp (32 consecutive rays) maximum."""
+    import torch
+
+    n = x.shape[0]
+    padded = torch.cat([x, x.new_zeros((-n) % 32)])
+    return padded.reshape(-1, 32).amax(dim=1).repeat_interleave(32)[:n]
+
+
+def phase_sparse(dev):
+    """Phase 10: K1 (macro off and on) and K5 on the sparse 16k world;
+    returns K5's record."""
+    import torch
+
+    from voxelengine_tpu_torch.config import MAX_STEPS
+    from voxelengine_tpu_torch.kernels import bigtrace, rrtrace
+    from voxelengine_tpu_torch.ops.bigtrace import (
+        make_line_table,
+        materialize_brick_lines,
+        trace_brickmap_hbm,
+        trace_brickmap_hbm_rr,
+        trace_brickmap_lt,
+    )
+    from voxelengine_tpu_torch.ops.trace import trace_brickmap
+
+    t0 = time.perf_counter()
+    bm = sparse_world(dev)
+    lt = materialize_brick_lines(bm, make_line_table(bm))
+    torch.cuda.synchronize()
+    tables = sum(t.numel() * 4 for t in (bm.meta, bm.brick_idx, bm.bricks, lt.region_lines, lt.macro, lt.macro2,
+                                         lt.brick_lines))
+    say(f"sparse world: 16384x512x16384 f32 (512x16x512 chunks, {lt.num_regions} regions, 512 L2 super-regions "
+        f"in 16 words, 32 L3 blocks in 1 word), {tables / 1e6:.1f} MB of tables, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    if not (lt.macro2 != -1).all():
+        raise SystemExit("sparse world: L2/L3 should be real (no all-occupied words)")
+    o, d = sparse_rays(SPARSE_RAYS, dev)
+    ms = MAX_STEPS
+    n = o.shape[0]
+
+    plain_off = trace_brickmap(bm, o, d, ms)
+    plain_on, pdg = trace_brickmap_lt(bm, lt, o, d, ms, diag=True)
+    hits = int(plain_on.hit.sum())
+    k1_off = trace_brickmap_hbm(bm, lt, o, d, ms, use_macro=False)
+    check_diffs("sparse world: K1 macro off vs plain trace_brickmap", compare(k1_off, plain_off), n, hits)
+    k1_on = trace_brickmap_hbm(bm, lt, o, d, ms)
+    check_diffs("sparse world: K1 macro on vs plain macro walk", compare(k1_on, plain_on), n, hits)
+    rrtrace.launches = 0  # K5's path: trace_brickmap_hbm_rr on this batch
+    k5 = trace_brickmap_hbm_rr(bm, lt, o, d, ms)
+    torch.cuda.synchronize()
+    k5_launches = rrtrace.launches
+    if k5_launches != 1:
+        raise SystemExit(f"trace_brickmap_hbm_rr launched K5 {k5_launches} times, not once")
+    k5_diffs = compare(k5, plain_on)
+    check_diffs("sparse world: K5 vs plain macro walk", k5_diffs, n, hits)
+    check_diffs("sparse world: K1 macro on vs K5", compare(k1_on, k5), n, hits)
+    chunk = compare(k1_on, plain_off)
+    say(f"sparse world: K1 macro on vs the chunk-by-chunk trace_brickmap: hit diffs {chunk[0]}, "
+        f"steps diffs {chunk[1]}, normal diffs {chunk[2]}, position diffs {chunk[3]}")
+
+    res, iters, phases = trace_brickmap_hbm(bm, lt, o, d, ms, return_iters=True, return_phases=True)
+    check_diffs("sparse world: K1 diag build vs the production build", compare(res, k1_on), n, hits)
+    check_diag("sparse world", phases, iters, pdg)
+    events = phase_counts(phases, "sparse world")
+    if int(phases["mskip"].sum()) <= 0:
+        raise SystemExit("sparse world: no macro skip fired")
+    warp_iters_line(iters, pdg[-1], k1_on.steps, "sparse world")
+
+    args, kw = line_kernel_args(bm, lt, o, d, ms)
+    t_off = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
+    t_on = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=True, **kw), repeats=10)
+    t_k5 = {b: cuda_ms(lambda: rrtrace.rrtrace(*args, use_macro=True, batch=b, **kw), repeats=10)
+            for b in K5_BATCHES}
+    p_off = cuda_ms(lambda: trace_brickmap(bm, o, d, ms), repeats=1)
+    p_on = cuda_ms(lambda: trace_brickmap_lt(bm, lt, o, d, ms), repeats=1)
+    steps_sum = int(k1_on.steps.sum())
+    say(f"times: sparse world, {n} rays: K1 macro off {t_off:.3f} ms, K1 macro on {t_on:.3f} ms, K5 {k5_times(t_k5)}, "
+        f"plain trace_brickmap {p_off:.3f} ms, plain macro walk {p_on:.3f} ms, sum(steps) {steps_sum}, "
+        f"executed events {events} (macro off: sum(steps) {int(plain_off.steps.sum())}), on {card_line()}")
+    return kernel_entry(
+        "rrtrace", "rrtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1694", k5_launches, k5_diffs[4],
+        t_k5[K5_BATCHES[0]],
+        p_on, n, hit_table_bytes(plain_on, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick),
+        steps_sum, events,
+    )
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--world", choices=sorted(WORLDS), default="demo",
@@ -642,6 +884,7 @@ def main(argv=None):
     err = phase_dense_vs_plain(dev)
     kernels += phase_dense_path(dev, err)
     kernels.append(phase_bmtrace(dev))
+    kernels.append(phase_sparse(dev))
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise SystemExit(f"kernels never launched on their path: {idle}")

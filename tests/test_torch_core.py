@@ -49,10 +49,10 @@ def test_config_constants_and_enums_match():
 
 def test_render_config_keeps_the_reference_fields():
     t, j = tcfg.RenderConfig(), jcfg.RenderConfig()
-    tuned_for_tpu = {"trace_tile", "trace_slots", "trace_shortlist", "trace_stage_steps",
-                     "trace_tail_frac", "staged_trace", "stage_iters", "tail_frac", "stage_schedule"}
-    # tune views and the kernel's macro skip levels, not ported yet
-    not_yet = {"reflectivity", "debug_pos_mod", "trace_use_macro"}
+    tuned_for_tpu = {"trace_tile", "trace_slots", "trace_shortlist", "staged_trace", "stage_iters", "tail_frac",
+                     "stage_schedule"}
+    # tune views not ported yet
+    not_yet = {"reflectivity", "debug_pos_mod"}
     tf = {f.name for f in t.__dataclass_fields__.values()}
     jf = {f.name for f in j.__dataclass_fields__.values()}
     assert tf == jf - tuned_for_tpu - not_yet
@@ -144,3 +144,28 @@ def test_brickmap_from_numpy_takes_save_world_keys():
                                     region_dims=lt.region_dims), device="cpu")
     assert tl.region_dims == lt.region_dims and tl.brick_lines is None
     np.testing.assert_array_equal(tl.region_lines.numpy(), np.asarray(lt.region_lines))
+
+
+def test_profiling_utilities_match_jax():
+    """``utils/profiling.py``: the same EMA frame timer and ray statistics
+    as the JAX module, and a ``timed`` bracket that needs no card on the CPU."""
+    from voxelengine_tpu.utils import profiling as jprof
+    from voxelengine_tpu_torch.utils import profiling as tprof
+
+    for mod in (tprof, jprof):
+        s = mod.TraceStats()
+        s.record(1_000_000, 10.0, 5_000_000)
+        s.record(500_000, 5.0, 1_000_000)
+        assert (s.rays, s.total_ms, s.total_steps) == (1_500_000, 15.0, 6_000_000)
+        assert np.isclose(s.mrays_per_s, 100.0) and np.isclose(s.avg_steps, 4.0)
+        t = mod.FrameTimer(alpha=0.5)
+        assert t.fps == 0.0 and t.tick() == 0.0
+        t.tick()
+        t.tick()
+        assert t.frames == 3 and t.ema_ms >= 0.0
+    sink = {}
+    with tprof.timed("build", sink, verbose=False, device="cpu"):
+        torch.ones(8).sum()
+    with tprof.timed("host", sink, verbose=False):
+        pass
+    assert set(sink) == {"build", "host"} and all(v >= 0.0 for v in sink.values())

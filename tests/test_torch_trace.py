@@ -39,7 +39,7 @@ import torch
 from voxelengine_tpu_torch.core.layout import Layout
 from voxelengine_tpu_torch.io.interop import brickmap_from_numpy
 from voxelengine_tpu_torch.ops.aabb import ray_aabb
-from voxelengine_tpu_torch.ops.bigtrace import brick_lines_view, make_line_table, trace_brickmap_hbm
+from voxelengine_tpu_torch.ops.bigtrace import brick_lines_view, make_line_table, trace_brickmap_hbm, trace_brickmap_lt
 from voxelengine_tpu_torch.ops.trace import _edge_pad, _normalize, _ray_setup, trace_brickmap
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -219,7 +219,7 @@ def test_trace_brickmap_hbm_on_cpu_is_the_plain_trace(ref):
         assert torch.equal(x, y)
 
 
-def _host_trace(bm, origins, rays, max_steps):
+def _host_trace(bm, origins, rays, max_steps, use_macro=False):
     """The line-table trace through the g++ build of csrc/dda.cuh."""
     from voxelengine_tpu_torch.kernels import build
 
@@ -234,12 +234,12 @@ def _host_trace(bm, origins, rays, max_steps):
     flags = torch.empty(n, dtype=torch.int32)
     pos, nrm = torch.empty(n, 3), torch.empty(n, 3)
     steps = torch.empty(n, dtype=torch.int32)
-    (gx, gy, gz), (rx, ry, _) = bm.grid_dims, lt.region_dims
+    (gx, gy, gz), (rx, ry, rz) = bm.grid_dims, lt.region_dims
     lib.vx_trace_host(
         start_c.data_ptr(), d.data_ptr(), active.data_ptr(), pad.data_ptr(),
-        lt.region_lines.data_ptr(), bl.data_ptr(), n, gx, gy, gz, rx, ry,
-        bm.factor, bm.words_per_brick, max_steps, bm.brick_layout.value, 3 * max_steps + 64,
-        flags.data_ptr(), pos.data_ptr(), nrm.data_ptr(), steps.data_ptr(),
+        lt.region_lines.data_ptr(), bl.data_ptr(), lt.macro.data_ptr(), lt.macro2.data_ptr(), n, gx, gy, gz,
+        rx, ry, rz, bm.factor, bm.words_per_brick, max_steps, bm.brick_layout.value, 3 * max_steps + 64,
+        int(use_macro), flags.data_ptr(), pos.data_ptr(), nrm.data_ptr(), steps.data_ptr(), None,
     )
     imm = ((flags & 2) == 2)[:, None]
     pos = torch.where(imm, start_c * float(bm.factor), pos)
@@ -269,6 +269,24 @@ def test_host_build_of_kernel_step_matches_plain_trace(ref, host_build, name):
     assert torch.equal(steps, want.steps)
     assert torch.equal(pos[hit], want.position[hit])
     assert torch.equal(nrm[hit], want.normal[hit])
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["terrain"])
+def test_host_build_macro_route_matches_plain_macro_walk(ref, host_build, name):
+    """The macro-on route of the line-table cases: csrc/dda.cuh with its
+    macro skip levels, built for the host, == the plain macro walk, bit for
+    bit; and on these worlds both equal the chunk-by-chunk walk (a macro
+    skip re-seeds tMax, so an ulp could part them: none does here)."""
+    spec = CASES.get(name)
+    max_steps = spec[7] if spec else 512
+    bm = _bm(ref, name)
+    o, d = torch.from_numpy(ref[f"{name}/origins"]), torch.from_numpy(ref[f"{name}/rays"])
+    want = trace_brickmap_lt(bm, make_line_table(bm), o, d, max_steps)
+    assert all(torch.equal(a, b) for a, b in zip(trace_brickmap_hbm(bm, make_line_table(bm), o, d, max_steps), want))
+    hit, pos, nrm, steps = _host_trace(bm, o, d, max_steps, use_macro=True)
+    assert torch.equal(hit, want.hit) and torch.equal(steps, want.steps)
+    assert torch.equal(pos[hit], want.position[hit]) and torch.equal(nrm[hit], want.normal[hit])
+    _assert_trace_equal(want, ref, name)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -329,20 +347,24 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_bigtrace_kernel_matches_plain_trace_on_card(cuda_device, name):
-    """K1 on the card == the plain torch trace on the card, bit for bit."""
+    """K1 on the card == its plain versions on the card, bit for bit: the
+    chunk-by-chunk trace with the macro levels off, the macro walk with them on."""
     from voxelengine_tpu_torch.kernels import bigtrace
 
     spec = CASES[name]
     bm, o, d = _port_world(spec, list(CASES).index(name), cuda_device)
+    lt = make_line_table(bm)
     before = bigtrace.launches
-    got = trace_brickmap_hbm(bm, make_line_table(bm), o, d, spec[7])
-    want = trace_brickmap(bm, o, d, spec[7])
+    for got, want in (
+        (trace_brickmap_hbm(bm, lt, o, d, spec[7], use_macro=False), trace_brickmap(bm, o, d, spec[7])),
+        (trace_brickmap_hbm(bm, lt, o, d, spec[7]), trace_brickmap_lt(bm, lt, o, d, spec[7])),
+    ):
+        assert torch.equal(got.hit, want.hit)
+        assert torch.equal(got.steps, want.steps)
+        assert torch.equal(got.position[got.hit], want.position[want.hit])
+        assert torch.equal(got.normal[got.hit], want.normal[want.hit])
     torch.cuda.synchronize()
-    assert bigtrace.launches == before + 1
-    assert torch.equal(got.hit, want.hit)
-    assert torch.equal(got.steps, want.steps)
-    assert torch.equal(got.position[got.hit], want.position[want.hit])
-    assert torch.equal(got.normal[got.hit], want.normal[want.hit])
+    assert bigtrace.launches == before + 2
 
 
 if __name__ == "__main__":

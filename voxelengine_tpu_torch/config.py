@@ -7,12 +7,11 @@ card; the CPU is used only when the caller names it.
 
 Left out of :class:`RenderConfig` on purpose: the knobs that only tune the
 TPU kernel's VMEM line cache or the XLA staging (``trace_tile``,
-``trace_slots``, ``trace_shortlist``, ``trace_stage_steps``,
-``trace_tail_frac``, ``staged_trace``, ``stage_iters``, ``tail_frac``,
-``stage_schedule``).  The Hopper traversal has no line cache and no
-straggler staging, so they have nothing to tune here.  ``reflectivity``
-and ``debug_pos_mod`` come with the reflection and DEBUG views they tune,
-``trace_use_macro`` with the Hopper kernel's macro skip levels.
+``trace_slots``, ``trace_shortlist``, ``staged_trace``, ``stage_iters``,
+``tail_frac``, ``stage_schedule``).  The Hopper traversal has no line cache
+and the XLA staging has no counterpart, so they have nothing to tune here.
+``reflectivity`` and ``debug_pos_mod`` come with the reflection and DEBUG
+views they tune.
 """
 
 from __future__ import annotations
@@ -89,6 +88,15 @@ class RenderConfig:
     ao_samples: int = 0
     reflections: bool = False
     crosshair: bool = True  # Renderer.cu:260-268
+    # the line-table traversal's macro skip levels (L1/L2/L3); a renderer
+    # can turn them off where render.frame.probe_use_macro sees no skip
+    # (results are the same either way)
+    trace_use_macro: bool = True
     # order rays as ~32x32 pixel blocks so neighbouring threads share
     # table lines in L1/L2
     tile_order: bool = False
+    # staged line-table trace (ops.bigtrace.trace_brickmap_hbm_staged):
+    # first-pass step budget (0 = one launch at max_steps) and the tail
+    # buffer's divisor; never truncates
+    trace_stage_steps: int = 0
+    trace_tail_frac: int = 8

@@ -1,27 +1,34 @@
-// Line-table brickmap traversal for Hopper (sm_90a).
+// Line-table brickmap traversal for Hopper (sm_90a): K1.
 //
 // Replaces voxelengine_tpu/ops/pallas_bigtrace.py::_bigtrace_kernel, the TPU
 // kernel of trace_brickmap_hbm, and computes the same function: per ray,
-// the two-level brickmap DDA of ops/trace.py::trace_brickmap over the line
-// table (meta and slot words in region lines, brick words in brick lines),
-// with flags = hit | hit_imm << 1 and steps = max_steps for a ray still
-// active at the iteration cap.
+// the two-level brickmap DDA over the line table (meta and slot words in
+// region lines, brick words in brick lines), with flags = hit | hit_imm << 1
+// and steps = max_steps for a ray still active at the iteration cap.  With
+// use_macro it takes the TPU kernel's L1/L2/L3 macro skips over empty
+// regions (dda.cuh, MACRO); with a diag buffer it is the TPU kernel's
+// measurement build (return_iters / return_phases): the 10 phase counters
+// per ray, and the iteration count of the ray's warp, the loop count of its
+// longest lane, where the TPU reports its tile's lockstep iterations
+// (pallas_bigtrace.py:1514).  Four instantiations, (macro, diag) each on or
+// off; the production ones (diag off) keep their instruction streams.
 //
 // Design: one thread per ray, a plain loop per thread (dda.cuh), tables
-// read from global memory through L1/L2.  None of the TPU kernel's
-// machinery is carried over: no line cache, no voted DMA, no select-chain
-// fetch, no deferred descend, no lockstep tile.  The macro skip levels are
-// not here yet; walking chunk by chunk gives identical outputs.
+// read from global memory through L1/L2; the 36 L2/L3 words and the L1
+// words are plain global loads too (they stay in L1).  None of the TPU
+// kernel's machinery is carried over: no line cache, no voted DMA, no
+// select-chain fetch, no deferred descend, no lockstep tile.
 //
 // Least time: the bytes of the rays (40 B in, 32 B out per ray) plus the
 // table bytes the rays touch (at least the region entry and the brick word
-// of each distinct hit) against the DDA work, sum(steps) events.
+// of each distinct hit) against the DDA work, one event per iteration.
 // What bounds it on this card: every DDA event is a dependent 4-byte load
 // (meta word, then brick word) whose latency the thread waits out, and the
 // 32 rays of a warp diverge in path length and in phase (coarse / fine).
 // What the design does about that: nothing yet beyond L1/L2 reuse, which
 // the ray order given by render_frame's tile_order (32x32-pixel blocks, so
-// neighbouring threads walk neighbouring chunks) makes likely.
+// neighbouring threads walk neighbouring chunks) makes likely; K5
+// (rrtrace.cu) retires rays by warp instead of by block.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC  (kernels/build.py).
@@ -33,38 +40,70 @@
 
 namespace {
 
+template <bool MACRO, bool DIAG>
 __global__ void __launch_bounds__(128)
 bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n,
                 const float* __restrict__ start, const float* __restrict__ dir,
                 const int* __restrict__ active, const int* __restrict__ pad,
                 int* __restrict__ flags, float* __restrict__ pos,
-                float* __restrict__ normal, int* __restrict__ steps) {
+                float* __restrict__ normal, int* __restrict__ steps,
+                int* __restrict__ diag) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const vx::TraceResult r = vx::trace_ray(
-      P, F,
-      start[3 * i], start[3 * i + 1], start[3 * i + 2],
-      dir[3 * i], dir[3 * i + 1], dir[3 * i + 2],
-      active[i], pad[3 * i], pad[3 * i + 1], pad[3 * i + 2]);
-  flags[i] = r.flags;
-  pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
-  normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
-  steps[i] = r.steps;
+  if constexpr (!DIAG) {
+    if (i >= n) return;
+  }
+  int dg[vx::D_COUNT] = {};
+  vx::TraceResult r = {};
+  if (i < n) {
+    r = vx::trace_ray<MACRO, DIAG>(
+        P, F,
+        start[3 * i], start[3 * i + 1], start[3 * i + 2],
+        dir[3 * i], dir[3 * i + 1], dir[3 * i + 2],
+        active[i], pad[3 * i], pad[3 * i + 1], pad[3 * i + 2], dg);
+    flags[i] = r.flags;
+    pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
+    normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
+    steps[i] = r.steps;
+  }
+  if constexpr (DIAG) {
+    // every lane of the warp is here (no early return in this build)
+    const int warp_iters = __reduce_max_sync(0xffffffffu, dg[vx::D_ITERS]);
+    if (i < n) {
+      for (int k = 0; k < vx::D_ITERS; ++k) diag[(long long)k * n + i] = dg[k];
+      diag[(long long)vx::D_ITERS * n + i] = warp_iters;
+    }
+  }
+}
+
+template <bool MACRO, bool DIAG>
+int launch(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, const float* start,
+           const float* dir, const int* active, const int* pad, int* flags, float* pos,
+           float* normal, int* steps, int* diag, cudaStream_t stream) {
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  bigtrace_kernel<MACRO, DIAG><<<blocks, threads, 0, stream>>>(
+      P, F, n, start, dir, active, pad, flags, pos, normal, steps, diag);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
+// `diag` is null, or int32[D_COUNT, n]: the 10 phase counters, then the
+// warp's iteration count.
 extern "C" int vx_bigtrace(const float* start, const float* dir, const int* active,
                            const int* pad, const int* region_lines, const int* brick_lines,
-                           int n, int gx, int gy, int gz, int rx, int ry, int factor,
-                           int wpb, int max_steps, int brick_layout, int iter_limit,
-                           int* flags, float* pos, float* normal, int* steps, void* stream) {
+                           const int* macro, const int* macro2, int n, int gx, int gy, int gz,
+                           int rx, int ry, int rz, int factor, int wpb, int max_steps,
+                           int brick_layout, int iter_limit, int use_macro, int* flags,
+                           float* pos, float* normal, int* steps, int* diag, void* stream) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
-  const vx::LineTableFetch F = {region_lines, brick_lines, rx, ry, wpb};
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  bigtrace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, F, n, start, dir, active, pad, flags, pos, normal, steps);
-  return static_cast<int>(cudaGetLastError());
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (use_macro) {
+    return diag ? launch<true, true>(P, F, n, start, dir, active, pad, flags, pos, normal, steps, diag, s)
+                : launch<true, false>(P, F, n, start, dir, active, pad, flags, pos, normal, steps, diag, s);
+  }
+  return diag ? launch<false, true>(P, F, n, start, dir, active, pad, flags, pos, normal, steps, diag, s)
+              : launch<false, false>(P, F, n, start, dir, active, pad, flags, pos, normal, steps, diag, s);
 }

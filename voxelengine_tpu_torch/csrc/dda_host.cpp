@@ -3,6 +3,8 @@
 // hold it against the plain torch traces before the kernels ever run on the
 // card.  One entry per kernel, taking its launcher's arguments minus the
 // stream.
+#include <cstring>
+
 #include "dda.cuh"
 #include "grid_dda.cuh"
 
@@ -50,15 +52,62 @@ int grid_rays(const vx::GridParams& P, const Fetch& F, int n, const float* start
 
 }  // namespace
 
-// K1's step (bigtrace.cu::vx_bigtrace).
+// K1's step (bigtrace.cu::vx_bigtrace).  `diag` as the kernel's, except
+// that the iteration count is the ray's own (there is no warp here).
 extern "C" int vx_trace_host(const float* start, const float* dir, const int* active,
                              const int* pad, const int* region_lines, const int* brick_lines,
-                             int n, int gx, int gy, int gz, int rx, int ry, int factor,
-                             int wpb, int max_steps, int brick_layout, int iter_limit,
-                             int* flags, float* pos, float* normal, int* steps) {
+                             const int* macro, const int* macro2, int n, int gx, int gy, int gz,
+                             int rx, int ry, int rz, int factor, int wpb, int max_steps,
+                             int brick_layout, int iter_limit, int use_macro, int* flags,
+                             float* pos, float* normal, int* steps, int* diag) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
-  const vx::LineTableFetch F = {region_lines, brick_lines, rx, ry, wpb};
-  return brickmap_rays(P, F, n, start, dir, active, pad, flags, pos, normal, steps);
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  if (diag == nullptr) {
+    if (use_macro)
+      return for_rays(n, start, dir, active, pad, flags, pos, normal, steps,
+                      [&](const float* s, const float* d, int a, const int* p) {
+                        return vx::trace_ray<true>(P, F, s[0], s[1], s[2], d[0], d[1], d[2], a,
+                                                   p[0], p[1], p[2]);
+                      });
+    return brickmap_rays(P, F, n, start, dir, active, pad, flags, pos, normal, steps);
+  }
+  int i = 0;
+  return for_rays(n, start, dir, active, pad, flags, pos, normal, steps,
+                  [&](const float* s, const float* d, int a, const int* p) {
+                    int dg[vx::D_COUNT];
+                    std::memset(dg, 0, sizeof dg);
+                    const auto r = use_macro
+                        ? vx::trace_ray<true, true>(P, F, s[0], s[1], s[2], d[0], d[1], d[2], a,
+                                                    p[0], p[1], p[2], dg)
+                        : vx::trace_ray<false, true>(P, F, s[0], s[1], s[2], d[0], d[1], d[2], a,
+                                                     p[0], p[1], p[2], dg);
+                    for (int k = 0; k < vx::D_COUNT; ++k) diag[(long long)k * n + i] = dg[k];
+                    ++i;
+                    return r;
+                  });
+}
+
+// K5's step (rrtrace.cu::vx_rrtrace): the work queue taken in order, a
+// batch at a time; each ray is traced as K1 traces it.  `counter` (the
+// kernel's work-counter scratch) is not used.
+extern "C" int vx_rrtrace_host(const float* start, const float* dir, const int* active,
+                               const int* pad, const int* region_lines, const int* brick_lines,
+                               const int* macro, const int* macro2, int n, int gx, int gy,
+                               int gz, int rx, int ry, int rz, int factor, int wpb,
+                               int max_steps, int brick_layout, int iter_limit, int use_macro,
+                               int batch, int* counter, int* flags, float* pos, float* normal,
+                               int* steps) {
+  if (batch <= 0 || batch % 32) return 1;
+  for (int base = 0; base < n; base += batch) {
+    const int m = n - base < batch ? n - base : batch;
+    const int err = vx_trace_host(start + 3 * base, dir + 3 * base, active + base, pad + 3 * base,
+                                  region_lines, brick_lines, macro, macro2, m, gx, gy, gz, rx,
+                                  ry, rz, factor, wpb, max_steps, brick_layout, iter_limit,
+                                  use_macro, flags + base, pos + 3 * base, normal + 3 * base,
+                                  steps + base, nullptr);
+    if (err) return err;
+  }
+  return 0;
 }
 
 // K4's step (bmtrace.cu::vx_trace_brickmap_dense).

@@ -33,16 +33,22 @@ NVCC_FLAGS = (
 HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 
 # library name -> source; each CUDA library holds the kernels of one source
-KERNEL_SOURCES = {"bigtrace": "bigtrace.cu", "gridtrace": "gridtrace.cu", "bmtrace": "bmtrace.cu"}
+KERNEL_SOURCES = {
+    "bigtrace": "bigtrace.cu", "rrtrace": "rrtrace.cu", "gridtrace": "gridtrace.cu", "bmtrace": "bmtrace.cu",
+}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _RAYS = [_P] * 4  # start, dir, active, pad
 _OUTS = [_P] * 4  # flags (or hit), pos, normal, steps
 # C signatures, stream excluded (the host builds take none)
+_LINE_TABLE = [_P] * 4  # region_lines, brick_lines, macro, macro2
+# n, gx, gy, gz, rx, ry, rz, factor, wpb, max_steps, brick_layout, iter_limit, use_macro
+_LINE_TABLE_INTS = [_I] * 13
 SIGNATURES = {
-    # region_lines, brick_lines; n, gx, gy, gz, rx, ry, factor, wpb, max_steps,
-    # brick_layout, iter_limit
-    "vx_bigtrace": _RAYS + [_P] * 2 + [_I] * 11 + _OUTS,
+    # ... outputs, diag (null, or int32[11, n])
+    "vx_bigtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
+    # ... batch, counter (int32 scratch), outputs
+    "vx_rrtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P] + _OUTS,
     # words; n, X, Y, Z, layout, max_steps
     "vx_trace_grid": _RAYS + [_P] + [_I] * 6 + _OUTS,
     # limbs, plane; n, X, Y, Z, layout, max_steps
@@ -53,6 +59,7 @@ SIGNATURES = {
 }
 HOST_ENTRIES = {  # host-build entry -> the kernel launcher it mirrors
     "vx_trace_host": "vx_bigtrace",
+    "vx_rrtrace_host": "vx_rrtrace",
     "vx_trace_grid_host": "vx_trace_grid",
     "vx_trace_grid_limbs_host": "vx_trace_grid_limbs",
     "vx_trace_brickmap_dense_host": "vx_trace_brickmap_dense",

@@ -2,12 +2,29 @@
 
 The world is kept as 4 KB *lines* of ``[8, 128]`` int32 words: one line per
 8x8x8-chunk *region* (512 packed meta words, then 512 brick-slot words),
-plus the brick words as lines of their own.  :func:`trace_brickmap_hbm`
-walks rays through these tables in the hand-written Hopper kernel
-(:mod:`voxelengine_tpu_torch.kernels.bigtrace`) when the rays lie on a
-CUDA device, and through the plain :func:`~voxelengine_tpu_torch.ops.trace.
-trace_brickmap` when they lie on the CPU.  Both give the same hits, steps,
-positions and normals.
+plus the brick words as lines of their own, and two macro occupancy levels
+(``macro``: one bit per region; ``macro2``: 4x1x4-region super-regions and
+16x1x16-region blocks).  Entry points, each launching a hand-written Hopper
+kernel for rays on a CUDA device and running its plain version for rays on
+the CPU:
+
+* :func:`trace_brickmap_hbm`: K1 (:mod:`voxelengine_tpu_torch.kernels.
+  bigtrace`), one thread a ray; with ``use_macro`` (the default, as in the
+  JAX package) rays in empty regions skip whole empty spans, and
+  ``return_iters``/``return_phases`` give the diagnostic counters;
+* :func:`trace_brickmap_hbm_rr`: K5 (:mod:`voxelengine_tpu_torch.kernels.
+  rrtrace`), the same function with a persistent grid and a work queue;
+* :func:`trace_brickmap_hbm_staged`: two K1 launches, a short-budget pass
+  and a full-budget retrace of the 128-ray rows that still have survivors.
+
+The plain versions are :func:`trace_brickmap_lt`, a torch state machine over
+the line table that takes the macro skips with the TPU kernel's expressions
+(``pallas_bigtrace.py::_trace_inner``) and counts its phases, and, with the
+macro levels off and no counters asked for,
+:func:`~voxelengine_tpu_torch.ops.trace.trace_brickmap`.  A macro skip
+re-seeds the coarse tMax from the cell across the span's face where the
+chunk-by-chunk walk accumulates it, so the two walks can differ by an ulp
+at a near-tie; the port follows the TPU kernel.
 """
 
 from __future__ import annotations
@@ -19,23 +36,40 @@ import torch
 
 from voxelengine_tpu_torch.config import MAX_STEPS
 from voxelengine_tpu_torch.core.bitgrid import pack_bits
-from voxelengine_tpu_torch.core.brickmap import BrickMap
+from voxelengine_tpu_torch.core.brickmap import BrickMap, unpack_meta
+from voxelengine_tpu_torch.core.exact import fdiv
 from voxelengine_tpu_torch.core.layout import Layout, sample_index
-from voxelengine_tpu_torch.ops.trace import TraceOut, _dims, _edge_pad, _ray_setup, kernel_result, trace_brickmap
+from voxelengine_tpu_torch.ops.aabb import ray_aabb
+from voxelengine_tpu_torch.ops.trace import (
+    _RESULT_KEYS,
+    INF,
+    TraceOut,
+    _advance,
+    _axis_pick3,
+    _dims,
+    _edge_pad,
+    _init_state,
+    _init_tmax,
+    _ray_setup,
+    _run_loop,
+    kernel_result,
+    trace_brickmap,
+)
 
+F32 = torch.float32
 I32 = torch.int32
 MACRO2_WORDS = 32  # L2 capacity: 1024 super-regions
 MACRO3_WORDS = 4  # L3 capacity: 128 16x1x16-region blocks
+# _trace_inner's diagnostic counters, in its order (pallas_bigtrace.py:1670-1671)
+PHASES = ("stall", "mskip", "cadv", "pend", "desc", "fstep", "step2", "asc", "xrun", "adjstall")
 
 
 @dataclasses.dataclass(frozen=True)
 class LineTable:
     """Line-table form of a brickmap (see module doc).
 
-    ``macro``/``macro2`` are the region / super-region occupancy bits of the
-    TPU kernel's macro skip levels.  They are built bit-exactly, but the
-    Hopper kernel does not read them yet: it walks chunk by chunk, which
-    gives the same results.
+    ``macro``/``macro2`` are the region / super-region / block occupancy
+    bits of the macro skip levels, bit-exact with the JAX package's.
     """
 
     region_lines: torch.Tensor  # int32[NR * 8, 128]
@@ -140,6 +174,223 @@ def make_line_table(bm: BrickMap) -> LineTable:
     )
 
 
+def _group_occ(lt: LineTable, rg, sh: int, base: int, budget: int):
+    """Occupancy bit of each region's (1 << sh) x 1 x (1 << sh)-region group
+    from the ``budget`` words at ``macro2[base]`` (L2: sh 2, L3: sh 4).
+    Words past the world's own count read as all occupied, as
+    ``_trace_inner``'s select chain reads them (``pallas_bigtrace.py:855-872``)."""
+    rx, ry, rz = lt.region_dims
+    gxn = -(-rx // (1 << sh))
+    nw = min(budget, -(-(gxn * ry * -(-rz // (1 << sh))) // 32))
+    g = (rg[:, 0] >> sh) + gxn * (rg[:, 1] + ry * (rg[:, 2] >> sh))
+    w = g >> 5
+    word = torch.where(w < nw, lt.macro2[base + torch.clamp(w, 0, budget - 1)], -1)
+    return ((word >> (g & 31)) & 1) == 1
+
+
+def _macro_skip(lt: LineTable, grid_dims, cl, rg, st):
+    """``_trace_inner``'s macro skip (``pallas_bigtrace.py:1064-1139``) for
+    every ray, as if its region were empty: returns ``(new coarse cell,
+    re-seeded tMax, exit time, L1 chunk distance)``."""
+    skip2 = ~_group_occ(lt, rg, 2, 0, MACRO2_WORDS)
+    skip3 = skip2 & ~_group_occ(lt, rg, 4, MACRO2_WORDS, MACRO3_WORDS)
+    # span corner and far faces from the clamped cell, clamped to the grid;
+    # y spans stay one region
+    sh = torch.where(skip3, 7, torch.where(skip2, 5, 3)).to(I32)[:, None]
+    sh = torch.cat([sh, torch.full_like(sh, 3), sh], dim=1)
+    lo = (cl >> sh) << sh
+    hi = torch.minimum(lo + (1 << sh), _dims(grid_dims, I32, cl.device))
+    s, d, sgn = st["start_c"], st["d"], st["step_sign"]
+    nb = torch.where(sgn > 0, hi, lo).to(F32)
+    rt = torch.where(d != 0.0, (nb - s) / d, INF)
+    ax, ay, az = _axis_pick3(rt[:, 0], rt[:, 1], rt[:, 2])
+    tc = torch.where(ax, rt[:, 0], torch.where(ay, rt[:, 1], rt[:, 2]))
+    m = s + tc[:, None] * d
+    axis = torch.stack([ax, ay, az], dim=1)
+    # stepped axis: the first cell across the face; others: floor, clamped
+    # into the span
+    floor_in = torch.clamp(m.to(I32) - (m < 0.0).to(I32), min=lo, max=hi - 1)
+    sk = torch.where(axis, torch.where(sgn > 0, hi, lo - 1), floor_in)
+    l1 = (sk - st["ccell"]).abs().sum(dim=1, dtype=I32)
+    return sk, _init_tmax(sk, s, d, sgn), tc, l1
+
+
+def _lt_step(bm: BrickMap, lt: LineTable, st, max_steps: int, use_macro: bool, diag: bool):
+    """One DDA event per active ray over the line table: a macro skip, a
+    coarse step, a descend, a fine step, an ascend or a hit (csrc/dda.cuh's
+    loop body), with the diag counters when ``diag``."""
+    dev = st["active"].device
+    f = bm.factor
+    rx, ry, _ = lt.region_dims
+    gdims = _dims(bm.grid_dims, I32, dev)
+    wpb = bm.words_per_brick
+    active, in_fine = st["active"], st["in_fine"]
+    ccell, fcell, d, start_c = st["ccell"], st["fcell"], st["d"], st["start_c"]
+    coarse_phase = active & ~in_fine
+    fine_phase = active & in_fine
+
+    # ---------------- coarse level ----------------
+    in_range_c = ((ccell >= 0) & (ccell < gdims + st["cpad"])).all(dim=-1)
+    cl = torch.clamp(ccell, min=torch.zeros_like(gdims), max=gdims - 1)
+    rg = cl >> 3
+    region = rg[:, 0] + rx * (rg[:, 1] + ry * rg[:, 2])
+    local = (cl[:, 0] & 7) + ((cl[:, 1] & 7) << 3) + ((cl[:, 2] & 7) << 6)
+    cidx = torch.where(active, region.long() * 1024 + local, 0)
+    lines = lt.region_lines.reshape(-1)
+    slot = torch.clamp_min(lines[cidx + 512], 0)
+    occ_c, bmn, bmx = unpack_meta(lines[cidx])
+    clf = cl.to(F32)
+    box_min = clf + fdiv(bmn.to(F32), float(f))
+    box_max = clf + fdiv(bmx.to(F32) + 1.0, float(f))
+    bhit, btmin, bpos, bnrm = ray_aabb(start_c, d, box_min, box_max)
+    if use_macro:
+        region_occ = ((lt.macro.reshape(-1)[region >> 5] >> (region & 31)) & 1) == 1
+        skip = coarse_phase & in_range_c & ~region_occ
+    else:
+        skip = torch.zeros_like(active)
+
+    occupied = in_range_c & occ_c & bhit & ~skip
+    descend = coarse_phase & occupied
+    coarse_miss = coarse_phase & ~in_range_c
+    coarse_adv = coarse_phase & in_range_c & ~occupied & ~skip
+
+    imm_new = (st["steps"] == 0) & (btmin <= 0.0)
+    entry_c = torch.where((btmin > 0.0)[:, None], bpos, start_c + d * st["centry_t"][:, None])
+    fstart_new = (entry_c - clf) * float(f)
+    fcell_new = fstart_new.to(I32)
+    ftmax_new = _init_tmax(fcell_new, fstart_new, d, st["step_sign"])
+    fdims = torch.full((3,), f, dtype=I32, device=dev)
+    fpad_new = _edge_pad(fcell_new, fdims, d)
+
+    # ---------------- fine level ----------------
+    in_range_f = ((fcell >= 0) & (fcell < fdims + st["fpad"])).all(dim=-1)
+    cl_f = torch.clamp(fcell, 0, f - 1)
+    bit = sample_index(cl_f[:, 0], cl_f[:, 1], cl_f[:, 2], f, f, bm.brick_layout)
+    bricks = (lt.brick_lines if lt.brick_lines is not None else brick_lines_view(bm)).reshape(-1)
+    word = bricks[torch.where(fine_phase, slot.long() * wpb + (bit >> 5), 0)]
+    occ_f = ((word >> (bit & 31)) & 1) == 1
+    fine_hit = fine_phase & in_range_f & occ_f
+    fine_try = fine_phase & in_range_f & ~occ_f
+    faxis, _, isect_f, fcell_adv, ftmax_adv, fnorm_adv = _advance(
+        fcell, st["ftmax"], st["tdelta"], st["step_sign"], st["fstart"], d
+    )
+    oob_f = ((isect_f < 0.0) | (isect_f > float(f))).any(dim=-1)
+    fine_step = fine_try & ~oob_f
+    ascend = (fine_phase & ~in_range_f) | (fine_try & oob_f)
+
+    # ------------- coarse advance (coarse_adv | ascend) or macro skip -------------
+    do_cadv = coarse_adv | ascend
+    _, tcross_c, _, ccell_adv, ctmax_adv, _ = _advance(
+        ccell, st["ctmax"], st["tdelta"], st["step_sign"], start_c, d
+    )
+    ccell_next = torch.where(do_cadv[:, None], ccell_adv, ccell)
+    ctmax_next = torch.where(do_cadv[:, None], ctmax_adv, st["ctmax"])
+    centry_next = torch.where(do_cadv, tcross_c, st["centry_t"])
+    new_steps = st["steps"] + (do_cadv | fine_step).to(I32)
+    if use_macro:
+        sk, sk_tmax, sk_t, l1 = _macro_skip(lt, bm.grid_dims, cl, rg, st)
+        ccell_next = torch.where(skip[:, None], sk, ccell_next)
+        ctmax_next = torch.where(skip[:, None], sk_tmax, ctmax_next)
+        centry_next = torch.where(skip, sk_t, centry_next)
+        new_steps = torch.where(skip, torch.clamp_max(st["steps"] + l1, max_steps), new_steps)
+
+    dc, fs = descend[:, None], fine_step[:, None]
+    hit_pos = st["fpos"] + (ccell * f).to(F32)
+    hit_nrm = torch.where((st["fsteps"] == 0)[:, None], st["cnorm"], st["fnorm"])
+    out = dict(st)
+    out.update(
+        active=active & ~fine_hit & ~coarse_miss & ~(new_steps >= max_steps),
+        in_fine=(in_fine | descend) & ~ascend & ~fine_hit,
+        hit=st["hit"] | fine_hit,
+        imm=torch.where(descend, imm_new, st["imm"]),
+        hit_imm=st["hit_imm"] | (fine_hit & (st["fsteps"] == 0) & st["imm"]),
+        steps=new_steps,
+        ccell=ccell_next,
+        ctmax=ctmax_next,
+        centry_t=centry_next,
+        fcell=torch.where(dc, fcell_new, torch.where(fs, fcell_adv, fcell)),
+        ftmax=torch.where(dc, ftmax_new, torch.where(fs, ftmax_adv, st["ftmax"])),
+        fstart=torch.where(dc, fstart_new, st["fstart"]),
+        fpos=torch.where(dc, fstart_new, torch.where(fs, isect_f, st["fpos"])),
+        fpad=torch.where(dc, fpad_new, st["fpad"]),
+        fsteps=torch.where(descend, 0, st["fsteps"] + fine_step.to(I32)),
+        cnorm=torch.where(dc, bnrm, st["cnorm"]),
+        fnorm=torch.where(fs, fnorm_adv, st["fnorm"]),
+        pos_out=torch.where(fine_hit[:, None], hit_pos, st["pos_out"]),
+        norm_out=torch.where(fine_hit[:, None], hit_nrm, st["norm_out"]),
+    )
+    if diag:
+        # a fine step that _trace_inner would pair with the next one in the
+        # same iteration (double_step, pallas_bigtrace.py:1016-1051) counts
+        # fstep and step2; its partner counts nothing (csrc/dda.cuh)
+        in_range1 = ((fcell_adv >= 0) & (fcell_adv < fdims + st["fpad"])).all(dim=-1)
+        cl1 = torch.clamp(fcell_adv, 0, f - 1)
+        bit1 = sample_index(cl1[:, 0], cl1[:, 1], cl1[:, 2], f, f, bm.brick_layout)
+        occ1 = ((word >> (bit1 & 31)) & 1) == 1
+        _, _, isect2, _, _, _ = _advance(fcell_adv, ftmax_adv, st["tdelta"], st["step_sign"], st["fstart"], d)
+        oob2 = ((isect2 < 0.0) | (isect2 > float(f))).any(dim=-1)
+        pair = in_range1 & ((bit1 >> 5) == (bit >> 5)) & ~occ1 & ~oob2
+        counted = fine_step & ~st["paired"]
+        zero = torch.zeros_like(active)
+        events = (zero, skip, coarse_adv, descend, descend, counted, counted & pair, ascend,
+                  counted & faxis[:, 0] & (word == 0), zero, active)
+        out["diag"] = st["diag"] + torch.stack(events, dim=1).to(I32)
+        out["paired"] = torch.where(fine_step, counted & pair, st["paired"])
+    return out
+
+
+def trace_brickmap_lt(
+    bm: BrickMap,
+    lt: LineTable,
+    origins: torch.Tensor,
+    rays: torch.Tensor,
+    max_steps: int = MAX_STEPS,
+    use_macro: bool = True,
+    diag: bool = False,
+):
+    """Plain version of K1 and K5: the two-level trace through the line
+    table, one DDA event per ray per iteration (``csrc/dda.cuh``'s loop in
+    torch), with the macro skips when ``use_macro``.
+
+    Returns a :class:`TraceOut`; with ``diag`` also ``int32[11, N]``: the
+    :data:`PHASES` counters, then each ray's own iteration count.  Runs at
+    most ``3 * max_steps + 64`` iterations (K1's cap); a ray still active
+    there reports ``max_steps``.
+    """
+    st = _init_state(bm, origins, rays)
+    keys = _RESULT_KEYS + ("active",)
+    if diag:
+        st["diag"] = torch.zeros((origins.shape[0], len(PHASES) + 1), dtype=I32, device=origins.device)
+        st["paired"] = torch.zeros_like(st["active"])
+        keys += ("diag",)
+    res = _run_loop(lambda s, _: _lt_step(bm, lt, s, max_steps, use_macro, diag), st, 3 * max_steps + 64, keys)
+    imm = res["hit_imm"][:, None]
+    out = TraceOut(
+        hit=res["hit"],
+        position=torch.where(imm, st["start_c"] * float(bm.factor), res["pos_out"]),
+        normal=torch.where(imm, st["start_normal"], res["norm_out"]),
+        steps=torch.where(res["active"], max_steps, res["steps"]),
+    )
+    return (out, res["diag"].t().contiguous()) if diag else out
+
+
+def _kernel_rays(bm: BrickMap, origins, rays):
+    """Ray setup of the line-table kernels: ``(start_c, d, active, pad,
+    start_normal)``, contiguous, on the rays' device."""
+    gdims = _dims(bm.grid_dims, I32, origins.device)
+    d, start_c, start_normal, active0 = _ray_setup(bm.grid_dims, bm.factor, origins, rays)
+    pad = _edge_pad(start_c.to(I32), gdims, d)
+    return start_c.contiguous(), d.contiguous(), active0.to(I32), pad.contiguous(), start_normal
+
+
+def _kernel_tables(bm: BrickMap, lt: LineTable, max_steps: int, use_macro: bool):
+    """The line-table kernels' table arguments, positional and keyword."""
+    brick_lines = lt.brick_lines if lt.brick_lines is not None else brick_lines_view(bm)
+    kw = dict(grid_dims=bm.grid_dims, region_dims=lt.region_dims, factor=bm.factor, wpb=bm.words_per_brick,
+              max_steps=max_steps, brick_layout=bm.brick_layout, use_macro=use_macro)
+    return (lt.region_lines, brick_lines, lt.macro, lt.macro2), kw
+
+
 def trace_brickmap_hbm(
     bm: BrickMap,
     lt: LineTable,
@@ -147,30 +398,124 @@ def trace_brickmap_hbm(
     rays: torch.Tensor,
     max_steps: int = MAX_STEPS,
     use_macro: bool = True,
-) -> TraceOut:
+    return_iters: bool = False,
+    return_phases: bool = False,
+):
     """Two-level brickmap trace through the line table.
 
-    Same results as :func:`~voxelengine_tpu_torch.ops.trace.trace_brickmap`
-    (hits, positions, normals, steps).  Rays on a CUDA device run in the
-    Hopper kernel (one launch); rays on the CPU run the plain trace.
-    ``use_macro`` is accepted for parity with the TPU kernel: the skip
-    levels are not yet in the Hopper kernel, which walks chunk by chunk and
-    so gives the same results either way.
+    Hits, positions, normals and steps are the JAX package's
+    ``trace_brickmap_hbm``'s (macro skips charge the exact L1 chunk
+    distance).  Rays on a CUDA device run in K1 (one launch); rays on the
+    CPU run the plain :func:`trace_brickmap_lt`, or with ``use_macro=False``
+    and no counters the plain chunk-by-chunk
+    :func:`~voxelengine_tpu_torch.ops.trace.trace_brickmap`.
+
+    Returns the :class:`TraceOut`, as the JAX function does; with
+    ``return_iters`` also each ray's iteration count (on the card the loop
+    count of its warp's longest lane, where the TPU reports its tile's; on
+    the CPU the ray's own), with ``return_phases`` also a dict of the
+    :data:`PHASES` counters plus ``"iters"``: ``res``, ``(res, iters)``,
+    ``(res, phases)`` or ``(res, iters, phases)``.
     """
-    del use_macro  # see docstring
+    diag = return_iters or return_phases
     if not origins.is_cuda:
+        if use_macro or diag:
+            res = trace_brickmap_lt(bm, lt, origins, rays, max_steps, use_macro, diag)
+        else:
+            res = trace_brickmap(bm, origins, rays, max_steps)
+    else:
+        from voxelengine_tpu_torch.kernels import bigtrace as k1
+
+        start_c, d, active, pad, start_normal = _kernel_rays(bm, origins, rays)
+        tables, kw = _kernel_tables(bm, lt, max_steps, use_macro)
+        outs = k1.bigtrace(start_c, d, active, pad, *tables, diag=diag, **kw)
+        res = kernel_result(*outs[:4], start_c, start_normal, bm.factor)
+        if diag:
+            res = (res, outs[4])
+    if not diag:
+        return res
+    res, dg = res
+    phases = {k: dg[i] for i, k in enumerate(PHASES)}
+    phases["iters"] = dg[len(PHASES)]
+    if return_phases:
+        return (res, phases["iters"], phases) if return_iters else (res, phases)
+    return res, phases["iters"]
+
+
+def trace_brickmap_hbm_rr(
+    bm: BrickMap,
+    lt: LineTable,
+    origins: torch.Tensor,
+    rays: torch.Tensor,
+    max_steps: int = MAX_STEPS,
+    use_macro: bool = True,
+    batch: int = 32,
+) -> TraceOut:
+    """:func:`trace_brickmap_hbm`'s function through K5, the persistent-
+    threads kernel (counterpart of the JAX package's row-retirement
+    ``trace_brickmap_hbm_rr``): a grid sized to the card whose warps take
+    ``batch`` rays at a time (a positive multiple of 32) from a work queue.
+    Rays on the CPU run the same plain versions as
+    :func:`trace_brickmap_hbm`."""
+    if not origins.is_cuda:
+        if use_macro:
+            return trace_brickmap_lt(bm, lt, origins, rays, max_steps, use_macro)
         return trace_brickmap(bm, origins, rays, max_steps)
+    from voxelengine_tpu_torch.kernels import rrtrace as k5
 
-    from voxelengine_tpu_torch.kernels import bigtrace as k1
+    start_c, d, active, pad, start_normal = _kernel_rays(bm, origins, rays)
+    tables, kw = _kernel_tables(bm, lt, max_steps, use_macro)
+    outs = k5.rrtrace(start_c, d, active, pad, *tables, batch=batch, **kw)
+    return kernel_result(*outs, start_c, start_normal, bm.factor)
 
-    f = bm.factor
-    gdims = _dims(bm.grid_dims, I32, origins.device)
-    d, start_c, start_normal, active0 = _ray_setup(bm.grid_dims, f, origins, rays)
-    pad = _edge_pad(start_c.to(I32), gdims, d)
-    brick_lines = lt.brick_lines if lt.brick_lines is not None else brick_lines_view(bm)
-    flags, pos, nrm, steps = k1.bigtrace(
-        start_c, d, active0.to(I32), pad, lt.region_lines, brick_lines,
-        grid_dims=bm.grid_dims, region_dims=lt.region_dims, factor=f,
-        wpb=bm.words_per_brick, max_steps=max_steps, brick_layout=bm.brick_layout,
+
+def trace_brickmap_hbm_staged(
+    bm: BrickMap,
+    lt: LineTable,
+    origins: torch.Tensor,
+    rays: torch.Tensor,
+    max_steps: int = MAX_STEPS,
+    stage_steps: int = 128,
+    tail_frac: int = 8,
+    use_macro: bool = True,
+) -> TraceOut:
+    """Straggler-compacted trace (counterpart of the JAX package's
+    ``trace_brickmap_hbm_staged``, ``pallas_bigtrace.py:428-522``).
+
+    Traces every ray at the budget ``stage_steps``, then retraces from
+    scratch at ``max_steps`` every 128-ray row that holds a ray cut by that
+    budget (not hit, ``steps >= stage_steps``) and merges the rows back.  A
+    retrace follows the same path, so the result equals one
+    :func:`trace_brickmap_hbm` call at ``max_steps``.  When more than
+    ``ceil(rows / tail_frac)`` rows survive, everything is retraced at full
+    width instead (the overflow rescue).  Where JAX keeps the row count on
+    the device, this reads it on the host: one stream synchronisation.
+    """
+    n = origins.shape[0]
+    out1 = trace_brickmap_hbm(bm, lt, origins, rays, stage_steps, use_macro)
+    surv = ~out1.hit & (out1.steps >= stage_steps)
+    padn = (-n) % 128
+    nrows = (n + padn) // 128
+
+    def rows(a, fill=0):
+        if padn:
+            a = torch.cat([a, torch.full((padn,) + a.shape[1:], fill, dtype=a.dtype, device=a.device)])
+        return a.reshape((nrows, 128) + a.shape[1:])
+
+    row_idx = torch.nonzero(rows(surv).any(dim=1)).squeeze(1)  # the one host read
+    if row_idx.numel() == 0:
+        return out1
+    if row_idx.numel() > min(nrows, -(-nrows // tail_frac)):
+        return trace_brickmap_hbm(bm, lt, origins, rays, max_steps, use_macro)
+    out2 = trace_brickmap_hbm(
+        bm, lt, rows(origins)[row_idx].reshape(-1, 3),
+        rows(rays, 1.0)[row_idx].reshape(-1, 3),  # no zero-direction pad rays
+        max_steps, use_macro,
     )
-    return kernel_result(flags, pos, nrm, steps, start_c, start_normal, f)
+
+    def merge(full, tail):
+        full = rows(full).clone()
+        full[row_idx] = tail.reshape((-1, 128) + full.shape[2:])
+        return full.reshape((nrows * 128,) + full.shape[2:])[:n]
+
+    return TraceOut(*(merge(a, b) for a, b in zip(out1, out2)))

@@ -30,7 +30,7 @@ from voxelengine_tpu_torch.config import DebugView, Environment, Projection, Ren
 from voxelengine_tpu_torch.core.bitgrid import BitGrid
 from voxelengine_tpu_torch.core.brickmap import BrickMap
 from voxelengine_tpu_torch.core.exact import fdiv
-from voxelengine_tpu_torch.ops.bigtrace import LineTable, trace_brickmap_hbm
+from voxelengine_tpu_torch.ops.bigtrace import LineTable, trace_brickmap_hbm, trace_brickmap_hbm_staged
 from voxelengine_tpu_torch.ops.gridtrace import trace_grid_vpu
 from voxelengine_tpu_torch.ops.trace import TraceOut, trace_brickmap
 from voxelengine_tpu_torch.render import camera as cam
@@ -163,15 +163,33 @@ def shade_traced(
     return torch.clamp(color, 0.0, 1.0), write  # setPixelColor clamp (Renderer.cu:79-81)
 
 
+def probe_use_macro(bm: BrickMap, lt: LineTable, origins, dirs, cfg: RenderConfig, stride: int = 4) -> bool:
+    """Probe-informed macro selection (``voxelengine_tpu/render/frame.py:
+    224-242``): trace every ``stride``-th ray with the diagnostic counters
+    and return False when no macro skip fires.  Rays that never leave
+    occupied regions trace the same with the skip levels off, which then
+    only cost; the decision is a speed hint, never a change of results.
+    One host read."""
+    _, ph = trace_brickmap_hbm(bm, lt, origins[::stride], dirs[::stride], cfg.max_steps, return_phases=True)
+    return int(ph["mskip"].sum()) != 0
+
+
 def shade_pixels(
     bm: BrickMap, origins, dirs, px, py, py_r, origin, env: Environment, cfg: RenderConfig,
     lt: Optional[LineTable] = None,
 ):
     """Trace + shade a flat pixel batch; returns ``(color [N,3], write [N])``.
-    With ``lt`` the rays go through the line-table traversal (the Hopper
-    kernel for CUDA tensors), otherwise through the plain trace."""
-    if lt is not None:
-        out = trace_brickmap_hbm(bm, lt, origins, dirs, cfg.max_steps)
+    With ``lt`` the rays go through the line-table traversal (K1 for CUDA
+    tensors; with ``cfg.trace_stage_steps``, the staged trace), with the
+    macro skip levels when ``cfg.trace_use_macro``; otherwise through the
+    plain trace."""
+    if lt is not None and cfg.trace_stage_steps:
+        out = trace_brickmap_hbm_staged(
+            bm, lt, origins, dirs, cfg.max_steps, stage_steps=cfg.trace_stage_steps,
+            tail_frac=cfg.trace_tail_frac, use_macro=cfg.trace_use_macro,
+        )
+    elif lt is not None:
+        out = trace_brickmap_hbm(bm, lt, origins, dirs, cfg.max_steps, use_macro=cfg.trace_use_macro)
     else:
         out = trace_brickmap(bm, origins, dirs, cfg.max_steps)
     return shade_traced(out, origins, dirs, px, py, py_r, origin, env, cfg)
