@@ -34,9 +34,14 @@ Phases, one stdout line each (plus the kernels' build logs):
    K2 (``trace_grid_vpu``), K3 (``trace_grid_mxu``) and the plain trace,
    then a warm-up plus 8 chained 1280x720 checkerboard
    ``render_frame_dense`` frames and the exactness gate on the last frame;
+   K2 is timed on the batch and on the last frame's 460,800 rays (the
+   shape of its launches on the path, which its record gives);
 9. on-chip brickmap: K4 (``trace_brickmap_mxu``) against the plain trace on
    1,048,576 rays over a 128^3 terrain at factor 8 and on a small
-   TILED_MORTON world; times;
+   TILED_MORTON world (meta in shared memory), and on 65,536 rays over a
+   random 512x256x512 world at factor 8 whose 512 KB of meta exceed
+   shared memory (K4's global-meta instantiation); times, K4 also on the
+   128^3 rays sorted by direction octant, then start chunk;
 10. sparse world: the 16384x512x16384 world at factor 32 of
    ``tests/test_pallas_bigtrace.py:500-531`` (512x16x512 chunks, 8192
    regions, L2 and L3 real), 262,144 near, horizon and sky rays: K1 macro
@@ -45,7 +50,8 @@ Phases, one stdout line each (plus the kernels' build logs):
    must be > 0) against the plain walk's; times.
 
 Each kernel's path (phase 5 for K1, the frames of phase 8 for K2, the
-phase-8 batch for K3, the phase-9 batch for K4, the phase-10 batch for K5)
+phase-8 batch for K3, the phase-9 128^3 batch for K4 with shared meta and
+its 512x256x512 batch for K4 with global meta, the phase-10 batch for K5)
 runs with the launch counts set to 0 just before it and read just after;
 launches made to compare or time a kernel are not counted.  Then one JSON
 line describing each kernel (its time, its plain version's, and its bound:
@@ -62,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +90,8 @@ OPS_PER_STEP = 8
 # the DDA events a run executes (diag counters): each one iteration of work
 EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
+# threads a block of each library's kernels (csrc/*.cu)
+BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024}
 K5_BATCHES = (32, 128, 512)  # K5's rays per grab: its default first
 WORLDS = {
     # (world dims, width, height): the reference demo (main.cu:15-23) and
@@ -105,9 +114,11 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, repeats: int = 1) -> float:
-    """Mean device time of ``fn()`` over ``repeats`` runs, by CUDA events."""
+    """Mean device time of ``fn()`` over ``repeats`` runs, by CUDA events,
+    after one untimed run (a kernel's first launch also loads it)."""
     import torch
 
+    fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -188,6 +199,19 @@ def phase_build():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say(f"build:   {name}: {line.strip()}")
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                warps = resident_warps(int(m.group(1)), BLOCK_THREADS[name])
+                say(f"build:   {name}: {m.group(1)} registers at {BLOCK_THREADS[name]} threads a block: "
+                    f"at most {warps} resident warps an SM (of 64)")
+
+
+def resident_warps(regs: int, threads: int) -> int:
+    """Warps an H100 SM holds of a kernel with ``regs`` registers a thread
+    and ``threads`` a block, as its 65,536 registers allow (allocated per
+    warp in units of 8 registers a thread; at most 32 blocks, 64 warps)."""
+    per_block = -(-regs // 8) * 8 * threads
+    return min(64, min(32, 65536 // per_block) * threads // 32)
 
 
 def phase_noise(dev):
@@ -647,30 +671,52 @@ def phase_dense_path(dev, err):
         f"{fo.shape[0] / frame_ms / 1e3:.3f} Mrays/s primary, hit fraction {hit_frac:.4f}, "
         f"K2 launches {k2_launches}, framebuffer checksum {float(fb.double().sum()):.6f}")
 
-    # times on the config-2 batch: the kernels alone (ray setup excluded)
-    dd, st, _, active = _ray_setup(g.dims, 1, o, d)
-    pad = _edge_pad(st.to(torch.int32), _dims(g.dims, torch.int32, dev), dd)
-    args = (st, dd, active.to(torch.int32), pad)
-    kw = dict(dims=g.dims, layout=g.layout, max_steps=2048)
+    # times on the config-2 batch and on the last frame's rays (the shape of
+    # K2's launches on its path): the kernels alone (ray setup excluded)
+    def grid_args(o, d, max_steps):
+        dd, st, _, active = _ray_setup(g.dims, 1, o, d)
+        pad = _edge_pad(st.to(torch.int32), _dims(g.dims, torch.int32, dev), dd)
+        return (st, dd, active.to(torch.int32), pad), dict(dims=g.dims, layout=g.layout, max_steps=max_steps)
+
+    args, kw = grid_args(o, d, 2048)
+    fargs, fkw = grid_args(fo, fd, cfg.max_steps)
     limbs = words_to_limb_rows(g.words)
     k2_ms = cuda_ms(lambda: gridtrace.gridtrace(*args, g.words, **kw), repeats=10)
+    k2_frame_ms = cuda_ms(lambda: gridtrace.gridtrace(*fargs, g.words, **fkw), repeats=10)
     k3_ms = cuda_ms(lambda: gridtrace.gridtrace_limbs(*args, limbs, **kw), repeats=10)
     p_ms = cuda_ms(lambda: trace_grid(g, o, d), repeats=1)
-    steps_sum = int(want.steps.sum())
+    p_frame_ms = cuda_ms(lambda: trace_grid(g, fo, fd, cfg.max_steps), repeats=1)
+    steps_sum, frame_steps = int(want.steps.sum()), int(fwant.steps.sum())
     say(f"times: K2 {k2_ms:.3f} ms, K3 {k3_ms:.3f} ms, plain trace_grid {p_ms:.3f} ms, {o.shape[0]} rays, "
-        f"sum(steps) {steps_sum}, on {card_line()}")
-    n, table_bytes = o.shape[0], hit_table_bytes(want, g.dims, g.layout)
+        f"sum(steps) {steps_sum}; K2 {k2_frame_ms:.3f} ms, plain trace_grid {p_frame_ms:.3f} ms on the last frame's "
+        f"{fo.shape[0]} rays, sum(steps) {frame_steps}, on {card_line()}")
     return [
         kernel_entry("gridtrace", "gridtrace.cu", "voxelengine_tpu/ops/pallas_trace.py:329", k2_launches,
-                     err["K2"], k2_ms, p_ms, n, table_bytes, steps_sum),
+                     err["K2"], k2_frame_ms, p_frame_ms, fo.shape[0], hit_table_bytes(fwant, g.dims, g.layout),
+                     frame_steps),
         kernel_entry("gridtrace_limbs", "gridtrace.cu", "voxelengine_tpu/ops/pallas_trace.py:93", k3_launches,
-                     err["K3"], k3_ms, p_ms, n, table_bytes, steps_sum),
+                     err["K3"], k3_ms, p_ms, o.shape[0], hit_table_bytes(want, g.dims, g.layout), steps_sum),
     ]
 
 
+def direction_sorted(*rays):
+    """``rays`` (start, direction, ...) reordered by direction octant, then
+    by the chunk of the clipped start."""
+    import torch
+
+    start, d = rays[:2]
+    octant = ((d[:, 0] < 0).long() << 2) | ((d[:, 1] < 0).long() << 1) | (d[:, 2] < 0).long()
+    c = start.floor().long().clamp_min(0)
+    g = c.amax(dim=0) + 1
+    order = torch.argsort(octant * int(g.prod()) + c[:, 0] + g[0] * (c[:, 1] + g[1] * c[:, 2]))
+    return tuple(t[order].contiguous() for t in rays)
+
+
 def phase_bmtrace(dev):
-    """Phase 9: K4 at its documented scope (128^3 at factor 8) and on a
-    TILED_MORTON world; returns its record."""
+    """Phase 9: K4 at its documented scope (128^3 at factor 8), on a
+    TILED_MORTON world and, in its global-meta instantiation, on a world
+    whose meta exceeds shared memory; returns the records of both
+    instantiations."""
     import torch
 
     from voxelengine_tpu_torch.core.bitgrid import BitGrid
@@ -681,23 +727,35 @@ def phase_bmtrace(dev):
     from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_mxu
     from voxelengine_tpu_torch.worldgen.terrain import generate_world
 
+    def kernel_args(bm, o, d):
+        dd, start_c, _, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
+        pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, dev), dd)
+        kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=2048,
+                  coarse_layout=bm.coarse_layout, brick_layout=bm.brick_layout)
+        return (start_c, dd, active.to(torch.int32), pad), kw
+
+    def table_bytes(out, bm):
+        return hit_table_bytes(out, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick)
+
     t0 = time.perf_counter()
     bm = build_brickmap(generate_world((128, 128, 128), octaves=8, device=dev), 8)
     torch.cuda.synchronize()
     say(f"on-chip brickmap: world 128^3 f8 (octaves 8, dense slots, {bm.coarse_layout.name}/"
         f"{bm.brick_layout.name}) built in {time.perf_counter() - t0:.2f} s, "
-        f"{int(((bm.meta >> 30) & 1).sum())} of {bm.num_chunks} chunks occupied")
+        f"{int(((bm.meta >> 30) & 1).sum())} of {bm.num_chunks} chunks occupied, "
+        f"meta in shared memory: {bmtrace.meta_in_shared(bm.num_chunks)}")
     o, d = random_rays(bm.world_dims, 1 << 20, 2.0, 109, dev)
-    bmtrace.launches = 0
+    bmtrace.launches = bmtrace.shared_launches = 0
     got = trace_brickmap_mxu(bm, o, d)
     torch.cuda.synchronize()
-    launches = bmtrace.launches
-    if launches != 1:
-        raise SystemExit(f"trace_brickmap_mxu launched K4 {launches} times, not once")
+    launches = bmtrace.shared_launches
+    if (bmtrace.launches, launches) != (1, 1):
+        raise SystemExit(f"trace_brickmap_mxu launched K4 {bmtrace.launches} times ({launches} with shared meta), "
+                         "not once with shared meta")
     want = trace_brickmap(bm, o, d)
     diffs = compare(got, want)
     err = diffs[4]
-    check_diffs("on-chip brickmap: K4 vs plain, 128^3 f8", diffs, o.shape[0], int(want.hit.sum()))
+    check_diffs("on-chip brickmap: K4 (shared meta) vs plain, 128^3 f8", diffs, o.shape[0], int(want.hit.sum()))
 
     dense = random_grid((64, 64, 64), 0.008, 11, dev)
     mbm = build_brickmap(BitGrid.from_dense(dense), 8, coarse_layout=Layout.TILED_MORTON,
@@ -706,23 +764,50 @@ def phase_bmtrace(dev):
     mwant = trace_brickmap(mbm, mo, md, 256)
     diffs = compare(trace_brickmap_mxu(mbm, mo, md, 256), mwant)
     err = max(err, diffs[4])
-    check_diffs("on-chip brickmap: K4 vs plain, random 64^3 f8 TILED_MORTON/TILED_MORTON", diffs, mo.shape[0],
-                int(mwant.hit.sum()))
+    check_diffs("on-chip brickmap: K4 (shared meta) vs plain, random 64^3 f8 TILED_MORTON/TILED_MORTON", diffs,
+                mo.shape[0], int(mwant.hit.sum()))
 
-    dd, start_c, _, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
-    pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, dev), dd)
-    args = (start_c, dd, active.to(torch.int32), pad, bm.meta, bm.bricks)
-    kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=2048,
-              coarse_layout=bm.coarse_layout, brick_layout=bm.brick_layout)
-    k_ms = cuda_ms(lambda: bmtrace.bmtrace(*args, **kw), repeats=10)
+    # the global-meta instantiation: a world whose meta exceeds any shared-memory limit
+    t0 = time.perf_counter()
+    gbm = random_brickmap((512, 256, 512), 8, 0.004, 13, dev)
+    torch.cuda.synchronize()
+    gname = "x".join(map(str, gbm.world_dims))
+    say(f"on-chip brickmap: random world {gname} f8 ({gbm.num_chunks} chunks, {gbm.meta.numel() * 4} B of meta, "
+        f"{gbm.bricks.numel() * 4} B of bricks) built in {time.perf_counter() - t0:.2f} s, meta in shared memory: "
+        f"{bmtrace.meta_in_shared(gbm.num_chunks)}")
+    go, gd = random_rays(gbm.world_dims, 65536, 2.0, 113, dev)
+    bmtrace.launches = bmtrace.shared_launches = 0
+    ggot = trace_brickmap_mxu(gbm, go, gd)
+    torch.cuda.synchronize()
+    g_launches = bmtrace.launches - bmtrace.shared_launches
+    if (bmtrace.launches, g_launches) != (1, 1):
+        raise SystemExit(f"trace_brickmap_mxu launched K4 {bmtrace.launches} times ({g_launches} with global meta), "
+                         "not once with global meta")
+    gwant = trace_brickmap(gbm, go, gd)
+    gdiffs = compare(ggot, gwant)
+    check_diffs(f"on-chip brickmap: K4 (global meta) vs plain, random {gname} f8", gdiffs, go.shape[0],
+                int(gwant.hit.sum()))
+
+    args, kw = kernel_args(bm, o, d)
+    sargs = direction_sorted(*args[:4])
+    gargs, gkw = kernel_args(gbm, go, gd)
+    k_ms = cuda_ms(lambda: bmtrace.bmtrace(*args, bm.meta, bm.bricks, **kw), repeats=10)
+    sorted_ms = cuda_ms(lambda: bmtrace.bmtrace(*sargs, bm.meta, bm.bricks, **kw), repeats=10)
+    g_ms = cuda_ms(lambda: bmtrace.bmtrace(*gargs, gbm.meta, gbm.bricks, **gkw), repeats=10)
     p_ms = cuda_ms(lambda: trace_brickmap(bm, o, d), repeats=1)
-    steps_sum = int(want.steps.sum())
-    say(f"times: K4 {k_ms:.3f} ms, plain trace_brickmap {p_ms:.3f} ms, {o.shape[0]} rays, "
-        f"sum(steps) {steps_sum}, on {card_line()}")
-    return kernel_entry("bmtrace", "bmtrace.cu", "voxelengine_tpu/ops/pallas_trace2.py:39", launches, err, k_ms,
-                        p_ms, o.shape[0],
-                        hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick),
-                        steps_sum)
+    gp_ms = cuda_ms(lambda: trace_brickmap(gbm, go, gd), repeats=1)
+    steps_sum, g_steps = int(want.steps.sum()), int(gwant.steps.sum())
+    say(f"times: K4 (shared meta) {k_ms:.3f} ms, on the same rays sorted by direction octant then start chunk "
+        f"{sorted_ms:.3f} ms (sorted/unsorted {sorted_ms / k_ms:.3f}), plain trace_brickmap {p_ms:.3f} ms, "
+        f"{o.shape[0]} rays, sum(steps) {steps_sum}; K4 (global meta) {g_ms:.3f} ms, plain {gp_ms:.3f} ms on the "
+        f"{gname} world's {go.shape[0]} rays, sum(steps) {g_steps}, on {card_line()}")
+    replaces = "voxelengine_tpu/ops/pallas_trace2.py:39"
+    return [
+        kernel_entry("bmtrace", "bmtrace.cu", replaces, launches, err, k_ms, p_ms, o.shape[0],
+                     table_bytes(want, bm), steps_sum),
+        kernel_entry("bmtrace_global_meta", "bmtrace.cu", replaces, g_launches, gdiffs[4], g_ms, gp_ms,
+                     go.shape[0], table_bytes(gwant, gbm), g_steps),
+    ]
 
 
 def sparse_world(dev):
@@ -883,7 +968,7 @@ def main(argv=None):
     kernels = [phase_main_path(dev, args.world)]
     err = phase_dense_vs_plain(dev)
     kernels += phase_dense_path(dev, err)
-    kernels.append(phase_bmtrace(dev))
+    kernels += phase_bmtrace(dev)
     kernels.append(phase_sparse(dev))
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

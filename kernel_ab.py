@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""Time the port's brickmap traversal kernels (K1, K4, K5) of several
+source trees in turns on one NVIDIA GPU.
+
+    python3 kernel_ab.py                          # this checkout alone
+    python3 kernel_ab.py --before _checkout/prev  # an earlier checkout too, in turns (repeatable)
+    python3 kernel_ab.py --quick                  # without the 1024^3 demo frame (~95 s of worldgen)
+    python3 kernel_ab.py --sass sass_out          # also write each K1/K4 library's SASS there
+    python3 kernel_ab.py --variant='-maxrregcount=72'  # this checkout built with other nvcc flags too
+
+The inputs are made once, in this process, on the card: the demo frame's
+460,800 rays over the 1024^3 terrain (``chip_smoke.py`` phase 5), the
+sparse 16k world's 262,144 rays (phase 10), and K4's 1,048,576 random rays
+over the 128^3 terrain at factor 8 (phase 9), as given and sorted by
+direction octant, then by the chunk of the clipped start; without
+``--quick`` also K4 on terrains of 16-224 KB of meta with each of its two
+instantiations (shared or global meta, forced through the wrapper's
+limit).  Each build (a tree, or this checkout with extra nvcc flags) is
+then timed in a worker process of its own that imports that tree's
+``voxelengine_tpu_torch`` wrappers (their Python signatures are the same
+across trees): the order is the earlier trees, this one, its variants,
+then the same backwards, so that drift on the card shows as a difference
+between the two runs of one build.  Each time is the median of 5 windows
+of 20 launches, by CUDA events, after 0.3 s of untimed launches that
+bring the card's clocks up.  Each worker also prints a digest of every
+kernel's outputs, so the trees' results can be seen to be equal.  Prints each library's ptxas
+registers and spills, one JSON line per worker, and the card's name and
+power limit.  Needs one CUDA device.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+REPEATS = 20  # launches in one timed window
+WINDOWS = 5  # timed windows; the median is reported
+WARM_S = 0.3  # seconds of launches before the first window, so the card's clocks are up
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def make_inputs(dev, quick: bool):
+    """``{case: (kernel, args, kw)}`` for the workers, built on ``dev``."""
+    import torch
+
+    import chip_smoke as cs
+    from voxelengine_tpu_torch.config import MAX_STEPS, RenderConfig
+    from voxelengine_tpu_torch.core.brickmap import build_brickmap, build_brickmap_terrain_compact
+    from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines
+    from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup
+    from voxelengine_tpu_torch.render.frame import primary_rays
+    from voxelengine_tpu_torch.worldgen.terrain import generate_world
+
+    cases = {}
+    if not quick:
+        dims, W, H = cs.WORLDS["demo"]
+        bm = build_brickmap_terrain_compact(dims, 32, device=dev)
+        lt = materialize_brick_lines(bm, make_line_table(bm))
+        cfg = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
+        origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)
+        euler = torch.tensor([-0.25, 0.75, 0.0], device=dev)
+        o, d, _, _, _ = primary_rays(cfg, origin, euler + 1e-5 * cs.FRAMES, cs.FRAMES)
+        args, kw = cs.line_kernel_args(bm, lt, o, d, cfg.max_steps)
+        cases["K1 frame macro off"] = ("bigtrace", args, dict(kw, use_macro=False))
+        cases["K5 frame macro off"] = ("rrtrace", args, dict(kw, use_macro=False))
+
+    bm = cs.sparse_world(dev)
+    lt = materialize_brick_lines(bm, make_line_table(bm))
+    o, d = cs.sparse_rays(cs.SPARSE_RAYS, dev)
+    args, kw = cs.line_kernel_args(bm, lt, o, d, MAX_STEPS)
+    cases["K1 sparse macro off"] = ("bigtrace", args, dict(kw, use_macro=False))
+    cases["K1 sparse macro on"] = ("bigtrace", args, dict(kw, use_macro=True))
+    cases["K5 sparse macro on"] = ("rrtrace", args, dict(kw, use_macro=True))
+
+    def k4_args(bm):
+        o, d = cs.random_rays(bm.world_dims, 1 << 20, 2.0, 109, dev)
+        dd, start_c, _, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
+        pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, dev), dd)
+        kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=2048,
+                  coarse_layout=bm.coarse_layout, brick_layout=bm.brick_layout)
+        return (start_c, dd, active.to(torch.int32), pad), kw
+
+    if not quick:
+        # K4 with meta in shared and in global memory on terrains of growing
+        # meta (16-224 KB), to place the shared-memory limit
+        for dims in ((128, 128, 128), (256, 128, 256), (384, 128, 384), (448, 128, 448), (512, 128, 448)):
+            bm = build_brickmap(generate_world(dims, octaves=8, device=dev), 8)
+            rays, kw = k4_args(bm)
+            name = f"K4 {dims[0]}x{dims[1]}x{dims[2]} ({bm.num_chunks * 4 // 1024} KB meta)"
+            for where, limit in (("shared", bm.num_chunks * 4), ("global", 0)):
+                cases[f"{name} {where}"] = ("bmtrace", rays + (bm.meta, bm.bricks), dict(kw, _smem_limit=limit))
+
+    bm = build_brickmap(generate_world((128, 128, 128), octaves=8, device=dev), 8)
+    rays, kw = k4_args(bm)
+    cases["K4 random"] = ("bmtrace", rays + (bm.meta, bm.bricks), kw)
+    cases["K4 sorted"] = ("bmtrace", cs.direction_sorted(*rays) + (bm.meta, bm.bricks), kw)
+    return cases
+
+
+def worker(tree: Path, data: Path, defines: str) -> None:
+    """Time every case of ``data`` with ``tree``'s ``voxelengine_tpu_torch``,
+    its CUDA libraries built with the extra nvcc ``defines``; print one
+    JSON line."""
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import voxelengine_tpu_torch as pkg
+    from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, build, rrtrace
+
+    build.NVCC_FLAGS = build.NVCC_FLAGS + tuple(defines.split())
+    fns = {"bigtrace": bigtrace.bigtrace, "rrtrace": rrtrace.rrtrace, "bmtrace": bmtrace.bmtrace}
+    cases = torch.load(data, weights_only=False)
+    own_limit = getattr(bmtrace, "SMEM_META_LIMIT", None)
+    ms, digest = {}, {}
+    for name, (kernel, args, kw) in cases.items():
+        fn = fns[kernel]
+        kw = dict(kw)
+        limit = kw.pop("_smem_limit", None)
+        if limit is not None and own_limit is None:
+            continue  # a tree whose K4 has one instantiation
+        if own_limit is not None:
+            bmtrace.SMEM_META_LIMIT = own_limit if limit is None else limit
+        outs = fn(*args, **kw)  # the build, at first use
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(t.cpu().numpy().tobytes())
+        digest[name] = h.hexdigest()[:16]
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < WARM_S:
+            for _ in range(10):
+                fn(*args, **kw)
+            torch.cuda.synchronize()
+        windows = []
+        for _ in range(WINDOWS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REPEATS):
+                fn(*args, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            windows.append(start.elapsed_time(end) / REPEATS)
+        ms[name] = sorted(windows)[WINDOWS // 2]
+    print(json.dumps({"tree": str(Path(pkg.__file__).resolve().parent.parent), "defines": defines, "ms": ms,
+                      "digest": digest}), flush=True)
+
+
+def run_worker(tree: Path, defines: str, data: Path) -> dict:
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", str(tree), str(data),
+                           f"--defines={defines}"], cwd=tree, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        say(f"worker for {tree} {defines} failed:\n{proc.stdout}{proc.stderr}")
+        return None
+    line = proc.stdout.strip().splitlines()[-1]
+    say(line)
+    return json.loads(line)
+
+
+def sass_summary(sass: str):
+    """One line per kernel function of a ``cuobjdump -sass`` dump: its
+    instructions, and in its main loop (the longest backward branch) the
+    instructions, table loads (LDG, LDS, generic LD), local-memory spill
+    accesses (LDL, STL) and IEEE division checks (FCHK)."""
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        ins = [(int(a, 16), op.strip()) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        loops = [(int(m.group(1), 16), a) for a, op in ins
+                 if (m := re.search(r"BRA (?:\S+, )?0x([0-9a-f]+)", op)) and int(m.group(1), 16) < a]
+        lo, hi = max(loops, key=lambda t: t[1] - t[0], default=(0, -1))
+        body = [op for a, op in ins if lo <= a <= hi]
+
+        def count(*ops):
+            return sum(1 for op in body if re.search(r"(^|\s)(" + "|".join(ops) + r")[.\s]", op + " "))
+
+        yield (f"{name[:110]}: {len(ins)} instructions; main loop {len(body)} "
+               f"(loads {count('LDG', 'LDS', 'LD')}, spill accesses {count('LDL', 'STL')}, FCHK {count('FCHK')})")
+
+
+def ptxas_lines(tree: Path):
+    for log in sorted((tree / "voxelengine_tpu_torch" / "kernels" / "_build").glob("lib*.log")):
+        flags = " ".join(f for f in log.read_text().split(None, 40)[:40] if f.startswith("-D"))
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                yield f"{log.stem.split('_')[0]} {flags}: {line.strip()}"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--before", type=Path, action="append", default=[],
+                    help="root of an earlier checkout to time in turns with this one; repeatable")
+    ap.add_argument("--quick", action="store_true", help="leave out the 1024^3 demo frame")
+    ap.add_argument("--sass", type=Path, help="directory for cuobjdump -sass of each tree's K1/K4 libraries")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="extra nvcc flags of one more build of this checkout (--variant='-maxrregcount=72'); "
+                         "repeatable")
+    ap.add_argument("--worker", nargs=2, help=argparse.SUPPRESS)
+    ap.add_argument("--defines", default="", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        return worker(Path(args.worker[0]), Path(args.worker[1]), args.defines)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device (torch.cuda.is_available() is false)")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    dev = torch.device("cuda", 0)
+    say(f"card: {cs.card_line()}")
+    data = ROOT / "_checkout" / "kernel_ab_inputs.pt"
+    data.parent.mkdir(exist_ok=True)
+    torch.save(make_inputs(dev, args.quick), data)
+    builds = [(b.resolve(), "") for b in args.before] + [(ROOT, "")] + [(ROOT, v) for v in args.variant]
+    order = builds + builds[::-1] if len(builds) > 1 else builds
+    runs = [run_worker(t, v, data) for t, v in order]
+    order, runs = [b for b, r in zip(order, runs) if r], [r for r in runs if r]
+    for tree in dict.fromkeys(t for t, _ in builds):
+        say(f"ptxas, {tree}:")
+        for line in ptxas_lines(tree):
+            say(f"  {line}")
+        if args.sass:
+            args.sass.mkdir(parents=True, exist_ok=True)
+            for lib in sorted((tree / "voxelengine_tpu_torch" / "kernels" / "_build").glob("lib*trace_*.so")):
+                if lib.name.startswith(("libbigtrace", "libbmtrace")):
+                    out = args.sass / f"{'after' if tree == ROOT else tree.name}_{lib.stem}.sass"
+                    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+                    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True)
+                    out.write_text(sass.stdout + sass.stderr)
+                    flags = [f for f in lib.with_suffix(".log").read_text().split()[:40] if f.startswith("-D")]
+                    say(f"  SASS of {lib.name} {' '.join(flags)} -> {out}")
+                    for line in sass_summary(sass.stdout):
+                        say(f"    {line}")
+    names = dict.fromkeys(k for r in runs for k in r["ms"])
+    say("case: " + " | ".join(f"{t}{' ' + v if v else ''}" for t, v in order))
+    for name in names:
+        have = [r for r in runs if name in r["ms"]]
+        say(f"{name}: " + " | ".join(f"{r['ms'][name]:.4f} ms" if name in r["ms"] else "-" for r in runs)
+            + ("" if len({r["digest"][name] for r in have}) == 1 else "  OUTPUTS DIFFER"))
+    say(f"card: {cs.card_line()}")
+    data.unlink()
+
+
+if __name__ == "__main__":
+    main()

@@ -13,22 +13,29 @@
 // (pallas_bigtrace.py:1514).  Four instantiations, (macro, diag) each on or
 // off; the production ones (diag off) keep their instruction streams.
 //
-// Design: one thread per ray, a plain loop per thread (dda.cuh), tables
-// read from global memory through L1/L2; the 36 L2/L3 words and the L1
-// words are plain global loads too (they stay in L1).  None of the TPU
-// kernel's machinery is carried over: no line cache, no voted DMA, no
-// select-chain fetch, no deferred descend, no lockstep tile.
+// Design: one thread per ray, in the order the caller gives (render_frame's
+// tile_order: 32x32-pixel blocks, so neighbouring threads walk neighbouring
+// chunks and share L1 lines), the loop of dda.cuh::trace_ray, tables read
+// through the read-only path.  None of the TPU kernel's machinery is
+// carried over: no line cache, no voted DMA, no select-chain fetch, no
+// deferred descend, no lockstep tile.
 //
 // Least time: the bytes of the rays (40 B in, 32 B out per ray) plus the
 // table bytes the rays touch (at least the region entry and the brick word
 // of each distinct hit) against the DDA work, one event per iteration.
-// What bounds it on this card: every DDA event is a dependent 4-byte load
-// (meta word, then brick word) whose latency the thread waits out, and the
-// 32 rays of a warp diverge in path length and in phase (coarse / fine).
-// What the design does about that: nothing yet beyond L1/L2 reuse, which
-// the ray order given by render_frame's tile_order (32x32-pixel blocks, so
-// neighbouring threads walk neighbouring chunks) makes likely; K5
-// (rrtrace.cu) retires rays by warp instead of by block.
+// What bounds it on this card (PERF.md): the latency of each
+// iteration's dependent chain and the instructions on it, and the warps'
+// divergence, not memory.  The first build took ~140-155 SM-cycles per
+// warp-iteration on the demo frame (its schedulers issuing on at most ~40%
+// of their slots), where one iteration makes one 4-byte load that L2 (often
+// L1) serves, with 80 registers (24 warps an SM) and the coarse and fine
+// phases on separate paths.  What the design does about it: the convergent
+// loop of dda.cuh, no division by the factor in the box test, and 64
+// registers (__launch_bounds__(128, 8): 32 warps an SM) for the production
+// builds, measured faster than the compiler's own 72 and than 256-thread
+// blocks; the macro build spills at 64 registers and measured 13% faster so
+// on the sparse world than at the 84 it takes uncapped.  The diag builds
+// keep the compiler's own budget.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC  (kernels/build.py).
@@ -40,8 +47,11 @@
 
 namespace {
 
+constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 8;  // 8 x 128 threads an SM: at most 64 registers a thread
+
 template <bool MACRO, bool DIAG>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(THREADS, DIAG ? 1 : MIN_BLOCKS)
 bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n,
                 const float* __restrict__ start, const float* __restrict__ dir,
                 const int* __restrict__ active, const int* __restrict__ pad,
@@ -79,9 +89,8 @@ template <bool MACRO, bool DIAG>
 int launch(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, const float* start,
            const float* dir, const int* active, const int* pad, int* flags, float* pos,
            float* normal, int* steps, int* diag, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  bigtrace_kernel<MACRO, DIAG><<<blocks, threads, 0, stream>>>(
+  const int blocks = (n + THREADS - 1) / THREADS;
+  bigtrace_kernel<MACRO, DIAG><<<blocks, THREADS, 0, stream>>>(
       P, F, n, start, dir, active, pad, flags, pos, normal, steps, diag);
   return static_cast<int>(cudaGetLastError());
 }

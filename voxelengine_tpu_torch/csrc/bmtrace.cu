@@ -10,56 +10,143 @@
 // one-hot bf16 limb matmuls exist because Mosaic has no per-lane gather;
 // here a thread reads the word it needs.
 //
-// Design: one thread per ray, a plain loop per thread, meta and bricks read
-// from global memory through L1/L2.
-//
 // What bounds it on this card: the bytes of the rays (40 B in, 32 B out per
 // ray) plus the table bytes the rays touch (at least the brick word and the
-// meta word of each distinct hit; all of it is 272 KB for a 128^3 world at
-// factor 8) against the DDA work, sum(steps) events, each a dependent 4-byte load (meta word, then
-// brick words) whose latency the thread waits out, with the 32 rays of a
-// warp diverging in length and phase (coarse / fine).  Staging tables of up
-// to 227 KB in shared memory is later work.
+// meta word of each distinct hit) against the DDA work, sum(steps) events.
+// Measured (PERF.md): on its 1,048,576 random rays the first build ran
+// at ~34x that bound, bound like K1 by each iteration's dependent chain;
+// the same rays sorted by direction octant, then start chunk, ran in 0.64
+// of the time, so divergence and scattered loads are about a third of it.
+//
+// Design: the JAX kernel keeps both tables in VMEM; here the meta words go
+// to shared memory and the bricks stay in global memory, read through the
+// read-only path.  A persistent grid, sized by the occupancy calculator to
+// what the card holds at once, of 1024-thread blocks (64 registers a thread,
+// one block an SM, 32 warps): each block copies the world's meta words into
+// dynamic shared memory once (16-byte loads where the table is aligned),
+// then each warp takes 32 rays at a time from a global work counter (lane 0
+// atomicAdd, broadcast by __shfl_sync) until none are left.  The counter is
+// zeroed on the launch's stream before every launch.  With the loop of
+// dda.cuh K4 runs 28% faster; shared-memory meta measured 2-4% faster than
+// global meta on terrains of 16-224 KB of meta (L1 holds most of the meta
+// words the rays touch either way).
+//
+// Two instantiations of one template, chosen by the wrapper from the
+// table's size alone (kernels/bmtrace.py::meta_in_shared):
+//   SHARED_META: meta in shared memory, for num_chunks * 4 bytes up to
+//     VX_SMEM_META_LIMIT below: the 227 KB a block can have (above 48 KB by
+//     cudaFuncSetAttribute), since no size up to 224 KB measured slower
+//     than global meta;
+//   global meta: the same kernel with meta read from global memory, for
+//     larger worlds.
 //
 // Build: kernels/build.py (nvcc sm_90a, -O3, --fmad=false, no fast-math).
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 #include "dda.cuh"
 
+// Largest meta table (bytes) the SHARED_META instantiation takes; the
+// wrapper's kernels/bmtrace.py::SMEM_META_LIMIT is the same number.
+#define VX_SMEM_META_LIMIT (227 * 1024)
+
 namespace {
 
-__global__ void __launch_bounds__(128)
-bmtrace_kernel(vx::TraceParams P, vx::DenseSlotFetch F, int n,
+constexpr int THREADS = 1024;  // 1024 x 64 registers: one block fills an SM's register file
+
+template <bool SHARED_META>
+__global__ void __launch_bounds__(THREADS, 1)
+bmtrace_kernel(vx::TraceParams P, vx::DenseSlotFetch<SHARED_META> F, int n, int num_chunks,
+               int* __restrict__ counter,
                const float* __restrict__ start, const float* __restrict__ dir,
                const int* __restrict__ active, const int* __restrict__ pad,
                int* __restrict__ flags, float* __restrict__ pos,
                float* __restrict__ normal, int* __restrict__ steps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const vx::TraceResult r = vx::trace_ray(
-      P, F, start[3 * i], start[3 * i + 1], start[3 * i + 2],
-      dir[3 * i], dir[3 * i + 1], dir[3 * i + 2],
-      active[i], pad[3 * i], pad[3 * i + 1], pad[3 * i + 2]);
-  flags[i] = r.flags;
-  pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
-  normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
-  steps[i] = r.steps;
+  extern __shared__ int4 smem_meta[];
+  vx::DenseSlotFetch<SHARED_META> Fl = F;
+  if constexpr (SHARED_META) {
+    int* meta = reinterpret_cast<int*>(smem_meta);
+    int head = 0;  // words copied by 16-byte loads
+    if ((reinterpret_cast<uintptr_t>(F.meta_words) & 15) == 0) {
+      head = num_chunks & ~3;
+      const int4* src = reinterpret_cast<const int4*>(F.meta_words);
+      for (int i = threadIdx.x; i < head / 4; i += THREADS) smem_meta[i] = __ldg(src + i);
+    }
+    for (int i = head + threadIdx.x; i < num_chunks; i += THREADS) meta[i] = __ldg(F.meta_words + i);
+    __syncthreads();
+    Fl.meta_words = meta;
+  }
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(counter, 32);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= n) return;  // the same for every lane of the warp
+    const int i = base + lane;
+    if (i < n) {
+      const vx::TraceResult r = vx::trace_ray(
+          P, Fl, start[3 * i], start[3 * i + 1], start[3 * i + 2],
+          dir[3 * i], dir[3 * i + 1], dir[3 * i + 2],
+          active[i], pad[3 * i], pad[3 * i + 1], pad[3 * i + 2]);
+      flags[i] = r.flags;
+      pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
+      normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
+      steps[i] = r.steps;
+    }
+  }
+}
+
+template <bool SHARED_META>
+int launch(const vx::TraceParams& P, const vx::DenseSlotFetch<SHARED_META>& F, int n,
+           int num_chunks, int* counter, const float* start, const float* dir, const int* active,
+           const int* pad, int* flags, float* pos, float* normal, int* steps,
+           cudaStream_t stream) {
+  const size_t smem = SHARED_META ? (size_t)num_chunks * sizeof(int) : 0;
+  if (smem > VX_SMEM_META_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(bmtrace_kernel<SHARED_META>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bmtrace_kernel<SHARED_META>,
+                                                      THREADS, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // as many blocks as the card holds at once, and no more warps than batches of 32
+  const long long warps = ((long long)n + 31) / 32;
+  const long long wanted = (warps + THREADS / 32 - 1) / (THREADS / 32);
+  const int blocks = (int)(wanted < (long long)per_sm * sms ? wanted : (long long)per_sm * sms);
+  e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bmtrace_kernel<SHARED_META><<<blocks, THREADS, smem, stream>>>(
+      P, F, n, num_chunks, counter, start, dir, active, pad, flags, pos, normal, steps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
+// Launches on `stream` without synchronising; returns the first CUDA error
+// (cudaGetLastError() after the launch).  `counter` is one int of device
+// scratch, zeroed here on `stream`; `shared_meta` picks the instantiation
+// (the wrapper's choice by table size; a table over VX_SMEM_META_LIMIT is
+// refused with cudaErrorInvalidValue).
 extern "C" int vx_trace_brickmap_dense(const float* start, const float* dir, const int* active,
                                        const int* pad, const int* meta, const int* bricks,
                                        int n, int gx, int gy, int gz, int factor, int wpb,
                                        int max_steps, int coarse_layout, int brick_layout,
-                                       int iter_limit, int* flags, float* pos, float* normal,
-                                       int* steps, void* stream) {
+                                       int iter_limit, int shared_meta, int* counter, int* flags,
+                                       float* pos, float* normal, int* steps, void* stream) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
-  const vx::DenseSlotFetch F = {meta, bricks, gx, gy, coarse_layout, wpb};
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  bmtrace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, F, n, start, dir, active, pad, flags, pos, normal, steps);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int nc = gx * gy * gz;
+  if (n == 0) return 0;
+  if (shared_meta) {
+    const vx::DenseSlotFetch<true> F = {meta, bricks, gx, gy, coarse_layout, wpb};
+    return launch<true>(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
+  }
+  const vx::DenseSlotFetch<false> F = {meta, bricks, gx, gy, coarse_layout, wpb};
+  return launch<false>(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
 }

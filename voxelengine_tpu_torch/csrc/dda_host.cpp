@@ -2,7 +2,7 @@
 // logic compiled by a C++ compiler (-ffp-contract=off), so the CPU tests can
 // hold it against the plain torch traces before the kernels ever run on the
 // card.  One entry per kernel, taking its launcher's arguments minus the
-// stream.
+// stream (K4's also minus its instantiation flag and work-counter scratch).
 #include <cstring>
 
 #include "dda.cuh"
@@ -110,7 +110,9 @@ extern "C" int vx_rrtrace_host(const float* start, const float* dir, const int* 
   return 0;
 }
 
-// K4's step (bmtrace.cu::vx_trace_brickmap_dense).
+// K4's step (bmtrace.cu::vx_trace_brickmap_dense), meta read where it lies;
+// the launcher's shared_meta and counter (its instantiation and its work
+// queue) have no host counterpart.
 extern "C" int vx_trace_brickmap_dense_host(const float* start, const float* dir,
                                             const int* active, const int* pad, const int* meta,
                                             const int* bricks, int n, int gx, int gy, int gz,
@@ -118,7 +120,7 @@ extern "C" int vx_trace_brickmap_dense_host(const float* start, const float* dir
                                             int coarse_layout, int brick_layout, int iter_limit,
                                             int* flags, float* pos, float* normal, int* steps) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
-  const vx::DenseSlotFetch F = {meta, bricks, gx, gy, coarse_layout, wpb};
+  const vx::DenseSlotFetch<> F = {meta, bricks, gx, gy, coarse_layout, wpb};
   return brickmap_rays(P, F, n, start, dir, active, pad, flags, pos, normal, steps);
 }
 

@@ -19,8 +19,9 @@
 // inner_steps, dma_per_round, shortlist) is carried over.  The counter is
 // zeroed on the launch's stream before every launch.
 //
-// Bound: as K1 (bigtrace.cu): per-event dependent loads and divergence;
-// the queue costs one atomic per batch.
+// Bound: as K1 (bigtrace.cu): each iteration's dependent chain and the
+// warps' divergence, with the same loop (dda.cuh) and register budget; the
+// queue costs one atomic per batch.
 //
 // Build: kernels/build.py (nvcc sm_90a, -O3, --fmad=false, no fast-math).
 #include <cuda_runtime.h>
@@ -30,9 +31,10 @@
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 8;  // as K1's production builds: at most 64 registers a thread
 
 template <bool MACRO>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 rrtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, int batch,
                int* __restrict__ counter,
                const float* __restrict__ start, const float* __restrict__ dir,

@@ -29,8 +29,12 @@ def check_line_table(kernel: str, dev, region_lines, brick_lines, macro, macro2,
     pointers of ``macro`` and ``macro2`` (``None`` when not given)."""
     rx, ry, rz = region_dims
     nr = rx * ry * rz
+    if nr * 1024 >= 2**31:
+        raise ValueError(f"{kernel}: {nr} regions overflow the kernel's int32 region-line index")
     build.check(kernel, "region_lines", region_lines, torch.int32, (nr * 8, 128), dev)
     build.check(kernel, "brick_lines", brick_lines, torch.int32, (None, 128), dev)
+    if brick_lines.numel() >= 2**31:
+        raise ValueError(f"{kernel}: {brick_lines.numel()} brick-line words overflow the kernel's int32 index")
     if use_macro and (macro is None or macro2 is None):
         raise ValueError(f"{kernel}: use_macro needs the line table's macro and macro2")
     if macro is not None:

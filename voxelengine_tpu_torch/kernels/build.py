@@ -54,15 +54,17 @@ SIGNATURES = {
     # limbs, plane; n, X, Y, Z, layout, max_steps
     "vx_trace_grid_limbs": _RAYS + [_P, _L] + [_I] * 6 + _OUTS,
     # meta, bricks; n, gx, gy, gz, factor, wpb, max_steps, coarse_layout,
-    # brick_layout, iter_limit
-    "vx_trace_brickmap_dense": _RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
+    # brick_layout, iter_limit, shared_meta; counter (int32 scratch), outputs
+    "vx_trace_brickmap_dense": _RAYS + [_P] * 2 + [_I] * 11 + [_P] + _OUTS,
 }
-HOST_ENTRIES = {  # host-build entry -> the kernel launcher it mirrors
-    "vx_trace_host": "vx_bigtrace",
-    "vx_rrtrace_host": "vx_rrtrace",
-    "vx_trace_grid_host": "vx_trace_grid",
-    "vx_trace_grid_limbs_host": "vx_trace_grid_limbs",
-    "vx_trace_brickmap_dense_host": "vx_trace_brickmap_dense",
+# host-build entry -> its C signature: the kernel launcher's it mirrors,
+# except K4's, which has no instantiation flag and no work counter
+HOST_ENTRIES = {
+    "vx_trace_host": SIGNATURES["vx_bigtrace"],
+    "vx_rrtrace_host": SIGNATURES["vx_rrtrace"],
+    "vx_trace_grid_host": SIGNATURES["vx_trace_grid"],
+    "vx_trace_grid_limbs_host": SIGNATURES["vx_trace_grid_limbs"],
+    "vx_trace_brickmap_dense_host": _RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
 }
 
 
@@ -127,8 +129,8 @@ def load_kernel(name: str) -> ctypes.CDLL:
 def load_dda_host() -> ctypes.CDLL:
     """The host library with every entry's signature declared."""
     lib = ctypes.CDLL(str(dda_host_library()))
-    for fn, kernel in HOST_ENTRIES.items():
-        _declare(lib, fn, SIGNATURES[kernel])
+    for fn, args in HOST_ENTRIES.items():
+        _declare(lib, fn, args)
     return lib
 
 
