@@ -24,8 +24,9 @@ Phases, one stdout line each (plus the kernels' build logs):
    plain version on the full frame of rays, 0 diffs allowed; the count
    against the chunk-by-chunk walk printed too), the phase counters and the
    ``return_iters`` warp-iteration statistics;
-6. times: K1 (macro off and on), K5 and the plain trace on that frame's
-   rays, with CUDA events;
+6. times: K1 (macro off and on), K5 at each refill and the plain trace on
+   that frame's rays, with CUDA events; K5's lanes-active share at each
+   refill (its counting instantiation) beside K1's;
 7. dense kernels vs plain: K2 and K3 against the plain ``trace_grid`` on a
    random 32^3 grid in each layout, and a 96x64 ``render_frame_dense``
    frame through K2 against the plain path;
@@ -34,8 +35,11 @@ Phases, one stdout line each (plus the kernels' build logs):
    K2 (``trace_grid_vpu``), K3 (``trace_grid_mxu``) and the plain trace,
    then a warm-up plus 8 chained 1280x720 checkerboard
    ``render_frame_dense`` frames and the exactness gate on the last frame;
-   K2 is timed on the batch and on the last frame's 460,800 rays (the
-   shape of its launches on the path, which its record gives);
+   the CUDA kernels one dense frame and one ``trace_grid_vpu`` call launch
+   (``torch.profiler``; the call must launch K2 alone); K2 is timed on the
+   batch and on the last frame's 460,800 rays (the shape of its launches on
+   the path, which its record gives), alone and as the whole
+   ``trace_grid_vpu`` call;
 9. on-chip brickmap: K4 (``trace_brickmap_mxu``) against the plain trace on
    1,048,576 rays over a 128^3 terrain at factor 8 and on a small
    TILED_MORTON world (meta in shared memory), and on 65,536 rays over a
@@ -47,7 +51,8 @@ Phases, one stdout line each (plus the kernels' build logs):
    regions, L2 and L3 real), 262,144 near, horizon and sky rays: K1 macro
    off, K1 macro on and K5 (``trace_brickmap_hbm_rr``) each against its
    plain version and K1 against K5 (0 diffs), the phase counters (``mskip``
-   must be > 0) against the plain walk's; times.
+   must be > 0) against the plain walk's; times, K5 at each refill, and
+   K5's lanes-active share beside K1's.
 
 Each kernel's path (phase 5 for K1, the frames of phase 8 for K2, the
 phase-8 batch for K3, the phase-9 128^3 batch for K4 with shared meta and
@@ -58,7 +63,9 @@ line describing each kernel (its time, its plain version's, and its bound:
 the larger of its bytes (rays in and out plus the table words its hits
 need) over the card's memory rate and its float operations over its
 float32 rate; with the macro levels on, the operations of the DDA events
-the diag build counts, since a macro skip charges steps it never walks),
+the diag build counts, since a macro skip charges steps it never walks;
+for K2 and K3 the bytes of their wrappers' whole function, origins and raw
+directions in, the hit byte, position, normal and steps out),
 the card line again, and last ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code != 0) before the last line.  Needs one CUDA
 device; there is no CPU fallback.  Imports nothing of JAX.
@@ -68,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -80,9 +88,13 @@ FRAMES = 8  # timed chained frames after the warm-up
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# every kernel reads start, dir, pad (12 B each) and active (4 B) and writes
+# K1, K4 and K5 read start, dir, pad (12 B each) and active (4 B) and write
 # flags, steps (4 B each), position and normal (12 B each) per ray
 RAY_BYTES = 72
+# K2 and K3 read origins and raw directions (f32[N, 3] each, fewer bytes
+# where the origin is one row broadcast) and write hit (1 B), position,
+# normal (12 B each) and steps (4 B) per ray
+GRID_OUT_BYTES = 29
 # float ops of one DDA step: the axis pick (3 compares), the two entry
 # coordinates off the stepped axis (2 mul + 2 add), the tMax add; ray setup
 # and the coarse level's box test are not counted
@@ -92,7 +104,7 @@ EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
 # threads a block of each library's kernels (csrc/*.cu)
 BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024}
-K5_BATCHES = (32, 128, 512)  # K5's rays per grab: its default first
+K5_REFILLS = (32, 16, 8, 4, 1)  # K5's idle lanes at which a warp refills (its default is rrtrace.REFILL)
 WORLDS = {
     # (world dims, width, height): the reference demo (main.cu:15-23) and
     # the bench world (bench.py:127-129) at 1080p
@@ -129,12 +141,13 @@ def cuda_ms(fn, repeats: int = 1) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def bound(rays: int, table_bytes: int, work: int):
+def bound(rays: int, table_bytes: int, work: int, ray_bytes: float = RAY_BYTES):
     """``(bound_ms, bound_by)``: the larger of the bytes the trace must move
-    (rays in and out, and the ``table_bytes`` its hits need, see
-    :func:`hit_table_bytes`) over the memory rate and the float operations
-    of its ``work`` DDA steps (or executed events) over the float32 rate."""
-    bytes_ms = (rays * RAY_BYTES + table_bytes) / HBM_BYTES_PER_S * 1e3
+    (``ray_bytes`` a ray in and out, and the ``table_bytes`` its hits need,
+    see :func:`hit_table_bytes`) over the memory rate and the float
+    operations of its ``work`` DDA steps (or executed events) over the
+    float32 rate."""
+    bytes_ms = (rays * ray_bytes + table_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = work * OPS_PER_STEP / F32_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
@@ -172,18 +185,49 @@ def hit_table_bytes(out, world_dims, layout, factor=None, wpb=None):
 
 
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, rays, table_bytes, steps_sum,
-                 events_sum=None):
+                 events_sum=None, ray_bytes=RAY_BYTES, **extra):
     """One kernel's record for the ``kernels`` JSON line.  The bound's
     operations count ``events_sum`` (the executed DDA events) where given,
-    else ``steps_sum``."""
-    bound_ms, bound_by = bound(rays, table_bytes, steps_sum if events_sum is None else events_sum)
+    else ``steps_sum``; ``extra`` keys are added as they are."""
+    bound_ms, bound_by = bound(rays, table_bytes, steps_sum if events_sum is None else events_sum, ray_bytes)
     return {
         "name": name, "route": "cuda", "source": f"voxelengine_tpu_torch/csrc/{source}",
         "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,  # no PyTorch call computes a DDA traversal
-        "rays": rays, "steps_sum": steps_sum, "events_sum": events_sum, "table_bytes": table_bytes,
+        "rays": rays, "ray_bytes": ray_bytes, "steps_sum": steps_sum, "events_sum": events_sum,
+        "table_bytes": table_bytes, **extra,
     }
+
+
+def grid_ray_bytes(origins, rays) -> float:
+    """Bytes a ray that K2 or K3 must move: the distinct float32 data of
+    ``origins`` and ``rays`` (a broadcast origin counts once) over the rays,
+    plus :data:`GRID_OUT_BYTES`."""
+    def data_bytes(t):
+        return 4 * math.prod(size for size, stride in zip(t.shape, t.stride()) if stride != 0)
+    return GRID_OUT_BYTES + (data_bytes(origins) + data_bytes(rays)) / rays.shape[0]
+
+
+def kernel_profile(fn, calls: int = 1):
+    """``(names, ms)``: the CUDA kernels ``calls`` runs of ``fn()`` launch
+    (memory copies and sets excluded) and the device time of each, by
+    ``torch.profiler``; ``(None, None)`` where the profiler records no
+    device activity.  A short kernel's own time: CUDA events around a
+    host-bound call also time the card's idle gaps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return None, None
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    return [e.name for e in kernels], [e.time_range.elapsed_us() / 1e3 for e in kernels]
 
 
 def phase_build():
@@ -385,11 +429,35 @@ def warp_iters_line(iters, own, steps, what):
         f"p50 {np.percentile(it, 50):.0f} p90 {np.percentile(it, 90):.0f} p99 {np.percentile(it, 99):.0f} "
         f"max {it.max()} sum {it.sum()}; rays' own iterations {int(own.sum())}, so lanes are active "
         f"{busy:.4f} of the warp-iterations; steps sum {int(steps.sum())}")
+    return busy
 
 
 def k5_times(t):
-    """``{batch: ms}`` as one phrase of a times line."""
-    return ", ".join(f"{ms:.3f} ms at batch {b}" for b, ms in t.items())
+    """``{refill: ms}`` as one phrase of a times line."""
+    return ", ".join(f"{ms:.4f} ms at refill {r}" for r, ms in t.items())
+
+
+def k5_sweep(args, kw, use_macro):
+    """K5 at each of :data:`K5_REFILLS`: ``({refill: ms}, {refill: lanes-
+    active share})``, the share from the counting instantiation (one extra
+    launch each, off any path)."""
+    import torch
+
+    from voxelengine_tpu_torch.kernels import rrtrace
+
+    times, share = {}, {}
+    for r in sorted(set(K5_REFILLS) | {rrtrace.REFILL}, reverse=True):
+        times[r] = cuda_ms(lambda: rrtrace.rrtrace(*args, use_macro=use_macro, refill=r, **kw), repeats=10)
+        stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+        rrtrace.rrtrace(*args, use_macro=use_macro, refill=r, stats=stats, **kw)
+        lanes, iters = stats.tolist()
+        share[r] = lanes / (32 * iters)
+    return times, share
+
+
+def share_line(what, k1_share, share):
+    say(f"{what}: lanes active on the warp-iterations: K1 (diag build) {k1_share:.4f}; K5 (counting build) "
+        + ", ".join(f"{v:.4f} at refill {r}" for r, v in share.items()))
 
 
 def line_kernel_args(bm, lt, o, d, max_steps):
@@ -415,7 +483,7 @@ def phase_main_path(dev, world: str):
 
     from voxelengine_tpu_torch.config import Environment, RenderConfig
     from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
-    from voxelengine_tpu_torch.kernels import bigtrace, rrtrace
+    from voxelengine_tpu_torch.kernels import bigtrace
     from voxelengine_tpu_torch.ops.bigtrace import (
         make_line_table,
         materialize_brick_lines,
@@ -502,14 +570,14 @@ def phase_main_path(dev, world: str):
                 int(got.hit.sum()))
     check_diag("main path", phases, iters, pdg)
     events = phase_counts(phases, "main path")
-    warp_iters_line(iters, pdg[-1], got.steps, "main path")
+    k1_share = warp_iters_line(iters, pdg[-1], got.steps, "main path")
 
     # times: K1 (macro off, on) and K5 alone (ray setup excluded), the plain trace
     args, kw = line_kernel_args(bm, lt, o, d, cfg.max_steps)
     t_off = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
     t_on = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=True, **kw), repeats=10)
-    t_k5 = {b: cuda_ms(lambda: rrtrace.rrtrace(*args, use_macro=use_macro, batch=b, **kw), repeats=10)
-            for b in K5_BATCHES}
+    t_k5, k5_share = k5_sweep(args, kw, use_macro)
+    share_line("main path", k1_share, k5_share)
     k_ms = t_on if use_macro else t_off
     plain = trace_brickmap_lt if use_macro else (lambda bm, lt, *a: trace_brickmap(bm, *a))
     p_ms = cuda_ms(lambda: plain(bm, lt, o, d, cfg.max_steps), repeats=1)
@@ -609,7 +677,7 @@ def phase_dense_path(dev, err):
     from voxelengine_tpu_torch.config import Environment, RenderConfig
     from voxelengine_tpu_torch.kernels import gridtrace
     from voxelengine_tpu_torch.ops.gridtrace import trace_grid_mxu, trace_grid_vpu, words_to_limb_rows
-    from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup, trace_grid
+    from voxelengine_tpu_torch.ops.trace import trace_grid
     from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, render_frame_dense
     from voxelengine_tpu_torch.worldgen.terrain import generate_world
 
@@ -671,31 +739,51 @@ def phase_dense_path(dev, err):
         f"{fo.shape[0] / frame_ms / 1e3:.3f} Mrays/s primary, hit fraction {hit_frac:.4f}, "
         f"K2 launches {k2_launches}, framebuffer checksum {float(fb.double().sum()):.6f}")
 
-    # times on the config-2 batch and on the last frame's rays (the shape of
-    # K2's launches on its path): the kernels alone (ray setup excluded)
-    def grid_args(o, d, max_steps):
-        dd, st, _, active = _ray_setup(g.dims, 1, o, d)
-        pad = _edge_pad(st.to(torch.int32), _dims(g.dims, torch.int32, dev), dd)
-        return (st, dd, active.to(torch.int32), pad), dict(dims=g.dims, layout=g.layout, max_steps=max_steps)
+    # the CUDA kernels one dense frame and one trace_grid_vpu call launch
+    frame_kernels, frame_dev = kernel_profile(lambda: render_frame_dense(g, fb, origin, euler, env, FRAMES + 1, cfg))
+    call_kernels, _ = kernel_profile(lambda: trace_grid_vpu(g, fo, fd, cfg.max_steps))
+    if call_kernels is None:
+        say("dense path: kernels a frame: not measured (torch.profiler recorded no device activity)")
+    else:
+        say(f"dense path: CUDA kernels launched by one render_frame_dense frame: {len(frame_kernels)} "
+            f"({sum(frame_dev):.4f} ms of device time); by one trace_grid_vpu call on its rays: {len(call_kernels)} "
+            f"({', '.join(sorted(set(call_kernels)))})")
+        if len(call_kernels) != 1:
+            raise SystemExit(f"trace_grid_vpu launched {len(call_kernels)} CUDA kernels, not K2 alone")
 
-    args, kw = grid_args(o, d, 2048)
-    fargs, fkw = grid_args(fo, fd, cfg.max_steps)
+    # times on the config-2 batch and on the last frame's rays (the shape of
+    # K2's launches on its path): the kernels' device time (torch.profiler,
+    # CUDA events where it records none), and K2 as the whole trace_grid_vpu
+    # call (checks, outputs, launch) by CUDA events
+    kw = dict(dims=g.dims, layout=g.layout)
     limbs = words_to_limb_rows(g.words)
-    k2_ms = cuda_ms(lambda: gridtrace.gridtrace(*args, g.words, **kw), repeats=10)
-    k2_frame_ms = cuda_ms(lambda: gridtrace.gridtrace(*fargs, g.words, **fkw), repeats=10)
-    k3_ms = cuda_ms(lambda: gridtrace.gridtrace_limbs(*args, limbs, **kw), repeats=10)
+
+    def kernel_ms(fn):  # (device ms, event ms) of a call that launches one kernel
+        ev = cuda_ms(fn, repeats=10)
+        _, dev = kernel_profile(fn, 10)
+        return ev if not dev else sum(dev) / len(dev), ev
+
+    k2_ms, k2_ev = kernel_ms(lambda: gridtrace.gridtrace(o, d, g.words, max_steps=2048, **kw))
+    k2_frame_ms, k2_frame_ev = kernel_ms(lambda: gridtrace.gridtrace(fo, fd, g.words, max_steps=cfg.max_steps, **kw))
+    call_frame_ms = cuda_ms(lambda: trace_grid_vpu(g, fo, fd, cfg.max_steps), repeats=10)
+    k3_ms, k3_ev = kernel_ms(lambda: gridtrace.gridtrace_limbs(o, d, limbs, max_steps=2048, **kw))
     p_ms = cuda_ms(lambda: trace_grid(g, o, d), repeats=1)
     p_frame_ms = cuda_ms(lambda: trace_grid(g, fo, fd, cfg.max_steps), repeats=1)
     steps_sum, frame_steps = int(want.steps.sum()), int(fwant.steps.sum())
-    say(f"times: K2 {k2_ms:.3f} ms, K3 {k3_ms:.3f} ms, plain trace_grid {p_ms:.3f} ms, {o.shape[0]} rays, "
-        f"sum(steps) {steps_sum}; K2 {k2_frame_ms:.3f} ms, plain trace_grid {p_frame_ms:.3f} ms on the last frame's "
-        f"{fo.shape[0]} rays, sum(steps) {frame_steps}, on {card_line()}")
+    say(f"times (device; CUDA events around the launches in brackets): K2 {k2_ms:.4f} ms ({k2_ev:.4f}), K3 "
+        f"{k3_ms:.4f} ms ({k3_ev:.4f}), plain trace_grid {p_ms:.3f} ms, {o.shape[0]} rays, sum(steps) {steps_sum}; "
+        f"K2 {k2_frame_ms:.4f} ms ({k2_frame_ev:.4f}), the whole trace_grid_vpu call {call_frame_ms:.4f} ms (events), "
+        f"plain trace_grid {p_frame_ms:.3f} ms on the last frame's {fo.shape[0]} rays, sum(steps) {frame_steps}, "
+        f"on {card_line()}")
     return [
         kernel_entry("gridtrace", "gridtrace.cu", "voxelengine_tpu/ops/pallas_trace.py:329", k2_launches,
                      err["K2"], k2_frame_ms, p_frame_ms, fo.shape[0], hit_table_bytes(fwant, g.dims, g.layout),
-                     frame_steps),
+                     frame_steps, ray_bytes=grid_ray_bytes(fo, fd), call_ms=call_frame_ms,
+                     kernels_per_call=None if call_kernels is None else len(call_kernels),
+                     kernels_per_frame=None if frame_kernels is None else len(frame_kernels)),
         kernel_entry("gridtrace_limbs", "gridtrace.cu", "voxelengine_tpu/ops/pallas_trace.py:93", k3_launches,
-                     err["K3"], k3_ms, p_ms, o.shape[0], hit_table_bytes(want, g.dims, g.layout), steps_sum),
+                     err["K3"], k3_ms, p_ms, o.shape[0], hit_table_bytes(want, g.dims, g.layout), steps_sum,
+                     ray_bytes=grid_ray_bytes(o, d)),
     ]
 
 
@@ -923,13 +1011,13 @@ def phase_sparse(dev):
     events = phase_counts(phases, "sparse world")
     if int(phases["mskip"].sum()) <= 0:
         raise SystemExit("sparse world: no macro skip fired")
-    warp_iters_line(iters, pdg[-1], k1_on.steps, "sparse world")
+    k1_share = warp_iters_line(iters, pdg[-1], k1_on.steps, "sparse world")
 
     args, kw = line_kernel_args(bm, lt, o, d, ms)
     t_off = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
     t_on = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=True, **kw), repeats=10)
-    t_k5 = {b: cuda_ms(lambda: rrtrace.rrtrace(*args, use_macro=True, batch=b, **kw), repeats=10)
-            for b in K5_BATCHES}
+    t_k5, k5_share = k5_sweep(args, kw, True)
+    share_line("sparse world", k1_share, k5_share)
     p_off = cuda_ms(lambda: trace_brickmap(bm, o, d, ms), repeats=1)
     p_on = cuda_ms(lambda: trace_brickmap_lt(bm, lt, o, d, ms), repeats=1)
     steps_sum = int(k1_on.steps.sum())
@@ -938,9 +1026,9 @@ def phase_sparse(dev):
         f"executed events {events} (macro off: sum(steps) {int(plain_off.steps.sum())}), on {card_line()}")
     return kernel_entry(
         "rrtrace", "rrtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1694", k5_launches, k5_diffs[4],
-        t_k5[K5_BATCHES[0]],
+        t_k5[rrtrace.REFILL],
         p_on, n, hit_table_bytes(plain_on, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick),
-        steps_sum, events,
+        steps_sum, events, refill=rrtrace.REFILL, lanes_active=k5_share[rrtrace.REFILL], k1_lanes_active=k1_share,
     )
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's brickmap traversal kernels (K1, K4, K5) of several
-source trees in turns on one NVIDIA GPU.
+"""Time the port's traversal kernels (K1-K5) of several source trees in
+turns on one NVIDIA GPU.
 
     python3 kernel_ab.py                          # this checkout alone
     python3 kernel_ab.py --before _checkout/prev  # an earlier checkout too, in turns (repeatable)
@@ -10,22 +10,35 @@ source trees in turns on one NVIDIA GPU.
 
 The inputs are made once, in this process, on the card: the demo frame's
 460,800 rays over the 1024^3 terrain (``chip_smoke.py`` phase 5), the
-sparse 16k world's 262,144 rays (phase 10), and K4's 1,048,576 random rays
-over the 128^3 terrain at factor 8 (phase 9), as given and sorted by
-direction octant, then by the chunk of the clipped start; without
-``--quick`` also K4 on terrains of 16-224 KB of meta with each of its two
-instantiations (shared or global meta, forced through the wrapper's
-limit).  Each build (a tree, or this checkout with extra nvcc flags) is
+dense path's 64^3 terrain with the last dense frame's 460,800 rays and the
+config-2 batch of 1,048,576 rays (phase 8), the sparse 16k world's 262,144
+rays (phase 10), and K4's 1,048,576 random rays over the 128^3 terrain at
+factor 8 (phase 9), as given and sorted by direction octant, then by the
+chunk of the clipped start; without ``--quick`` also K4 on terrains of
+16-224 KB of meta with each of its two instantiations (shared or global
+meta, forced through the wrapper's limit).  K2 and K3 are timed alone (the
+kernel's launch; a tree whose kernel takes prepared rays gets them from
+its own ray setup, made once) and as the whole ``trace_grid_vpu`` /
+``trace_grid_mxu`` call; the dense frame as 8 chained ``render_frame_dense``
+frames, whose CUDA kernels ``torch.profiler`` also counts; K5 at each
+refill of ``--refills`` (a tree whose K5 takes a ``batch`` runs the case of
+refill 32, which is the same schedule, as batch 32).  Each build (a tree,
+or this checkout with extra nvcc flags) is
 then timed in a worker process of its own that imports that tree's
 ``voxelengine_tpu_torch`` wrappers (their Python signatures are the same
 across trees): the order is the earlier trees, this one, its variants,
 then the same backwards, so that drift on the card shows as a difference
 between the two runs of one build.  Each time is the median of 5 windows
 of 20 launches, by CUDA events, after 0.3 s of untimed launches that
-bring the card's clocks up.  Each worker also prints a digest of every
-kernel's outputs, so the trees' results can be seen to be equal.  Prints each library's ptxas
-registers and spills, one JSON line per worker, and the card's name and
-power limit.  Needs one CUDA device.  Imports nothing of JAX.
+bring the card's clocks up; beside it, the kernels' own device time a
+call from ``torch.profiler`` over 20 more (the event time of a host-bound
+call also counts the card's idle gaps; a count of kernels a call that is
+not a whole number shows that the profiler lost events).  Each worker
+also prints a digest of every kernel's outputs (for K2 and K3 alone: of
+hit and steps, which are the same before the wrapper's zero-step fix-up),
+so the trees' results can be seen to be equal.  Prints each library's ptxas registers and spills, one
+JSON line per worker, and the card's name and power limit.  Needs one CUDA
+device.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -41,7 +54,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-REPEATS = 20  # launches in one timed window
+REPEATS = 20  # launches (or dense frames) in one timed window
 WINDOWS = 5  # timed windows; the median is reported
 WARM_S = 0.3  # seconds of launches before the first window, so the card's clocks are up
 
@@ -50,7 +63,7 @@ def say(*parts):
     print(*parts, flush=True)
 
 
-def make_inputs(dev, quick: bool):
+def make_inputs(dev, quick: bool, refills):
     """``{case: (kernel, args, kw)}`` for the workers, built on ``dev``."""
     import torch
 
@@ -63,6 +76,25 @@ def make_inputs(dev, quick: bool):
     from voxelengine_tpu_torch.worldgen.terrain import generate_world
 
     cases = {}
+    # the dense path (phase 8): K2 on the last frame's rays, K3 on the config-2 batch, the frames
+    g = generate_world((64, 64, 64), octaves=8, device=dev)
+    grid = (g.words, g.dims, g.layout.value)
+    cfg = RenderConfig(width=1280, height=720, checkerboard=True)
+    origin = torch.tensor([32.0, 40.0, -20.0], device=dev)
+    euler = torch.tensor([-0.35, 3.14159, 0.0], device=dev)
+    fo, fd, _, _, _ = primary_rays(cfg, origin, euler + 1e-5 * cs.FRAMES, cs.FRAMES)
+    co, cd = cs.config2_rays(dev)
+    cases["K2 dense frame rays, alone"] = ("grid", (fo, fd) + grid, dict(max_steps=cfg.max_steps))
+    cases["K2 dense frame rays, trace_grid_vpu call"] = ("grid_call", (fo, fd) + grid, dict(max_steps=cfg.max_steps))
+    cases["K3 config-2 batch, alone"] = ("grid_limbs", (co, cd) + grid, dict(max_steps=MAX_STEPS))
+    cases["K3 config-2 batch, trace_grid_mxu call"] = ("grid_limbs_call", (co, cd) + grid, dict(max_steps=MAX_STEPS))
+    cases["dense frame (8 chained render_frame_dense, ms a frame)"] = (
+        "dense_frames", grid + (origin, euler), dict(width=cfg.width, height=cfg.height))
+
+    def k5_cases(what, args, kw):
+        for r in refills:
+            cases[f"K5 {what} refill {r}"] = ("rrtrace", args, dict(kw, refill=r))
+
     if not quick:
         dims, W, H = cs.WORLDS["demo"]
         bm = build_brickmap_terrain_compact(dims, 32, device=dev)
@@ -73,7 +105,7 @@ def make_inputs(dev, quick: bool):
         o, d, _, _, _ = primary_rays(cfg, origin, euler + 1e-5 * cs.FRAMES, cs.FRAMES)
         args, kw = cs.line_kernel_args(bm, lt, o, d, cfg.max_steps)
         cases["K1 frame macro off"] = ("bigtrace", args, dict(kw, use_macro=False))
-        cases["K5 frame macro off"] = ("rrtrace", args, dict(kw, use_macro=False))
+        k5_cases("frame macro off", args, dict(kw, use_macro=False))
 
     bm = cs.sparse_world(dev)
     lt = materialize_brick_lines(bm, make_line_table(bm))
@@ -81,7 +113,7 @@ def make_inputs(dev, quick: bool):
     args, kw = cs.line_kernel_args(bm, lt, o, d, MAX_STEPS)
     cases["K1 sparse macro off"] = ("bigtrace", args, dict(kw, use_macro=False))
     cases["K1 sparse macro on"] = ("bigtrace", args, dict(kw, use_macro=True))
-    cases["K5 sparse macro on"] = ("rrtrace", args, dict(kw, use_macro=True))
+    k5_cases("sparse macro on", args, dict(kw, use_macro=True))
 
     def k4_args(bm):
         o, d = cs.random_rays(bm.world_dims, 1 << 20, 2.0, 109, dev)
@@ -108,52 +140,135 @@ def make_inputs(dev, quick: bool):
     return cases
 
 
+def tree_functions(torch):
+    """``{kernel kind: fn(args, kw) -> (launch(), outputs to digest)}`` for
+    the tree on ``sys.path``, adapting to its wrappers' signatures."""
+    import inspect
+
+    from voxelengine_tpu_torch.config import Environment, RenderConfig
+    from voxelengine_tpu_torch.core.bitgrid import BitGrid
+    from voxelengine_tpu_torch.core.layout import Layout
+    from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, gridtrace, rrtrace
+    from voxelengine_tpu_torch.ops import gridtrace as ops_grid
+    from voxelengine_tpu_torch.ops import trace as ops_trace
+    from voxelengine_tpu_torch.render.frame import make_framebuffer, render_frame_dense
+
+    fused = "origins" in inspect.signature(gridtrace.gridtrace).parameters
+    has_refill = "refill" in inspect.signature(rrtrace.rrtrace).parameters
+
+    def grid(o, d, words, dims, layout):
+        g = BitGrid(words=words, dims=tuple(dims), layout=Layout(layout))
+        if fused:
+            return g, (o, d)
+        dd, st, _, active = ops_trace._ray_setup(g.dims, 1, o, d)
+        pad = ops_trace._edge_pad(st.to(torch.int32), ops_trace._dims(g.dims, torch.int32, o.device), dd)
+        return g, (st, dd, active.to(torch.int32), pad)
+
+    def alone(fn, table):
+        def make(args, kw):
+            g, rays = grid(*args)
+            t = table(g)
+            kw = dict(kw, dims=g.dims, layout=g.layout)
+            return (lambda: fn(*rays, t, **kw)), (lambda out: (out[0] != 0, out[3]))
+        return make
+
+    def call(fn):
+        def make(args, kw):
+            g, _ = grid(*args)
+            return (lambda: fn(g, args[0], args[1], kw["max_steps"])), (lambda out: out)
+        return make
+
+    def frames(args, kw):
+        words, dims, layout, origin, euler = args
+        g = BitGrid(words=words, dims=tuple(dims), layout=Layout(layout))
+        cfg = RenderConfig(width=kw["width"], height=kw["height"], checkerboard=True)
+        env = Environment.default(origin.device)
+        fb = make_framebuffer(cfg, origin.device)
+
+        def run():
+            for i in range(1, 9):
+                render_frame_dense(g, fb, origin, euler + 1e-5 * i, env, i, cfg)
+            return (fb,)
+        return run, (lambda out: out)
+
+    def k5(args, kw):
+        kw = dict(kw)
+        refill = kw.pop("refill")
+        if has_refill:
+            kw["refill"] = refill
+        elif refill != 32:
+            return None
+        return (lambda: rrtrace.rrtrace(*args, **kw)), (lambda out: out)
+
+    def plain(fn):
+        return lambda args, kw: ((lambda: fn(*args, **kw)), (lambda out: out))
+
+    return {
+        "bigtrace": plain(bigtrace.bigtrace), "bmtrace": plain(bmtrace.bmtrace), "rrtrace": k5,
+        "grid": alone(gridtrace.gridtrace, lambda g: g.words),
+        "grid_limbs": alone(gridtrace.gridtrace_limbs, lambda g: ops_grid.words_to_limb_rows(g.words)),
+        "grid_call": call(ops_grid.trace_grid_vpu), "grid_limbs_call": call(ops_grid.trace_grid_mxu),
+        "dense_frames": frames,
+    }
+
+
 def worker(tree: Path, data: Path, defines: str) -> None:
     """Time every case of ``data`` with ``tree``'s ``voxelengine_tpu_torch``,
     its CUDA libraries built with the extra nvcc ``defines``; print one
     JSON line."""
+    import chip_smoke as cs  # this checkout's, before the tree (which may hold its own) goes first on sys.path
+
     sys.path.insert(0, str(tree))
     import torch
 
     import voxelengine_tpu_torch as pkg
-    from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, build, rrtrace
+    from voxelengine_tpu_torch.kernels import bmtrace, build
 
     build.NVCC_FLAGS = build.NVCC_FLAGS + tuple(defines.split())
-    fns = {"bigtrace": bigtrace.bigtrace, "rrtrace": rrtrace.rrtrace, "bmtrace": bmtrace.bmtrace}
+    fns = tree_functions(torch)
     cases = torch.load(data, weights_only=False)
     own_limit = getattr(bmtrace, "SMEM_META_LIMIT", None)
-    ms, digest = {}, {}
-    for name, (kernel, args, kw) in cases.items():
-        fn = fns[kernel]
+    ms, digest, kernels, dev_ms = {}, {}, {}, {}
+    for name, (kind, args, kw) in cases.items():
         kw = dict(kw)
         limit = kw.pop("_smem_limit", None)
         if limit is not None and own_limit is None:
             continue  # a tree whose K4 has one instantiation
         if own_limit is not None:
             bmtrace.SMEM_META_LIMIT = own_limit if limit is None else limit
-        outs = fn(*args, **kw)  # the build, at first use
+        made = fns[kind](args, kw)
+        if made is None:
+            continue  # a K5 refill this tree does not have
+        fn, digested = made
+        outs = fn()  # the build, at first use
         torch.cuda.synchronize()
         h = hashlib.sha256()
-        for t in outs:
+        for t in digested(outs):
             h.update(t.cpu().numpy().tobytes())
         digest[name] = h.hexdigest()[:16]
+        # kernels and device time a call (a dense frame: a run of 8 frames / 8)
+        calls = REPEATS if kind != "dense_frames" else 1
+        names, dev = cs.kernel_profile(fn, calls)
+        per = calls * (8 if kind == "dense_frames" else 1)
+        kernels[name], dev_ms[name] = (None, None) if names is None else (len(names) / per, sum(dev) / per)
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < WARM_S:
-            for _ in range(10):
-                fn(*args, **kw)
+            for _ in range(10 if kind != "dense_frames" else 1):
+                fn()
             torch.cuda.synchronize()
+        reps = REPEATS if kind != "dense_frames" else 1
         windows = []
         for _ in range(WINDOWS):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(REPEATS):
-                fn(*args, **kw)
+            for _ in range(reps):
+                fn()
             end.record()
             torch.cuda.synchronize()
-            windows.append(start.elapsed_time(end) / REPEATS)
+            windows.append(start.elapsed_time(end) / (reps if kind != "dense_frames" else 8))
         ms[name] = sorted(windows)[WINDOWS // 2]
     print(json.dumps({"tree": str(Path(pkg.__file__).resolve().parent.parent), "defines": defines, "ms": ms,
-                      "digest": digest}), flush=True)
+                      "digest": digest, "kernels": kernels, "dev_ms": dev_ms}), flush=True)
 
 
 def run_worker(tree: Path, defines: str, data: Path) -> dict:
@@ -171,7 +286,8 @@ def sass_summary(sass: str):
     """One line per kernel function of a ``cuobjdump -sass`` dump: its
     instructions, and in its main loop (the longest backward branch) the
     instructions, table loads (LDG, LDS, generic LD), local-memory spill
-    accesses (LDL, STL) and IEEE division checks (FCHK)."""
+    accesses (LDL, STL), IEEE division checks (FCHK) and indirect branches
+    (BRX, a jump table)."""
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name = part.split("\n", 1)[0].strip()
         ins = [(int(a, 16), op.strip()) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
@@ -184,7 +300,8 @@ def sass_summary(sass: str):
             return sum(1 for op in body if re.search(r"(^|\s)(" + "|".join(ops) + r")[.\s]", op + " "))
 
         yield (f"{name[:110]}: {len(ins)} instructions; main loop {len(body)} "
-               f"(loads {count('LDG', 'LDS', 'LD')}, spill accesses {count('LDL', 'STL')}, FCHK {count('FCHK')})")
+               f"(loads {count('LDG', 'LDS', 'LD')}, spill accesses {count('LDL', 'STL')}, FCHK {count('FCHK')}, "
+               f"BRX {count('BRX')})")
 
 
 def ptxas_lines(tree: Path):
@@ -200,7 +317,8 @@ def main(argv=None):
     ap.add_argument("--before", type=Path, action="append", default=[],
                     help="root of an earlier checkout to time in turns with this one; repeatable")
     ap.add_argument("--quick", action="store_true", help="leave out the 1024^3 demo frame")
-    ap.add_argument("--sass", type=Path, help="directory for cuobjdump -sass of each tree's K1/K4 libraries")
+    ap.add_argument("--sass", type=Path, help="directory for cuobjdump -sass of each tree's kernel libraries")
+    ap.add_argument("--refills", default="32,16,8,4,1", help="K5's refills to time, comma-separated")
     ap.add_argument("--variant", action="append", default=[],
                     help="extra nvcc flags of one more build of this checkout (--variant='-maxrregcount=72'); "
                          "repeatable")
@@ -221,7 +339,7 @@ def main(argv=None):
     say(f"card: {cs.card_line()}")
     data = ROOT / "_checkout" / "kernel_ab_inputs.pt"
     data.parent.mkdir(exist_ok=True)
-    torch.save(make_inputs(dev, args.quick), data)
+    torch.save(make_inputs(dev, args.quick, [int(r) for r in args.refills.split(",")]), data)
     builds = [(b.resolve(), "") for b in args.before] + [(ROOT, "")] + [(ROOT, v) for v in args.variant]
     order = builds + builds[::-1] if len(builds) > 1 else builds
     runs = [run_worker(t, v, data) for t, v in order]
@@ -233,7 +351,7 @@ def main(argv=None):
         if args.sass:
             args.sass.mkdir(parents=True, exist_ok=True)
             for lib in sorted((tree / "voxelengine_tpu_torch" / "kernels" / "_build").glob("lib*trace_*.so")):
-                if lib.name.startswith(("libbigtrace", "libbmtrace")):
+                if not lib.name.startswith("libdda_host"):
                     out = args.sass / f"{'after' if tree == ROOT else tree.name}_{lib.stem}.sass"
                     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
                     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True)
@@ -248,6 +366,13 @@ def main(argv=None):
         have = [r for r in runs if name in r["ms"]]
         say(f"{name}: " + " | ".join(f"{r['ms'][name]:.4f} ms" if name in r["ms"] else "-" for r in runs)
             + ("" if len({r["digest"][name] for r in have}) == 1 else "  OUTPUTS DIFFER"))
+    for name in dict.fromkeys(k for r in runs for k in r.get("dev_ms", {})):
+        say(f"device time (torch.profiler), {name}: "
+            + " | ".join(f"{r['dev_ms'][name]:.4f} ms" if r.get("dev_ms", {}).get(name) else "-" for r in runs))
+    for name in dict.fromkeys(k for r in runs for k in r.get("kernels", {})):
+        if name.startswith(("K2", "K3", "dense")):
+            say(f"CUDA kernels launched, {name}: "
+                + " | ".join(str(r.get("kernels", {}).get(name, "-")) for r in runs))
     say(f"card: {cs.card_line()}")
     data.unlink()
 

@@ -1,9 +1,11 @@
 """The PyTorch port's small-world path against the JAX package: the dense-grid
 traversal (``trace_grid``, ``trace_grid_vpu``, ``trace_grid_mxu``), the
 on-chip brickmap traversal (``trace_brickmap_mxu``) and
-``render_frame_dense``; and the host builds of the Hopper kernels' step
-logic (``csrc/grid_dda.cuh`` with both word fetches, ``csrc/dda.cuh`` with
-the dense-slot fetch) against the plain traces.
+``render_frame_dense``; and the host builds of the Hopper kernels' logic
+(K2's and K3's whole function, ``csrc/ray_setup.cuh`` and
+``csrc/grid_dda.cuh``, against JAX's ``trace_grid_vpu``; the grid walk alone
+with both word fetches and ``csrc/dda.cuh`` with the dense-slot fetch
+against the plain traces).
 
 As in ``test_torch_trace.py``, the JAX side runs in a subprocess whose
 XLA:CPU neither contracts FMAs nor runs the algebraic simplifier, and its
@@ -87,6 +89,33 @@ def _grid_rays(dense, n=640):
     return o, d.astype(np.float32)
 
 
+FULL_WORLDS = ("random", "terrain")
+
+
+def _full_rays(dense):
+    """Origins and raw (not normalized) directions for the fused kernels:
+    starts inside and outside the grid, a start inside a solid voxel (a hit
+    at the start cell, 0 steps), zero direction components, starts on the
+    maximal x and y faces, a miss, an axis-aligned entry, and rays that
+    enter the grid from below (a hit at the clipped start where the
+    bottom voxel is solid: 0 steps and the world-entry normal, +y in the
+    step-sign convention)."""
+    rng = np.random.default_rng(84)
+    n = 640
+    o = (rng.random((n, 3)) * 60 - 15).astype(np.float32)
+    v = ((rng.random((n, 3)) * 32).astype(np.float32) - o) * rng.uniform(0.1, 5.0, (n, 1)).astype(np.float32)
+    z, y, x = np.nonzero(dense)
+    o[0], v[0] = [x[0] + 0.5, y[0] + 0.5, z[0] + 0.5], [2.5, 0.0, 0.0]
+    v[1:4] = [[0.0, -3.0, 0.0], [0.5, 0.0, 0.0], [0.0, 0.0, 7.0]]
+    o[4], v[4] = [32.0, 10.5, 5.5], [-2.0, 0.0, 0.0]
+    o[5], v[5] = [10.5, 32.0, 5.5], [0.3, -1.0, 0.2]
+    o[6], v[6] = [40.0, 40.0, 40.0], [0.0, 1.0, 0.0]
+    o[7], v[7] = [-3.0, 2.5, 16.5], [1.0, 0.0, 0.0]
+    o[8:24] = np.stack([rng.uniform(0, 32, 16), np.full(16, -5.0), rng.uniform(0, 32, 16)], -1)
+    v[8:24] = np.stack([rng.normal(0, 0.1, 16), np.full(16, 2.0), rng.normal(0, 0.1, 16)], -1)
+    return o, v.astype(np.float32)
+
+
 def _bm_dense():
     """``tests/test_pallas_trace2.py:13-19`` at 32^3."""
     rng = np.random.default_rng(82)
@@ -139,6 +168,15 @@ def _jax_reference():
         if not initial:
             put(f"grid/{name}/vpu", j_vpu(g, o, d, max_steps, tile=1024, interpret=True))
             put(f"grid/{name}/mxu", j_mxu(g, o, d, max_steps, interpret=True))
+
+    terrain = np.asarray(generate_world((32, 32, 32), octaves=3).to_dense())
+    out["full/terrain/dense"] = terrain
+    for world, dense in (("random", _grid_dense()), ("terrain", terrain)):
+        o, v = (jnp.asarray(a) for a in _full_rays(dense))
+        for lay in LAYOUTS:
+            g = JGrid.from_dense(dense, layout=JL[lay])
+            out[f"full/{world}/{lay}/words"] = np.asarray(g.words)
+            put(f"full/{world}/{lay}", j_vpu(g, o, v, 256, tile=1024, interpret=True))
 
     dense = _bm_dense()
     o, d = (jnp.asarray(a) for a in _bm_rays(dense))
@@ -333,6 +371,80 @@ def test_host_build_of_grid_step_matches_plain_trace(ref, host_lib, name, limbs)
     assert torch.equal(pos[hit], want.position[hit]) and torch.equal(nrm[hit], want.normal[hit])
 
 
+def _full_world(ref, world, layout):
+    dense = _grid_dense() if world == "random" else ref["full/terrain/dense"]
+    g = bitgrid_from_numpy(dict(words=ref[f"full/{world}/{layout}/words"], dims=(32, 32, 32),
+                                layout=Layout[layout].value), device="cpu")
+    return g, *(_t(a) for a in _full_rays(dense))
+
+
+def _host_full(lib, g, o, v, max_steps, limbs):
+    """K2's (``limbs=False``) or K3's whole function, built by g++: origins
+    (row stride 3, or 0 for one origin broadcast) and raw directions in,
+    ``(hit bool, position, normal, steps)`` out."""
+    n = v.shape[0]
+    outs = (torch.empty(n, dtype=torch.bool), torch.empty(n, 3), torch.empty(n, 3), torch.empty(n, dtype=torch.int32))
+    head = [o.data_ptr(), o.stride(0), v.data_ptr(), v.stride(0)]
+    tail = [n, *g.dims, g.layout.value, max_steps, *_ptrs(*outs)]
+    if limbs:
+        table = words_to_limb_rows(g.words)
+        assert lib.vx_trace_grid_limbs_full_host(*head, table.data_ptr(), table.shape[1] * 128, *tail) == 0
+    else:
+        assert lib.vx_trace_grid_full_host(*head, g.words.data_ptr(), *tail) == 0
+    return outs
+
+
+@pytest.mark.parametrize("limbs", [False, True], ids=["words_K2", "limbs_K3"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("world", FULL_WORLDS)
+def test_host_build_of_fused_grid_kernel_matches_jax(ref, host_lib, world, layout, limbs):
+    """K2's and K3's whole function (``ray_setup.cuh``, the walk, the
+    zero-step fix-up), built by g++, == JAX's ``trace_grid_vpu`` on every
+    ray, bit for bit: hit, steps, position and normal, from origins and raw
+    directions; the special rays of ``_full_rays`` behave as described."""
+    g, o, v = _full_world(ref, world, layout)
+    hit, pos, nrm, steps = _host_full(host_lib, g, o, v, 256, limbs)
+    prefix = f"full/{world}/{layout}"
+    for k, got in (("hit", hit), ("steps", steps), ("position", pos), ("normal", nrm)):
+        np.testing.assert_array_equal(got.numpy(), ref[f"{prefix}/{k}"], err_msg=k)
+    assert bool(hit[0]) and int(steps[0]) == 0 and not nrm[0].any()
+    assert not bool(hit[6]) and int(steps[6]) == 0
+    entry = hit[8:24] & (steps[8:24] == 0)
+    assert bool(entry.any()) and torch.equal(nrm[8:24][entry], torch.tensor([0.0, 1.0, 0.0]).expand(int(entry.sum()), 3))
+
+
+def test_host_build_of_fused_grid_kernel_broadcast_origin(ref, host_lib):
+    """One origin for every ray (row stride 0, as ``primary_rays`` makes
+    them) gives what the same origin in every row gives, and the plain
+    trace's results."""
+    g, _, _ = _full_world(ref, "terrain", "TILED_LINEAR")
+    o = torch.tensor([16.0, 40.0, -10.0])
+    v = _t((np.random.default_rng(85).random((640, 3)) * 32).astype(np.float32)) - o
+    want = trace_grid(g, o.expand(v.shape[0], 3), v, 256)
+    for origins in (o.expand(v.shape[0], 3), o.repeat(v.shape[0], 1)):
+        got = _host_full(host_lib, g, origins, v, 256, False)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(want.hit.sum()) > 100
+
+
+def test_ray_rows_strides():
+    """The kernels' ray inputs: rows of 3 floats at stride 3, or one row
+    broadcast at stride 0; other layouts are copied, wrong shapes refused."""
+    from voxelengine_tpu_torch.kernels import build
+
+    cpu = torch.device("cpu")
+    t = torch.arange(12.0).reshape(4, 3)
+    assert build.ray_rows("k", "o", t, 4, cpu) == (t, 3)
+    b = torch.ones(3).expand(4, 3)
+    assert build.ray_rows("k", "o", b, 4, cpu)[1] == 0
+    tt, stride = build.ray_rows("k", "o", t.t().contiguous().t(), 4, cpu)
+    assert stride == 3 and tt.is_contiguous() and torch.equal(tt, t)
+    with pytest.raises(ValueError, match="float32"):
+        build.ray_rows("k", "o", t.double(), 4, cpu)
+    with pytest.raises(ValueError, match=r"\[5, 3\]"):
+        build.ray_rows("k", "o", t, 5, cpu)
+
+
 @pytest.mark.parametrize("name", sorted(BM_CASES))
 def test_host_build_of_dense_slot_step_matches_plain_trace(ref, host_lib, name):
     """``csrc/dda.cuh`` with ``DenseSlotFetch`` (K4's step) built by g++ ==
@@ -363,9 +475,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_overflow():
     z3, zi, zi3 = torch.zeros(4, 3), torch.zeros(4, dtype=torch.int32), torch.zeros(4, 3, dtype=torch.int32)
     kw = dict(dims=(32, 32, 32), layout=Layout.LINEAR, max_steps=16)
     with pytest.raises(ValueError, match="CUDA"):
-        gridtrace.gridtrace(z3, z3, zi, zi3, torch.zeros(1024, dtype=torch.int32), **kw)
+        gridtrace.gridtrace(z3, z3, torch.zeros(1024, dtype=torch.int32), **kw)
     with pytest.raises(ValueError, match="CUDA"):
-        gridtrace.gridtrace_limbs(z3, z3, zi, zi3, torch.zeros(4, 8, 128, dtype=torch.uint8), **kw)
+        gridtrace.gridtrace_limbs(z3, z3, torch.zeros(4, 8, 128, dtype=torch.uint8), **kw)
     with pytest.raises(ValueError, match="CUDA"):
         bmtrace.bmtrace(z3, z3, zi, zi3, torch.zeros(64, dtype=torch.int32), torch.zeros(64, 16, dtype=torch.int32),
                         grid_dims=(4, 4, 4), factor=8, max_steps=16, coarse_layout=Layout.LINEAR,
@@ -374,12 +486,11 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_overflow():
     # index, 2^30 do not (the device check then refuses the CPU tensors)
     words = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="int32 bit index"):
-        gridtrace.gridtrace(z3, z3, zi, zi3, words, dims=(2048, 1024, 1024), layout=Layout.LINEAR, max_steps=16)
+        gridtrace.gridtrace(z3, z3, words, dims=(2048, 1024, 1024), layout=Layout.LINEAR, max_steps=16)
     with pytest.raises(ValueError, match="CUDA"):
-        gridtrace.gridtrace(z3, z3, zi, zi3, words, dims=(1024, 1024, 1024), layout=Layout.LINEAR, max_steps=16)
+        gridtrace.gridtrace(z3, z3, words, dims=(1024, 1024, 1024), layout=Layout.LINEAR, max_steps=16)
     with pytest.raises(ValueError, match="divisible by 8"):
-        gridtrace.gridtrace_limbs(z3, z3, zi, zi3, words, dims=(12, 8, 8), layout=Layout.TILED_LINEAR,
-                                  max_steps=16)
+        gridtrace.gridtrace_limbs(z3, z3, words, dims=(12, 8, 8), layout=Layout.TILED_LINEAR, max_steps=16)
 
 
 # ------------------------------------------------------------ card lane
@@ -408,6 +519,27 @@ def test_grid_kernels_match_plain_trace_on_card(cuda_device, layout):
     assert (gridtrace.launches, gridtrace.limb_launches) == (before[0] + 1, before[1] + 1)
     _assert_same(a, want)
     _assert_same(b, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_fused_grid_kernels_on_card(cuda_device, layout):
+    """K2 and K3 from origins and raw directions on the card (the special
+    rays of ``_full_rays``, and one origin broadcast to every ray) == the
+    plain ``trace_grid`` on every ray, one launch each."""
+    from voxelengine_tpu_torch.kernels import gridtrace
+
+    dense = _grid_dense()
+    g = BitGrid.from_dense(torch.from_numpy(dense).to(cuda_device), Layout[layout])
+    o, v = (_t(a).to(cuda_device) for a in _full_rays(dense))
+    for origins in (o, torch.tensor([16.0, 40.0, -10.0], device=cuda_device).expand_as(v)):
+        want = trace_grid(g, origins, v, 256)
+        before = (gridtrace.launches, gridtrace.limb_launches)
+        a, b = trace_grid_vpu(g, origins, v, 256), trace_grid_mxu(g, origins, v, 256)
+        torch.cuda.synchronize()
+        assert (gridtrace.launches, gridtrace.limb_launches) == (before[0] + 1, before[1] + 1)
+        for got in (a, b):
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.cuda

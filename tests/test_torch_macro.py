@@ -22,8 +22,12 @@ are 0 in the port.  Iteration counts are not compared: the TPU's is its
 tile's lockstep count, the port's the ray's own loop count (one DDA event
 per iteration, so a descend and a double step take one and two).
 
-The K5 host entry and ``trace_brickmap_hbm_rr``'s CPU route equal JAX's
-``trace_brickmap_hbm_rr`` bit for bit (JAX's own test of it allows
+K5's host entry (the kernel's per-lane refill schedule for one warp: 32
+``csrc/dda.cuh::RayState`` lanes advanced in lockstep by ``ray_iterate``,
+idle lanes refilled from the queue once ``refill`` of them are idle) and
+``trace_brickmap_hbm_rr``'s CPU route equal JAX's ``trace_brickmap_hbm_rr``
+bit for bit on the five worlds with the macro levels on and off, at refill
+1, 8 and 32, and on a 1280-ray batch (JAX's own test of it allows
 ``atol=1e-5`` on positions, ``tests/test_pallas_bigtrace.py:482``, for its
 f32 row-sum write-back; the bits agree here).
 """
@@ -66,6 +70,7 @@ CASES = {
     "budget": (12, True),
 }
 RR_RAYS = 1280  # tests/test_pallas_bigtrace.py:476: 10 rows of 128
+RR_REFILLS = (1, 8, 32)  # K5's refill: every idle lane at once, a quarter of the warp, the whole warp
 
 
 def _random_dense():
@@ -199,6 +204,11 @@ def _jax_reference():
             out[f"{name}/{k}"] = np.asarray(getattr(res, k))
         for k, v in ph.items():
             out[f"{name}/ph/{k}"] = np.asarray(v)
+        for use_macro in (True, False):
+            res = j_rr(bm, j_lt(bm), o, d, max_steps, rows_inflight=4, num_slots=4, use_macro=use_macro,
+                       interpret=True)
+            for k in ("hit", "position", "normal", "steps"):
+                out[f"rr/{name}/{use_macro}/{k}"] = np.asarray(getattr(res, k))
 
     bm = worlds["random"]
     o, d = _spread_rays(305, RR_RAYS, (64, 64, 64), 2.0)
@@ -258,9 +268,11 @@ def _assert_counters(dg, ref, name):
     assert (jax_active <= ref[f"{name}/ph/iters"]).all()
 
 
-def _host_trace(bm, lt, origins, rays, max_steps, use_macro=True, rr_batch=None):
+def _host_trace(bm, lt, origins, rays, max_steps, use_macro=True, rr_refill=None):
     """The line-table trace through the g++ build of csrc/dda.cuh: K1's
-    host entry with the diag counters, or K5's with ``rr_batch``."""
+    host entry with the diag counters, or with ``rr_refill`` K5's, whose
+    second result is then its counting sums (lanes iterating, warp-
+    iterations)."""
     from voxelengine_tpu_torch.kernels import build
 
     lib = build.load_dda_host()
@@ -275,10 +287,11 @@ def _host_trace(bm, lt, origins, rays, max_steps, use_macro=True, rr_batch=None)
                                    lt.macro, lt.macro2)]
     args += [n, gx, gy, gz, rx, ry, rz, bm.factor, bm.words_per_brick, max_steps, bm.brick_layout.value,
              3 * max_steps + 64, int(use_macro)]
-    if rr_batch is None:
+    if rr_refill is None:
         err = lib.vx_trace_host(*args, *(o.data_ptr() for o in outs), dg.data_ptr())
     else:
-        err = lib.vx_rrtrace_host(*args, rr_batch, None, *(o.data_ptr() for o in outs))
+        dg = torch.zeros(2, dtype=torch.int64)
+        err = lib.vx_rrtrace_host(*args, rr_refill, None, dg.data_ptr(), *(o.data_ptr() for o in outs))
     assert err == 0
     return kernel_result(*outs, start_c, start_normal, bm.factor), dg
 
@@ -352,24 +365,56 @@ def test_macro_off_is_the_chunk_walk(ref, host_build, name):
     assert (macro.steps[apart] - want.steps[apart] == 1).all() and not macro.hit[apart].any()
 
 
-@pytest.mark.parametrize("batch", [32, 96, 2048])
-def test_rr_matches_jax(ref, host_build, batch):
-    """K5's host entry (the queue in batches of 32, 96 and 2048 > n rays)
-    and ``trace_brickmap_hbm_rr``'s CPU route == JAX's row-retirement
-    kernel, bit for bit (module doc)."""
+@pytest.mark.parametrize("refill", RR_REFILLS)
+@pytest.mark.parametrize("use_macro", [True, False], ids=["macro", "nomacro"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_rr_matches_jax(ref, host_build, name, use_macro, refill):
+    """K5's host entry (the per-lane refill schedule at ``refill``) and
+    ``trace_brickmap_hbm_rr``'s CPU route == JAX's row-retirement kernel,
+    bit for bit (module doc), with the macro levels on and off; the
+    counting sums add up to every ray's own iterations."""
+    max_steps, _ = CASES[name]
+    bm = _bm(ref, name)
+    lt = make_line_table(bm)
+    o, d = _rays(name)
+    got, stats = _host_trace(bm, lt, o, d, max_steps, use_macro, rr_refill=refill)
+    _assert_trace_equal(got, ref, f"rr/{name}/{use_macro}")
+    _assert_trace_equal(trace_brickmap_hbm_rr(bm, lt, o, d, max_steps, use_macro, refill=refill), ref,
+                        f"rr/{name}/{use_macro}")
+    _, dg = trace_brickmap_lt(bm, lt, o, d, max_steps, use_macro, diag=True)
+    _assert_lane_counts(stats, dg[len(PHASES)], refill)
+
+
+def _assert_lane_counts(stats, own, refill):
+    """K5's counting sums against the rays' own iteration counts ``own``:
+    every iteration of every ray is one lane of one warp-iteration; at
+    refill 32 a warp takes 32 consecutive rays and runs until the longest
+    ends, as K1's warps do."""
+    lanes, warp_iters = stats.tolist()
+    assert lanes == int(own.sum())
+    assert max(-(-lanes // 32), int(own.max())) <= warp_iters
+    if refill == 32:
+        assert warp_iters == int(_warp_max(own)[::32].sum())
+
+
+@pytest.mark.parametrize("refill", RR_REFILLS)
+def test_rr_batch_matches_jax(ref, host_build, refill):
+    """The same on JAX's own 1280-ray batch of the random world
+    (``tests/test_pallas_bigtrace.py:476``), ten rows of 128: the queue
+    refills a warp's lanes many times over."""
     bm = _bm(ref, "random")
     lt = make_line_table(bm)
     o, d = (torch.from_numpy(a) for a in _spread_rays(305, RR_RAYS, (64, 64, 64), 2.0))
-    got, _ = _host_trace(bm, lt, o, d, 256, rr_batch=batch)
+    got, _ = _host_trace(bm, lt, o, d, 256, rr_refill=refill)
     _assert_trace_equal(got, ref, "rr")
-    _assert_trace_equal(trace_brickmap_hbm_rr(bm, lt, o, d, 256, batch=batch), ref, "rr")
+    _assert_trace_equal(trace_brickmap_hbm_rr(bm, lt, o, d, 256, refill=refill), ref, "rr")
 
 
 def test_rr_host_entry_without_rays(ref, host_build):
     bm = _bm(ref, "random")
     z = torch.zeros((0, 3))
-    got, _ = _host_trace(bm, make_line_table(bm), z, z, 256, rr_batch=32)
-    assert got.hit.shape == (0,) and got.position.shape == (0, 3)
+    got, stats = _host_trace(bm, make_line_table(bm), z, z, 256, rr_refill=32)
+    assert got.hit.shape == (0,) and got.position.shape == (0, 3) and not stats.any()
 
 
 @pytest.mark.parametrize("name,stride", [("random", 2), ("floor", 2), ("sparse16k", 4)])
@@ -456,8 +501,9 @@ def test_kernel_wrappers_refuse_bad_inputs():
     for fn in (bigtrace.bigtrace, rrtrace.rrtrace):
         with pytest.raises(ValueError, match="CUDA"):
             fn(z3, z3, zi, zi.new_zeros(4, 3), *tables, **kw)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        rrtrace.rrtrace(z3, z3, zi, zi.new_zeros(4, 3), *tables, batch=48, **kw)
+    for refill in (0, 33):
+        with pytest.raises(ValueError, match="1-32"):
+            rrtrace.rrtrace(z3, z3, zi, zi.new_zeros(4, 3), *tables, refill=refill, **kw)
 
 
 # ------------------------------------------------------- card lane (an H100)
@@ -528,22 +574,49 @@ def test_bigtrace_macro_and_diag_match_plain_on_card(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [0, 20, 1000, 1 << 20])
 def test_rrtrace_matches_plain_on_card(cuda_device, n):
-    """K5 == the plain macro walk for no rays, fewer rays than a batch, a
-    count that is not a multiple of the batch, and far more rays than the
-    card holds threads; twice in a row (the counter is reset on the stream)."""
+    """K5 == the plain macro walk for no rays, fewer rays than a warp, a
+    count that is not a multiple of 32, and far more rays than the card
+    holds threads; at every refill of the CPU tests and the default, twice
+    in a row (the counter is reset on the stream)."""
     from voxelengine_tpu_torch.kernels import rrtrace
 
     bm = build_brickmap(BitGrid.from_dense(torch.from_numpy(_floor_dense()).to(cuda_device)), 8)
     lt = make_line_table(bm)
     o, d = (torch.from_numpy(a).to(cuda_device) for a in _spread_rays(307, n, (128, 128, 128), 1.5))
     want = trace_brickmap_lt(bm, lt, o, d, 512)
+    refills = sorted(set(RR_REFILLS) | {rrtrace.REFILL})
     before = rrtrace.launches
-    for batch in (32, 96):
+    for refill in refills:
         for _ in range(2):
-            got = trace_brickmap_hbm_rr(bm, lt, o, d, 512, batch=batch)
+            got = trace_brickmap_hbm_rr(bm, lt, o, d, 512, refill=refill)
             assert all(torch.equal(a, b) for a, b in zip(got, want))
     torch.cuda.synchronize()
-    assert rrtrace.launches == before + (4 if n else 0)
+    assert rrtrace.launches == before + (2 * len(refills) if n else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refill", RR_REFILLS)
+@pytest.mark.parametrize("name", list(CASES))
+def test_rrtrace_counting_build_on_card(cuda_device, name, refill):
+    """K5's counting instantiation on the card: results equal the plain
+    walk's, and its counting sums agree with the rays' own iterations
+    (``_assert_lane_counts``: the card's warps take rays in another order
+    than the host's one warp, but at refill 32 each takes 32 consecutive
+    rays)."""
+    from voxelengine_tpu_torch.kernels import rrtrace
+    from voxelengine_tpu_torch.ops.bigtrace import _kernel_rays, _kernel_tables
+
+    max_steps, _ = CASES[name]
+    bm, o, d = _port_world(name, cuda_device)
+    lt = make_line_table(bm)
+    want, dg = trace_brickmap_lt(bm, lt, o, d, max_steps, diag=True)
+    start_c, dd, active, pad, start_normal = _kernel_rays(bm, o, d)
+    tables, kw = _kernel_tables(bm, lt, max_steps, True)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    outs = rrtrace.rrtrace(start_c, dd, active, pad, *tables, refill=refill, stats=stats, **kw)
+    got = kernel_result(*outs, start_c, start_normal, bm.factor)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _assert_lane_counts(stats.cpu(), dg[len(PHASES)].cpu(), refill)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
-// Host build of dda.cuh and grid_dda.cuh: the Hopper kernels' per-ray step
-// logic compiled by a C++ compiler (-ffp-contract=off), so the CPU tests can
-// hold it against the plain torch traces before the kernels ever run on the
-// card.  One entry per kernel, taking its launcher's arguments minus the
-// stream (K4's also minus its instantiation flag and work-counter scratch).
+// Host build of dda.cuh, grid_dda.cuh and ray_setup.cuh: the Hopper kernels'
+// per-ray logic compiled by a C++ compiler (-ffp-contract=off), so the CPU
+// tests can hold it against the plain torch traces and the JAX package
+// before the kernels ever run on the card.  One entry per kernel, taking its
+// launcher's arguments minus the stream (K4's also minus its instantiation
+// flag and work-counter scratch); K5's runs the kernel's per-lane schedule
+// for one warp.  vx_trace_grid_host and vx_trace_grid_limbs_host run the
+// grid walk alone on prepared rays (start, direction, active, pad).
 #include <cstring>
 
 #include "dda.cuh"
@@ -40,14 +43,97 @@ int brickmap_rays(const vx::TraceParams& P, const Fetch& F, int n, const float* 
 }
 
 template <class Fetch>
-int grid_rays(const vx::GridParams& P, const Fetch& F, int n, const float* start,
+int grid_rays(const vx::GridParams& P, const Fetch& F, int layout, int n, const float* start,
               const float* dir, const int* active, const int* pad, int* hit, float* pos,
               float* normal, int* steps) {
-  return for_rays(n, start, dir, active, pad, hit, pos, normal, steps,
-                  [&](const float* s, const float* d, int a, const int* p) {
-                    return vx::trace_grid_ray(P, F, s[0], s[1], s[2], d[0], d[1], d[2], a, p[0],
-                                              p[1], p[2]);
-                  });
+  return vx::with_layout(layout, [&](auto tag) {
+    return for_rays(n, start, dir, active, pad, hit, pos, normal, steps,
+                    [&](const float* s, const float* d, int a, const int* p) {
+                      return vx::trace_grid_ray<decltype(tag)::value>(
+                          P, F, s[0], s[1], s[2], d[0], d[1], d[2], a, p[0], p[1], p[2]);
+                    });
+  });
+}
+
+// trace_grid_full for every ray, stored as the kernels store it (hit one byte).
+template <class Fetch>
+int grid_full_rays(const vx::GridParams& P, const Fetch& F, int layout, int n,
+                   const float* origins, int os, const float* rays, int rs, unsigned char* hit,
+                   float* pos, float* normal, int* steps) {
+  return vx::with_layout(layout, [&](auto tag) {
+    for (int i = 0; i < n; ++i) {
+      const float* o = origins + os * i;
+      const float* v = rays + rs * i;
+      const vx::GridResult r = vx::trace_grid_full<decltype(tag)::value>(P, F, o[0], o[1], o[2],
+                                                                         v[0], v[1], v[2]);
+      hit[i] = (unsigned char)r.hit;
+      pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
+      normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
+      steps[i] = r.steps;
+    }
+    return 0;
+  });
+}
+
+void store(const vx::TraceResult& r, int i, int* flags, float* pos, float* normal, int* steps) {
+  flags[i] = r.flags;
+  pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
+  normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
+  steps[i] = r.steps;
+}
+
+// K5's schedule for one warp (rrtrace.cu::rrtrace_kernel): 32 lane states
+// advanced in lockstep, an idle lane refilled from the queue in lane order
+// once at least `refill` lanes are idle (the kernel's lanes leave their own
+// loops at that point, which in lockstep is after the same iteration);
+// stats as the counting instantiation's.
+template <bool MACRO>
+void rr_warp(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, int refill,
+             const float* start, const float* dir, const int* active, const int* pad, int* flags,
+             float* pos, float* normal, int* steps, unsigned long long* stats) {
+  vx::RayState S[32];
+  int ray[32];
+  for (int l = 0; l < 32; ++l) ray[l] = -1;
+  int next = 0;  // the work counter
+  bool spent = false;
+  for (;;) {
+    int idle = 0;
+    for (int l = 0; l < 32; ++l) idle += ray[l] < 0;
+    if (!spent && idle >= refill) {
+      const int base = next;
+      next += idle;
+      spent = base + idle >= n;
+      int rank = 0;
+      for (int l = 0; l < 32; ++l) {
+        if (ray[l] >= 0) continue;
+        const int i = base + rank++;
+        if (i >= n) continue;
+        if (vx::ray_init(S[l], start[3 * i], start[3 * i + 1], start[3 * i + 2], dir[3 * i],
+                         dir[3 * i + 1], dir[3 * i + 2], active[i], pad[3 * i], pad[3 * i + 1],
+                         pad[3 * i + 2]))
+          ray[l] = i;
+        else
+          store(vx::TraceResult{0, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0}, i, flags, pos, normal,
+                steps);
+      }
+      idle = 0;
+      for (int l = 0; l < 32; ++l) idle += ray[l] < 0;
+    }
+    if (idle == 32) {
+      if (spent) break;
+      continue;
+    }
+    if (stats) {
+      stats[0] += 32 - idle;
+      stats[1] += 1;
+    }
+    for (int l = 0; l < 32; ++l) {
+      if (ray[l] >= 0 && vx::ray_iterate<MACRO, false>(P, F, S[l])) {
+        store(vx::ray_result(P, S[l]), ray[l], flags, pos, normal, steps);
+        ray[l] = -1;
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -87,26 +173,26 @@ extern "C" int vx_trace_host(const float* start, const float* dir, const int* ac
                   });
 }
 
-// K5's step (rrtrace.cu::vx_rrtrace): the work queue taken in order, a
-// batch at a time; each ray is traced as K1 traces it.  `counter` (the
-// kernel's work-counter scratch) is not used.
+// K5 (rrtrace.cu::vx_rrtrace) as one warp runs it: the per-lane refill
+// schedule over the whole queue, each lane's walk advanced by ray_iterate.
+// `counter` (the kernel's work-counter scratch) is not used; `stats`, when
+// given, receives the counting instantiation's two sums for this warp.
 extern "C" int vx_rrtrace_host(const float* start, const float* dir, const int* active,
                                const int* pad, const int* region_lines, const int* brick_lines,
                                const int* macro, const int* macro2, int n, int gx, int gy,
                                int gz, int rx, int ry, int rz, int factor, int wpb,
                                int max_steps, int brick_layout, int iter_limit, int use_macro,
-                               int batch, int* counter, int* flags, float* pos, float* normal,
-                               int* steps) {
-  if (batch <= 0 || batch % 32) return 1;
-  for (int base = 0; base < n; base += batch) {
-    const int m = n - base < batch ? n - base : batch;
-    const int err = vx_trace_host(start + 3 * base, dir + 3 * base, active + base, pad + 3 * base,
-                                  region_lines, brick_lines, macro, macro2, m, gx, gy, gz, rx,
-                                  ry, rz, factor, wpb, max_steps, brick_layout, iter_limit,
-                                  use_macro, flags + base, pos + 3 * base, normal + 3 * base,
-                                  steps + base, nullptr);
-    if (err) return err;
-  }
+                               int refill, int* counter, unsigned long long* stats, int* flags,
+                               float* pos, float* normal, int* steps) {
+  (void)counter;
+  if (refill < 1 || refill > 32) return 1;
+  if (n == 0) return 0;
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  if (use_macro)
+    rr_warp<true>(P, F, n, refill, start, dir, active, pad, flags, pos, normal, steps, stats);
+  else
+    rr_warp<false>(P, F, n, refill, start, dir, active, pad, flags, pos, normal, steps, stats);
   return 0;
 }
 
@@ -124,22 +210,47 @@ extern "C" int vx_trace_brickmap_dense_host(const float* start, const float* dir
   return brickmap_rays(P, F, n, start, dir, active, pad, flags, pos, normal, steps);
 }
 
-// K2's step (gridtrace.cu::vx_trace_grid).
+// K2 (gridtrace.cu::vx_trace_grid): trace_grid_vpu's function, ray setup
+// and fix-up included.
+extern "C" int vx_trace_grid_full_host(const float* origins, int os, const float* rays, int rs,
+                                       const int* words, int n, int X, int Y, int Z, int layout,
+                                       int max_steps, unsigned char* hit, float* pos,
+                                       float* normal, int* steps) {
+  const vx::GridParams P = {X, Y, Z, max_steps};
+  return grid_full_rays(P, vx::WordFetch{words}, layout, n, origins, os, rays, rs, hit, pos, normal,
+                        steps);
+}
+
+// K3 (gridtrace.cu::vx_trace_grid_limbs).
+extern "C" int vx_trace_grid_limbs_full_host(const float* origins, int os, const float* rays,
+                                             int rs, const unsigned char* limbs, long long plane,
+                                             int n, int X, int Y, int Z, int layout,
+                                             int max_steps, unsigned char* hit, float* pos,
+                                             float* normal, int* steps) {
+  const vx::GridParams P = {X, Y, Z, max_steps};
+  return grid_full_rays(P, vx::LimbFetch{limbs, plane}, layout, n, origins, os, rays, rs, hit, pos,
+                        normal, steps);
+}
+
+// The grid walk alone (grid_dda.cuh::trace_grid_ray) on prepared rays, with
+// the int32 word fetch: position and normal are the last step's, before the
+// wrapper's zero-step fix-up.
 extern "C" int vx_trace_grid_host(const float* start, const float* dir, const int* active,
                                   const int* pad, const int* words, int n, int X, int Y, int Z,
                                   int layout, int max_steps, int* hit, float* pos,
                                   float* normal, int* steps) {
-  const vx::GridParams P = {X, Y, Z, layout, max_steps};
-  return grid_rays(P, vx::WordFetch{words}, n, start, dir, active, pad, hit, pos, normal, steps);
+  const vx::GridParams P = {X, Y, Z, max_steps};
+  return grid_rays(P, vx::WordFetch{words}, layout, n, start, dir, active, pad, hit, pos, normal,
+                   steps);
 }
 
-// K3's step (gridtrace.cu::vx_trace_grid_limbs).
+// The same with the limb-plane fetch.
 extern "C" int vx_trace_grid_limbs_host(const float* start, const float* dir, const int* active,
                                         const int* pad, const unsigned char* limbs,
                                         long long plane, int n, int X, int Y, int Z, int layout,
                                         int max_steps, int* hit, float* pos, float* normal,
                                         int* steps) {
-  const vx::GridParams P = {X, Y, Z, layout, max_steps};
-  return grid_rays(P, vx::LimbFetch{limbs, plane}, n, start, dir, active, pad, hit, pos, normal,
-                   steps);
+  const vx::GridParams P = {X, Y, Z, max_steps};
+  return grid_rays(P, vx::LimbFetch{limbs, plane}, layout, n, start, dir, active, pad, hit, pos,
+                   normal, steps);
 }

@@ -7,11 +7,21 @@
 // (VolumeRaytracer.cu:293-313) and max-edge pad until an occupied cell
 // (hit), leaving the grid (miss) or max_steps steps.  Where the TPU code
 // writes BIG = 3.4e38 for a zero direction component this writes INFINITY,
-// as trace_grid does.
+// as trace_grid does.  trace_grid_full adds the wrapper's ray setup
+// (ray_setup.cuh) before the walk and its zero-step fix-up after it, so one
+// kernel computes trace_grid_vpu whole.
+//
+// The step is built as dda.cuh's for K1: the loop keeps no position or
+// normal, only the last step's axis and crossing time, and rebuilds both
+// once at the end with the same expressions; the advance is selects, not a
+// three-way branch; the range test is one unsigned compare an axis; the bit
+// index's layout is a template parameter; of the clamps only the upper one
+// survives (a cell past the grid is in range only on a padded axis).
 //
 // The word fetch is a template parameter, the only difference between K2
 // and K3:
-//   WordFetch  (K2): words[w] from the int32 words;
+//   WordFetch  (K2): words[w] from the int32 words, read through the
+//                    read-only path on the card;
 //   LimbFetch  (K3): four uint8 limb planes [4, R*128], the word rebuilt as
 //                    b0 | b1 << 8 | b2 << 16 | b3 << 24 (words_to_limb_rows).
 // The grid is read in its own layout, TILED_MORTON included, so no layout
@@ -22,12 +32,12 @@
 #pragma once
 
 #include "dda.cuh"
+#include "ray_setup.cuh"
 
 namespace vx {
 
 struct GridParams {
   int X, Y, Z;    // grid dims in voxels; X*Y*Z < 2^31 (the wrapper checks)
-  int layout;     // BrickLayout of the bit index
   int max_steps;  // step budget
 };
 
@@ -40,7 +50,7 @@ struct GridResult {
 
 struct WordFetch {
   const int* words;
-  VX_HD int operator()(int w) const { return words[w]; }
+  VX_HD int operator()(int w) const { return ldg(words + w); }
 };
 
 struct LimbFetch {
@@ -55,9 +65,10 @@ struct LimbFetch {
 
 // Trace one ray.  (sx, sy, sz) is the world-clipped start in voxel units,
 // (dx, dy, dz) the normalized direction and (padx, pady, padz) the edge pad,
-// all from the wrapper's ray setup.  Position and normal are those of the
-// last step; the wrapper replaces them for a hit at the start cell.
-template <class Fetch>
+// all from the ray setup.  Position and normal are those of the last step
+// (the start and 0 before any); trace_grid_full replaces them for a hit at
+// the start cell.
+template <int LAYOUT, class Fetch>
 VX_HD GridResult trace_grid_ray(const GridParams& P, const Fetch& F,
                                 float sx, float sy, float sz, float dx, float dy, float dz,
                                 int active, int padx, int pady, int padz) {
@@ -71,32 +82,75 @@ VX_HD GridResult trace_grid_ray(const GridParams& P, const Fetch& F,
   float tx = init_tmax(cx, stx, sx, dx);
   float ty = init_tmax(cy, sty, sy, dy);
   float tz = init_tmax(cz, stz, sz, dz);
+  // 0 <= c < dim + pad, as one unsigned compare an axis
+  const unsigned hx = (unsigned)(P.X + padx), hy = (unsigned)(P.Y + pady),
+                 hz = (unsigned)(P.Z + padz);
+  int a = 0;          // axis of the last step
+  float tlast = 0.0f; // its crossing time
+  int steps = 0;
   // every pass either ends the ray or takes a step, and the budget ends it
   // after max_steps steps
   for (;;) {
-    const bool in_range = cx >= 0 && cx < P.X + padx && cy >= 0 && cy < P.Y + pady &&
-                          cz >= 0 && cz < P.Z + padz;
-    if (!in_range) break;  // left the grid: miss
-    const int bit = sample_index(clampi(cx, 0, P.X - 1), clampi(cy, 0, P.Y - 1),
-                                 clampi(cz, 0, P.Z - 1), P.X, P.Y, P.layout);
+    if (!((unsigned)cx < hx && (unsigned)cy < hy && (unsigned)cz < hz)) break;  // miss
+    const int bit = sample_index_t<LAYOUT>(mini(cx, P.X - 1), mini(cy, P.Y - 1),
+                                           mini(cz, P.Z - 1), P.X, P.Y);
     if ((F(bit >> 5) >> (bit & 31)) & 1) {
       r.hit = 1;
       break;
     }
-    const int a = axis_pick(tx, ty, tz);
-    const float tc = a == 0 ? tx : (a == 1 ? ty : tz);
-    r.px = a == 0 ? (float)(cx + (stx > 0 ? 1 : 0)) : sx + tc * dx;
-    r.py = a == 1 ? (float)(cy + (sty > 0 ? 1 : 0)) : sy + tc * dy;
-    r.pz = a == 2 ? (float)(cz + (stz > 0 ? 1 : 0)) : sz + tc * dz;
-    if (a == 0) { cx += stx; tx = tx + tdx; }
-    else if (a == 1) { cy += sty; ty = ty + tdy; }
-    else { cz += stz; tz = tz + tdz; }
+    a = axis_pick(tx, ty, tz);
+    tlast = pick3(a, tx, ty, tz);
+    cx += a == 0 ? stx : 0;
+    cy += a == 1 ? sty : 0;
+    cz += a == 2 ? stz : 0;
+    tx = a == 0 ? tx + tdx : tx;
+    ty = a == 1 ? ty + tdy : ty;
+    tz = a == 2 ? tz + tdz : tz;
+    if (++steps >= P.max_steps) break;
+  }
+  r.steps = steps;
+  if (steps > 0) {
+    // the entry point of the last step: the crossed face on its axis (the
+    // cell it left, on the side it crossed), start + tlast * d on the others
+    r.px = a == 0 ? (float)(stx > 0 ? cx : cx + 1) : sx + tlast * dx;
+    r.py = a == 1 ? (float)(sty > 0 ? cy : cy + 1) : sy + tlast * dy;
+    r.pz = a == 2 ? (float)(stz > 0 ? cz : cz + 1) : sz + tlast * dz;
     r.nx = a == 0 ? (float)stx : 0.0f;
     r.ny = a == 1 ? (float)sty : 0.0f;
     r.nz = a == 2 ? (float)stz : 0.0f;
-    if (++r.steps >= P.max_steps) break;
   }
   return r;
+}
+
+// trace_grid_vpu for one ray (ops/gridtrace.py): the ray setup from the
+// origin and the raw direction, the walk, and the zero-step fix-up (a hit at
+// the start cell reports the clipped start, which the walk already holds,
+// and the world-entry normal; pallas_trace.py:538-544).
+template <int LAYOUT, class Fetch>
+VX_HD GridResult trace_grid_full(const GridParams& P, const Fetch& F, float ox, float oy, float oz,
+                                 float vx, float vy, float vz) {
+  const RaySetup s = ray_setup(ox, oy, oz, vx, vy, vz, 1, P.X, P.Y, P.Z);
+  GridResult r = trace_grid_ray<LAYOUT>(P, F, s.sx, s.sy, s.sz, s.dx, s.dy, s.dz, s.active,
+                                        s.padx, s.pady, s.padz);
+  if (r.hit && r.steps == 0) {
+    r.nx = s.snx; r.ny = s.sny; r.nz = s.snz;
+  }
+  return r;
+}
+
+// A layout as a type, for with_layout.
+template <int V>
+struct LayoutTag {
+  static constexpr int value = V;
+};
+
+// fn(LayoutTag<L>{}) for the runtime layout L: the host's choice of a
+// kernel's layout instantiation.
+template <class Fn>
+inline int with_layout(int layout, Fn&& fn) {
+  if (layout == LAYOUT_LINEAR) return fn(LayoutTag<LAYOUT_LINEAR>{});
+  if (layout == LAYOUT_TILED_MORTON) return fn(LayoutTag<LAYOUT_TILED_MORTON>{});
+  return fn(LayoutTag<LAYOUT_TILED_LINEAR>{});
 }
 
 }  // namespace vx

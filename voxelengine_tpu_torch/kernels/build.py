@@ -47,24 +47,28 @@ _LINE_TABLE_INTS = [_I] * 13
 SIGNATURES = {
     # ... outputs, diag (null, or int32[11, n])
     "vx_bigtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
-    # ... batch, counter (int32 scratch), outputs
-    "vx_rrtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P] + _OUTS,
-    # words; n, X, Y, Z, layout, max_steps
-    "vx_trace_grid": _RAYS + [_P] + [_I] * 6 + _OUTS,
-    # limbs, plane; n, X, Y, Z, layout, max_steps
-    "vx_trace_grid_limbs": _RAYS + [_P, _L] + [_I] * 6 + _OUTS,
+    # ... refill, counter (int32 scratch), stats (null, or uint64[2]), outputs
+    "vx_rrtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P, _P] + _OUTS,
+    # origins, its row stride, rays, its row stride, words; n, X, Y, Z,
+    # layout, max_steps; hit (uint8), ...
+    "vx_trace_grid": [_P, _I, _P, _I, _P] + [_I] * 6 + _OUTS,
+    # ... limbs, plane in place of words
+    "vx_trace_grid_limbs": [_P, _I, _P, _I, _P, _L] + [_I] * 6 + _OUTS,
     # meta, bricks; n, gx, gy, gz, factor, wpb, max_steps, coarse_layout,
     # brick_layout, iter_limit, shared_meta; counter (int32 scratch), outputs
     "vx_trace_brickmap_dense": _RAYS + [_P] * 2 + [_I] * 11 + [_P] + _OUTS,
 }
 # host-build entry -> its C signature: the kernel launcher's it mirrors,
-# except K4's, which has no instantiation flag and no work counter
+# except K4's, which has no instantiation flag and no work counter; and the
+# grid walk alone on prepared rays (vx_trace_grid_host, *_limbs_host)
 HOST_ENTRIES = {
     "vx_trace_host": SIGNATURES["vx_bigtrace"],
     "vx_rrtrace_host": SIGNATURES["vx_rrtrace"],
-    "vx_trace_grid_host": SIGNATURES["vx_trace_grid"],
-    "vx_trace_grid_limbs_host": SIGNATURES["vx_trace_grid_limbs"],
+    "vx_trace_grid_full_host": SIGNATURES["vx_trace_grid"],
+    "vx_trace_grid_limbs_full_host": SIGNATURES["vx_trace_grid_limbs"],
     "vx_trace_brickmap_dense_host": _RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
+    "vx_trace_grid_host": _RAYS + [_P] + [_I] * 6 + _OUTS,
+    "vx_trace_grid_limbs_host": _RAYS + [_P, _L] + [_I] * 6 + _OUTS,
 }
 
 
@@ -146,13 +150,18 @@ def check(kernel: str, name: str, t: torch.Tensor, dtype, shape, device) -> None
         raise ValueError(f"{kernel}: {name} must have shape {shape}, got {tuple(t.shape)}")
 
 
+def require_cuda(kernel: str, dev: torch.device) -> None:
+    """Raise unless ``dev`` is a CUDA device: a kernel never runs on the CPU."""
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: tensors must be on a CUDA device, got {dev}")
+
+
 def check_rays(kernel: str, start, d, active, pad) -> torch.device:
     """Check a kernel's ray inputs (start and direction ``f32[N, 3]``,
     ``active`` ``i32[N]``, edge pad ``i32[N, 3]``, all on one CUDA
     device); returns that device."""
     dev = start.device
-    if dev.type != "cuda":
-        raise ValueError(f"{kernel}: tensors must be on a CUDA device, got {dev}")
+    require_cuda(kernel, dev)
     n = start.shape[0]
     check(kernel, "start", start, torch.float32, (n, 3), dev)
     check(kernel, "d", d, torch.float32, (n, 3), dev)
@@ -161,10 +170,24 @@ def check_rays(kernel: str, start, d, active, pad) -> torch.device:
     return dev
 
 
-def ray_outputs(n: int, dev):
-    """Empty ``(flags i32[N], position f32[N, 3], normal f32[N, 3], steps i32[N])``."""
+def ray_rows(kernel: str, name: str, t: torch.Tensor, n: int, device) -> tuple:
+    """``(t, row stride)`` of an ``f32[n, 3]`` tensor of rays on ``device``
+    whose rows are 3 contiguous floats; a row stride of 0 (one origin
+    broadcast to every ray, as ``primary_rays`` makes them) is taken as it
+    is, any other layout is copied to a contiguous tensor."""
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != (n, 3):
+        raise ValueError(f"{kernel}: {name} must be a float32 [{n}, 3] tensor on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.stride(1) != 1 or t.stride(0) not in (0, 3):
+        t = t.contiguous()
+    return t, t.stride(0)
+
+
+def ray_outputs(n: int, dev, hit_dtype=torch.int32):
+    """Empty ``(flags i32[N] (or hit of ``hit_dtype``), position f32[N, 3],
+    normal f32[N, 3], steps i32[N])``."""
     return (
-        torch.empty((n,), dtype=torch.int32, device=dev),
+        torch.empty((n,), dtype=hit_dtype, device=dev),
         torch.empty((n, 3), dtype=torch.float32, device=dev),
         torch.empty((n, 3), dtype=torch.float32, device=dev),
         torch.empty((n,), dtype=torch.int32, device=dev),

@@ -449,13 +449,14 @@ def trace_brickmap_hbm_rr(
     rays: torch.Tensor,
     max_steps: int = MAX_STEPS,
     use_macro: bool = True,
-    batch: int = 32,
+    refill: Optional[int] = None,
 ) -> TraceOut:
     """:func:`trace_brickmap_hbm`'s function through K5, the persistent-
     threads kernel (counterpart of the JAX package's row-retirement
-    ``trace_brickmap_hbm_rr``): a grid sized to the card whose warps take
-    ``batch`` rays at a time (a positive multiple of 32) from a work queue.
-    Rays on the CPU run the same plain versions as
+    ``trace_brickmap_hbm_rr``): a grid sized to the card whose warps refill
+    a lane with a new ray as soon as ``refill`` (1-32; ``None``: the
+    kernel's measured default, ``kernels/rrtrace.py::REFILL``) of their
+    lanes are idle.  Rays on the CPU run the same plain versions as
     :func:`trace_brickmap_hbm`."""
     if not origins.is_cuda:
         if use_macro:
@@ -465,7 +466,7 @@ def trace_brickmap_hbm_rr(
 
     start_c, d, active, pad, start_normal = _kernel_rays(bm, origins, rays)
     tables, kw = _kernel_tables(bm, lt, max_steps, use_macro)
-    outs = k5.rrtrace(start_c, d, active, pad, *tables, batch=batch, **kw)
+    outs = k5.rrtrace(start_c, d, active, pad, *tables, refill=k5.REFILL if refill is None else refill, **kw)
     return kernel_result(*outs, start_c, start_normal, bm.factor)
 
 

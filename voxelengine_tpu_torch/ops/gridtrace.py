@@ -6,8 +6,10 @@ pair-gather fetch, the MXU's one-hot matmul fetch) are not used here.
 Both compute :func:`voxelengine_tpu_torch.ops.trace.trace_grid`.  Rays on
 a CUDA device run in a Hopper kernel, K2 (int32 word fetch) or K3 (the
 word rebuilt from four uint8 limb planes, the cross-check), one launch
-each (:mod:`voxelengine_tpu_torch.kernels.gridtrace`); rays on the CPU run
-the plain ``trace_grid``.  Both give the same hits, steps, positions and
+each that also does the ray setup and the zero-step fix-up which the JAX
+wrappers run in XLA around their Pallas kernels
+(:mod:`voxelengine_tpu_torch.kernels.gridtrace`); rays on the CPU run the
+plain ``trace_grid``.  Both give the same hits, steps, positions and
 normals.  The kernels read TILED_MORTON grids directly, so unlike the TPU
 wrappers nothing converts a grid to LINEAR first.
 """
@@ -18,9 +20,9 @@ import torch
 
 from voxelengine_tpu_torch.config import MAX_STEPS
 from voxelengine_tpu_torch.core.bitgrid import BitGrid
-from voxelengine_tpu_torch.ops.trace import TraceOut, _dims, _edge_pad, _ray_setup, trace_grid
+from voxelengine_tpu_torch.ops.trace import TraceOut, trace_grid
 
-I32 = torch.int32
+F32 = torch.float32
 
 
 def words_to_rows_i32(words: torch.Tensor) -> torch.Tensor:
@@ -45,25 +47,15 @@ def words_to_limb_rows(words: torch.Tensor) -> torch.Tensor:
 
 
 def _trace_grid_kernel(grid: BitGrid, origins, rays, max_steps: int, limbs: bool) -> TraceOut:
-    """Ray setup, K2 or K3, and the zero-step fix-up (``pallas_trace.py:477-545``)."""
+    """K2 or K3: ray setup, walk and zero-step fix-up in one launch
+    (``pallas_trace.py:477-545``)."""
     from voxelengine_tpu_torch.kernels import gridtrace as k
 
-    d, start, start_normal, active = _ray_setup(grid.dims, 1, origins, rays)
-    pad = _edge_pad(start.to(I32), _dims(grid.dims, I32, origins.device), d)
-    args = (start, d, active.to(I32), pad)
     kw = dict(dims=grid.dims, layout=grid.layout, max_steps=max_steps)
+    o, r = origins.to(F32), rays.to(F32)
     if limbs:
-        hit, pos, nrm, steps = k.gridtrace_limbs(*args, words_to_limb_rows(grid.words), **kw)
-    else:
-        hit, pos, nrm, steps = k.gridtrace(*args, grid.words, **kw)
-    hit = hit != 0
-    zero_step = (hit & (steps == 0))[:, None]
-    return TraceOut(
-        hit=hit,
-        position=torch.where(zero_step, start, pos),
-        normal=torch.where(zero_step, start_normal, nrm),
-        steps=steps,
-    )
+        return TraceOut(*k.gridtrace_limbs(o, r, words_to_limb_rows(grid.words), **kw))
+    return TraceOut(*k.gridtrace(o, r, grid.words, **kw))
 
 
 def trace_grid_vpu(grid: BitGrid, origins: torch.Tensor, rays: torch.Tensor, max_steps: int = MAX_STEPS) -> TraceOut:
