@@ -1,45 +1,56 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render paths once on an NVIDIA GPU.
 
-    python3 chip_smoke.py               # demo config: 1024^3 terrain, 1280x720
-    python3 chip_smoke.py --world full  # 8192x512x8192 terrain at 1920x1080
+    python3 chip_smoke.py   # all phases, the 8192x512x8192 bench world included
 
 Phases, one stdout line each (plus the kernels' build logs):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile every CUDA kernel (K1-K5) from ``voxelengine_tpu_torch/csrc``,
-   one nvcc per source, all started together; ptxas registers and spills of
-   each instantiation;
-3. noise: worldgen noise on the card against ``native/golden_noise.json``;
+2. build: compile every CUDA kernel (K1-K5, W1) from
+   ``voxelengine_tpu_torch/csrc``, one nvcc per source, all started
+   together; ptxas registers and spills of each instantiation;
+3. noise: worldgen noise on the card against ``native/golden_noise.json``,
+   and W1's noise (``csrc/noise.cuh`` through its noise probe) against the
+   golden values and the plain torch noise on random points, bit for bit;
 4. kernel vs plain: K1 (macro levels on and off) against its plain versions
    on a 128x64x128 terrain built on the card and on a random world whose
    chunk grid is not a multiple of 8 (hits, steps, normals bit-equal;
    positions equal on hits), and a small frame rendered through K1 against
-   the plain path;
-5. main path, as ``bench.py:233-297`` runs it: build the terrain world, its
-   line table and brick lines; ``probe_use_macro`` on the frame's rays (its
-   ``mskip`` total and decision), ``cfg.trace_use_macro`` set from it;
-   render a warm-up frame plus 8 chained checkerboard frames through
-   ``render_frame(..., lt=lt)``; then the exactness gate (K1 against its
-   plain version on the full frame of rays, 0 diffs allowed; the count
-   against the chunk-by-chunk walk printed too), the phase counters and the
+   the plain path; then W1 against its plain version (the plain
+   ``solid_at`` slab reduced by ``_slab_to_chunks``) on the first, a middle
+   and the last slab of the bench world and of a 256x128x256 world at
+   factors 8, 16 and 32 in each brick layout, the compact build of a 256^3
+   world through both, and W1 and its plain version timed on the bench
+   world's middle slab;
+5. main path, as ``bench.py:103-422`` runs it, on the 1024^3 demo world
+   (1280x720) and on the 8192x512x8192 bench world (1920x1080): the world
+   built through W1 (on the bench world through ``generate_or_load`` into
+   a temporary cache, then loaded back from it, which must give the same
+   tables, and the line table through ``line_table_or_build``), its line
+   table and brick lines; ``probe_use_macro`` on the frame's rays (through
+   ``memo_json`` on the bench world), ``cfg.trace_use_macro`` set from it;
+   a warm-up plus 8 chained checkerboard frames through ``render_frame(...,
+   lt=lt)``; then the exactness gate (K1 against its plain version on the
+   full frame of rays, 0 diffs allowed; the count against the
+   chunk-by-chunk walk printed too), the phase counters and the
    ``return_iters`` warp-iteration statistics;
-6. times: K1 (macro off and on), K5 at each refill and the plain trace on
-   that frame's rays, with CUDA events; K5's lanes-active share at each
-   refill (its counting instantiation) beside K1's;
+6. times on each world: K1 (macro off and on), K5 at each refill and the
+   plain trace on that frame's rays, with CUDA events; K5's lanes-active
+   share at each refill (its counting instantiation) beside K1's;
 7. dense kernels vs plain: K2 and K3 against the plain ``trace_grid`` on a
    random 32^3 grid in each layout, and a 96x64 ``render_frame_dense``
    frame through K2 against the plain path;
 8. dense path at the JAX package's config-2 size (``apps/bench_configs.py``):
    a 64^3 terrain from ``generate_world``, its 1024x1024 ray batch through
-   K2 (``trace_grid_vpu``), K3 (``trace_grid_mxu``) and the plain trace,
-   then a warm-up plus 8 chained 1280x720 checkerboard
-   ``render_frame_dense`` frames and the exactness gate on the last frame;
-   the CUDA kernels one dense frame and one ``trace_grid_vpu`` call launch
-   (``torch.profiler``; the call must launch K2 alone); K2 is timed on the
-   batch and on the last frame's 460,800 rays (the shape of its launches on
-   the path, which its record gives), alone and as the whole
-   ``trace_grid_vpu`` call;
+   K2 (``trace_grid_vpu``), K3 (``trace_grid_mxu``, its shared-memory
+   instantiation) and the plain trace, then a warm-up plus 8 chained
+   1280x720 checkerboard ``render_frame_dense`` frames and the exactness
+   gate on the last frame; the CUDA kernels one dense frame, one
+   ``trace_grid_vpu`` call (K2 alone) and one ``trace_grid_mxu`` call (the
+   planes' copy and K3) launch (``torch.profiler``); K3's global
+   instantiation on a random 128^3 grid (256 KB of words) against the plain
+   trace; K2 timed on the batch and on the last frame's 460,800 rays, K3 in
+   both instantiations on the batch;
 9. on-chip brickmap: K4 (``trace_brickmap_mxu``) against the plain trace on
    1,048,576 rays over a 128^3 terrain at factor 8 and on a small
    TILED_MORTON world (meta in shared memory), and on 65,536 rays over a
@@ -54,21 +65,25 @@ Phases, one stdout line each (plus the kernels' build logs):
    must be > 0) against the plain walk's; times, K5 at each refill, and
    K5's lanes-active share beside K1's.
 
-Each kernel's path (phase 5 for K1, the frames of phase 8 for K2, the
-phase-8 batch for K3, the phase-9 128^3 batch for K4 with shared meta and
-its 512x256x512 batch for K4 with global meta, the phase-10 batch for K5)
-runs with the launch counts set to 0 just before it and read just after;
-launches made to compare or time a kernel are not counted.  Then one JSON
-line describing each kernel (its time, its plain version's, and its bound:
-the larger of its bytes (rays in and out plus the table words its hits
-need) over the card's memory rate and its float operations over its
-float32 rate; with the macro levels on, the operations of the DDA events
-the diag build counts, since a macro skip charges steps it never walks;
-for K2 and K3 the bytes of their wrappers' whole function, origins and raw
-directions in, the hit byte, position, normal and steps out),
-the card line again, and last ``{"ok": true, "device": {...}}``.
-Any failure raises (exit code != 0) before the last line.  Needs one CUDA
-device; there is no CPU fallback.  Imports nothing of JAX.
+Each kernel's path (the bench world's frames for K1, and the demo world's
+for its second record; the bench world's build for W1; the frames of
+phase 8 for K2, the phase-8 batch for K3 and the 128^3 grid for its global
+instantiation, the phase-9 128^3 batch for K4 with shared meta and its
+512x256x512 batch for K4 with global meta, the phase-10 batch for K5) runs
+with the launch counts set to 0 just before it and read just after;
+launches made to compare or time a kernel are not counted.  Then the run's
+wall time, one JSON line describing each kernel (its time, its plain
+version's, and its bound: the larger of its bytes (rays in and out plus
+the table words its hits need; W1's output) over the card's memory rate
+and its operations over its float32 rate; with the macro levels on, the
+operations of the DDA events the diag build counts, since a macro skip
+charges steps it never walks; for K2 and K3 the bytes of their wrappers'
+whole function, origins and raw directions in, the hit byte, position,
+normal and steps out; for W1 the operations a voxel counted from its
+source, :func:`w1_ops_per_voxel`), the card line again, and last
+``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0)
+before the last line.  Needs one CUDA device; there is no CPU fallback.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -103,8 +118,13 @@ OPS_PER_STEP = 8
 EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
 # threads a block of each library's kernels (csrc/*.cu)
-BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024}
+BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256}
 K5_REFILLS = (32, 16, 8, 4, 1)  # K5's idle lanes at which a warp refills (its default is rrtrace.REFILL)
+OCTAVES = 32  # the reference's terrain (VoxelWorldBuilder.cu:6)
+# W1 against its plain version: a world small enough for every factor and
+# brick layout (beside the bench world's slabs), and the compact build
+W1_WORLD = (256, 128, 256)
+W1_BUILD_WORLD = (256, 256, 256)
 WORLDS = {
     # (world dims, width, height): the reference demo (main.cu:15-23) and
     # the bench world (bench.py:127-129) at 1080p
@@ -240,13 +260,17 @@ def phase_build():
     say(f"build: {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f} s "
         f"(one nvcc per source, in parallel)")
     for name, lib in libs.items():
+        entry = ""
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say(f"build:   {name}: {line.strip()}")
+            entry = line if "Compiling entry" in line else entry
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                warps = resident_warps(int(m.group(1)), BLOCK_THREADS[name])
-                say(f"build:   {name}: {m.group(1)} registers at {BLOCK_THREADS[name]} threads a block: "
+                # K3's staged instantiation picks 256 or 1024 threads at launch; 256 shown
+                threads = 256 if "staged" in entry else BLOCK_THREADS[name]
+                warps = resident_warps(int(m.group(1)), threads)
+                say(f"build:   {name}: {m.group(1)} registers at {threads} threads a block: "
                     f"at most {warps} resident warps an SM (of 64)")
 
 
@@ -296,6 +320,164 @@ def phase_noise(dev):
         f"repeater_perlin/terrain_t {n_exact}/2 bit-exact")
     if bad:
         raise SystemExit(f"noise mismatch against native/golden_noise.json: {bad}")
+    phase_w1_noise(dev, g, coords)
+
+
+def phase_w1_noise(dev, g, coords):
+    """W1's noise (``csrc/noise.cuh`` through the noise probe of
+    ``csrc/terrain.cu``) against the golden values and, on random points,
+    the plain torch noise on the card: bit for bit (float bit patterns)."""
+    import numpy as np
+    import torch
+
+    from voxelengine_tpu_torch.kernels import terrain as W
+    from voxelengine_tpu_torch.ops import noise as N
+    from voxelengine_tpu_torch.worldgen.terrain import solid_at, terrain_density
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    seeds = np.array([0, 1, 42, 0x71889283, 0xFFFFFFFF, 123456789], np.uint32)
+    s32 = torch.from_numpy(seeds.view(np.int32)).to(dev)
+    a = np.arange(4) * 37
+    z, y, x = np.meshgrid(a, a, a, indexing="ij")
+    lattice = torch.from_numpy(np.stack([x.ravel(), y.ravel(), z.ravel()], -1).astype(np.int32)).to(dev)
+    golden = {
+        "hash": (W.noise_points("hash", s32), np.array(g["hash"], np.uint32).astype(np.int64)),
+        "random_float": (W.noise_points("random_float", s32), np.array(g["random_float"], np.float32)),
+        "perlin": (W.noise_points("perlin", coords, seed=1040580316), np.array(g["perlin"], np.float32)),
+        "repeater_perlin": (W.noise_points("repeater_perlin", coords, octaves=32),
+                            np.array(g["repeater_perlin"], np.float32)),
+        "terrain_t": (W.noise_points("terrain_t", lattice, octaves=32), np.array(g["terrain_t"], np.float32)),
+    }
+    bad = [k for k, (got, want) in golden.items() if not np.array_equal(got.cpu().numpy(), want)]
+    rng = np.random.default_rng(3)
+    n = 1 << 16
+    pos = torch.from_numpy((rng.random((n, 3)) * 200 - 100).astype(np.float32)).to(dev)
+    vox = np.stack([rng.integers(0, 8192, n), rng.integers(0, 512, n), rng.integers(0, 8192, n)], -1)
+    vox = torch.from_numpy(vox.astype(np.int32)).to(dev)
+    vx, vy, vz = vox.long().unbind(-1)
+    u = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32).view(np.int32)).to(dev)
+    plain = {
+        "hash": (W.noise_points("hash", u), N.hash_u32(u)),
+        "random_float": (W.noise_points("random_float", u), N.random_float(u)),
+        "perlin seed -5": (W.noise_points("perlin", pos, seed=-5), N.perlin_noise(pos, 1.0, -5)),
+    }
+    for oc in (8, 32):
+        plain[f"repeater_perlin {oc} octaves"] = (W.noise_points("repeater_perlin", pos, octaves=oc),
+                                                  N.repeater_perlin(pos, 1.0, 0, oc, 2.0, 0.5))
+        plain[f"terrain_t {oc} octaves"] = (W.noise_points("terrain_t", vox, octaves=oc),
+                                            terrain_density(vx, vy, vz, octaves=oc))
+        plain[f"solid {oc} octaves"] = (W.noise_points("solid", vox, octaves=oc), solid_at(vx, vy, vz, octaves=oc))
+    diffs = {k: int((bits(got) != bits(want)).sum()) for k, (got, want) in plain.items()}
+    say(f"noise: W1's noise (csrc/noise.cuh) against native/golden_noise.json, bit-exact on all five: mismatches "
+        f"{bad or 'none'}; against the plain torch noise on the card on {n} random points each (bit patterns): "
+        f"diffs {json.dumps(diffs)}")
+    if bad or any(diffs.values()):
+        raise SystemExit(f"W1's noise disagrees: golden {bad}, plain {diffs}")
+
+
+def events_ms(fn):
+    """``(fn(), ms)``: one run of ``fn`` timed by CUDA events (for runs too
+    long to repeat)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def chunk_diffs(got, want):
+    """``{field: elements that differ}`` of two ``_slab_to_chunks`` results."""
+    return {k: int((a != b).sum()) for k, a, b in zip(("occ", "bmin", "bmax", "words"), got, want)}
+
+
+def phase_terrain(dev):
+    """W1 against its plain version (the plain ``solid_at`` slab reduced by
+    ``_slab_to_chunks``) on the first, a middle and the last z-slab of the
+    bench world and of a 256x128x256 world at factors 8, 16 and 32 in each
+    brick layout, and the compact build of a 256^3 world through W1 and
+    through the plain path; W1 and its plain version timed on the bench
+    world's middle slab.  Returns the parts of W1's record measured here."""
+    import torch
+
+    from voxelengine_tpu_torch.core.brickmap import (
+        build_brickmap_terrain_compact,
+        terrain_slab_chunks_plain,
+    )
+    from voxelengine_tpu_torch.core.layout import Layout
+    from voxelengine_tpu_torch.kernels import terrain as W
+
+    cases = [(WORLDS["full"][0], 32, Layout.TILED_LINEAR)]
+    cases += [(W1_WORLD, f, lay) for f in (8, 16, 32) for lay in Layout]
+    total = {}
+    for dims, f, lay in cases:
+        gz = dims[2] // f
+        for z0 in (0, gz // 2 * f, (gz - 1) * f):
+            got = W.terrain_slab(z0, dims, f, lay, OCTAVES, dev)
+            want, ms = events_ms(lambda: terrain_slab_chunks_plain(z0, dims, f, lay, OCTAVES, device=dev))
+            d = chunk_diffs(got, want)
+            total = {k: total.get(k, 0) + v for k, v in d.items()}
+            if any(d.values()):
+                raise SystemExit(f"W1 vs plain, {dims} f{f} {lay.name} slab z0={z0}: diffs {d}")
+            if dims == WORLDS["full"][0] and z0 == gz // 2 * f:
+                mid, plain_ms, occupied = (z0, dims, f, lay), ms, int(want[0].sum())
+    say(f"terrain: W1 vs plain solid_at + _slab_to_chunks (tolerance: equal) on the first, a middle and the last "
+        f"z-slab of {WORLDS['full'][0]} f32 and of {W1_WORLD} at factors 8/16/32 in each brick layout "
+        f"({3 * len(cases)} slabs): diffs {json.dumps(total)}")
+
+    t0 = time.perf_counter()
+    a = build_brickmap_terrain_compact(W1_BUILD_WORLD, 32, octaves=OCTAVES, device=dev)
+    torch.cuda.synchronize()
+    t_w1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = build_brickmap_terrain_compact(W1_BUILD_WORLD, 32, octaves=OCTAVES, device=dev,
+                                       chunks_fn=terrain_slab_chunks_plain)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    d = {k: int((getattr(a, k) != getattr(b, k)).sum()) if getattr(a, k).shape == getattr(b, k).shape else "shape"
+         for k in ("meta", "brick_idx", "bricks")}
+    say(f"terrain: compact build of {W1_BUILD_WORLD} f32 through W1 ({t_w1:.2f} s) vs through the plain path ({t_plain:.2f} s), "
+        f"{a.bricks.shape[0]} bricks: diffs {json.dumps(d)}")
+    if any(d.values()):
+        raise SystemExit(f"the compact build through W1 differs from the plain path: {d}")
+
+    z0, dims, f, lay = mid
+    ms = cuda_ms(lambda: W.terrain_slab(z0, dims, f, lay, OCTAVES, dev), repeats=3)
+    gx, gy, wpb = W.slab_shape(dims, f, lay)
+    voxels = dims[0] * dims[1] * f
+    out_bytes = gx * gy * (1 + 24 + 4 * wpb)
+    bytes_ms = out_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = voxels * w1_ops_per_voxel(OCTAVES) / F32_OPS_PER_S * 1e3
+    say(f"times: W1 {ms:.3f} ms, plain solid_at + _slab_to_chunks {plain_ms:.1f} ms on the slab z0={z0} of "
+        f"{dims} f{f} ({voxels} voxels, {gx * gy} chunks, {occupied} occupied); bound {max(bytes_ms, ops_ms):.3f} ms "
+        f"({w1_ops_per_voxel(OCTAVES)} ops a voxel over {F32_OPS_PER_S:.3g} op/s), on {card_line()}")
+    return {
+        "name": "terrain_slab", "route": "cuda", "source": "voxelengine_tpu_torch/csrc/terrain.cu",
+        "replaces": "voxelengine_tpu/core/brickmap.py:284 build_brickmap_terrain_compact (XLA under jax.jit, "
+                    "not a pallas_call: a port kernel with no TPU counterpart)",
+        "launches": None, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # no PyTorch call computes Perlin terrain
+        "voxels": voxels, "ops_per_voxel": w1_ops_per_voxel(OCTAVES), "out_bytes": out_bytes,
+    }
+
+
+def w1_ops_per_voxel(octaves: int) -> int:
+    """W1's operations a voxel, counted from ``csrc/noise.cuh`` and
+    ``csrc/terrain.cuh`` (integer and float alike): an octave is the seed
+    (2), the octave's position (3), perlin's scale, floor and fraction (9),
+    three fades (21), eight corners of 60 (3 adds, the grid seed's 3 mul and
+    4 adds, the saturating conversion 3, the hash 18, grad 26, the corner
+    offset 3), seven lerps (28), the accumulate and the scale and amplitude
+    updates (4) and the loop (2): 549; outside the octaves the coordinates,
+    the threshold and the compare, the brick layout's inverse and the ballot
+    and bounds, ~40."""
+    return 549 * octaves + 40
 
 
 def random_brickmap(dims, factor, fill, seed, dev):
@@ -476,34 +658,108 @@ def line_kernel_args(bm, lt, o, d, max_steps):
     return args, kw
 
 
+def bench_world(dev, dims, cache: str, ms: dict):
+    """The bench flow's world (``bench.py:132-178,216-233``) through the
+    port's checkpoint layer: ``generate_or_load`` builds the world through W1
+    into ``cache`` (timed; W1's launches counted), a second
+    ``generate_or_load`` loads it back, which must give the same tables bit
+    for bit, then ``line_table_or_build`` and ``materialize_brick_lines``.
+    Returns ``(bm, lt, W1 launches of the build, cache key)``."""
+    import torch
+
+    from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
+    from voxelengine_tpu_torch.io.checkpoint import generate_or_load, line_table_or_build
+    from voxelengine_tpu_torch.kernels import terrain
+    from voxelengine_tpu_torch.ops.bigtrace import materialize_brick_lines
+    from voxelengine_tpu_torch.utils.profiling import timed
+
+    key = f"terrain_{dims[0]}x{dims[1]}x{dims[2]}_f32_o32_v1"  # bench.py:139
+    def build():
+        with timed("world", ms, verbose=False, device=dev):
+            return build_brickmap_terrain_compact(dims, 32, device=dev)
+
+    def not_cached():
+        raise SystemExit("the bench world was not loaded from its cache")
+
+    terrain.launches = 0  # W1's path: the slabs of one build
+    with timed("build and save", ms, verbose=False, device=dev):
+        built = generate_or_load(cache, key, build, device=dev)
+    launches = terrain.launches
+    if launches != dims[2] // 32:
+        raise SystemExit(f"the bench world's build launched W1 {launches} times, not once a slab")
+    ms["save"] = ms["build and save"] - ms["world"]
+    with timed("load", ms, verbose=False, device=dev):
+        loaded = generate_or_load(cache, key, not_cached, device=dev)
+    same = {k: torch.equal(getattr(built, k), getattr(loaded, k)) for k in ("meta", "brick_idx", "bricks")}
+    same["fields"] = all(getattr(built, k) == getattr(loaded, k)
+                         for k in ("grid_dims", "factor", "coarse_layout", "brick_layout", "dense_slots"))
+    say(f"bench world: cache save {ms['save'] / 1e3:.2f} s, load {ms['load'] / 1e3:.2f} s; the loaded tables "
+        f"equal the built ones (bit for bit): {json.dumps(same)}")
+    if not all(same.values()):
+        raise SystemExit("the bench world loaded from its cache differs from the built one")
+    del built
+    with timed("line table", ms, verbose=False, device=dev):
+        lt = materialize_brick_lines(loaded, line_table_or_build(cache, key + "_lt1", loaded))
+    return loaded, lt, launches, key
+
+
 def phase_main_path(dev, world: str):
+    """The main path on ``world``: ``demo`` (the 1024^3 world, built through
+    W1) or ``full`` (the bench world through :func:`bench_world`, its macro
+    decision through ``memo_json``).  Returns K1's record and W1's launches
+    on the world's build."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
+    from voxelengine_tpu_torch.kernels import terrain
+    from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines
+    from voxelengine_tpu_torch.utils.profiling import timed
+
+    dims, W, H = WORLDS[world]
+    name = f"{dims[0]}x{dims[1]}x{dims[2]}"
+    ms = {}
+    cache = None
+    if world == "full":
+        (ROOT / "_checkout").mkdir(exist_ok=True)
+        cache = tempfile.mkdtemp(prefix="world_cache_", dir=ROOT / "_checkout")
+        bm, lt, w1_launches, key = bench_world(dev, dims, cache, ms)
+    else:
+        terrain.launches = 0
+        with timed("world", ms, verbose=False, device=dev):
+            bm = build_brickmap_terrain_compact(dims, 32, device=dev)
+            torch.cuda.synchronize()
+        w1_launches = terrain.launches
+        with timed("line table", ms, verbose=False, device=dev):
+            lt = materialize_brick_lines(bm, make_line_table(bm))
+    say(f"main path ({world}): world {name} f32 built through W1 in {ms['world'] / 1e3:.2f} s ({w1_launches} W1 "
+        f"launches; {bm.bricks.shape[0]} bricks, {bm.bricks.numel() * 4 / 1e9:.3f} GB); line table + brick lines "
+        f"{ms['line table'] / 1e3:.2f} s ({lt.num_regions} regions), on {card_line()}")
+    try:
+        return main_path_frames(dev, world, bm, lt, cache and (cache, key)), w1_launches
+    finally:
+        if cache:
+            shutil.rmtree(cache, ignore_errors=True)
+
+
+def main_path_frames(dev, world, bm, lt, memo):
+    """The frames, the exactness gate, the diag build and the times of the
+    main path on ``world``'s ``bm`` and ``lt``; the macro decision through
+    ``memo_json`` in ``memo = (cache dir, world key)`` when given."""
     import dataclasses
 
     import torch
 
     from voxelengine_tpu_torch.config import Environment, RenderConfig
-    from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
+    from voxelengine_tpu_torch.io.checkpoint import memo_json
     from voxelengine_tpu_torch.kernels import bigtrace
-    from voxelengine_tpu_torch.ops.bigtrace import (
-        make_line_table,
-        materialize_brick_lines,
-        trace_brickmap_hbm,
-        trace_brickmap_lt,
-    )
+    from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm, trace_brickmap_lt
     from voxelengine_tpu_torch.ops.trace import trace_brickmap
     from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, probe_use_macro, render_frame
-    from voxelengine_tpu_torch.utils.profiling import timed
 
     dims, W, H = WORLDS[world]
-    ms = {}
-    with timed("world", ms, verbose=False, device=dev):
-        bm = build_brickmap_terrain_compact(dims, 32, device=dev)
-    with timed("line table", ms, verbose=False, device=dev):
-        lt = materialize_brick_lines(bm, make_line_table(bm))
-    say(f"main path: world {dims[0]}x{dims[1]}x{dims[2]} f32 built in {ms['world'] / 1e3:.1f} s "
-        f"({bm.bricks.shape[0]} bricks, {bm.bricks.numel() * 4 / 1e9:.3f} GB); "
-        f"line table + brick lines {ms['line table'] / 1e3:.2f} s ({lt.num_regions} regions)")
-
     cfg = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
     env = Environment.default(dev)
     origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)  # bench.py:191-192
@@ -513,11 +769,19 @@ def phase_main_path(dev, world: str):
     # the macro probe on the frame's rays (bench.py:232-266)
     po, pd, _, _, _ = primary_rays(cfg, origin, euler, 1)
     t0 = time.perf_counter()
-    use_macro = probe_use_macro(bm, lt, po, pd, cfg)
+    if memo:
+        pk = (f"{memo[1]}_macroprobe_v1_{W}x{H}_ms{cfg.max_steps}_cam{'_'.join(str(float(v)) for v in origin.tolist())}"
+              f"_e{'_'.join(str(float(e)) for e in euler.tolist())}")
+        use_macro = bool(memo_json(memo[0], pk, lambda: probe_use_macro(bm, lt, po, pd, cfg)))
+        if memo_json(memo[0], pk, lambda: None) != use_macro:
+            raise SystemExit("memo_json did not return the stored macro decision")
+    else:
+        use_macro = probe_use_macro(bm, lt, po, pd, cfg)
     t_probe = time.perf_counter() - t0
     _, ph = trace_brickmap_hbm(bm, lt, po[::4], pd[::4], cfg.max_steps, return_phases=True)
-    say(f"main path: macro probe on every 4th of the frame's {po.shape[0]} rays: mskip total "
-        f"{int(ph['mskip'].sum())}, use_macro={use_macro} ({t_probe * 1e3:.1f} ms)")
+    say(f"main path ({world}): macro probe on every 4th of the frame's {po.shape[0]} rays: mskip total "
+        f"{int(ph['mskip'].sum())}, use_macro={use_macro} ({t_probe * 1e3:.1f} ms"
+        f"{', through memo_json' if memo else ''})")
     cfg = dataclasses.replace(cfg, trace_use_macro=use_macro)
     fb = make_framebuffer(cfg, dev)
 
@@ -550,15 +814,15 @@ def phase_main_path(dev, world: str):
     lt_walk, pdg = trace_brickmap_lt(bm, lt, o, d, cfg.max_steps, use_macro, diag=True)
     want = lt_walk if use_macro else chunk_walk
     diffs = compare(got, want)
-    check_diffs(f"main path: exactness gate, K1 (use_macro={use_macro}) vs its plain version", diffs,
+    check_diffs(f"main path ({world}): exactness gate, K1 (use_macro={use_macro}) vs its plain version", diffs,
                 o.shape[0], int(want.hit.sum()))
     chunk = compare(got, chunk_walk)
-    say(f"main path: K1 (use_macro={use_macro}) vs the chunk-by-chunk trace_brickmap: hit diffs {chunk[0]}, "
+    say(f"main path ({world}): K1 (use_macro={use_macro}) vs the chunk-by-chunk trace_brickmap: hit diffs {chunk[0]}, "
         f"steps diffs {chunk[1]}, normal diffs {chunk[2]}, position diffs {chunk[3]}")
     hit_frac = float(want.hit.float().mean())
     if not 0.0 < hit_frac < 1.0:
         raise SystemExit(f"implausible hit fraction {hit_frac}")
-    say(f"main path: {W}x{H} checkerboard tile_order, use_macro={use_macro}, {FRAMES} chained frames: "
+    say(f"main path ({world}): {W}x{H} checkerboard tile_order, use_macro={use_macro}, {FRAMES} chained frames: "
         f"{frame_ms:.3f} ms/frame, {rays_per_frame / frame_ms / 1e3:.3f} Mrays/s primary, "
         f"hit fraction {hit_frac:.4f}, K1 launches {launches}, "
         f"framebuffer checksum {float(fb.double().sum()):.6f}")
@@ -566,27 +830,28 @@ def phase_main_path(dev, world: str):
     # the diag build on the same rays: counters, warp iterations
     res, iters, phases = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=use_macro,
                                             return_iters=True, return_phases=True)
-    check_diffs("main path: K1 diag build vs the production build", compare(res, got), o.shape[0],
+    check_diffs(f"main path ({world}): K1 diag build vs the production build", compare(res, got), o.shape[0],
                 int(got.hit.sum()))
-    check_diag("main path", phases, iters, pdg)
-    events = phase_counts(phases, "main path")
-    k1_share = warp_iters_line(iters, pdg[-1], got.steps, "main path")
+    check_diag(f"main path ({world})", phases, iters, pdg)
+    events = phase_counts(phases, f"main path ({world})")
+    k1_share = warp_iters_line(iters, pdg[-1], got.steps, f"main path ({world})")
 
     # times: K1 (macro off, on) and K5 alone (ray setup excluded), the plain trace
     args, kw = line_kernel_args(bm, lt, o, d, cfg.max_steps)
     t_off = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
     t_on = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=True, **kw), repeats=10)
     t_k5, k5_share = k5_sweep(args, kw, use_macro)
-    share_line("main path", k1_share, k5_share)
+    share_line(f"main path ({world})", k1_share, k5_share)
     k_ms = t_on if use_macro else t_off
     plain = trace_brickmap_lt if use_macro else (lambda bm, lt, *a: trace_brickmap(bm, *a))
-    p_ms = cuda_ms(lambda: plain(bm, lt, o, d, cfg.max_steps), repeats=1)
+    _, p_ms = events_ms(lambda: plain(bm, lt, o, d, cfg.max_steps))
     steps_sum = int(got.steps.sum())
-    say(f"times: K1 macro off {t_off:.3f} ms, K1 macro on {t_on:.3f} ms, K5 (use_macro={use_macro}) {k5_times(t_k5)}, "
+    say(f"times ({world}): K1 macro off {t_off:.3f} ms, K1 macro on {t_on:.3f} ms, K5 (use_macro={use_macro}) {k5_times(t_k5)}, "
         f"plain {'macro walk' if use_macro else 'trace'} {p_ms:.3f} ms, {o.shape[0]} frame rays, "
         f"sum(steps) {steps_sum}, executed events {events}, on {card_line()}")
     return kernel_entry(
-        "bigtrace", "bigtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1348", launches, diffs[4], k_ms, p_ms,
+        "bigtrace" if world == "full" else "bigtrace_demo_world", "bigtrace.cu",
+        "voxelengine_tpu/ops/pallas_bigtrace.py:1348", launches, diffs[4], k_ms, p_ms,
         o.shape[0], hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick), steps_sum,
         events if use_macro else None,
     )
@@ -675,6 +940,8 @@ def phase_dense_path(dev, err):
     import torch
 
     from voxelengine_tpu_torch.config import Environment, RenderConfig
+    from voxelengine_tpu_torch.core.bitgrid import BitGrid
+    from voxelengine_tpu_torch.core.layout import Layout
     from voxelengine_tpu_torch.kernels import gridtrace
     from voxelengine_tpu_torch.ops.gridtrace import trace_grid_mxu, trace_grid_vpu, words_to_limb_rows
     from voxelengine_tpu_torch.ops.trace import trace_grid
@@ -687,14 +954,16 @@ def phase_dense_path(dev, err):
     say(f"dense path: world 64x64x64 (octaves 8) in {time.perf_counter() - t0:.2f} s, "
         f"{int(g.count())} solid voxels, {g.words.numel() * 4} bytes of words")
 
-    # the config-2 batch: K3's path (trace_grid_mxu), K2 and the plain trace
+    # the config-2 batch: K3's path (trace_grid_mxu; the grid's 32 KB of
+    # words in shared memory), K2 and the plain trace
     o, d = config2_rays(dev)
-    gridtrace.launches = gridtrace.limb_launches = 0
+    gridtrace.launches = gridtrace.limb_launches = gridtrace.staged_launches = 0
     k3 = trace_grid_mxu(g, o, d)
     torch.cuda.synchronize()
-    k3_launches = gridtrace.limb_launches
-    if k3_launches != 1:
-        raise SystemExit(f"trace_grid_mxu launched K3 {k3_launches} times, not once")
+    k3_launches = gridtrace.staged_launches
+    if (gridtrace.limb_launches, k3_launches) != (1, 1):
+        raise SystemExit(f"trace_grid_mxu launched K3 {gridtrace.limb_launches} times ({k3_launches} staged), "
+                         "not once staged")
     want = trace_grid(g, o, d)
     for k, got in (("K3", k3), ("K2", trace_grid_vpu(g, o, d))):
         diffs = compare(got, want)
@@ -751,6 +1020,30 @@ def phase_dense_path(dev, err):
         if len(call_kernels) != 1:
             raise SystemExit(f"trace_grid_vpu launched {len(call_kernels)} CUDA kernels, not K2 alone")
 
+    # the CUDA kernels one trace_grid_mxu call launches: the limb planes' copy and K3
+    mxu_kernels, mxu_dev = kernel_profile(lambda: trace_grid_mxu(g, o, d))
+    if mxu_kernels is not None:
+        say(f"dense path: CUDA kernels launched by one trace_grid_mxu call on the config-2 batch: {len(mxu_kernels)} "
+            f"({sum(mxu_dev):.4f} ms of device time; {', '.join(mxu_kernels)})")
+        if len(mxu_kernels) != 2:
+            raise SystemExit(f"trace_grid_mxu launched {len(mxu_kernels)} CUDA kernels, not the planes' copy and K3")
+
+    # K3's global instantiation (LimbFetch) on a grid beyond shared memory:
+    # a random 128^3 grid, 65,536 words (256 KB)
+    big = BitGrid.from_dense(random_grid((128, 128, 128), 0.01, 17, dev), Layout.TILED_LINEAR)
+    bo, bd = random_rays(big.dims, 1 << 18, 1.9, 115, dev)
+    gridtrace.limb_launches = gridtrace.staged_launches = 0
+    bgot = trace_grid_mxu(big, bo, bd)
+    torch.cuda.synchronize()
+    k3g_launches = gridtrace.limb_launches - gridtrace.staged_launches
+    if (gridtrace.limb_launches, k3g_launches) != (1, 1):
+        raise SystemExit(f"trace_grid_mxu launched K3 {gridtrace.limb_launches} times ({k3g_launches} global) on a "
+                         f"{big.words.numel() * 4} B grid, not once global")
+    bwant, bp_ms = events_ms(lambda: trace_grid(big, bo, bd))
+    bdiffs = compare(bgot, bwant)
+    check_diffs(f"dense path: K3 (global instantiation) vs plain on a random 128^3 grid ({big.words.numel() * 4} B "
+                "of words)", bdiffs, bo.shape[0], int(bwant.hit.sum()))
+
     # times on the config-2 batch and on the last frame's rays (the shape of
     # K2's launches on its path): the kernels' device time (torch.profiler,
     # CUDA events where it records none), and K2 as the whole trace_grid_vpu
@@ -763,6 +1056,19 @@ def phase_dense_path(dev, err):
         _, dev = kernel_profile(fn, 10)
         return ev if not dev else sum(dev) / len(dev), ev
 
+    # K3's two instantiations on the config-2 batch (the global one forced by
+    # the wrapper's limit), and the global one on its own grid
+    limit = gridtrace.SMEM_WORDS_LIMIT
+    gridtrace.SMEM_WORDS_LIMIT = 0
+    try:
+        k3_plain_block_ms, _ = kernel_ms(lambda: gridtrace.gridtrace_limbs(o, d, limbs, max_steps=2048, **kw))
+    finally:
+        gridtrace.SMEM_WORDS_LIMIT = limit
+    blimbs = words_to_limb_rows(big.words)
+    k3g_ms, _ = kernel_ms(lambda: gridtrace.gridtrace_limbs(bo, bd, blimbs, max_steps=2048, dims=big.dims,
+                                                            layout=big.layout))
+    mxu_call_ms = cuda_ms(lambda: trace_grid_mxu(g, o, d), repeats=10)
+
     k2_ms, k2_ev = kernel_ms(lambda: gridtrace.gridtrace(o, d, g.words, max_steps=2048, **kw))
     k2_frame_ms, k2_frame_ev = kernel_ms(lambda: gridtrace.gridtrace(fo, fd, g.words, max_steps=cfg.max_steps, **kw))
     call_frame_ms = cuda_ms(lambda: trace_grid_vpu(g, fo, fd, cfg.max_steps), repeats=10)
@@ -771,7 +1077,11 @@ def phase_dense_path(dev, err):
     p_frame_ms = cuda_ms(lambda: trace_grid(g, fo, fd, cfg.max_steps), repeats=1)
     steps_sum, frame_steps = int(want.steps.sum()), int(fwant.steps.sum())
     say(f"times (device; CUDA events around the launches in brackets): K2 {k2_ms:.4f} ms ({k2_ev:.4f}), K3 "
-        f"{k3_ms:.4f} ms ({k3_ev:.4f}), plain trace_grid {p_ms:.3f} ms, {o.shape[0]} rays, sum(steps) {steps_sum}; "
+        f"(shared-memory instantiation) {k3_ms:.4f} ms ({k3_ev:.4f}), K3 in plain 128-thread blocks with the "
+        f"four-plane fetch (its global instantiation) {k3_plain_block_ms:.4f} ms, the whole trace_grid_mxu call "
+        f"{mxu_call_ms:.4f} ms (events), plain trace_grid {p_ms:.3f} ms, {o.shape[0]} rays, sum(steps) {steps_sum}; "
+        f"K3 global {k3g_ms:.4f} ms, plain {bp_ms:.3f} ms on the 128^3 grid's {bo.shape[0]} rays, sum(steps) "
+        f"{int(bwant.steps.sum())}; "
         f"K2 {k2_frame_ms:.4f} ms ({k2_frame_ev:.4f}), the whole trace_grid_vpu call {call_frame_ms:.4f} ms (events), "
         f"plain trace_grid {p_frame_ms:.3f} ms on the last frame's {fo.shape[0]} rays, sum(steps) {frame_steps}, "
         f"on {card_line()}")
@@ -783,7 +1093,11 @@ def phase_dense_path(dev, err):
                      kernels_per_frame=None if frame_kernels is None else len(frame_kernels)),
         kernel_entry("gridtrace_limbs", "gridtrace.cu", "voxelengine_tpu/ops/pallas_trace.py:93", k3_launches,
                      err["K3"], k3_ms, p_ms, o.shape[0], hit_table_bytes(want, g.dims, g.layout), steps_sum,
-                     ray_bytes=grid_ray_bytes(o, d)),
+                     ray_bytes=grid_ray_bytes(o, d), plain_block_ms=k3_plain_block_ms, call_ms=mxu_call_ms,
+                     kernels_per_call=None if mxu_kernels is None else len(mxu_kernels)),
+        kernel_entry("gridtrace_limbs_global", "gridtrace.cu", "voxelengine_tpu/ops/pallas_trace.py:93",
+                     k3g_launches, bdiffs[4], k3g_ms, bp_ms, bo.shape[0], hit_table_bytes(bwant, big.dims, big.layout),
+                     int(bwant.steps.sum()), ray_bytes=grid_ray_bytes(bo, bd)),
     ]
 
 
@@ -1034,9 +1348,8 @@ def phase_sparse(dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--world", choices=sorted(WORLDS), default="demo",
-                    help="demo: 1024^3 at 1280x720 (default); full: 8192x512x8192 at 1920x1080")
-    args = ap.parse_args(argv)
+    ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1053,7 +1366,10 @@ def main(argv=None):
     phase_build()
     phase_noise(dev)
     phase_kernel_vs_plain(dev)
-    kernels = [phase_main_path(dev, args.world)]
+    w1 = phase_terrain(dev)
+    demo, _ = phase_main_path(dev, "demo")
+    bench, w1["launches"] = phase_main_path(dev, "full")
+    kernels = [bench, demo, w1]
     err = phase_dense_vs_plain(dev)
     kernels += phase_dense_path(dev, err)
     kernels += phase_bmtrace(dev)
@@ -1061,6 +1377,7 @@ def main(argv=None):
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise SystemExit(f"kernels never launched on their path: {idle}")
+    say(f"wall time: {time.perf_counter() - t_start:.1f} s, kernel builds included")
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card_line()}")
     say(json.dumps({"ok": True, "device": {

@@ -16,7 +16,9 @@ rays (phase 10), and K4's 1,048,576 random rays over the 128^3 terrain at
 factor 8 (phase 9), as given and sorted by direction octant, then by the
 chunk of the clipped start; without ``--quick`` also K4 on terrains of
 16-224 KB of meta with each of its two instantiations (shared or global
-meta, forced through the wrapper's limit).  K2 and K3 are timed alone (the
+meta, forced through the wrapper's limit).  K3 is also timed in its global
+instantiation (plain blocks, the four-plane fetch; forced through the
+wrapper's limit) on the config-2 batch.  K2 and K3 are timed alone (the
 kernel's launch; a tree whose kernel takes prepared rays gets them from
 its own ray setup, made once) and as the whole ``trace_grid_vpu`` /
 ``trace_grid_mxu`` call; the dense frame as 8 chained ``render_frame_dense``
@@ -87,6 +89,10 @@ def make_inputs(dev, quick: bool, refills):
     cases["K2 dense frame rays, alone"] = ("grid", (fo, fd) + grid, dict(max_steps=cfg.max_steps))
     cases["K2 dense frame rays, trace_grid_vpu call"] = ("grid_call", (fo, fd) + grid, dict(max_steps=cfg.max_steps))
     cases["K3 config-2 batch, alone"] = ("grid_limbs", (co, cd) + grid, dict(max_steps=MAX_STEPS))
+    # K3 in plain 128-thread blocks with the four-plane fetch: the global
+    # instantiation, forced through the wrapper's limit (trees that have one)
+    cases["K3 config-2 batch, alone, global instantiation"] = (
+        "grid_limbs", (co, cd) + grid, dict(max_steps=MAX_STEPS, _k3_limit=0))
     cases["K3 config-2 batch, trace_grid_mxu call"] = ("grid_limbs_call", (co, cd) + grid, dict(max_steps=MAX_STEPS))
     cases["dense frame (8 chained render_frame_dense, ms a frame)"] = (
         "dense_frames", grid + (origin, euler), dict(width=cfg.width, height=cfg.height))
@@ -222,20 +228,24 @@ def worker(tree: Path, data: Path, defines: str) -> None:
     import torch
 
     import voxelengine_tpu_torch as pkg
-    from voxelengine_tpu_torch.kernels import bmtrace, build
+    from voxelengine_tpu_torch.kernels import bmtrace, build, gridtrace
 
     build.NVCC_FLAGS = build.NVCC_FLAGS + tuple(defines.split())
     fns = tree_functions(torch)
     cases = torch.load(data, weights_only=False)
     own_limit = getattr(bmtrace, "SMEM_META_LIMIT", None)
+    own_k3_limit = getattr(gridtrace, "SMEM_WORDS_LIMIT", None)
     ms, digest, kernels, dev_ms = {}, {}, {}, {}
     for name, (kind, args, kw) in cases.items():
         kw = dict(kw)
         limit = kw.pop("_smem_limit", None)
-        if limit is not None and own_limit is None:
-            continue  # a tree whose K4 has one instantiation
+        k3_limit = kw.pop("_k3_limit", None)
+        if (limit is not None and own_limit is None) or (k3_limit is not None and own_k3_limit is None):
+            continue  # a tree whose K4 or K3 has one instantiation
         if own_limit is not None:
             bmtrace.SMEM_META_LIMIT = own_limit if limit is None else limit
+        if own_k3_limit is not None:
+            gridtrace.SMEM_WORDS_LIMIT = own_k3_limit if k3_limit is None else k3_limit
         made = fns[kind](args, kw)
         if made is None:
             continue  # a K5 refill this tree does not have

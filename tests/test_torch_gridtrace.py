@@ -53,9 +53,13 @@ BM_CASES = {
     "morton": ("TILED_MORTON", "TILED_MORTON"),
     "mixed": ("LINEAR", "TILED_MORTON"),
 }
-DENSE_FRAMES = {  # name -> (width, height, checkerboard, tile_order, frame numbers)
-    "cb": (64, 48, True, False, (0, 1)),
-    "full_tiled": (64, 48, False, True, (0,)),
+# name -> (width, height, checkerboard, tile_order, frame numbers, secondary):
+# with secondary, shadow_rays, ao_samples and reflections are set, which the
+# dense path ignores (it traces no secondary rays), on JAX's side and the port's
+DENSE_FRAMES = {
+    "cb": (64, 48, True, False, (0, 1), False),
+    "full_tiled": (64, 48, False, True, (0,), False),
+    "cb_secondary_flags": (64, 48, True, False, (0, 1), True),
 }
 ORIGIN = np.array([16.0, 22.0, -10.0], np.float32)
 EULER = np.array([-0.35, 3.14159, 0.0], np.float32)  # tests/test_pallas_trace.py:119
@@ -136,6 +140,10 @@ def _bm_rays(dense, n=512):
     return o, d.astype(np.float32)
 
 
+def _secondary_flags(on):
+    return dict(shadow_rays=True, ao_samples=2, reflections=True) if on else {}
+
+
 def _jax_reference():
     """JAX side (runs in the subprocess, module doc)."""
     import jax.numpy as jnp
@@ -191,8 +199,8 @@ def _jax_reference():
     g = generate_world((32, 32, 32), octaves=3)
     out["frame/words"] = np.asarray(g.words)
     env = JEnv.default()
-    for name, (W, H, cb, to, frames) in DENSE_FRAMES.items():
-        cfg = JCfg(width=W, height=H, checkerboard=cb, tile_order=to, max_steps=256)
+    for name, (W, H, cb, to, frames, sec) in DENSE_FRAMES.items():
+        cfg = JCfg(width=W, height=H, checkerboard=cb, tile_order=to, max_steps=256, **_secondary_flags(sec))
         fb = make_framebuffer(cfg)
         for fn in frames:
             fb = render_frame_dense(g, fb, jnp.asarray(ORIGIN), jnp.asarray(EULER), env, jnp.int32(fn), cfg,
@@ -249,7 +257,17 @@ def _assert_same(a, b):
     assert torch.equal(a.normal[a.hit], b.normal[b.hit])
 
 
-@pytest.mark.parametrize("words", [300, 1024, 8192 + 5])
+def _limb_rows_by_shifts(words):
+    """``words_to_limb_rows``' earlier form (13 eager ops): limb ``k`` as
+    ``(word >> 8k) & 0xFF``."""
+    padn = (-words.shape[0]) % 128
+    if padn:
+        words = torch.cat([words, words.new_zeros((padn,))])
+    rows = words.reshape(-1, 128)
+    return torch.stack([((rows >> s) & 0xFF).to(torch.uint8) for s in (0, 8, 16, 24)])
+
+
+@pytest.mark.parametrize("words", [3, 127, 300, 1024, 8192 + 5])
 def test_word_tables_bit_equal_to_jax(words):
     import jax.numpy as jnp
 
@@ -261,8 +279,9 @@ def test_word_tables_bit_equal_to_jax(words):
     rows = words_to_rows_i32(t)
     np.testing.assert_array_equal(rows.numpy(), np.asarray(JP.words_to_rows_i32(jnp.asarray(w))))
     limbs = words_to_limb_rows(t)
-    assert limbs.dtype == torch.uint8
+    assert limbs.dtype == torch.uint8 and limbs.is_contiguous()
     np.testing.assert_array_equal(limbs.numpy(), np.asarray(JP.words_to_limb_rows(jnp.asarray(w))).astype(np.uint8))
+    assert torch.equal(limbs, _limb_rows_by_shifts(t))
 
 
 @pytest.mark.parametrize("name", sorted(GRID_CASES))
@@ -305,11 +324,12 @@ def test_trace_brickmap_mxu_refuses_compact_brickmaps():
 
 @pytest.mark.parametrize("name", sorted(DENSE_FRAMES))
 def test_render_frame_dense_bit_equal(ref, name):
-    """The slice end to end: chained dense frames equal JAX's exactly."""
-    W, H, cb, to, frames = DENSE_FRAMES[name]
+    """The slice end to end: chained dense frames equal JAX's exactly, with
+    the secondary-ray flags set too (both paths ignore them)."""
+    W, H, cb, to, frames, sec = DENSE_FRAMES[name]
     g = bitgrid_from_numpy(dict(words=ref["frame/words"], dims=(32, 32, 32), layout=Layout.TILED_LINEAR.value),
                            device="cpu")
-    cfg = RenderConfig(width=W, height=H, checkerboard=cb, tile_order=to, max_steps=256)
+    cfg = RenderConfig(width=W, height=H, checkerboard=cb, tile_order=to, max_steps=256, **_secondary_flags(sec))
     fb = frame.make_framebuffer(cfg, device="cpu")
     for fn in frames:
         out = frame.render_frame_dense(g, fb, _t(ORIGIN), _t(EULER), Environment.default(device="cpu"), fn, cfg)
@@ -379,22 +399,40 @@ def _full_world(ref, world, layout):
 
 
 def _host_full(lib, g, o, v, max_steps, limbs):
-    """K2's (``limbs=False``) or K3's whole function, built by g++: origins
-    (row stride 3, or 0 for one origin broadcast) and raw directions in,
-    ``(hit bool, position, normal, steps)`` out."""
+    """K2's (``limbs=False``) or K3's whole function, built by g++, K3 in its
+    global (``limbs=True``) or shared-memory (``limbs="staged"``)
+    instantiation: origins (row stride 3, or 0 for one origin broadcast)
+    and raw directions in, ``(hit bool, position, normal, steps)`` out."""
     n = v.shape[0]
     outs = (torch.empty(n, dtype=torch.bool), torch.empty(n, 3), torch.empty(n, 3), torch.empty(n, dtype=torch.int32))
     head = [o.data_ptr(), o.stride(0), v.data_ptr(), v.stride(0)]
-    tail = [n, *g.dims, g.layout.value, max_steps, *_ptrs(*outs)]
+    tail = [n, *g.dims, g.layout.value, max_steps]
     if limbs:
         table = words_to_limb_rows(g.words)
-        assert lib.vx_trace_grid_limbs_full_host(*head, table.data_ptr(), table.shape[1] * 128, *tail) == 0
+        staged = [int(limbs == "staged"), -(-g.words.numel() // 16), None]
+        assert lib.vx_trace_grid_limbs_full_host(*head, table.data_ptr(), table.shape[1] * 128, *tail, *staged,
+                                                 *_ptrs(*outs)) == 0
     else:
-        assert lib.vx_trace_grid_full_host(*head, g.words.data_ptr(), *tail) == 0
+        assert lib.vx_trace_grid_full_host(*head, g.words.data_ptr(), *tail, *_ptrs(*outs)) == 0
     return outs
 
 
-@pytest.mark.parametrize("limbs", [False, True], ids=["words_K2", "limbs_K3"])
+@pytest.mark.parametrize("words", [1, 17, 300, 1024 + 5])
+def test_host_build_of_limb_staging(host_lib, words):
+    """K3's staging (``grid_dda.cuh::limb_words16``), built by g++, rebuilds
+    the words from ``words_to_limb_rows``' planes in groups of 16: the
+    grid's words, then the planes' zero padding."""
+    w = np.random.default_rng(words).integers(0, 2**32, words, dtype=np.uint32)
+    w[0] = 0xFF00FF80
+    limbs = words_to_limb_rows(_t(w.view(np.int32)))
+    words16 = -(-words // 16)
+    out = torch.full((16 * words16,), 7, dtype=torch.int32)
+    assert host_lib.vx_limb_words_host(limbs.data_ptr(), limbs.shape[1] * 128, words16, out.data_ptr()) == 0
+    np.testing.assert_array_equal(out[:words].numpy(), w.view(np.int32))
+    assert not out[words:].any()
+
+
+@pytest.mark.parametrize("limbs", [False, True, "staged"], ids=["words_K2", "limbs_K3", "staged_K3"])
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("world", FULL_WORLDS)
 def test_host_build_of_fused_grid_kernel_matches_jax(ref, host_lib, world, layout, limbs):
@@ -522,22 +560,29 @@ def test_grid_kernels_match_plain_trace_on_card(cuda_device, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k3", ["staged", "global"])
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_fused_grid_kernels_on_card(cuda_device, layout):
+def test_fused_grid_kernels_on_card(cuda_device, monkeypatch, layout, k3):
     """K2 and K3 from origins and raw directions on the card (the special
     rays of ``_full_rays``, and one origin broadcast to every ray) == the
-    plain ``trace_grid`` on every ray, one launch each."""
+    plain ``trace_grid`` on every ray, one launch each; K3 in its
+    shared-memory instantiation and, with the wrapper's limit at 0, its
+    global one."""
     from voxelengine_tpu_torch.kernels import gridtrace
 
+    if k3 == "global":
+        monkeypatch.setattr(gridtrace, "SMEM_WORDS_LIMIT", 0)
     dense = _grid_dense()
     g = BitGrid.from_dense(torch.from_numpy(dense).to(cuda_device), Layout[layout])
     o, v = (_t(a).to(cuda_device) for a in _full_rays(dense))
     for origins in (o, torch.tensor([16.0, 40.0, -10.0], device=cuda_device).expand_as(v)):
         want = trace_grid(g, origins, v, 256)
-        before = (gridtrace.launches, gridtrace.limb_launches)
+        before = (gridtrace.launches, gridtrace.limb_launches, gridtrace.staged_launches)
         a, b = trace_grid_vpu(g, origins, v, 256), trace_grid_mxu(g, origins, v, 256)
         torch.cuda.synchronize()
-        assert (gridtrace.launches, gridtrace.limb_launches) == (before[0] + 1, before[1] + 1)
+        staged = int(k3 == "staged")
+        assert (gridtrace.launches, gridtrace.limb_launches, gridtrace.staged_launches) == (
+            before[0] + 1, before[1] + 1, before[2] + staged)
         for got in (a, b):
             assert all(torch.equal(x, y) for x, y in zip(got, want))
 

@@ -152,11 +152,46 @@ def build_brickmap_from_fn(
     """
     X, Y, Z = world_dims
     f = factor
-    if X % f or Y % f or Z % f or f > 32:
+    _check_dims(world_dims, f)
+    brick_layout = choose_layout((f, f, f), brick_layout)
+
+    def chunks_fn(z0):
+        slab = torch.as_tensor(slab_fn(z0), device=device)
+        return _slab_to_chunks(slab, f, Y // f, X // f, brick_layout)
+
+    return build_brickmap_from_chunks(
+        chunks_fn, world_dims, f, coarse_layout=coarse_layout, brick_layout=brick_layout,
+        dense_slots=dense_slots, dedupe_uniform=dedupe_uniform, device=device,
+    )
+
+
+def _check_dims(world_dims, f: int) -> None:
+    if any(d % f for d in world_dims) or f > 32:
         raise ValueError(f"world dims {world_dims} must be multiples of factor {f} <= 32")
+
+
+def build_brickmap_from_chunks(
+    chunks_fn: Callable[[int], Tuple[torch.Tensor, ...]],
+    world_dims: Tuple[int, int, int],
+    factor: int,
+    coarse_layout: Layout = Layout.TILED_LINEAR,
+    brick_layout: Layout = Layout.TILED_LINEAR,
+    dense_slots: bool = False,
+    dedupe_uniform: bool = True,
+    device=default_device(),
+) -> BrickMap:
+    """:func:`build_brickmap_from_fn` from each slab's chunks:
+    ``chunks_fn(z0)`` returns what :func:`_slab_to_chunks` returns for world
+    rows ``z0 .. z0+factor`` (``occ``, ``bmin``, ``bmax`` and the words in
+    ``brick_layout``, which must be a layout :func:`choose_layout` keeps),
+    on ``device``."""
+    X, Y, Z = world_dims
+    f = factor
+    _check_dims(world_dims, f)
     gx, gy, gz = X // f, Y // f, Z // f
     coarse_layout = choose_layout((gx, gy, gz), coarse_layout)
-    brick_layout = choose_layout((f, f, f), brick_layout)
+    if choose_layout((f, f, f), brick_layout) is not brick_layout:
+        raise ValueError(f"brick layout {brick_layout.name} needs a factor divisible by 8, got {f}")
     wpb = words_for_bits(f**3)
     full = torch.as_tensor(_full_brick_words(f), device=device)
     dedupe = dedupe_uniform and not dense_slots
@@ -165,8 +200,7 @@ def build_brickmap_from_fn(
     brick_parts = [full[None, :]] if dedupe else []
     next_slot = 1 if dedupe else 0
     for cz in range(gz):
-        slab = torch.as_tensor(slab_fn(cz * f), device=device)
-        occ, bmn, bmx, words = _slab_to_chunks(slab, f, gy, gx, brick_layout)
+        occ, bmn, bmx, words = chunks_fn(cz * f)
         occ_parts.append(occ)
         bmin_parts.append(bmn)
         bmax_parts.append(bmx)
@@ -239,6 +273,32 @@ def build_brickmap(
     )
 
 
+def terrain_slab_chunks_plain(z0: int, world_dims, factor: int, brick_layout: Layout, octaves: int,
+                              seed: int = 0x71889283, device=default_device()):
+    """W1's plain version: the plain ``solid_at`` slab of world rows ``z0 ..
+    z0+factor`` on ``device``, reduced by :func:`_slab_to_chunks`."""
+    from voxelengine_tpu_torch.worldgen.terrain import solid_at
+
+    X, Y, _ = world_dims
+    y = torch.arange(Y, device=device)[None, :, None]
+    x = torch.arange(X, device=device)[None, None, :]
+    slab = solid_at(x, y, z0 + torch.arange(factor, device=device)[:, None, None], seed, octaves)
+    return _slab_to_chunks(slab, factor, Y // factor, X // factor, brick_layout)
+
+
+def terrain_slab_chunks(z0: int, world_dims, factor: int, brick_layout: Layout, octaves: int,
+                        seed: int = 0x71889283, device=default_device()):
+    """One z-slab of the terrain world's chunks, as :func:`_slab_to_chunks`
+    returns them: W1 (``kernels/terrain.py``) on a CUDA device, the plain
+    version on the CPU.  ``seed`` reaches only the plain version, where the
+    noise ignores it too (``ops/noise.py::repeater_perlin``)."""
+    if torch.device(device).type == "cuda":
+        from voxelengine_tpu_torch.kernels import terrain
+
+        return terrain.terrain_slab(z0, world_dims, factor, brick_layout, octaves, device)
+    return terrain_slab_chunks_plain(z0, world_dims, factor, brick_layout, octaves, seed, device)
+
+
 def build_brickmap_terrain_compact(
     world_dims: Tuple[int, int, int],
     factor: int,
@@ -246,24 +306,25 @@ def build_brickmap_terrain_compact(
     octaves: int = 32,
     brick_layout: Layout = Layout.TILED_LINEAR,
     device=default_device(),
+    chunks_fn=None,
 ) -> BrickMap:
     """Terrain world straight to compact indirection, one chunk-row z-slab
-    at a time on ``device`` (worldgen, reduction and brick selection all
-    stay there).  All-full chunks share slot 0, empty chunks get -1, and
-    each non-uniform occupied chunk keeps its own brick, in chunk order.
-    Coarse layout LINEAR (build order).  Matches
+    at a time on ``device``: each slab's chunks from W1 on a CUDA device
+    (:func:`terrain_slab_chunks`; no dense slab exists), from the plain
+    worldgen and reduction on the CPU; then the slot assignment in torch.
+    All-full chunks share slot 0, empty chunks get -1, and each non-uniform
+    occupied chunk keeps its own brick, in chunk order.  Coarse layout
+    LINEAR (build order).  ``chunks_fn(z0, world_dims, factor,
+    brick_layout, octaves, seed, device)`` replaces the slab source (the
+    smoke run passes :func:`terrain_slab_chunks_plain` to build the same
+    world through the plain path on the card).  Matches
     :func:`voxelengine_tpu.core.brickmap.build_brickmap_terrain_compact`
     bit for bit."""
-    from voxelengine_tpu_torch.worldgen.terrain import solid_at
-
-    X, Y, Z = world_dims
-    y = torch.arange(Y, device=device)[None, :, None]
-    x = torch.arange(X, device=device)[None, None, :]
-
-    def slab_fn(z0):
-        return solid_at(x, y, z0 + torch.arange(factor, device=device)[:, None, None], seed, octaves)
-
-    return build_brickmap_from_fn(
-        slab_fn, world_dims, factor, coarse_layout=Layout.LINEAR, brick_layout=brick_layout,
-        dense_slots=False, dedupe_uniform=True, device=device,
+    f = factor
+    brick_layout = choose_layout((f, f, f), brick_layout)
+    chunks_fn = chunks_fn or terrain_slab_chunks
+    return build_brickmap_from_chunks(
+        lambda z0: chunks_fn(z0, world_dims, f, brick_layout, octaves, seed, device), world_dims, f,
+        coarse_layout=Layout.LINEAR, brick_layout=brick_layout, dense_slots=False, dedupe_uniform=True,
+        device=device,
     )

@@ -7,6 +7,7 @@
 // for one warp.  vx_trace_grid_host and vx_trace_grid_limbs_host run the
 // grid walk alone on prepared rays (start, direction, active, pad).
 #include <cstring>
+#include <vector>
 
 #include "dda.cuh"
 #include "grid_dda.cuh"
@@ -221,15 +222,34 @@ extern "C" int vx_trace_grid_full_host(const float* origins, int os, const float
                         steps);
 }
 
-// K3 (gridtrace.cu::vx_trace_grid_limbs).
+// K3's staging (gridtrace.cu, staged instantiation): words 0 .. 16 *
+// words16 - 1 rebuilt from the limb planes into out.
+extern "C" int vx_limb_words_host(const unsigned char* limbs, long long plane, int words16,
+                                  int* out) {
+  for (int q = 0; q < words16; ++q) vx::limb_words16(limbs, plane, q, out + 16 * q);
+  return 0;
+}
+
+// K3 (gridtrace.cu::vx_trace_grid_limbs), either instantiation: staged = 1
+// rebuilds words16 * 16 words first and walks them (SharedWordFetch),
+// staged = 0 reads the planes at every step (LimbFetch).  The launcher's
+// counter (its work queue) has no host counterpart.
 extern "C" int vx_trace_grid_limbs_full_host(const float* origins, int os, const float* rays,
                                              int rs, const unsigned char* limbs, long long plane,
                                              int n, int X, int Y, int Z, int layout,
-                                             int max_steps, unsigned char* hit, float* pos,
-                                             float* normal, int* steps) {
+                                             int max_steps, int staged, int words16, int* counter,
+                                             unsigned char* hit, float* pos, float* normal,
+                                             int* steps) {
+  (void)counter;
   const vx::GridParams P = {X, Y, Z, max_steps};
-  return grid_full_rays(P, vx::LimbFetch{limbs, plane}, layout, n, origins, os, rays, rs, hit, pos,
-                        normal, steps);
+  if (!staged)
+    return grid_full_rays(P, vx::LimbFetch{limbs, plane}, layout, n, origins, os, rays, rs, hit,
+                          pos, normal, steps);
+  if ((long long)words16 * 16 > plane) return 1;
+  std::vector<int> words((size_t)words16 * 16);
+  vx_limb_words_host(limbs, plane, words16, words.data());
+  return grid_full_rays(P, vx::SharedWordFetch{words.data()}, layout, n, origins, os, rays, rs, hit,
+                        pos, normal, steps);
 }
 
 // The grid walk alone (grid_dda.cuh::trace_grid_ray) on prepared rays, with

@@ -20,10 +20,14 @@
 //
 // The word fetch is a template parameter, the only difference between K2
 // and K3:
-//   WordFetch  (K2): words[w] from the int32 words, read through the
-//                    read-only path on the card;
-//   LimbFetch  (K3): four uint8 limb planes [4, R*128], the word rebuilt as
-//                    b0 | b1 << 8 | b2 << 16 | b3 << 24 (words_to_limb_rows).
+//   WordFetch   (K2): words[w] from the int32 words, read through the
+//                     read-only path on the card;
+//   LimbFetch   (K3, global): four uint8 limb planes [4, R*128], the word
+//                     rebuilt as b0 | b1 << 8 | b2 << 16 | b3 << 24
+//                     (words_to_limb_rows) at every step;
+//   SharedWordFetch (K3, staged): words[w] from a copy of the words that a
+//                     block rebuilt from the planes once (limb_words16) into
+//                     its shared memory: one shared load a step.
 // The grid is read in its own layout, TILED_MORTON included, so no layout
 // conversion precedes the kernel.
 //
@@ -62,6 +66,37 @@ struct LimbFetch {
     return (int)(b0 | (b1 << 8) | (b2 << 16) | (b3 << 24));
   }
 };
+
+struct SharedWordFetch {
+  const int* words;  // shared memory on the card: a plain load
+  VX_HD int operator()(int w) const { return words[w]; }
+};
+
+// The 16 bytes at p as four little-endian words: one 16-byte load on the
+// card (p 16-byte aligned), four byte-assembled words on the host.
+VX_HD void load16(const unsigned char* p, unsigned int* w) {
+#ifdef __CUDA_ARCH__
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+#else
+  for (int k = 0; k < 4; ++k)
+    w[k] = p[4 * k] | (p[4 * k + 1] << 8) | (p[4 * k + 2] << 16) | ((unsigned int)p[4 * k + 3] << 24);
+#endif
+}
+
+// Words 16q .. 16q+15 rebuilt from the four limb planes [4, plane] (plane a
+// multiple of 16, the planes 16-byte aligned): one 16-byte load a plane,
+// then word j = byte j of plane 0 | byte j of plane 1 << 8 | ... (the
+// staging of K3's shared-memory instantiation).
+VX_HD void limb_words16(const unsigned char* limbs, long long plane, int q, int* out) {
+  unsigned int b[4][4];
+  for (int k = 0; k < 4; ++k) load16(limbs + k * plane + 16LL * q, b[k]);
+  for (int j = 0; j < 16; ++j) {
+    const int s = (j & 3) * 8, i = j >> 2;
+    out[j] = (int)(((b[0][i] >> s) & 0xFFu) | (((b[1][i] >> s) & 0xFFu) << 8) |
+                   (((b[2][i] >> s) & 0xFFu) << 16) | (((b[3][i] >> s) & 0xFFu) << 24));
+  }
+}
 
 // Trace one ray.  (sx, sy, sz) is the world-clipped start in voxel units,
 // (dx, dy, dz) the normalized direction and (padx, pady, padz) the edge pad,

@@ -13,11 +13,12 @@
 // (pair-gather over [8, 128] blocks, one-hot bf16 matmuls) is carried over:
 // a thread reads the word it needs.
 //
-// Design: one thread per ray, a plain loop per thread, the grid read from
-// global memory through the read-only path (L1/L2).  The kernel reads the
-// origin (one row at stride 0 when it is shared) and the raw direction and
-// writes hit (one byte, the bool tensor the wrapper returns), position,
-// normal and steps (29 B a ray): the wrapper launches nothing else.  The
+// Design (K2, and K3's global instantiation): one thread per ray, a plain
+// loop per thread, the grid read from global memory through the read-only
+// path (L1/L2).  The kernel reads the origin (one row at stride 0 when it
+// is shared) and the raw direction and writes hit (one byte, the bool
+// tensor the wrapper returns), position, normal and steps (29 B a ray):
+// the wrapper launches nothing else.  The
 // setup and the fix-up are in the kernel because in eager torch they are
 // 67 more launches a call (0.25 ms of device time on a dense frame's rays
 // and ~1.4 ms of host enqueue) and make the walk read 40 B of prepared
@@ -35,14 +36,36 @@
 // L1/L2.  Each step waits out its load's latency and the 32 rays of a warp
 // run to the longest ray's length.
 //
+// K3 has two instantiations, picked by the wrapper from the grid's size
+// (kernels/gridtrace.py::words_in_shared):
+//   staged (vx_trace_grid_limbs with staged = 1, grids of up to
+//     VX_SMEM_WORDS_LIMIT bytes of words): a persistent grid, sized by the
+//     occupancy calculator, of 256- or 1024-thread blocks (whichever holds
+//     more warps an SM); each block rebuilds the words from the four planes
+//     once into its shared memory (16-byte loads, grid_dda.cuh::
+//     limb_words16) and its warps then take 32 rays at a time from a global
+//     work counter (zeroed on the stream before the launch) and walk them
+//     with one shared load a step (SharedWordFetch): K2's loop at K2's cost
+//     a step, where LimbFetch reads four bytes from four planes.  On the
+//     config-2 batch (32 KB of words) it measured 14% faster than the
+//     global instantiation and within 6% of K2 (PERF.md), where a
+//     persistent K2 measured slower than plain blocks (above);
+//   global (staged = 0, larger grids): plain 128-thread blocks with
+//     LimbFetch, as K2 runs.
+//
 // Build: kernels/build.py (nvcc sm_90a, -O3, --fmad=false, no fast-math).
 #include <cuda_runtime.h>
 
 #include "grid_dda.cuh"
 
+// Largest staged word table (bytes) K3 keeps in a block's shared memory;
+// the wrapper's kernels/gridtrace.py::SMEM_WORDS_LIMIT is the same number.
+#define VX_SMEM_WORDS_LIMIT (200 * 1024)
+
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int STAGED_THREADS_MAX = 1024;
 
 __device__ __forceinline__ void store(const vx::GridResult& r, int i, unsigned char* __restrict__ hit,
                                       float* __restrict__ pos, float* __restrict__ normal,
@@ -54,6 +77,18 @@ __device__ __forceinline__ void store(const vx::GridResult& r, int i, unsigned c
 }
 
 template <int LAYOUT, class Fetch>
+__device__ __forceinline__ void trace_store(const vx::GridParams& P, const Fetch& F, int i,
+                                            const float* __restrict__ origins, int os,
+                                            const float* __restrict__ rays, int rs,
+                                            unsigned char* __restrict__ hit, float* __restrict__ pos,
+                                            float* __restrict__ normal, int* __restrict__ steps) {
+  const float* o = origins + (long long)os * i;
+  const float* v = rays + (long long)rs * i;
+  const vx::GridResult r = vx::trace_grid_full<LAYOUT>(P, F, o[0], o[1], o[2], v[0], v[1], v[2]);
+  store(r, i, hit, pos, normal, steps);
+}
+
+template <int LAYOUT, class Fetch>
 __global__ void __launch_bounds__(THREADS)
 grid_kernel(vx::GridParams P, Fetch F, int n,
             const float* __restrict__ origins, int os, const float* __restrict__ rays, int rs,
@@ -61,10 +96,63 @@ grid_kernel(vx::GridParams P, Fetch F, int n,
             float* __restrict__ normal, int* __restrict__ steps) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float* o = origins + os * i;
-  const float* v = rays + rs * i;
-  const vx::GridResult r = vx::trace_grid_full<LAYOUT>(P, F, o[0], o[1], o[2], v[0], v[1], v[2]);
-  store(r, i, hit, pos, normal, steps);
+  trace_store<LAYOUT>(P, F, i, origins, os, rays, rs, hit, pos, normal, steps);
+}
+
+// K3, staged: the words rebuilt into shared memory (words16 groups of 16),
+// then 32 rays a warp at a time from the work counter.
+template <int LAYOUT>
+__global__ void __launch_bounds__(STAGED_THREADS_MAX)
+grid_limbs_staged_kernel(vx::GridParams P, const unsigned char* __restrict__ limbs, long long plane,
+                         int words16, int n, int* __restrict__ counter,
+                         const float* __restrict__ origins, int os, const float* __restrict__ rays,
+                         int rs, unsigned char* __restrict__ hit, float* __restrict__ pos,
+                         float* __restrict__ normal, int* __restrict__ steps) {
+  extern __shared__ int4 smem_words[];
+  int* words = reinterpret_cast<int*>(smem_words);
+  for (int q = threadIdx.x; q < words16; q += blockDim.x) vx::limb_words16(limbs, plane, q, words + 16 * q);
+  __syncthreads();
+  const vx::SharedWordFetch F = {words};
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(counter, 32);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= n) return;  // the same for every lane of the warp
+    const int i = base + lane;
+    if (i < n) trace_store<LAYOUT>(P, F, i, origins, os, rays, rs, hit, pos, normal, steps);
+  }
+}
+
+// Threads a block and blocks of the staged K3 for smem bytes of words: the
+// block size of {256, 1024} that holds more warps an SM (256 on a tie), and
+// as many blocks as the card holds at once, no more than batches of 32 rays.
+template <int LAYOUT>
+int staged_shape(size_t smem, int n, int* threads, int* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(grid_limbs_staged_kernel<LAYOUT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int best_warps = 0, best_per_sm = 0;
+  for (int t : {256, 1024}) {
+    int per_sm = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_limbs_staged_kernel<LAYOUT>, t, smem);
+    if (per_sm * t / 32 > best_warps) {
+      best_warps = per_sm * t / 32;
+      best_per_sm = per_sm;
+      *threads = t;
+    }
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (best_per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long warps = ((long long)n + 31) / 32;
+  const long long wanted = (warps + *threads / 32 - 1) / (*threads / 32);
+  const long long most = (long long)best_per_sm * sms;
+  *blocks = (int)(wanted < most ? wanted : most);
+  return 0;
 }
 
 template <class Fetch>
@@ -98,12 +186,37 @@ extern "C" int vx_trace_grid(const float* origins, int os, const float* rays, in
                 stream);
 }
 
-// K3: the same with the word rebuilt from limbs [4, plane] (uint8).
+// K3: the same with the words given as limbs [4, plane] (uint8, plane a
+// multiple of 16, 16-byte aligned).  staged = 1 runs the shared-memory
+// instantiation: the first words16 * 16 words (the grid's words rounded up
+// to 16; at most VX_SMEM_WORDS_LIMIT bytes, else cudaErrorInvalidValue) are
+// rebuilt into each block's shared memory, and `counter` (one int of device
+// scratch) is zeroed here on `stream` for the work queue.  staged = 0 runs
+// the global instantiation (LimbFetch; words16 and counter unused).
 extern "C" int vx_trace_grid_limbs(const float* origins, int os, const float* rays, int rs,
                                    const unsigned char* limbs, long long plane, int n, int X,
-                                   int Y, int Z, int layout, int max_steps, unsigned char* hit,
-                                   float* pos, float* normal, int* steps, void* stream) {
+                                   int Y, int Z, int layout, int max_steps, int staged, int words16,
+                                   int* counter, unsigned char* hit, float* pos, float* normal,
+                                   int* steps, void* stream) {
   const vx::GridParams P = {X, Y, Z, max_steps};
-  return launch(P, vx::LimbFetch{limbs, plane}, layout, n, origins, os, rays, rs, hit, pos, normal,
-                steps, stream);
+  if (!staged)
+    return launch(P, vx::LimbFetch{limbs, plane}, layout, n, origins, os, rays, rs, hit, pos, normal,
+                  steps, stream);
+  if (n == 0) return 0;
+  const size_t smem = (size_t)words16 * 16 * sizeof(int);
+  if (smem > VX_SMEM_WORDS_LIMIT || (long long)words16 * 16 > plane)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return vx::with_layout(layout, [&](auto tag) {
+    constexpr int L = decltype(tag)::value;
+    int threads = 0, blocks = 0;
+    int e = staged_shape<L>(smem, n, &threads, &blocks);
+    if (e != 0) return e;
+    e = static_cast<int>(cudaMemsetAsync(counter, 0, sizeof(int), s));
+    if (e != 0) return e;
+    grid_limbs_staged_kernel<L><<<blocks, threads, smem, s>>>(P, limbs, plane, words16, n, counter,
+                                                             origins, os, rays, rs, hit, pos, normal,
+                                                             steps);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

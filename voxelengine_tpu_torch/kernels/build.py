@@ -35,9 +35,12 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 # library name -> source; each CUDA library holds the kernels of one source
 KERNEL_SOURCES = {
     "bigtrace": "bigtrace.cu", "rrtrace": "rrtrace.cu", "gridtrace": "gridtrace.cu", "bmtrace": "bmtrace.cu",
+    "terrain": "terrain.cu",
 }
+# host library name -> source (g++): the kernels' per-ray and per-voxel logic
+HOST_SOURCES = {"dda_host": "dda_host.cpp", "terrain_host": "terrain_host.cpp"}
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _RAYS = [_P] * 4  # start, dir, active, pad
 _OUTS = [_P] * 4  # flags (or hit), pos, normal, steps
 # C signatures, stream excluded (the host builds take none)
@@ -52,11 +55,16 @@ SIGNATURES = {
     # origins, its row stride, rays, its row stride, words; n, X, Y, Z,
     # layout, max_steps; hit (uint8), ...
     "vx_trace_grid": [_P, _I, _P, _I, _P] + [_I] * 6 + _OUTS,
-    # ... limbs, plane in place of words
-    "vx_trace_grid_limbs": [_P, _I, _P, _I, _P, _L] + [_I] * 6 + _OUTS,
+    # ... limbs, plane in place of words; staged, words16, counter (int32 scratch)
+    "vx_trace_grid_limbs": [_P, _I, _P, _I, _P, _L] + [_I] * 6 + [_I, _I, _P] + _OUTS,
     # meta, bricks; n, gx, gy, gz, factor, wpb, max_steps, coarse_layout,
     # brick_layout, iter_limit, shared_meta; counter (int32 scratch), outputs
     "vx_trace_brickmap_dense": _RAYS + [_P] * 2 + [_I] * 11 + [_P] + _OUTS,
+    # z0, factor, chunks_x, chunks_y, wpb, brick_layout, octaves; occ
+    # (uint8), bmin, bmax, words
+    "vx_terrain_slab": [_I] * 7 + [_P] * 4,
+    # kind, n, in, scale, seed, octaves, lacunarity, decay, fout, uout
+    "vx_noise_points": [_I, _I, _P, _F, _I, _I, _F, _F, _P, _P],
 }
 # host-build entry -> its C signature: the kernel launcher's it mirrors,
 # except K4's, which has no instantiation flag and no work counter; and the
@@ -69,6 +77,10 @@ HOST_ENTRIES = {
     "vx_trace_brickmap_dense_host": _RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
     "vx_trace_grid_host": _RAYS + [_P] + [_I] * 6 + _OUTS,
     "vx_trace_grid_limbs_host": _RAYS + [_P, _L] + [_I] * 6 + _OUTS,
+    # limbs, plane, words16, out: K3's staging alone
+    "vx_limb_words_host": [_P, _L, _I, _P],
+    "vx_terrain_slab_host": SIGNATURES["vx_terrain_slab"],
+    "vx_noise_points_host": SIGNATURES["vx_noise_points"],
 }
 
 
@@ -104,12 +116,12 @@ def kernel_library(name: str) -> Path:
     return _build(name, _nvcc(), NVCC_FLAGS, CSRC / KERNEL_SOURCES[name])
 
 
-def dda_host_library() -> Path:
-    """Build (if needed) the host C++ build of the kernels' step logic."""
+def host_library(name: str = "dda_host") -> Path:
+    """Build (if needed) the host C++ library ``name`` of :data:`HOST_SOURCES`."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++) found")
-    return _build("dda_host", cxx, HOST_FLAGS, CSRC / "dda_host.cpp")
+    return _build(name, cxx, HOST_FLAGS, CSRC / HOST_SOURCES[name])
 
 
 def _declare(lib: ctypes.CDLL, fn: str, argtypes) -> None:
@@ -130,12 +142,18 @@ def load_kernel(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def load_dda_host() -> ctypes.CDLL:
-    """The host library with every entry's signature declared."""
-    lib = ctypes.CDLL(str(dda_host_library()))
+def load_host(name: str = "dda_host") -> ctypes.CDLL:
+    """The host library ``name`` with its entries' signatures declared."""
+    lib = ctypes.CDLL(str(host_library(name)))
     for fn, args in HOST_ENTRIES.items():
-        _declare(lib, fn, args)
+        if hasattr(lib, fn):
+            _declare(lib, fn, args)
     return lib
+
+
+def load_dda_host() -> ctypes.CDLL:
+    """The host build of the traversal kernels' step logic."""
+    return load_host("dda_host")
 
 
 def check(kernel: str, name: str, t: torch.Tensor, dtype, shape, device) -> None:

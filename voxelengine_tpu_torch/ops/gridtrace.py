@@ -38,12 +38,15 @@ def words_to_rows_i32(words: torch.Tensor) -> torch.Tensor:
 def words_to_limb_rows(words: torch.Tensor) -> torch.Tensor:
     """int32 words ``[W]`` -> ``uint8[4, R, 128]`` 8-bit limb planes, limb
     ``k`` holding bits ``8k .. 8k+7``, W padded with zeros to a multiple of
-    128 (``pallas_trace.py:56-68``; there the limbs are bf16 for the MXU)."""
+    128 (``pallas_trace.py:56-68``; there the limbs are bf16 for the MXU).
+
+    Limb ``k`` of a word is its little-endian byte ``k`` (torch's CPU and
+    CUDA tensors are little-endian), so the planes are the words' bytes
+    transposed: one copy, plus one pad where W is not a multiple of 128."""
     padn = (-words.shape[0]) % 128
     if padn:
-        words = torch.cat([words, words.new_zeros((padn,))])
-    rows = words.reshape(-1, 128)
-    return torch.stack([((rows >> s) & 0xFF).to(torch.uint8) for s in (0, 8, 16, 24)])
+        words = torch.nn.functional.pad(words, (0, padn))
+    return words.contiguous().view(torch.uint8).view(-1, 4).t().contiguous().view(4, -1, 128)
 
 
 def _trace_grid_kernel(grid: BitGrid, origins, rays, max_steps: int, limbs: bool) -> TraceOut:

@@ -16,8 +16,9 @@ a dense :class:`~voxelengine_tpu_torch.core.bitgrid.BitGrid` world (the
 small-world path, K2 on the card).
 
 Not ported yet, and refused rather than ignored: the DEBUG, NORMALS, DEPTH
-and STEPS views, shadow / AO / reflection rays, block permutations and the
-odd-height checkerboard.
+and STEPS views, shadow / AO / reflection rays over a brickmap, block
+permutations and the odd-height checkerboard.  The dense path traces no
+secondary rays and ignores those three flags, as the JAX dense path does.
 """
 
 from __future__ import annotations
@@ -142,13 +143,18 @@ def primary_rays(cfg: RenderConfig, origin: torch.Tensor, euler: torch.Tensor, f
 
 
 def shade_traced(
-    out: TraceOut, origins, dirs, px, py, py_r, origin, env: Environment, cfg: RenderConfig
+    out: TraceOut, origins, dirs, px, py, py_r, origin, env: Environment, cfg: RenderConfig,
+    bm: Optional[BrickMap] = None,
 ):
     """Shading stage of ``screenDispatch`` given trace results; returns
-    ``(color [N,3], write [N])``.  SHADED view only."""
+    ``(color [N,3], write [N])``.  SHADED view only.  ``bm`` is the world
+    the secondary rays would trace, as in the JAX signature: without it
+    (the dense path) ``shadow_rays``, ``ao_samples`` and ``reflections``
+    are ignored, as JAX ignores them (``voxelengine_tpu/render/frame.py:
+    378,396,415``); with it they are refused until they are ported."""
     if cfg.debug_view is not DebugView.SHADED:
         raise NotImplementedError(f"debug view {cfg.debug_view.name} is not ported yet")
-    if cfg.shadow_rays or cfg.ao_samples or cfg.reflections:
+    if bm is not None and (cfg.shadow_rays or cfg.ao_samples or cfg.reflections):
         raise NotImplementedError("shadow, AO and reflection rays are not ported yet")
     W, H = cfg.width, cfg.height
     normal = -out.normal  # Renderer.cu:212
@@ -192,7 +198,7 @@ def shade_pixels(
         out = trace_brickmap_hbm(bm, lt, origins, dirs, cfg.max_steps, use_macro=cfg.trace_use_macro)
     else:
         out = trace_brickmap(bm, origins, dirs, cfg.max_steps)
-    return shade_traced(out, origins, dirs, px, py, py_r, origin, env, cfg)
+    return shade_traced(out, origins, dirs, px, py, py_r, origin, env, cfg, bm)
 
 
 def render_frame(
@@ -225,8 +231,9 @@ def render_frame_dense(
     """:func:`render_frame` over a dense :class:`BitGrid` world: primary
     rays, :func:`~voxelengine_tpu_torch.ops.gridtrace.trace_grid_vpu` (K2
     for CUDA tensors, the plain ``trace_grid`` on the CPU), shading and
-    composite, in place.  Shadow, AO and reflection rays are refused, as on
-    the JAX path."""
+    composite, in place.  No secondary rays are traced: ``shadow_rays``,
+    ``ao_samples`` and ``reflections`` are ignored, as on the JAX dense
+    path (``voxelengine_tpu/render/frame.py:541-542``)."""
     origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number)
     out = trace_grid_vpu(grid, origins, dirs, cfg.max_steps)
     color, write = shade_traced(out, origins, dirs, px, py, py_r, origin, env, cfg)
