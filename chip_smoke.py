@@ -63,13 +63,30 @@ Phases, one stdout line each (plus the kernels' build logs):
    off, K1 macro on and K5 (``trace_brickmap_hbm_rr``) each against its
    plain version and K1 against K5 (0 diffs), the phase counters (``mskip``
    must be > 0) against the plain walk's; times, K5 at each refill, and
-   K5's lanes-active share beside K1's.
+   K5's lanes-active share beside K1's;
+11. the app's frame (``apps/voxel_app.py`` at its default size): the 1024^3
+   world at factor 32 with dense slots built through W1
+   (``build_brickmap_terrain``), its ``compact_brickmap`` against
+   ``build_brickmap_terrain_compact``; ``VoxelRaytracer3D(line_table=True)``
+   and ``Graphics(1280, 720, tile_order, shadows, AO 4, reflections)``: a
+   warm-up plus 8 ``render_screen`` frames (K1 7 times a frame); on the next
+   frame each trace batch (primary, shadow, reflection, 4 AO) through K1
+   against its plain version on all rays and on the primary hits, the frame
+   against the same frame through plain traces, each debug view, a block
+   permutation, a 1280x719 frame and an orthographic zoom; 64 edits through
+   ``edit_voxels`` (a crosshair break and place, 62 random) against
+   ``apply_edits`` on a copy and a rebuilt line table, a frame after them,
+   and the edit latency at K=1 and K=64; 1,048,576 random rays through
+   ``raytrace`` (K1) and through a 128^3 TILED_LINEAR world's (K4), every
+   ``RayTraceResults`` field against the plain walk, and a frame through K4.
 
 Each kernel's path (the bench world's frames for K1, and the demo world's
 for its second record; the bench world's build for W1; the frames of
 phase 8 for K2, the phase-8 batch for K3 and the 128^3 grid for its global
 instantiation, the phase-9 128^3 batch for K4 with shared meta and its
-512x256x512 batch for K4 with global meta, the phase-10 batch for K5) runs
+512x256x512 batch for K4 with global meta, the phase-10 batch for K5; the
+phase-11 frames for K1 with secondary rays, its ``raytrace`` for K1 on a
+batch, its TILED_LINEAR world's ``raytrace`` and frame for K4) runs
 with the launch counts set to 0 just before it and read just after;
 launches made to compare or time a kernel are not counted.  Then the run's
 wall time, one JSON line describing each kernel (its time, its plain
@@ -119,6 +136,14 @@ EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
 # threads a block of each library's kernels (csrc/*.cu)
 BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256}
+# the app's frame (apps/voxel_app.py:64-68,178-188): the 1024^3 world at
+# factor 32, 1280x720, shadows, AO 4, reflections; the facade's batch size
+APP_WORLD = (1024, 1024, 1024)
+APP_SIZE = (1280, 720)
+APP_AO = 4
+APP_CAMERA_Y = 380.0  # the main path's camera height (bench.py:191-192)
+APP_ORTHO = (200.0, 120.0)  # set_ortho_window_size of the phase's orthographic frame
+FACADE_RAYS = 1 << 20
 K5_REFILLS = (32, 16, 8, 4, 1)  # K5's idle lanes at which a warp refills (its default is rrtrace.REFILL)
 OCTAVES = 32  # the reference's terrain (VoxelWorldBuilder.cu:6)
 # W1 against its plain version: a world small enough for every factor and
@@ -568,7 +593,7 @@ def phase_kernel_vs_plain(dev):
     origin = torch.tensor([64.0, 60.0, 64.0], device=dev)
     euler = torch.tensor([-0.3, 0.75, 0.0], device=dev)
     a = render_frame(bm, make_framebuffer(cfg, dev), origin, euler, env, 1, cfg, lt=lt)
-    b = render_frame(bm, make_framebuffer(cfg, dev), origin, euler, env, 1, cfg)
+    b = render_plain(bm, make_framebuffer(cfg, dev), origin, euler, env, 1, cfg, trace_brickmap)
     n = int((a != b).any(dim=-1).sum())
     say(f"kernel vs plain: 160x96 frame through K1 vs plain trace: {n} pixel diffs")
     if n:
@@ -875,7 +900,7 @@ def render_dense_plain(grid, fb, origin, euler, env, frame_number, cfg):
 
     origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number)
     out = trace_grid(grid, origins, dirs, cfg.max_steps)
-    color, write = shade_traced(out, origins, dirs, px, py, py_r, origin, env, cfg)
+    color, write = shade_traced(None, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg)
     return composite_frame(fb, color, write, cfg, frame_number)
 
 
@@ -1346,6 +1371,357 @@ def phase_sparse(dev):
     )
 
 
+def render_plain(bm, fb, origin, euler, env, frame_number, cfg, plain, block_perm=None, ortho_size=None,
+                 primary=None):
+    """``render_frame`` into ``fb`` with every trace (primary, shadow,
+    reflection, AO) the plain ``plain(bm, origins, dirs, max_steps)``;
+    ``primary`` reuses a plain primary trace of the same rays."""
+    from voxelengine_tpu_torch.render.frame import composite_frame, primary_rays, shade_traced
+
+    o, d, px, py, py_r = primary_rays(cfg, origin, euler, frame_number, block_perm, ortho_size)
+    out = primary if primary is not None else plain(bm, o, d, cfg.max_steps)
+    color, write = shade_traced(bm, out, o, d, px, py, py_r, origin, env, frame_number, cfg,
+                                secondary=lambda a, b, ms: plain(bm, a, b, ms))
+    return composite_frame(fb, color, write, cfg, frame_number, block_perm)
+
+
+def full_diffs(got, want, mask=None):
+    """(hit, steps, normal, position) diffs of two TraceOuts on every ray,
+    misses included, or on the rays of ``mask``."""
+    import torch
+
+    m = torch.ones_like(got.hit) if mask is None else mask
+    return (
+        int(((got.hit != want.hit) & m).sum()), int(((got.steps != want.steps) & m).sum()),
+        int(((got.normal != want.normal).any(dim=1) & m).sum()),
+        int(((got.position != want.position).any(dim=1) & m).sum()),
+    )
+
+
+def pixel_gate(what, a, b, card):
+    n = int((a != b).any(dim=-1).sum())
+    say(f"app frame: {what}: {n} pixel diffs (tolerance: bit-equal), on {card}")
+    if n:
+        raise SystemExit(f"app frame: {what} differs from the plain path")
+
+
+def app_batches(bm, lt, cfg, origin, euler, env, fn):
+    """One frame's trace batches through K1, as ``render_frame(..., lt)``
+    traces them: ``[(kind, origins, dirs, max_steps, K1 result)]``, the
+    primary first."""
+    from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm
+    from voxelengine_tpu_torch.render.frame import primary_rays, shade_traced
+
+    o, d, px, py, py_r = primary_rays(cfg, origin, euler, fn)
+    out = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=cfg.trace_use_macro)
+    batches = [("primary", o.contiguous(), d, cfg.max_steps, out)]
+    kinds = iter(["shadow", "reflection"] + [f"ao{i}" for i in range(cfg.ao_samples)])
+
+    def k1(a, b, ms):
+        res = trace_brickmap_hbm(bm, lt, a, b, ms, use_macro=cfg.trace_use_macro)
+        batches.append((next(kinds), a.contiguous(), b.contiguous(), ms, res))
+        return res
+
+    shade_traced(bm, out, o, d, px, py, py_r, origin, env, fn, cfg, lt, secondary=k1)
+    return batches
+
+
+def phase_app_frame(dev):
+    """Phase 11, the app's frame (``apps/voxel_app.py``) at its default
+    size; returns the records of K1 on its frames and in ``raytrace``, and
+    of K4 in ``raytrace``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from voxelengine_tpu_torch import BitGrid, VoxelRaytracer3D
+    from voxelengine_tpu_torch.config import DebugView, Projection
+    from voxelengine_tpu_torch.core.brickmap import (
+        apply_edits,
+        build_brickmap_terrain,
+        build_brickmap_terrain_compact,
+        compact_brickmap,
+    )
+    from voxelengine_tpu_torch.engine import raytracer
+    from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, terrain
+    from voxelengine_tpu_torch.ops.bigtrace import brick_lines_view, make_line_table, trace_brickmap_hbm, trace_brickmap_lt
+    from voxelengine_tpu_torch.ops.trace import TraceOut, _dims, _edge_pad, _ray_setup, trace_brickmap
+    from voxelengine_tpu_torch.render.camera import get_directions_np
+    from voxelengine_tpu_torch.render.frame import block_permutation_from_steps, make_framebuffer, render_frame
+    from voxelengine_tpu_torch.render.graphics import Graphics
+
+    card = card_line()
+    dims, W, H = APP_WORLD, APP_SIZE[0], APP_SIZE[1]
+
+    # 1. build: the dense-slot world through W1, and its compact form
+    terrain.launches = 0
+    t0 = time.perf_counter()
+    bm = build_brickmap_terrain(dims, 32, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    w1_launches = terrain.launches
+    if w1_launches != dims[2] // 32:
+        raise SystemExit(f"app frame: the dense-slot build launched W1 {w1_launches} times, not once a slab")
+    want = build_brickmap_terrain_compact(dims, 32, device=dev)
+    got = compact_brickmap(bm)
+    d = {k: int((getattr(got, k) != getattr(want, k)).sum()) if getattr(got, k).shape == getattr(want, k).shape
+         else "shape" for k in ("meta", "brick_idx", "bricks")}
+    say(f"app frame: world {dims} f32 with dense slots built through W1 in {t_build:.2f} s ({w1_launches} W1 launches, "
+        f"{bm.bricks.shape[0]} bricks, {bm.bricks.numel() * 4 / 1e6:.1f} MB); compact_brickmap of it vs "
+        f"build_brickmap_terrain_compact ({want.bricks.shape[0]} bricks): diffs {json.dumps(d)}, on {card}")
+    if any(d.values()):
+        raise SystemExit("app frame: compact_brickmap of the dense-slot world differs from the compact build")
+    del want, got
+
+    # 2. frames through the facade
+    rt = VoxelRaytracer3D(line_table=True)
+    t0 = time.perf_counter()
+    rt.upload_world(bm)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    lt = rt.line_table
+    g = Graphics(W, H, device=dev, tile_order=True, shadow_rays=True, ao_samples=APP_AO, reflections=True)
+    cfg = g.config
+    env = g.environment
+    origin = np.array([dims[0] / 2, APP_CAMERA_Y, dims[2] / 2], np.float32)  # the main path's camera
+    euler = np.array([-0.25, 0.75, 0.0], np.float32)
+    per_frame = 3 + cfg.ao_samples  # primary, shadow, reflection, AO
+
+    bigtrace.launches = 0  # the app frames' launches only
+    g.render_screen(rt, origin, euler)  # warm-up, frame 0
+    torch.cuda.synchronize()
+    counts = [bigtrace.launches]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(1, FRAMES + 1):
+        fb = g.render_screen(rt, origin, euler + np.float32(1e-5 * i))  # the persistent framebuffer
+        counts.append(bigtrace.launches)
+    end.record()
+    torch.cuda.synchronize()
+    frame_launches = bigtrace.launches
+    frame_ms = start.elapsed_time(end) / FRAMES
+    if any(b != a + per_frame for a, b in zip([0] + counts, counts)):
+        raise SystemExit(f"app frame: K1 was not launched {per_frame} times a frame: launch counts {counts}")
+    if tuple(fb.shape) != (H, W, 3) or not bool(torch.isfinite(fb).all()) or float(fb.min()) < 0 or float(fb.max()) > 1:
+        raise SystemExit("app frame: framebuffer has the wrong shape or values outside [0, 1]")
+    say(f"app frame: upload_world (line table + brick lines) {t_upload * 1e3:.1f} ms; {W}x{H} checkerboard tile_order, "
+        f"shadows, AO {cfg.ao_samples}, reflections, use_macro={cfg.trace_use_macro}, {FRAMES} chained render_screen "
+        f"frames: {frame_ms:.3f} ms/frame, K1 launches {frame_launches} ({per_frame} a frame), "
+        f"framebuffer checksum {float(fb.double().sum()):.6f}, on {card}")
+
+    # 3. gates.  Every batch of the next frame through K1 against the plain
+    # macro walk on the same rays: all rays, and the rays whose primary hit
+    def plain(bm_, o, d, ms):
+        return trace_brickmap_lt(bm_, lt, o, d, ms, use_macro=cfg.trace_use_macro)
+
+    fn = FRAMES + 1
+    e_gate = euler + np.float32(1e-5 * fn)
+    origin_t, euler_t = (torch.from_numpy(a).to(dev) for a in (origin, e_gate))
+    batches = app_batches(bm, lt, cfg, origin_t, euler_t, env, fn)
+    primary_hit = batches[0][4].hit
+    k1_total = {"rays": 0, "steps": 0, "events": 0, "table": 0, "ms": 0.0, "plain_ms": 0.0}
+    plain_primary = None
+    for kind, o, d, ms, res in batches:
+        want, p_ms = events_ms(lambda: plain(bm, o, d, ms))
+        if kind == "primary":
+            plain_primary = want
+        every, hits = full_diffs(res, want), full_diffs(res, want, primary_hit)
+        args, kw = line_kernel_args(bm, lt, o, d, ms)
+        k_ms = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=cfg.trace_use_macro, **kw), repeats=10)
+        _, ph = trace_brickmap_hbm(bm, lt, o, d, ms, use_macro=cfg.trace_use_macro, return_phases=True)
+        events = sum(int(ph[k].sum()) for k in EVENTS)
+        k1_total["rays"] += o.shape[0]
+        k1_total["steps"] += int(res.steps.sum())
+        k1_total["events"] += events
+        k1_total["table"] += hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick)
+        k1_total["ms"] += k_ms
+        k1_total["plain_ms"] += p_ms
+        say(f"app frame: {kind} batch ({o.shape[0]} rays, max_steps {ms}, hits {int(want.hit.sum())}): K1 vs plain "
+            f"(tolerance: bit-equal) diffs (hit, steps, normal, position) on all rays {every}, on the primary hits "
+            f"{hits}; K1 {k_ms:.4f} ms, plain {p_ms:.1f} ms, sum(steps) {int(res.steps.sum())}, executed events "
+            f"{events}, on {card}")
+        if any(every):
+            raise SystemExit(f"app frame: K1 disagrees with its plain version on the {kind} batch")
+
+    n_next = [FRAMES + 1]  # the frame number g renders next
+    primary_cache = {fn % 2: plain_primary}  # plain primaries of the gate camera, by frame parity
+
+    def cached_primary(f):
+        if f % 2 not in primary_cache:
+            from voxelengine_tpu_torch.render.frame import primary_rays
+
+            po, pd, _, _, _ = primary_rays(cfg, origin_t, euler_t, f)
+            primary_cache[f % 2] = plain(bm, po, pd, cfg.max_steps)
+        return primary_cache[f % 2]
+
+    def gfx_gate(what, reuse_primary=True, ortho_size=None):
+        """Render g's next frame on the gate camera through K1 and the same
+        frame into a copy of the framebuffer through plain traces."""
+        f = n_next[0]
+        fb_prev = fb.clone()
+        g.render_screen(rt, origin, e_gate)
+        n_next[0] += 1
+        want = render_plain(bm, fb_prev, origin_t, euler_t, env, f, g.config, plain, ortho_size=ortho_size,
+                            primary=cached_primary(f) if reuse_primary else None)
+        pixel_gate(what, fb, want, card)
+
+    gfx_gate("the frame through K1 vs the same frame through plain traces")
+    for view in (DebugView.DEBUG, DebugView.NORMALS, DebugView.DEPTH, DebugView.STEPS):
+        g.set_debug_view(view)
+        gfx_gate(f"{view.name} view through K1")
+    g.set_debug_view(DebugView.SHADED)
+
+    # a block permutation from the gate frame's steps, and the frame without it
+    perm = block_permutation_from_steps(batches[0][4].steps, cfg)
+    a = render_frame(bm, make_framebuffer(cfg, dev), origin_t, euler_t, env, fn, cfg, lt=lt, block_perm=perm)
+    b = render_frame(bm, make_framebuffer(cfg, dev), origin_t, euler_t, env, fn, cfg, lt=lt)
+    pixel_gate("frame with block_permutation_from_steps vs without", a, b, card)
+
+    # an odd height
+    c719 = dataclasses.replace(cfg, height=H - 1)
+    a = render_frame(bm, make_framebuffer(c719, dev), origin_t, euler_t, env, fn, c719, lt=lt)
+    b = render_plain(bm, make_framebuffer(c719, dev), origin_t, euler_t, env, fn, c719, plain)
+    pixel_gate(f"{W}x{H - 1} checkerboard frame through K1", a, b, card)
+
+    # orthographic, zoomed through the facade
+    g.set_projection(Projection.ORTHOGRAPHIC)
+    g.set_ortho_window_size(APP_ORTHO)
+    gfx_gate(f"orthographic frame at zoom {APP_ORTHO} through K1", reuse_primary=False,
+             ortho_size=torch.tensor(APP_ORTHO, dtype=torch.float32, device=dev))
+    g.set_projection(Projection.PERSPECTIVE)
+
+    # 4. edits: break and place under the crosshair (voxel_app.py:318-336),
+    # then 62 random edits, pairs of them in one brick word
+    def crosshair_edit(place: bool):
+        aim = np.array([-0.8, 0.75, 0.0], np.float32)  # looking down at the ground
+        fwd, _, _ = get_directions_np(aim)
+        res = rt.raytrace(origin[None], fwd[None], cfg.max_steps)
+        if not bool(res.valid[0]):
+            raise SystemExit("app frame: the crosshair ray missed the ground")
+        p, n = res.hit_point[0].cpu().numpy(), res.normal[0].cpu().numpy()
+        tgt = p - 0.5 * n if place else p + 0.5 * n
+        v = np.clip(tgt.astype(int), 0, np.array(dims) - 1)
+        return v[None], np.array([place])
+
+    rng = np.random.default_rng(7)
+    pts = rng.integers(0, dims, (31, 3))
+    pts = np.concatenate([pts, pts + [1, 0, 0]])
+    pts = np.clip(pts, 0, np.array(dims) - 1)
+    random_edit = (pts, rng.random(62) < 0.5)
+    before = [t.clone() for t in (bm.meta, bm.brick_idx, bm.bricks)]
+    edits = []
+    for edit in ("break", "place", "random"):
+        e = crosshair_edit(edit == "place") if edit != "random" else random_edit
+        edits.append(e)
+        rt.edit_voxels(*(torch.from_numpy(e[0][:, i].copy()).to(dev) for i in range(3)), torch.from_numpy(e[1]).to(dev))
+    changed = int((rt.world.bricks != before[2]).sum())
+    ref = dataclasses.replace(bm, meta=before[0], brick_idx=before[1], bricks=before[2])
+    for pts_, vals in edits:
+        apply_edits(ref, *(torch.from_numpy(pts_[:, i].copy()).to(dev) for i in range(3)), torch.from_numpy(vals).to(dev))
+    fresh = make_line_table(rt.world)
+    d = {k: int((getattr(rt.world, k) != getattr(ref, k)).sum()) for k in ("meta", "bricks")}
+    d.update({k: int((getattr(lt, k) != getattr(fresh, k)).sum()) for k in ("region_lines", "macro", "macro2")})
+    d["brick_lines"] = int((lt.brick_lines != brick_lines_view(rt.world)).sum())
+    say(f"app frame: 64 edits through edit_voxels (break {edits[0][0][0].tolist()}, place {edits[1][0][0].tolist()}, "
+        f"62 random): {changed} brick words changed; vs apply_edits on a copy and make_line_table of the edited "
+        f"world, word diffs (tolerance: bit-equal) {json.dumps(d)}, on {card}")
+    if any(d.values()):
+        raise SystemExit("app frame: the edited world or its line table differs from a rebuild")
+    del ref, before
+    gfx_gate("frame after the edits through K1", reuse_primary=False)
+    frame_kernels, frame_dev = kernel_profile(lambda: g.render_screen(rt, origin, e_gate))
+    if frame_kernels:
+        say(f"app frame: one render_screen frame launches {len(frame_kernels)} CUDA kernels, "
+            f"{sum(frame_dev):.3f} ms of device time (torch.profiler), on {card}")
+
+    def edit_ms(pts_, vals):  # the same edits again: the world does not change
+        args = tuple(torch.from_numpy(pts_[:, i].copy()).to(dev) for i in range(3)) + (torch.from_numpy(vals).to(dev),)
+        return cuda_ms(lambda: rt.edit_voxels(*args), repeats=10)
+
+    all_pts = np.concatenate([e[0] for e in edits])
+    all_vals = np.concatenate([e[1] for e in edits])
+    e1_ms, e64_ms = edit_ms(edits[0][0], edits[0][1]), edit_ms(all_pts, all_vals)
+    say(f"app frame: edit_voxels latency (CUDA events, mean of 10): K=1 {e1_ms:.3f} ms, K=64 {e64_ms:.3f} ms, "
+        f"on {card}")
+
+    # 5. the facade's batch queries: K1 on this world, K4 on a TILED_LINEAR
+    # one (and a Graphics frame there through K4)
+    fields = ("valid", "hit_point", "normal", "distance", "voxel_index", "steps")
+
+    def batch_gate(rt_, name, o, d):
+        got_ = rt_.raytrace(o, d, cfg.max_steps)
+        want_, p_ms_ = events_ms(lambda: raytracer.results_from_trace(
+            rt_.world, o, trace_brickmap(rt_.world, o, d, cfg.max_steps)))
+        diffs = {k: int((getattr(got_, k) != getattr(want_, k)).reshape(o.shape[0], -1).any(dim=1).sum())
+                 for k in fields}
+        say(f"app frame: raytrace of {o.shape[0]} random rays through {name}: RayTraceResults field diffs vs the "
+            f"plain walk (tolerance: bit-equal) {json.dumps(diffs)}, hits {int(want_.valid.sum())}, "
+            f"last_kernel_ms {rt_.last_kernel_ms:.3f}, plain {p_ms_:.1f} ms, on {card}")
+        if any(diffs.values()):
+            raise SystemExit(f"app frame: raytrace through {name} differs from the plain walk")
+        out_ = TraceOut(want_.valid, want_.hit_point, want_.normal, want_.steps)
+        return out_, p_ms_
+
+    o, d = random_rays(dims, FACADE_RAYS, 1.5, 301, dev)
+    bigtrace.launches = 0  # the facade's K1 path
+    k1_out, p_ms = batch_gate(rt, "K1", o, d)
+    raytrace_launches = bigtrace.launches
+
+    grid = BitGrid.from_dense(random_grid((128, 128, 128), 0.01, 9, dev))
+    rt2 = VoxelRaytracer3D()
+    rt2.upload_voxel_buffer(grid, 8)
+    if rt2.line_table is not None or rt2.world.coarse_layout.name != "TILED_LINEAR":
+        raise SystemExit("app frame: upload_voxel_buffer did not build a TILED_LINEAR world without a line table")
+    o2, d2 = random_rays((128, 128, 128), FACADE_RAYS, 1.5, 302, dev)
+    bmtrace.launches = 0  # the facade's K4 path and a Graphics frame
+    k4_out, p2_ms = batch_gate(rt2, "K4", o2, d2)
+    g2 = Graphics(W, H, device=dev, tile_order=True, shadow_rays=True, ao_samples=APP_AO, reflections=True)
+    o4, e4 = np.array([64.0, 90.0, -30.0], np.float32), np.array([-0.5, 0.2, 0.0], np.float32)
+    k4_frame = g2.render_screen(rt2, o4, e4)
+    k4_launches = bmtrace.launches
+    if (raytrace_launches, k4_launches) != (1, 1 + per_frame):
+        raise SystemExit(f"app frame: raytrace launched K1 {raytrace_launches} times (not 1), raytrace and a frame "
+                         f"over the TILED_LINEAR world K4 {k4_launches} times (not {1 + per_frame})")
+    pixel_gate("Graphics frame over the TILED_LINEAR world through K4", k4_frame,
+               render_plain(rt2.world, make_framebuffer(g2.config, dev), torch.from_numpy(o4).to(dev),
+                            torch.from_numpy(e4).to(dev), g2.environment, 0, g2.config, trace_brickmap), card)
+
+    # times of the facade's calls and of the kernels alone (ray setup excluded)
+    call_ms = cuda_ms(lambda: rt.raytrace(o, d, cfg.max_steps), repeats=5)
+    call2_ms = cuda_ms(lambda: rt2.raytrace(o2, d2, cfg.max_steps), repeats=5)
+    args, kw = line_kernel_args(bm, lt, o, d, cfg.max_steps)
+    k1_ms = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
+    bm2 = rt2.world
+    dd, start_c, _, active = _ray_setup(bm2.grid_dims, bm2.factor, o2, d2)
+    pad = _edge_pad(start_c.to(torch.int32), _dims(bm2.grid_dims, torch.int32, dev), dd)
+    k4_ms = cuda_ms(lambda: bmtrace.bmtrace(
+        start_c, dd, active.to(torch.int32), pad, bm2.meta, bm2.bricks, grid_dims=bm2.grid_dims, factor=bm2.factor,
+        max_steps=cfg.max_steps, coarse_layout=bm2.coarse_layout, brick_layout=bm2.brick_layout), repeats=10)
+    say(f"app frame: raytrace of {FACADE_RAYS} rays {call_ms:.3f} ms through K1 (K1 alone {k1_ms:.3f} ms), "
+        f"{call2_ms:.3f} ms through K4 (K4 alone {k4_ms:.3f} ms) (CUDA events), on {card}")
+    k1_raytrace = kernel_entry(
+        "bigtrace_raytrace", "bigtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1348", raytrace_launches, 0.0,
+        k1_ms, p_ms, o.shape[0], hit_table_bytes(k1_out, dims, bm.brick_layout, bm.factor, bm.words_per_brick),
+        int(k1_out.steps.sum()), raytrace_ms=call_ms,
+    )
+    k4_raytrace = kernel_entry(
+        "bmtrace_raytrace", "bmtrace.cu", "voxelengine_tpu/ops/pallas_trace2.py:39", k4_launches, 0.0, k4_ms, p2_ms,
+        o2.shape[0], hit_table_bytes(k4_out, bm2.world_dims, bm2.brick_layout, bm2.factor, bm2.words_per_brick),
+        int(k4_out.steps.sum()), raytrace_ms=call2_ms,
+    )
+
+    k1_frame = kernel_entry(
+        "bigtrace_app_frame", "bigtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1348", frame_launches, 0.0,
+        k1_total["ms"], k1_total["plain_ms"], k1_total["rays"], k1_total["table"], k1_total["steps"],
+        k1_total["events"] if cfg.trace_use_macro else None, batches_per_frame=per_frame, frame_ms=frame_ms,
+        kernels_per_frame=frame_kernels and len(frame_kernels), frame_device_ms=frame_dev and sum(frame_dev),
+        edit_ms_k1=e1_ms, edit_ms_k64=e64_ms,
+    )
+    return [k1_frame, k1_raytrace, k4_raytrace]
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -1374,6 +1750,7 @@ def main(argv=None):
     kernels += phase_dense_path(dev, err)
     kernels += phase_bmtrace(dev)
     kernels.append(phase_sparse(dev))
+    kernels += phase_app_frame(dev)
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise SystemExit(f"kernels never launched on their path: {idle}")

@@ -51,11 +51,9 @@ def test_render_config_keeps_the_reference_fields():
     t, j = tcfg.RenderConfig(), jcfg.RenderConfig()
     tuned_for_tpu = {"trace_tile", "trace_slots", "trace_shortlist", "staged_trace", "stage_iters", "tail_frac",
                      "stage_schedule"}
-    # tune views not ported yet
-    not_yet = {"reflectivity", "debug_pos_mod"}
     tf = {f.name for f in t.__dataclass_fields__.values()}
     jf = {f.name for f in j.__dataclass_fields__.values()}
-    assert tf == jf - tuned_for_tpu - not_yet
+    assert tf == jf - tuned_for_tpu
     for name in tf:
         a, b = getattr(t, name), getattr(j, name)
         assert (a.name, a.value) == (b.name, b.value) if hasattr(a, "value") else a == b, name

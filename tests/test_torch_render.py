@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from voxelengine_tpu_torch.config import DebugView, Environment, Projection, RenderConfig
+from voxelengine_tpu_torch.config import Environment, Projection, RenderConfig
 from voxelengine_tpu_torch.io.interop import brickmap_from_numpy
 from voxelengine_tpu_torch.ops.bigtrace import make_line_table
 from voxelengine_tpu_torch.render import camera, frame, shading
@@ -209,7 +209,7 @@ def test_render_frame_non_power_of_two_width(ref):
     # JAX's own rays through the port's trace, shading and composite
     o, dj = _t(ref[f"{p}/origins"]), _t(ref[f"{p}/dirs"])
     px, py, py_r = (_t(ref[f"{p}/{k}"]).long() for k in ("px", "py", "py_r"))
-    color, write = frame.shade_pixels(bm, o, dj, px, py, py_r, _t(ORIGIN), env, cfg)
+    color, write = frame.shade_pixels(bm, o, dj, px, py, py_r, _t(ORIGIN), env, 1, cfg)
     fb2 = frame.composite_frame(frame.make_framebuffer(cfg, device="cpu"), color, write, cfg, 1)
     np.testing.assert_array_equal(fb2.numpy(), want)
 
@@ -237,30 +237,6 @@ def test_to_bgra8_bit_equal(rng):
 
     fb = (rng.random((8, 12, 3)) * 1.4 - 0.2).astype(np.float32)
     np.testing.assert_array_equal(frame.to_bgra8(_t(fb)).numpy(), np.asarray(jframe.to_bgra8(jnp.asarray(fb))))
-
-
-@pytest.mark.parametrize("change", [
-    dict(debug_view=DebugView.NORMALS), dict(debug_view=DebugView.DEBUG), dict(shadow_rays=True),
-    dict(ao_samples=2), dict(reflections=True),
-])
-def test_unported_render_options_raise(change):
-    import dataclasses
-
-    bm = brickmap_from_numpy(dict(
-        meta=np.zeros(1, np.int32), brick_idx=np.full(1, -1, np.int32), bricks=np.zeros((1, 16), np.uint32),
-        grid_dims=(1, 1, 1), factor=8, coarse_layout=0, brick_layout=1, dense_slots=False,
-    ), device="cpu")
-    cfg = dataclasses.replace(RenderConfig(width=8, height=8), **change)
-    with pytest.raises(NotImplementedError):
-        frame.render_frame(bm, frame.make_framebuffer(cfg, device="cpu"), _t(ORIGIN), _t(EULERS[0]),
-                           Environment.default(device="cpu"), 0, cfg)
-
-
-def test_odd_height_checkerboard_raises():
-    cfg = RenderConfig(width=8, height=7)
-    with pytest.raises(NotImplementedError):
-        frame.composite_frame(frame.make_framebuffer(cfg, device="cpu"), torch.zeros(24, 3),
-                              torch.ones(24, dtype=torch.bool), cfg, 0)
 
 
 if __name__ == "__main__":

@@ -13,3 +13,6 @@ from voxelengine_tpu_torch.config import (  # noqa: F401
     Projection,
     RenderConfig,
 )
+from voxelengine_tpu_torch.core.bitgrid import BitGrid  # noqa: F401
+from voxelengine_tpu_torch.core.brickmap import BrickMap, build_brickmap  # noqa: F401
+from voxelengine_tpu_torch.engine.raytracer import RayTraceResults, VoxelRaytracer3D  # noqa: F401

@@ -4,8 +4,7 @@ One bit per voxel, 32 to a word, LSB first (``VolumeRaytracer.cu:61-73``),
 the bit index given by a :class:`~voxelengine_tpu_torch.core.layout.Layout`
 swizzle.  Words are ``int32`` tensors holding the uint32 bit pattern: torch
 has few uint32 operations, and ``(word >> bit) & 1`` reads the same bit
-under the arithmetic shift of int32.  ``BitGrid.set_bits`` comes with the
-edits.
+under the arithmetic shift of int32.
 """
 
 from __future__ import annotations
@@ -76,6 +75,21 @@ class BitGrid:
         )
         word = self.words[idx >> 5]
         return (((word >> (idx & 31)) & 1) == 1) & in_range
+
+    def set_bits(self, x, y, z, value) -> "BitGrid":
+        """A new grid with the voxels at in-range ``(x, y, z)`` set to
+        ``value`` (a bool broadcast to the coordinates' shape):
+        ``BitRef::operator=`` (``VolumeRaytracer.cu:19-36``).  Where one
+        voxel is written more than once, the last write in the given order
+        wins (XLA's scatter leaves that undefined); writes to other bits of
+        one word compose."""
+        xdim, ydim, _ = self.dims
+        dev = self.words.device
+        x, y, z = (torch.as_tensor(a, device=dev).reshape(-1).long() for a in (x, y, z))
+        idx = sample_index(x, y, z, xdim, ydim, self.layout)
+        words = self.words.clone()
+        write_bits(words, idx >> 5, idx & 31, value)
+        return dataclasses.replace(self, words=words)
 
     def count(self) -> torch.Tensor:
         """Number of solid voxels (population count over the words)."""
@@ -155,3 +169,32 @@ def popcount32(words: torch.Tensor) -> torch.Tensor:
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
     return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def unique_last(keys: torch.Tensor):
+    """``(distinct keys, sorted; index of each one's last occurrence)``."""
+    u, inv = torch.unique(keys, return_inverse=True)
+    last = torch.full(u.shape, -1, dtype=torch.int64, device=keys.device)
+    last.scatter_reduce_(0, inv, torch.arange(keys.numel(), device=keys.device), "amax")
+    return u, last
+
+
+def write_bits(words: torch.Tensor, word: torch.Tensor, bit: torch.Tensor, value) -> None:
+    """Set bit ``bit`` of ``words[word]`` to ``value`` for each write, in
+    place on the flat int32 tensor ``words``, as a sequential read-modify-
+    write would leave it: the last write of each (word, bit) wins and
+    writes to other bits of one word compose.  Vectorized: the last write
+    of each bit is kept, then each touched word takes the OR of its set
+    mask and the AND of its clear mask, written once."""
+    word, bit = word.reshape(-1).long(), bit.reshape(-1).long()
+    value = torch.as_tensor(value, dtype=torch.bool, device=words.device).expand(word.shape).reshape(-1)
+    keys, last = unique_last(word * 32 + bit)
+    val = value[last]
+    mask = torch.ones_like(keys) << (keys & 31)
+    touched, winv = torch.unique(keys >> 5, return_inverse=True)
+    # distinct bits of one word: the int64 sums are exact ORs
+    set_m = torch.zeros_like(touched).index_add_(0, winv, torch.where(val, mask, 0))
+    clr_m = torch.zeros_like(touched).index_add_(0, winv, torch.where(val, 0, mask))
+    cur = words[touched].long() & 0xFFFFFFFF
+    new = (cur | set_m) & ~clr_m & 0xFFFFFFFF
+    words[touched] = torch.where(new >= 2**31, new - 2**32, new).to(words.dtype)

@@ -8,6 +8,10 @@ Three flat tensors on one device:
   compact form slot 0 is the shared all-full brick and -1 an empty chunk;
 * ``bricks`` — ``int32[num_bricks, words_per_brick]``: packed per-chunk
   occupancy in brick-layout order (uint32 bit patterns held as int32).
+
+Builders (streamed by z-slab on the device; the terrain builds through W1
+on the card), :func:`compact_brickmap`, and in-place edits of dense-slot
+worlds (:func:`apply_edits`).
 """
 
 from __future__ import annotations
@@ -19,7 +23,14 @@ import numpy as np
 import torch
 
 from voxelengine_tpu_torch.config import default_device
-from voxelengine_tpu_torch.core.bitgrid import BitGrid, layout_order_bits, pack_bits, words_for_bits
+from voxelengine_tpu_torch.core.bitgrid import (
+    BitGrid,
+    layout_order_bits,
+    pack_bits,
+    unpack_bits,
+    words_for_bits,
+    write_bits,
+)
 from voxelengine_tpu_torch.core.layout import Layout, sample_index
 
 # meta word: [4:0]=min_x [9:5]=min_y [14:10]=min_z [19:15]=max_x
@@ -94,6 +105,60 @@ class BrickMap:
     def words_per_brick(self) -> int:
         return words_for_bits(self.factor**3)
 
+    def chunk_index(self, cx, cy, cz) -> torch.Tensor:
+        """Chunk index of chunk coords in ``coarse_layout``."""
+        gx, gy, _ = self.grid_dims
+        return sample_index(cx, cy, cz, gx, gy, self.coarse_layout)
+
+    def voxel_bit(self, x, y, z) -> torch.Tensor:
+        """Occupancy of world voxels (integer tensors of one shape).
+        Out-of-range coordinates read False: clamped, they would alias real
+        chunks.  Raises where the brick words live on the host
+        (``io/checkpoint.py::load_world_host_bricks``)."""
+        if self.bricks is None:
+            raise ValueError(
+                "brick words are host-resident (load_world_host_bricks placeholder); "
+                "attach device bricks to query voxels"
+            )
+        f = self.factor
+        X, Y, Z = self.world_dims
+        x, y, z = (torch.as_tensor(a, device=self.meta.device) for a in (x, y, z))
+        in_range = (x >= 0) & (x < X) & (y >= 0) & (y < Y) & (z >= 0) & (z < Z)
+        x, y, z = torch.clamp(x, 0, X - 1), torch.clamp(y, 0, Y - 1), torch.clamp(z, 0, Z - 1)
+        ci = self.chunk_index(x // f, y // f, z // f).long()
+        occ, _, _ = unpack_meta(self.meta[ci])
+        slot = self.brick_idx[ci].long()
+        bit = sample_index(x % f, y % f, z % f, f, f, self.brick_layout)
+        word = self.bricks[torch.clamp_min(slot, 0), (bit >> 5).long()]
+        return (((word >> (bit & 31)) & 1) == 1) & occ & (slot >= 0) & in_range
+
+    def to_dense(self) -> torch.Tensor:
+        """The whole world as bool ``[Z, Y, X]`` (small worlds, tests)."""
+        X, Y, Z = self.world_dims
+        dev = self.meta.device
+        x, y, z = torch.meshgrid(*(torch.arange(n, device=dev) for n in (X, Y, Z)), indexing="ij")
+        return self.voxel_bit(x, y, z).permute(2, 1, 0)
+
+
+def _occ_bounds(vol: torch.Tensor):
+    """Occupancy and tight bounds of blocks ``bool[..., z, y, x]`` (cubes):
+    ``(occ [...], lo [..., 3], hi [..., 3])``, bounds in (x, y, z) order,
+    those of an empty block meaningless."""
+    f, z, y, x = vol.shape[-1], vol.dim() - 3, vol.dim() - 2, vol.dim() - 1
+    occ = vol.any(dim=x).any(dim=y).any(dim=z)
+
+    def axis_bounds(axis):
+        line = vol
+        for a in sorted((a for a in (z, y, x) if a != axis), reverse=True):
+            line = line.any(dim=a)
+        line = line.to(torch.uint8)  # [..., f]; argmax takes the first max
+        lo = torch.argmax(line, dim=-1)
+        hi = f - 1 - torch.argmax(line.flip(-1), dim=-1)
+        return lo.to(torch.int32), hi.to(torch.int32)
+
+    (zlo, zhi), (ylo, yhi), (xlo, xhi) = axis_bounds(z), axis_bounds(y), axis_bounds(x)
+    return occ, torch.stack([xlo, ylo, zlo], dim=-1), torch.stack([xhi, yhi, zhi], dim=-1)
+
 
 def _slab_to_chunks(slab: torch.Tensor, factor: int, chunks_y: int, chunks_x: int, brick_layout: Layout):
     """Reduce one dense z-slab ``bool[factor, Y, X]`` to per-chunk
@@ -102,23 +167,10 @@ def _slab_to_chunks(slab: torch.Tensor, factor: int, chunks_y: int, chunks_x: in
     f = factor
     # [f(z), cy, f(y), cx, f(x)] -> chunk-major [cy, cx, f(z), f(y), f(x)]
     c = slab.reshape(f, chunks_y, f, chunks_x, f).permute(1, 3, 0, 2, 4)
-    occ = c.any(dim=4).any(dim=3).any(dim=2)
-
-    def axis_bounds(axis):  # axis: 2=z, 3=y, 4=x within c
-        line = c
-        for a in sorted((a for a in (2, 3, 4) if a != axis), reverse=True):
-            line = line.any(dim=a)
-        line = line.to(torch.uint8)  # [cy, cx, f]; argmax takes the first max
-        lo = torch.argmax(line, dim=-1)
-        hi = f - 1 - torch.argmax(line.flip(-1), dim=-1)
-        return lo.to(torch.int32), hi.to(torch.int32)
-
-    zlo, zhi = axis_bounds(2)
-    ylo, yhi = axis_bounds(3)
-    xlo, xhi = axis_bounds(4)
+    occ, lo, hi = _occ_bounds(c)
     # empty chunks: min=0, max=-1 (VolumeRaytracer.cuh:454-463); read only if occ
-    bmin = torch.stack([xlo, ylo, zlo], dim=-1) * occ[..., None]
-    bmax = torch.where(occ[..., None], torch.stack([xhi, yhi, zhi], dim=-1), -1)
+    bmin = lo * occ[..., None]
+    bmax = torch.where(occ[..., None], hi, -1)
 
     bits = layout_order_bits(c.reshape(chunks_y * chunks_x, f, f, f), brick_layout)
     nbits = words_for_bits(f**3) * 32
@@ -328,3 +380,101 @@ def build_brickmap_terrain_compact(
         coarse_layout=Layout.LINEAR, brick_layout=brick_layout, dense_slots=False, dedupe_uniform=True,
         device=device,
     )
+
+
+def build_brickmap_terrain(
+    world_dims: Tuple[int, int, int],
+    factor: int,
+    seed: int = 0x71889283,
+    octaves: int = 32,
+    brick_layout: Layout = Layout.TILED_LINEAR,
+    device=default_device(),
+) -> BrickMap:
+    """Terrain world with dense slots (every chunk owns the brick of its
+    chunk index, the form edits need) and LINEAR coarse layout, one
+    chunk-row z-slab at a time on ``device``: each slab's chunks from W1 on
+    a CUDA device (:func:`terrain_slab_chunks`), from the plain worldgen and
+    reduction on the CPU.  Matches
+    :func:`voxelengine_tpu.core.brickmap.build_brickmap_terrain` bit for
+    bit."""
+    f = factor
+    brick_layout = choose_layout((f, f, f), brick_layout)
+    return build_brickmap_from_chunks(
+        lambda z0: terrain_slab_chunks(z0, world_dims, f, brick_layout, octaves, seed, device), world_dims, f,
+        coarse_layout=Layout.LINEAR, brick_layout=brick_layout, dense_slots=True, device=device,
+    )
+
+
+def compact_brickmap(bm: BrickMap, dedupe_uniform: bool = True) -> BrickMap:
+    """A dense-slot brickmap in compact form, on its device: slot 0 is the
+    shared all-full brick (with ``dedupe_uniform``), each other occupied
+    chunk keeps its brick in chunk order, and empty chunks get -1.  One host
+    read (the kept count)."""
+    if not bm.dense_slots:
+        raise ValueError("compact_brickmap expects a dense_slots brickmap")
+    dev = bm.meta.device
+    occ = ((bm.meta >> META_OCC_BIT) & 1) == 1
+    full = torch.as_tensor(_full_brick_words(bm.factor), device=dev)
+    keep = occ & ~(bm.bricks == full[None, :]).all(dim=1) if dedupe_uniform else occ
+    kept_idx = torch.nonzero(keep).squeeze(1)
+    base = 1 if dedupe_uniform else 0
+    slots = torch.full((bm.num_chunks,), -1, dtype=torch.int32, device=dev)
+    slots[kept_idx] = base + torch.arange(kept_idx.numel(), dtype=torch.int32, device=dev)
+    if dedupe_uniform:
+        slots[occ & ~keep] = 0
+    kept = bm.bricks[kept_idx]
+    if dedupe_uniform:
+        bricks = torch.cat([full[None, :], kept])
+    else:
+        bricks = kept if kept.shape[0] else torch.zeros((1, bm.words_per_brick), dtype=torch.int32, device=dev)
+    return dataclasses.replace(bm, brick_idx=slots, bricks=bricks, dense_slots=False)
+
+
+# ---------------------------------------------------------------------------
+# edits (voxel place/break)
+# ---------------------------------------------------------------------------
+
+
+def _edit_xyz(bm: BrickMap, x, y, z):
+    """Edit coordinates as flat int64 tensors on the world's device."""
+    return tuple(torch.as_tensor(a, device=bm.meta.device).reshape(-1).long() for a in (x, y, z))
+
+
+def _edit_coords(bm: BrickMap, x, y, z):
+    """Shared edit addressing: chunk ids, brick word column and bit."""
+    f = bm.factor
+    ci = bm.chunk_index(x // f, y // f, z // f)
+    bit = sample_index(x % f, y % f, z % f, f, f, bm.brick_layout)
+    return ci, bit >> 5, bit & 31
+
+
+def _chunk_meta(bm: BrickMap, ci: torch.Tensor) -> torch.Tensor:
+    """The meta words of chunks ``ci`` recomputed from their bricks: the
+    occupancy and the tight bounds, all 0 for an empty chunk."""
+    f = bm.factor
+    dev = bm.meta.device
+    bits = unpack_bits(bm.bricks[ci])  # [U, 32 * wpb]
+    r = torch.arange(f, device=dev)
+    bidx = sample_index(r[None, None, :], r[None, :, None], r[:, None, None], f, f, bm.brick_layout)
+    vol = bits[:, bidx.reshape(-1)].reshape(-1, f, f, f)  # [U, z, y, x]
+    occ, lo, hi = _occ_bounds(vol)
+    o = occ[:, None].to(torch.int32)
+    return pack_meta(occ, lo * o, hi * o)
+
+
+def apply_edits(bm: BrickMap, x, y, z, value) -> BrickMap:
+    """Set world voxels ``(x, y, z)`` (in range) to ``value`` and refresh
+    the meta word (occupancy and tight bounds) of each touched chunk, in
+    place on ``bm``'s tensors; returns ``bm``.  As the JAX function's
+    sequential read-modify-write leaves it: for each voxel the last edit
+    wins, and edits to one brick word compose (``BitRef``'s atomics,
+    ``VolumeRaytracer.cu:19-36``).  Needs ``dense_slots`` (a chunk's brick
+    is its own) and a contiguous brick table."""
+    if not bm.dense_slots:
+        raise ValueError("edits require dense_slots brickmaps")
+    x, y, z = _edit_xyz(bm, x, y, z)
+    ci, col, bit = _edit_coords(bm, x, y, z)
+    write_bits(bm.bricks.view(-1), ci * bm.words_per_brick + col, bit, value)
+    uci = torch.unique(ci)
+    bm.meta[uci] = _chunk_meta(bm, uci)
+    return bm

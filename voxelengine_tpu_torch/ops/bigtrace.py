@@ -32,11 +32,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from voxelengine_tpu_torch.config import MAX_STEPS
-from voxelengine_tpu_torch.core.bitgrid import pack_bits
-from voxelengine_tpu_torch.core.brickmap import BrickMap, unpack_meta
+from voxelengine_tpu_torch.core.bitgrid import pack_bits, unique_last, write_bits
+from voxelengine_tpu_torch.core.brickmap import BrickMap, _edit_coords, _edit_xyz, apply_edits, unpack_meta
 from voxelengine_tpu_torch.core.exact import fdiv
 from voxelengine_tpu_torch.core.layout import Layout, sample_index
 from voxelengine_tpu_torch.ops.aabb import ray_aabb
@@ -93,6 +94,19 @@ def brick_lines_view(bm: BrickMap) -> torch.Tensor:
 def materialize_brick_lines(bm: BrickMap, lt: LineTable) -> LineTable:
     """Return ``lt`` with the brick-line form of ``bm.bricks`` attached."""
     return dataclasses.replace(lt, brick_lines=brick_lines_view(bm).contiguous())
+
+
+def host_brick_lines(bricks: np.ndarray) -> np.ndarray:
+    """Host numpy twin of :func:`brick_lines_view`: raw brick words
+    (``uint32`` or ``int32 [N, wpb]``, e.g. a memory map of a world cache's
+    bricks) as int32 brick lines ``[NBL * 8, 128]``, a view when ``N * wpb``
+    is a multiple of 1024.  For worlds whose brick table and its lines do
+    not both fit on the card: relayout on the host, upload the lines."""
+    bw = bricks.reshape(-1).view(np.int32)
+    padw = (-bw.shape[0]) % 1024
+    if padw:
+        bw = np.concatenate([bw, np.zeros((padw,), np.int32)])
+    return bw.reshape(-1, 128)
 
 
 def _pack_rows(occ: torch.Tensor) -> torch.Tensor:
@@ -172,6 +186,81 @@ def make_line_table(bm: BrickMap) -> LineTable:
         num_regions=nr,
         region_dims=(rx, ry, rz),
     )
+
+
+def _group_bits(flat: torch.Tensor, gx: int, gy: int, gz: int, x0, y0, z0) -> torch.Tensor:
+    """Whether any of the 4x1x4 cells at ``(x0 + dx, y0, z0 + dz)`` inside
+    the ``gx * gy * gz`` grid has its bit set in the flat bit words
+    ``flat`` (x fastest); one answer per start cell."""
+    d = torch.arange(4, device=flat.device)
+    cx = x0[:, None, None] + d[None, :, None]
+    cz = z0[:, None, None] + d[None, None, :]
+    cy = y0[:, None, None]
+    valid = (cx < gx) & (cy < gy) & (cz < gz)
+    cid = torch.clamp_max(cx, gx - 1) + gx * (torch.clamp_max(cy, gy - 1) + gy * torch.clamp_max(cz, gz - 1))
+    bits = ((flat[cid >> 5] >> (cid & 31)) & 1) == 1
+    return (bits & valid).flatten(1).any(dim=1)
+
+
+def apply_edits_hbm(bm: BrickMap, lt: LineTable, x, y, z, value):
+    """:func:`~voxelengine_tpu_torch.core.brickmap.apply_edits` on a
+    brickmap and its line table, in place; returns ``(bm, lt)``.
+
+    O(edits), as the JAX function: each touched chunk's meta word is
+    written into ``region_lines``; each touched region's bit of ``macro``
+    is recomputed from its 512 chunk metas; where L2 is real (it fits its
+    word budget), each touched super-region's bit from the new ``macro``,
+    and where L3 is real too, each touched block's bit from the new L2
+    words; attached brick lines take the edited brick words.  Every word is
+    written once (brick lines that share the bricks' storage not at all),
+    so the tables equal :func:`make_line_table` of the edited world.
+    Needs ``dense_slots``."""
+    if not bm.dense_slots:
+        raise ValueError("edits require dense_slots brickmaps")
+    x, y, z = _edit_xyz(bm, x, y, z)
+    apply_edits(bm, x, y, z, value)
+    ci, col, _ = _edit_coords(bm, x, y, z)
+    f = bm.factor
+    gx, gy, gz = bm.grid_dims
+    rx, ry, rz = lt.region_dims
+    cx, cy, cz = x // f, y // f, z // f
+
+    # the meta word in the region record (rows 0..3 of the region's line)
+    region = (cx >> 3) + rx * ((cy >> 3) + ry * (cz >> 3))
+    local = (cx & 7) + ((cy & 7) << 3) + ((cz & 7) << 6)
+    key, last = unique_last(region * 1024 + local)
+    lt.region_lines.view(-1)[key] = bm.meta[ci[last]]
+
+    # L1: each touched region's occupancy over its 8^3 chunks
+    ureg, last = unique_last(region)
+    d = torch.arange(8, device=x.device)
+    bx = (cx[last] >> 3)[:, None, None, None] * 8 + d[None, :, None, None]
+    by = (cy[last] >> 3)[:, None, None, None] * 8 + d[None, None, :, None]
+    bz = (cz[last] >> 3)[:, None, None, None] * 8 + d[None, None, None, :]
+    inb = (bx < gx) & (by < gy) & (bz < gz)
+    cid = bm.chunk_index(torch.clamp_max(bx, gx - 1), torch.clamp_max(by, gy - 1), torch.clamp_max(bz, gz - 1))
+    occ = ((((bm.meta[cid] >> 30) & 1) == 1) & inb).flatten(1).any(dim=1)
+    macro = lt.macro.view(-1)
+    write_bits(macro, ureg >> 5, ureg & 31, occ)
+
+    # L2 (4x1x4 regions), then L3 (4x1x4 super-regions), where real
+    srx, sry, srz = -(-rx // 4), ry, -(-rz // 4)
+    if srx * sry * srz <= MACRO2_WORDS * 32:
+        sreg, last = unique_last((cx >> 5) + srx * ((cy >> 3) + sry * (cz >> 5)))
+        occ2 = _group_bits(macro, rx, ry, rz, (cx[last] >> 5) * 4, cy[last] >> 3, (cz[last] >> 5) * 4)
+        write_bits(lt.macro2, sreg >> 5, sreg & 31, occ2)
+        s3x, s3y, s3z = -(-rx // 16), ry, -(-rz // 16)
+        if s3x * s3y * s3z <= MACRO3_WORDS * 32:
+            blk, last = unique_last((cx >> 7) + s3x * ((cy >> 3) + s3y * (cz >> 7)))
+            occ3 = _group_bits(lt.macro2, srx, sry, srz, (cx[last] >> 7) * 4, cy[last] >> 3, (cz[last] >> 7) * 4)
+            write_bits(lt.macro2, MACRO2_WORDS + (blk >> 5), blk & 31, occ3)
+
+    # attached brick lines: the edited words, unless they are the bricks
+    bl = lt.brick_lines
+    if bl is not None and bl.untyped_storage().data_ptr() != bm.bricks.untyped_storage().data_ptr():
+        flat = torch.unique(bm.brick_idx[ci].long() * bm.words_per_brick + col)
+        bl.view(-1)[flat] = bm.bricks.view(-1)[flat]
+    return bm, lt
 
 
 def _group_occ(lt: LineTable, rg, sh: int, base: int, budget: int):

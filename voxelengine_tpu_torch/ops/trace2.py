@@ -7,6 +7,9 @@ device run in K4, a Hopper kernel that reads a dense-slot brickmap's
 (:mod:`voxelengine_tpu_torch.kernels.bmtrace`), and rays on the CPU run the
 plain :func:`~voxelengine_tpu_torch.ops.trace.trace_brickmap`.  Both give
 the same hits, steps, positions and normals.
+
+:func:`trace_brickmap_no_table` is the trace the frame path and the engine
+facade take where a world has no line table.
 """
 
 from __future__ import annotations
@@ -27,6 +30,28 @@ def trace_brickmap_mxu(bm: BrickMap, origins: torch.Tensor, rays: torch.Tensor, 
         raise ValueError("trace_brickmap_mxu requires a dense-slot brickmap")
     if not origins.is_cuda:
         return trace_brickmap(bm, origins, rays, max_steps)
+    return _trace_brickmap_kernel(bm, origins, rays, max_steps)
+
+
+def _is_cuda(t: torch.Tensor) -> bool:
+    """Whether rays on ``t``'s device go to a kernel (one place, so a test
+    can route a CPU call as a card call)."""
+    return t.is_cuda
+
+
+def trace_brickmap_no_table(bm: BrickMap, origins: torch.Tensor, rays: torch.Tensor,
+                            max_steps: int = MAX_STEPS) -> TraceOut:
+    """``trace_brickmap``'s function without a line table: K4 for CUDA
+    rays over a dense-slot world, the plain walk for CPU rays.  A compact
+    world has no kernel without a line table, so CUDA rays over one are
+    refused rather than traced by the plain walk on the card."""
+    if not _is_cuda(origins):
+        return trace_brickmap(bm, origins, rays, max_steps)
+    if not bm.dense_slots:
+        raise ValueError(
+            "a compact (dense_slots=False) world traces on the card only through a line table: "
+            "pass lt=make_line_table(bm)"
+        )
     return _trace_brickmap_kernel(bm, origins, rays, max_steps)
 
 
