@@ -78,7 +78,23 @@ Phases, one stdout line each (plus the kernels' build logs):
    ``apply_edits`` on a copy and a rebuilt line table, a frame after them,
    and the edit latency at K=1 and K=64; 1,048,576 random rays through
    ``raytrace`` (K1) and through a 128^3 TILED_LINEAR world's (K4), every
-   ``RayTraceResults`` field against the plain walk, and a frame through K4.
+   ``RayTraceResults`` field against the plain walk, and a frame through K4;
+12. the single-device remainder: every noise of ``ops/noise.py`` beyond
+   the worldgen subset on the card against the CPU on 65,536 points; K1
+   (``trace_brickmap_2d``) and K2 (``trace_grid_2d``) on
+   ``tests/test_dda2d.py``'s 64^2 world (and its two-level against
+   single-level property) and on the 2D demo's 512^2 world at factor 8
+   with 1,000,000 radial rays, against the plain walk; the record
+   instantiation of K1's loop (``csrc/crossings.cu``) against its plain
+   version on 32 rays of the demo world and of the sparse 16k world, macro
+   on and off, its results against K1's; the ported app
+   (``voxelengine_tpu_torch/apps/voxel_app.py``) headless under a scripted
+   input ('f', 'g', 'b', a drag, a scroll; 24 frames) with its default
+   flags plus ``--shadows --ao 4 --reflections``, then ``--dense`` (128^3),
+   ``--xla-trace`` and ``--macro auto``, its edits against ``apply_edits``
+   on a copy of the cached world; the 2D demo and ``bench_configs``
+   (configs 1, 2, 3, 5).  Frames and caches go to a temporary directory
+   under ``_checkout/``, removed at the end.
 
 Each kernel's path (the bench world's frames for K1, and the demo world's
 for its second record; the bench world's build for W1; the frames of
@@ -86,7 +102,9 @@ phase 8 for K2, the phase-8 batch for K3 and the 128^3 grid for its global
 instantiation, the phase-9 128^3 batch for K4 with shared meta and its
 512x256x512 batch for K4 with global meta, the phase-10 batch for K5; the
 phase-11 frames for K1 with secondary rays, its ``raytrace`` for K1 on a
-batch, its TILED_LINEAR world's ``raytrace`` and frame for K4) runs
+batch, its TILED_LINEAR world's ``raytrace`` and frame for K4; the 2D demo for
+K1 on a 2D world, one ``trace_grid_2d`` call for K2 on it, one
+``trace_ray_crossings`` for the record kernel) runs
 with the launch counts set to 0 just before it and read just after;
 launches made to compare or time a kernel are not counted.  Then the run's
 wall time, one JSON line describing each kernel (its time, its plain
@@ -135,7 +153,7 @@ OPS_PER_STEP = 8
 EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
 # threads a block of each library's kernels (csrc/*.cu)
-BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256}
+BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256, "crossings": 32}
 # the app's frame (apps/voxel_app.py:64-68,178-188): the 1024^3 world at
 # factor 32, 1280x720, shadows, AO 4, reflections; the facade's batch size
 APP_WORLD = (1024, 1024, 1024)
@@ -1722,6 +1740,329 @@ def phase_app_frame(dev):
 
 
 
+# phase 12, the single-device remainder: the noise library's points, the 2D
+# worlds (tests/test_dda2d.py's 64^2 world and the 2D demo's 512^2 world at
+# factor 8 with its 1,000,000 radial rays), the record kernel's rays and
+# the app's scripted input ('f' breaks, 'g' places, 'b' boosts, a drag
+# pitches the camera down at the terrain, a scroll zooms)
+NOISE_POINTS = 1 << 16
+NOISE_SEED = -123457
+DEMO_2D = (512, 8, 1_000_000)  # apps/dda2d_demo.py defaults: world, factor, rays
+CROSSING_RAYS = 32
+APP_SCRIPT = [["w"], ["drag:0,300"], ["f"], ["b", "w", "right"], ["g"], ["scroll:1"], ["a"]] + [[]] * 17
+
+
+def noise_cases(N, pos, p01):
+    """name -> thunk of every noise of the library beyond the worldgen
+    subset, on ``pos`` (and ``p01``, ``pos`` scaled for the repeaters)."""
+    B, S = N.Basis, N.Shape
+    s = NOISE_SEED
+    cases = {
+        "simplex_noise": lambda: N.simplex_noise(pos, 0.37, s),
+        "checker": lambda: N.checker(pos, 0.75, s),
+        "discrete_noise": lambda: N.discrete_noise(pos, 0.5, s),
+        "linear_value": lambda: N.linear_value(pos, 3.0, s),
+        "faded_value": lambda: N.faded_value(pos, 1.0, s),
+        "cubic_value": lambda: N.cubic_value(pos, 0.8, s),
+        "worley_noise": lambda: N.worley_noise(pos, 1.0, s, 0.5, 2, 4, 0.9),
+        "spots_step": lambda: N.spots(pos, 1.0, s, 0.3, 0, 3, 1.0, S.STEP),
+        "spots_linear": lambda: N.spots(pos, 1.0, s, 0.3, 1, 3, 1.0, S.LINEAR),
+        "spots_quadratic": lambda: N.spots(pos, 1.0, s, 0.3, 0, 2, 0.7, S.QUADRATIC),
+        "vector_noise": lambda: N.vector_noise(pos[:, 0], pos[:, 1], pos[:, 2]),
+        "random_grid": lambda: N.random_grid(pos[:, 0], pos[:, 1], pos[:, 2], 17.0),
+        "repeater_perlin_bounded": lambda: N.repeater_perlin_bounded(p01, 1.0, s, 5, 2.0, 0.5, 0.3),
+        "repeater_perlin_abs": lambda: N.repeater_perlin_abs(p01, 1.0, s, 4, 2.0, 0.5),
+        "repeater_simplex": lambda: N.repeater_simplex(p01, 1.0, s, 4, 2.0, 0.5),
+        "repeater_simplex_abs": lambda: N.repeater_simplex_abs(p01, 1.0, s, 4, 2.0, 0.5),
+        "repeater_simplex_bounded": lambda: N.repeater_simplex_bounded(p01, 1.0, s, 4, 2.0, 0.5, 0.2),
+        "fractal_simplex": lambda: N.fractal_simplex(p01, 1.0, s, 0.05, 8, 2.0, 0.5),
+        "turbulence": lambda: N.turbulence(p01, 0.5, 0.25, s, 3.0, B.WORLEY, B.CUBICVALUE),
+        "repeater_turbulence": lambda: N.repeater_turbulence(p01, 0.5, 1.0, s, 2.0, 2, B.PERLIN, B.SIMPLEX),
+    }
+    for b in B:
+        cases[f"repeater_{b.name}"] = (lambda b=b: N.repeater(p01, 1.0, s, 2, 2.0, 0.5, b))
+    return cases
+
+
+def phase_noise_library(dev):
+    """Every noise beyond the worldgen subset on the card against the CPU,
+    on the same 65,536 points (small, medium and large coordinates)."""
+    import numpy as np
+    import torch
+
+    from voxelengine_tpu_torch.ops import noise as N
+
+    rng = np.random.default_rng(21)
+    third = NOISE_POINTS // 3
+    pts = np.concatenate([rng.uniform(-4, 4, (third, 3)), rng.uniform(-600, 600, (third, 3)),
+                          rng.uniform(-2e5, 2e5, (NOISE_POINTS - 2 * third, 3))]).astype(np.float32)
+    cpu_pos = torch.from_numpy(pts)
+    cpu = noise_cases(N, cpu_pos, cpu_pos * 0.01)
+    card_pos = cpu_pos.to(dev)
+    card = noise_cases(N, card_pos, card_pos * 0.01)
+    diffs = {}
+    for name, fn in cpu.items():
+        a, b = fn(), card[name]().cpu()
+        diffs[name] = int((a != b).sum()) if a.shape == b.shape else -1
+    bad = {k: v for k, v in diffs.items() if v}
+    say(f"noise library: {len(diffs)} functions on {NOISE_POINTS} points, card against CPU (tolerance: bit-equal): "
+        f"{sum(1 for v in diffs.values() if v == 0)} with 0 diffs{'; differing: ' + json.dumps(bad) if bad else ''}")
+    if bad:
+        raise SystemExit("noise library: the card's values differ from the CPU's")
+
+
+def test_world_2d():
+    """``tests/test_dda2d.py``'s 64^2 world (its fixture's seed)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0xC0FFEE)
+    dense = rng.random((64, 64)) < 0.05
+    dense[26:38, 26:38] = False
+    dense[0, :] = dense[-1, :] = True
+    dense[:, 0] = dense[:, -1] = True
+    return dense
+
+
+def trace_diffs(got, want) -> dict:
+    h, s, n, p = full_diffs(got, want)
+    return dict(hit=h, steps=s, normal=n, position=p)
+
+
+def phase_2d(dev, tmp):
+    """K1 and K2 on 2D worlds against the plain walk, the two-level against
+    single-level property, the 2D demo; returns their records."""
+    import numpy as np
+    import torch
+
+    from voxelengine_tpu_torch.apps import dda2d_demo
+    from voxelengine_tpu_torch.config import MAX_STEPS
+    from voxelengine_tpu_torch.kernels import bigtrace, gridtrace
+    from voxelengine_tpu_torch.ops import dda2d
+    from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines
+    from voxelengine_tpu_torch.ops.trace import trace_brickmap, trace_grid
+
+    card = card_line()
+    W, f, n = DEMO_2D
+    worlds = {
+        "64^2 test world": (torch.from_numpy(test_world_2d()).to(dev), (32.0, 32.0), 256),
+        f"{W}^2 demo world": (dda2d_demo.make_world(W, dev), (W / 2.0, W / 2.0), n),
+    }
+    for name, (dense, center, count) in worlds.items():
+        g, bm = dda2d.grid2d_from_dense(dense), dda2d.brickmap2d_from_dense(dense, f)
+        lt = materialize_brick_lines(bm, make_line_table(bm))
+        o, r = dda2d.radial_rays(center, count)
+        o3, r3 = dda2d._lift(o, r, dev)
+        k1, k2 = dda2d.trace_brickmap_2d(bm, o, r, lt=lt), dda2d.trace_grid_2d(g, o, r)
+        p1, p1_ms = events_ms(lambda: trace_brickmap(bm, o3, r3))
+        p2, p2_ms = events_ms(lambda: trace_grid(g, o3, r3))
+        d1, d2 = trace_diffs(k1, p1), trace_diffs(k2, p2)
+        say(f"2D ({name}, {count} radial rays, grid {g.dims}, brickmap {bm.grid_dims} chunks at factor {f}, "
+            f"{lt.num_regions} regions): K1 against the plain trace_brickmap {json.dumps(d1)}, K2 against the plain "
+            f"trace_grid {json.dumps(d2)} (tolerance: bit-equal); hits {int(k1.hit.sum())}, on {card}")
+        if any(d1.values()) or any(d2.values()):
+            raise SystemExit(f"2D ({name}): a kernel differs from the plain walk")
+        if count == 256:  # tests/test_dda2d.py:29-47 on the card
+            far = int(((k2.position[:, :2] - k1.position[:, :2]).abs().amax(dim=1) > 2e-3).sum())
+            ok = bool(torch.equal(k1.hit, k2.hit) and k2.hit.all() and (k2.position[:, 2] == 0.5).all()
+                      and far <= 4)
+            say(f"2D ({name}): two-level against single-level: hits equal and all hit, z never stepped, "
+                f"{far} corner-degenerate rays beyond 2e-3 (at most 4 allowed): {ok}")
+            if not ok:
+                raise SystemExit("2D: the two-level trace breaks the single-level property")
+            continue
+        args, kw = line_kernel_args(bm, lt, o3, r3, MAX_STEPS)
+        k1_ms = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
+        k2_ms = cuda_ms(lambda: gridtrace.gridtrace(o3, r3, g.words, dims=g.dims, layout=g.layout,
+                                                    max_steps=MAX_STEPS), repeats=10)
+        # each kernel's path, counts at 0 just before: the 2D demo (K1: a
+        # warm-up and a timed trace) and trace_grid_2d (K2)
+        bigtrace.launches = 0
+        dda2d_demo.main(["--world", str(W), "--factor", str(f), "--rays", str(n), "--out", str(Path(tmp) / "dda2d.ppm"),
+                         "--device", str(dev)])
+        k1_launches = bigtrace.launches
+        gridtrace.launches = 0
+        dda2d.trace_grid_2d(g, o, r)
+        k2_launches = gridtrace.launches
+        say(f"2D ({name}): K1 alone {k1_ms:.3f} ms ({n / k1_ms / 1e3:.1f} Mrays/s), plain trace_brickmap "
+            f"{p1_ms:.1f} ms; K2 alone {k2_ms:.3f} ms ({n / k2_ms / 1e3:.1f} Mrays/s), plain trace_grid "
+            f"{p2_ms:.1f} ms (CUDA events); the demo launched K1 {k1_launches} times, trace_grid_2d K2 "
+            f"{k2_launches} time(s), on {card}")
+        return [
+            kernel_entry("bigtrace_2d", "bigtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1348", k1_launches,
+                         0.0, k1_ms, p1_ms, n,
+                         hit_table_bytes(k1, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick),
+                         int(k1.steps.sum())),
+            kernel_entry("gridtrace_2d", "gridtrace.cu", "voxelengine_tpu/ops/pallas_trace.py:329", k2_launches,
+                         0.0, k2_ms, p2_ms, n, hit_table_bytes(k2, g.dims, g.layout), int(k2.steps.sum()),
+                         ray_bytes=grid_ray_bytes(o3, r3)),
+        ]
+
+
+def phase_crossings(dev):
+    """The record instantiation of K1's loop against its plain version on 32
+    rays of the demo world and of the sparse 16k world, macro on and off,
+    its results against K1's; returns its record."""
+    import torch
+
+    from voxelengine_tpu_torch.config import MAX_STEPS
+    from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
+    from voxelengine_tpu_torch.kernels import bigtrace, crossings
+    from voxelengine_tpu_torch.ops import crossing_trace as C
+    from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines
+
+    card = card_line()
+    demo = build_brickmap_terrain_compact(WORLDS["demo"][0], 32, device=dev)
+    sparse = sparse_world(dev)
+    rays = {"demo": random_rays(WORLDS["demo"][0], CROSSING_RAYS, 1.5, 401, dev),
+            "sparse 16k": sparse_rays(CROSSING_RAYS, dev)}
+    timing = None
+    for name, bm in (("demo", demo), ("sparse 16k", sparse)):
+        lt = materialize_brick_lines(bm, make_line_table(bm))
+        o, d = rays[name]
+        for use_macro in (True, False):
+            rec, p_ms = events_ms(lambda: C.record_crossings(bm, lt, o, d, MAX_STEPS, use_macro))
+            plain, plain_ms = events_ms(lambda: C._record_plain(bm, lt, o, d, MAX_STEPS, use_macro))
+            args, kw = line_kernel_args(bm, lt, o, d, MAX_STEPS)
+            k1 = bigtrace.bigtrace(*args, use_macro=use_macro, **kw)
+            nrows = rec[1].long()
+            row_diffs = sum(int((rec[0][i, :nrows[i]] != plain[0][i, :nrows[i]]).any(dim=1).sum())
+                            for i in range(o.shape[0]))
+            out_diffs = [int((a != b).reshape(a.shape[0], -1).any(dim=1).sum()) for a, b in zip(rec[2:], plain[2:])]
+            k1_diffs = [int((a != b).reshape(a.shape[0], -1).any(dim=1).sum()) for a, b in zip(rec[2:], k1)]
+            last = rec[0][torch.arange(o.shape[0], device=dev), (nrows - 1).clamp_min(0)]
+            ran = nrows > 0
+            last_diffs = int(((last[:, C.STEPS] != k1[3]) & ran).sum()
+                             + (((last[:, C.STATE] >> 2) & 1 != (k1[0] & 1)) & ran).sum())
+            say(f"record kernel ({name} world, macro {'on' if use_macro else 'off'}, {o.shape[0]} rays, "
+                f"{int(nrows.sum())} rows): rows against the plain record {row_diffs} diffs, row counts "
+                f"{int((rec[1] != plain[1]).sum())} diffs, results {out_diffs}; results against K1 {k1_diffs}, "
+                f"last rows' steps and hit against K1 {last_diffs} (tolerance: bit-equal); record {p_ms:.2f} ms, "
+                f"plain {plain_ms:.1f} ms (CUDA events), on {card}")
+            if row_diffs or int((rec[1] != plain[1]).sum()) or any(out_diffs) or any(k1_diffs) or last_diffs:
+                raise SystemExit(f"record kernel ({name}, macro {use_macro}): differs from its plain version or K1")
+            if timing is None:
+                timing = (bm, lt, o, d, use_macro, int(nrows.sum()), plain_ms)
+    bm, lt, o, d, use_macro, rows, plain_ms = timing
+    args, kw = line_kernel_args(bm, lt, o, d, MAX_STEPS)
+    ms = cuda_ms(lambda: crossings.crossings(*args, use_macro=use_macro, max_rows=C.iter_limit(MAX_STEPS), **kw),
+                 repeats=5)
+    crossings.launches = 0  # its path: one dump through the entry point
+    dump = C.trace_ray_crossings(bm, lt, o[0], d[0], MAX_STEPS)
+    launches = crossings.launches
+    say(f"record kernel: {ms:.3f} ms for {o.shape[0]} rays ({ms / o.shape[0]:.3f} ms a ray, one thread a ray), "
+        f"plain {plain_ms:.1f} ms; trace_ray_crossings: {dump['iterations']} rows, hit {dump['hit']}, launched it "
+        f"{launches} time(s), on {card}")
+    # a one-thread diagnostic: its least time is the bytes it writes (the
+    # rows, the row counts and the results) and reads (the rays)
+    n = o.shape[0]
+    out_bytes = rows * C.FIELDS * 4 + n * (4 + RAY_BYTES)
+    return {
+        "name": "crossings", "route": "cuda", "source": "voxelengine_tpu_torch/csrc/crossings.cu",
+        "replaces": "voxelengine_tpu/ops/crossing_trace.py:67 (pallas_bigtrace.py:753)", "launches": launches,
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": out_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None, "rays": n, "rows": rows, "ms_per_ray": ms / n,
+    }
+
+
+def phase_apps(dev, tmp):
+    """The ported app headless under a scripted input (default flags with
+    shadows, AO 4 and reflections; --dense; --xla-trace; --macro auto), its
+    edits against ``apply_edits`` on a copy, and ``bench_configs``."""
+    import os
+
+    import torch
+
+    from voxelengine_tpu_torch.apps import bench_configs, voxel_app
+    from voxelengine_tpu_torch.core.brickmap import apply_edits
+    from voxelengine_tpu_torch.engine.raytracer import VoxelRaytracer3D
+    from voxelengine_tpu_torch.io.checkpoint import load_world
+    from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, gridtrace
+    from voxelengine_tpu_torch.ops.bigtrace import make_line_table
+    from voxelengine_tpu_torch.runtime.input import ScriptedInput
+
+    card = card_line()
+    edits = []
+    real_edit = VoxelRaytracer3D.edit_voxels
+
+    def recorded(self, x, y, z, value):
+        edits.append((int(x[0]), int(y[0]), int(z[0]), bool(value)))
+        return real_edit(self, x, y, z, value)
+
+    runs = {
+        "default --shadows --ao 4 --reflections": (["--shadows", "--ao", "4", "--reflections"], bigtrace),
+        "--dense (128^3)": (["--dense", "--size", "128", "128", "128"], gridtrace),
+        "--xla-trace": (["--xla-trace"], bmtrace),
+        "--macro auto": (["--macro", "auto"], bigtrace),
+    }
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    VoxelRaytracer3D.edit_voxels = recorded
+    real_input = voxel_app.best_input
+    voxel_app.best_input = lambda scripted=None: ScriptedInput(APP_SCRIPT)
+    frame_ms = None
+    try:
+        for name, (flags, kernel) in runs.items():
+            edits.clear()
+            kernel.launches = 0  # the run is the kernel's path
+            run = voxel_app.main(["--frames", str(len(APP_SCRIPT)), "--record", *flags])
+            launches = kernel.launches
+            ms = run.seconds * 1e3 / run.frames
+            fb_ok = bool(torch.isfinite(run.framebuffer).all())
+            line = (f"app ({name}): {run.frames} frames, {ms:.2f} ms/frame (host clock, frames presented, device "
+                    f"synchronised at the end), {kernel.__name__.split('.')[-1]} launched {launches} times, "
+                    f"{len(edits)} crosshair edits, framebuffer finite: {fb_ok}")
+            if run.rt is not None and edits:
+                X, Y, Z = run.rt.world.world_dims
+                base = load_world(f".worlds_cache/terrain_{X}x{Y}x{Z}_f32_o32.npz", dev)
+                want = apply_edits(base, *(torch.tensor([e[k] for e in edits], device=dev) for k in range(3)),
+                                   torch.tensor([e[3] for e in edits], device=dev))
+                same = all(torch.equal(getattr(run.rt.world, k), getattr(want, k)) for k in ("meta", "brick_idx",
+                                                                                             "bricks"))
+                lt_want, lt_got = make_line_table(want), run.rt.line_table
+                same_lt = lt_got is None or all(torch.equal(getattr(lt_got, k), getattr(lt_want, k))
+                                                for k in ("region_lines", "macro", "macro2"))
+                line += f"; world after the edits equals apply_edits on a copy: {same}, its line table: {same_lt}"
+                if not (same and same_lt):
+                    raise SystemExit(f"app ({name}): the edited world differs from apply_edits on a copy")
+            say(line + f", on {card}")
+            if launches < 1 or not fb_ok or (run.rt is not None and len(edits) != 2):
+                raise SystemExit(f"app ({name}): no kernel launch, a non-finite frame or the crosshair edits missed")
+            frame_ms = frame_ms or ms
+        VoxelRaytracer3D.edit_voxels = real_edit
+        for fn in (bench_configs.config1, bench_configs.config2, bench_configs.config3, bench_configs.config5):
+            t0 = time.perf_counter()
+            line = fn()
+            say(f"bench_configs [{fn.__name__}] {line} (setup+run {time.perf_counter() - t0:.1f} s), on {card}")
+            if fn is bench_configs.config1 and not line.startswith("oracle parity: 100/100"):
+                raise SystemExit("bench_configs config1: the kernel's hits differ from the oracle's")
+    finally:
+        VoxelRaytracer3D.edit_voxels = real_edit
+        voxel_app.best_input = real_input
+        os.chdir(cwd)
+    return frame_ms
+
+
+def phase_remainder(dev):
+    """Phase 12: the single-device remainder; returns the new kernel
+    records."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    phase_noise_library(dev)
+    (ROOT / "_checkout").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="remainder_", dir=ROOT / "_checkout")
+    try:
+        kernels = phase_2d(dev, tmp)
+        kernels.append(phase_crossings(dev))
+        frame_ms = phase_apps(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"single-device remainder: {time.perf_counter() - t0:.1f} s; the app at its defaults with shadows, AO 4 "
+        f"and reflections: {frame_ms:.2f} ms/frame, on {card_line()}")
+    return kernels
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -1751,6 +2092,7 @@ def main(argv=None):
     kernels += phase_bmtrace(dev)
     kernels.append(phase_sparse(dev))
     kernels += phase_app_frame(dev)
+    kernels += phase_remainder(dev)
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise SystemExit(f"kernels never launched on their path: {idle}")

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of voxelengine_tpu.
+"""PyTorch/CUDA port of the ``voxelengine_tpu`` package.
 
 Mirrors the JAX package's layout and function names; imports torch and
 never JAX.  Plain tensor code is torch; the traversal kernel is hand-written

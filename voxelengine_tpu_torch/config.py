@@ -1,6 +1,6 @@
 """Runtime configuration for the PyTorch port.
 
-Counterpart of :mod:`voxelengine_tpu.config`.  Same enums, constants and
+Counterpart of ``voxelengine_tpu/config.py``.  Same enums, constants and
 field names; ``Environment`` holds torch tensors.  Entry points that make
 tensors take a ``device`` that defaults to :func:`default_device`, the
 card; the CPU is used only when the caller names it.

@@ -1,4 +1,4 @@
-"""Bit-packed voxel occupancy: counterpart of :mod:`voxelengine_tpu.core.bitgrid`.
+"""Bit-packed voxel occupancy: counterpart of ``voxelengine_tpu/core/bitgrid.py``.
 
 One bit per voxel, 32 to a word, LSB first (``VolumeRaytracer.cu:61-73``),
 the bit index given by a :class:`~voxelengine_tpu_torch.core.layout.Layout`

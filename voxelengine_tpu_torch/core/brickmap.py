@@ -1,4 +1,4 @@
-"""Two-level brickmap world: counterpart of :mod:`voxelengine_tpu.core.brickmap`.
+"""Two-level brickmap world: counterpart of ``voxelengine_tpu/core/brickmap.py``.
 
 Three flat tensors on one device:
 
@@ -370,7 +370,7 @@ def build_brickmap_terrain_compact(
     brick_layout, octaves, seed, device)`` replaces the slab source (the
     smoke run passes :func:`terrain_slab_chunks_plain` to build the same
     world through the plain path on the card).  Matches
-    :func:`voxelengine_tpu.core.brickmap.build_brickmap_terrain_compact`
+    ``voxelengine_tpu/core/brickmap.py::build_brickmap_terrain_compact``
     bit for bit."""
     f = factor
     brick_layout = choose_layout((f, f, f), brick_layout)
@@ -395,7 +395,7 @@ def build_brickmap_terrain(
     chunk-row z-slab at a time on ``device``: each slab's chunks from W1 on
     a CUDA device (:func:`terrain_slab_chunks`), from the plain worldgen and
     reduction on the CPU.  Matches
-    :func:`voxelengine_tpu.core.brickmap.build_brickmap_terrain` bit for
+    ``voxelengine_tpu/core/brickmap.py::build_brickmap_terrain`` bit for
     bit."""
     f = factor
     brick_layout = choose_layout((f, f, f), brick_layout)

@@ -1,6 +1,6 @@
 """Memory-layout / swizzle functions for voxel sample indices.
 
-Counterpart of :mod:`voxelengine_tpu.core.layout` (the reference's
+Counterpart of ``voxelengine_tpu/core/layout.py`` (the reference's
 ``GetSampleIndex``, ``VolumeRaytracer.cuh:25-171``).  Three layouts:
 
 * ``TILED_LINEAR`` — 8^3 tiles, linear within tile and across tiles

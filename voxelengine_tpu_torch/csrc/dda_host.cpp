@@ -1,4 +1,4 @@
-// Host build of dda.cuh, grid_dda.cuh and ray_setup.cuh: the Hopper kernels'
+// Host build of dda.cuh, crossings.cuh, grid_dda.cuh and ray_setup.cuh: the Hopper kernels'
 // per-ray logic compiled by a C++ compiler (-ffp-contract=off), so the CPU
 // tests can hold it against the plain torch traces and the JAX package
 // before the kernels ever run on the card.  One entry per kernel, taking its
@@ -9,6 +9,7 @@
 #include <cstring>
 #include <vector>
 
+#include "crossings.cuh"
 #include "dda.cuh"
 #include "grid_dda.cuh"
 
@@ -172,6 +173,33 @@ extern "C" int vx_trace_host(const float* start, const float* dir, const int* ac
                     ++i;
                     return r;
                   });
+}
+
+// The record instantiation (crossings.cu::vx_trace_crossings), ray by ray.
+extern "C" int vx_trace_crossings_host(const float* start, const float* dir, const int* active,
+                                       const int* pad, const int* region_lines,
+                                       const int* brick_lines, const int* macro,
+                                       const int* macro2, int n, int gx, int gy, int gz, int rx,
+                                       int ry, int rz, int factor, int wpb, int max_steps,
+                                       int brick_layout, int iter_limit, int use_macro,
+                                       int max_rows, int* rows, int* nrows, int* flags,
+                                       float* pos, float* normal, int* steps) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  for (int i = 0; i < n; ++i) {
+    vx::TraceResult r;
+    const float* s = start + 3 * i;
+    const float* d = dir + 3 * i;
+    const int* p = pad + 3 * i;
+    int* block = rows + (long long)i * max_rows * vx::C_FIELDS;
+    nrows[i] = use_macro
+        ? vx::record_crossings<true>(P, F, s[0], s[1], s[2], d[0], d[1], d[2], active[i], p[0],
+                                     p[1], p[2], max_rows, block, &r)
+        : vx::record_crossings<false>(P, F, s[0], s[1], s[2], d[0], d[1], d[2], active[i], p[0],
+                                      p[1], p[2], max_rows, block, &r);
+    store(r, i, flags, pos, normal, steps);
+  }
+  return 0;
 }
 
 // K5 (rrtrace.cu::vx_rrtrace) as one warp runs it: the per-lane refill

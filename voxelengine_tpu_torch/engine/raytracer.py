@@ -1,5 +1,5 @@
 """Engine object and batch ray queries: counterpart of
-:mod:`voxelengine_tpu.engine.raytracer`.
+``voxelengine_tpu/engine/raytracer.py``.
 
 ``VoxelRaytracer3D`` mirrors ``GPUDDA::VoxelRaytracer3D``
 (``VolumeRaytracer.cuh:291-377``): upload a brickmap world once, fire ray

@@ -1,5 +1,5 @@
 """World and line-table checkpoints: counterpart of
-:mod:`voxelengine_tpu.io.checkpoint`.
+``voxelengine_tpu/io/checkpoint.py``.
 
 The same files as the JAX package, so a cache written by either package
 loads in the other:

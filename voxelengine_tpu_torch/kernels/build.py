@@ -35,7 +35,7 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 # library name -> source; each CUDA library holds the kernels of one source
 KERNEL_SOURCES = {
     "bigtrace": "bigtrace.cu", "rrtrace": "rrtrace.cu", "gridtrace": "gridtrace.cu", "bmtrace": "bmtrace.cu",
-    "terrain": "terrain.cu",
+    "terrain": "terrain.cu", "crossings": "crossings.cu",
 }
 # host library name -> source (g++): the kernels' per-ray and per-voxel logic
 HOST_SOURCES = {"dda_host": "dda_host.cpp", "terrain_host": "terrain_host.cpp"}
@@ -50,6 +50,8 @@ _LINE_TABLE_INTS = [_I] * 13
 SIGNATURES = {
     # ... outputs, diag (null, or int32[11, n])
     "vx_bigtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
+    # ... max_rows, rows, nrows, outputs (the record instantiation of K1's loop)
+    "vx_trace_crossings": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P, _P] + _OUTS,
     # ... refill, counter (int32 scratch), stats (null, or uint64[2]), outputs
     "vx_rrtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P, _P] + _OUTS,
     # origins, its row stride, rays, its row stride, words; n, X, Y, Z,
@@ -72,6 +74,7 @@ SIGNATURES = {
 HOST_ENTRIES = {
     "vx_trace_host": SIGNATURES["vx_bigtrace"],
     "vx_rrtrace_host": SIGNATURES["vx_rrtrace"],
+    "vx_trace_crossings_host": SIGNATURES["vx_trace_crossings"],
     "vx_trace_grid_full_host": SIGNATURES["vx_trace_grid"],
     "vx_trace_grid_limbs_full_host": SIGNATURES["vx_trace_grid_limbs"],
     "vx_trace_brickmap_dense_host": _RAYS + [_P] * 2 + [_I] * 10 + _OUTS,

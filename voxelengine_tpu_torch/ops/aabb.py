@@ -1,4 +1,4 @@
-"""Ray/AABB slab intersection: counterpart of :mod:`voxelengine_tpu.ops.aabb`.
+"""Ray/AABB slab intersection: counterpart of ``voxelengine_tpu/ops/aabb.py``.
 
 The reference's ``RayIntersectsAABB`` (``VolumeRaytracer.cu:124-174``): a
 zero direction component is replaced by FLT_EPSILON before the reciprocal,

@@ -1,4 +1,4 @@
-"""Line-table traversal: counterpart of :mod:`voxelengine_tpu.ops.pallas_bigtrace`.
+"""Line-table traversal: counterpart of ``voxelengine_tpu/ops/pallas_bigtrace.py``.
 
 The world is kept as 4 KB *lines* of ``[8, 128]`` int32 words: one line per
 8x8x8-chunk *region* (512 packed meta words, then 512 brick-slot words),
@@ -480,6 +480,20 @@ def _kernel_tables(bm: BrickMap, lt: LineTable, max_steps: int, use_macro: bool)
     return (lt.region_lines, brick_lines, lt.macro, lt.macro2), kw
 
 
+def trace_brickmap_k1(bm: BrickMap, lt: LineTable, origins: torch.Tensor, rays: torch.Tensor, max_steps: int,
+                      use_macro: bool, diag: bool = False):
+    """One K1 launch (ray setup, kernel, ``hit_imm`` fix-up) whatever the
+    rays' device: :func:`trace_brickmap_hbm`'s card branch.  Returns the
+    :class:`TraceOut`, with ``diag`` also the ``int32[11, N]`` counters."""
+    from voxelengine_tpu_torch.kernels import bigtrace as k1
+
+    start_c, d, active, pad, start_normal = _kernel_rays(bm, origins, rays)
+    tables, kw = _kernel_tables(bm, lt, max_steps, use_macro)
+    outs = k1.bigtrace(start_c, d, active, pad, *tables, diag=diag, **kw)
+    res = kernel_result(*outs[:4], start_c, start_normal, bm.factor)
+    return (res, outs[4]) if diag else res
+
+
 def trace_brickmap_hbm(
     bm: BrickMap,
     lt: LineTable,
@@ -513,14 +527,7 @@ def trace_brickmap_hbm(
         else:
             res = trace_brickmap(bm, origins, rays, max_steps)
     else:
-        from voxelengine_tpu_torch.kernels import bigtrace as k1
-
-        start_c, d, active, pad, start_normal = _kernel_rays(bm, origins, rays)
-        tables, kw = _kernel_tables(bm, lt, max_steps, use_macro)
-        outs = k1.bigtrace(start_c, d, active, pad, *tables, diag=diag, **kw)
-        res = kernel_result(*outs[:4], start_c, start_normal, bm.factor)
-        if diag:
-            res = (res, outs[4])
+        res = trace_brickmap_k1(bm, lt, origins, rays, max_steps, use_macro, diag)
     if not diag:
         return res
     res, dg = res

@@ -1,4 +1,4 @@
-"""Dense-grid traversal: counterpart of :mod:`voxelengine_tpu.ops.pallas_trace`.
+"""Dense-grid traversal: counterpart of ``voxelengine_tpu/ops/pallas_trace.py``.
 
 :func:`trace_grid_vpu` and :func:`trace_grid_mxu` keep the JAX names so a
 reader finds their counterparts; the TPU units in the names (the VPU's

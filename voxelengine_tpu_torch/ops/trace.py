@@ -1,6 +1,6 @@
 """Brickmap and dense-grid ray traversal in plain torch.
 
-Counterpart of :func:`voxelengine_tpu.ops.trace.trace_brickmap`: the same
+Counterpart of ``voxelengine_tpu/ops/trace.py::trace_brickmap``: the same
 flattened state machine (coarse DDA over chunks; descend into a chunk's
 tight AABB; fine DDA over brick bits; resume the coarse walk on ascend),
 one DDA event per ray per iteration, with the reference's tie-breaks and
@@ -335,7 +335,7 @@ def trace_grid(
     """Single-level DDA through a dense bit grid (the reference's plain
     ``DDARayTraversal``, ``VolumeRaytracer.cu:176-352``) with the two-level
     path's world-AABB entry clip.  Counterpart of
-    :func:`voxelengine_tpu.ops.trace.trace_grid`; ``origins``/``rays`` are
+    ``voxelengine_tpu/ops/trace.py::trace_grid``; ``origins``/``rays`` are
     ``f32[N, 3]`` in voxel units on the grid's device.  A hit at the start
     cell reports the clipped start and the world-entry normal.
     """

@@ -1,4 +1,4 @@
-"""On-chip two-level traversal: counterpart of :mod:`voxelengine_tpu.ops.pallas_trace2`.
+"""On-chip two-level traversal: counterpart of ``voxelengine_tpu/ops/pallas_trace2.py``.
 
 :func:`trace_brickmap_mxu` keeps the JAX name (on the TPU both tables sit
 in VMEM and every lookup is a one-hot MXU matmul); here rays on a CUDA

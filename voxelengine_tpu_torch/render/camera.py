@@ -1,4 +1,4 @@
-"""Camera model: counterpart of :mod:`voxelengine_tpu.render.camera`.
+"""Camera model: counterpart of ``voxelengine_tpu/render/camera.py``.
 
 Euler pitch/yaw to a (forward, up, right) basis with the reference's signs
 (forward and up negated, ``Renderer.cu:39-41``), the perspective pinhole

@@ -1,6 +1,6 @@
 """Frame rendering: primary rays -> traversal -> shading -> framebuffer.
 
-Counterpart of :mod:`voxelengine_tpu.render.frame` (the reference's
+Counterpart of ``voxelengine_tpu/render/frame.py`` (the reference's
 ``screenDispatch`` + ``RenderScreen``, ``Renderer.cu:179-328``):
 
 * checkerboard row remap ``y = 2*y' + (x even) + (frame even)`` with the

@@ -1,4 +1,4 @@
-"""Stateful render facade: counterpart of :mod:`voxelengine_tpu.render.graphics`
+"""Stateful render facade: counterpart of ``voxelengine_tpu/render/graphics.py``
 (``GPUDDA::Graphics``, ``Renderer.cuh:39-55``).
 
     g = Graphics(width=1280, height=720)

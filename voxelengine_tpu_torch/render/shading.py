@@ -1,4 +1,4 @@
-"""Hit shading: counterpart of :mod:`voxelengine_tpu.render.shading`.
+"""Hit shading: counterpart of ``voxelengine_tpu/render/shading.py``.
 
 ``calculateColor`` + ``Tonemap`` (``Renderer.cu:89-177``): Lambert diffuse,
 hemispheric ambient keyed on world up, Phong-style specular (exponent 32)

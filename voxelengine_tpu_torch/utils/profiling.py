@@ -1,4 +1,4 @@
-"""Profiling / metrics utilities: counterpart of :mod:`voxelengine_tpu.utils.profiling`.
+"""Profiling / metrics utilities: counterpart of ``voxelengine_tpu/utils/profiling.py``.
 
 The reference's instrumentation (``main.cu:22-32`` timing brackets, the
 kernel timing printout ``VolumeRaytracer.cu:587-595``, the EMA frame-time
@@ -35,6 +35,29 @@ def timed(label: str, sink: Dict[str, float] | None = None, verbose: bool = True
         sink[label] = ms
     if verbose:
         print(f"{label}: {ms:.2f}ms")
+
+
+def device_ms(fn, reps: int = 1, device=None):
+    """``(fn(reps - 1), ms)``: the mean time of ``fn(k)`` for ``k`` in
+    ``range(reps)``, after one untimed ``fn(reps)`` (a first launch also
+    loads its kernel).  On a CUDA ``device`` by CUDA events; otherwise by
+    the host clock."""
+    dev = torch.device(device) if device is not None else None
+    cuda = dev is not None and dev.type == "cuda"
+    fn(reps)
+    out = None
+    if cuda:
+        torch.cuda.synchronize(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    for k in range(reps):
+        out = fn(k)
+    if cuda:
+        end.record()
+        torch.cuda.synchronize(dev)
+        return out, start.elapsed_time(end) / reps
+    return out, (time.perf_counter() - t0) * 1000.0 / reps
 
 
 @dataclass

@@ -1,4 +1,4 @@
-"""Procedural terrain: counterpart of :mod:`voxelengine_tpu.worldgen.terrain`.
+"""Procedural terrain: counterpart of ``voxelengine_tpu/worldgen/terrain.py``.
 
 The reference's rule exactly (``VoxelWorldBuilder.cu:17-34``):
 ``t = repeaterPerlin(pos * 0.005, 1.0, seed, octaves, 2.0, 0.5) * 1000``,
