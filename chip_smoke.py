@@ -94,7 +94,26 @@ Phases, one stdout line each (plus the kernels' build logs):
    ``--xla-trace`` and ``--macro auto``, its edits against ``apply_edits``
    on a copy of the cached world; the 2D demo and ``bench_configs``
    (configs 1, 2, 3, 5).  Frames and caches go to a temporary directory
-   under ``_checkout/``, removed at the end.
+   under ``_checkout/``, removed at the end;
+13. multi-device (``voxelengine_tpu_torch/parallel/``): 4 ranks
+   (processes, ``parallel/mesh.py::run_ranks``) sharing the one card over
+   gloo, collectives staged through host memory, each loading the bench
+   world from phase 5's cache: ``render_frame_sharded`` and
+   ``render_frame_cyclic`` at 1920x1080 through K1 (a warm-up plus 8
+   chained frames), the gathered framebuffer against single-device
+   ``render_frame`` at both parities; ``raytrace_sharded`` on 1,048,576
+   random rays and its mean against single-device K1; each rank's
+   ``make_zsharded_hbm`` row and ``trace_brickmap_hbm_zsharded`` (K1's
+   replicated walk) on a frame's rays against single-device K1; on the
+   1024^3 app world with dense slots, ``trace_brickmap_zsharded`` (ray
+   migration through K4-slab) on a 1280x720 frame's rays and 4,096
+   axis-aligned rays against single-device K4, K4-slab against its plain
+   slab walk on each rank's round-0 rays, and ``render_frame_zsharded``
+   with shadows, AO 4 and reflections through K4-slab and through K1
+   (and primary-only through K1) against single-device frames; then the
+   same on 1 rank over NCCL (2 timed frames).  The parent builds every
+   kernel first, so ranks only load the libraries.  Its times are labelled
+   as ranks sharing one card: they measure no scale-out.
 
 Each kernel's path (the bench world's frames for K1, and the demo world's
 for its second record; the bench world's build for W1; the frames of
@@ -104,7 +123,9 @@ instantiation, the phase-9 128^3 batch for K4 with shared meta and its
 phase-11 frames for K1 with secondary rays, its ``raytrace`` for K1 on a
 batch, its TILED_LINEAR world's ``raytrace`` and frame for K4; the 2D demo for
 K1 on a 2D world, one ``trace_grid_2d`` call for K2 on it, one
-``trace_ray_crossings`` for the record kernel) runs
+``trace_ray_crossings`` for the record kernel; in phase 13 each sharded
+entry for K1 and the migration traces for K4-slab, counted in every rank)
+runs
 with the launch counts set to 0 just before it and read just after;
 launches made to compare or time a kernel are not counted.  Then the run's
 wall time, one JSON line describing each kernel (its time, its plain
@@ -127,8 +148,10 @@ import argparse
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -153,7 +176,8 @@ OPS_PER_STEP = 8
 EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
 # threads a block of each library's kernels (csrc/*.cu)
-BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256, "crossings": 32}
+BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256, "crossings": 32,
+                 "zslab": 128}
 # the app's frame (apps/voxel_app.py:64-68,178-188): the 1024^3 world at
 # factor 32, 1280x720, shadows, AO 4, reflections; the facade's batch size
 APP_WORLD = (1024, 1024, 1024)
@@ -716,7 +740,7 @@ def bench_world(dev, dims, cache: str, ms: dict):
     from voxelengine_tpu_torch.ops.bigtrace import materialize_brick_lines
     from voxelengine_tpu_torch.utils.profiling import timed
 
-    key = f"terrain_{dims[0]}x{dims[1]}x{dims[2]}_f32_o32_v1"  # bench.py:139
+    key = bench_key(dims)
     def build():
         with timed("world", ms, verbose=False, device=dev):
             return build_brickmap_terrain_compact(dims, 32, device=dev)
@@ -746,14 +770,17 @@ def bench_world(dev, dims, cache: str, ms: dict):
     return loaded, lt, launches, key
 
 
-def phase_main_path(dev, world: str):
+def bench_key(dims) -> str:
+    """The bench world's cache key (``bench.py:139``)."""
+    return f"terrain_{dims[0]}x{dims[1]}x{dims[2]}_f32_o32_v1"
+
+
+def phase_main_path(dev, world: str, cache=None):
     """The main path on ``world``: ``demo`` (the 1024^3 world, built through
-    W1) or ``full`` (the bench world through :func:`bench_world`, its macro
+    W1) or ``full`` (the bench world through :func:`bench_world` into the
+    cache directory ``cache``, which phase 13 reads again, its macro
     decision through ``memo_json``).  Returns K1's record and W1's launches
     on the world's build."""
-    import shutil
-    import tempfile
-
     import torch
 
     from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
@@ -764,10 +791,7 @@ def phase_main_path(dev, world: str):
     dims, W, H = WORLDS[world]
     name = f"{dims[0]}x{dims[1]}x{dims[2]}"
     ms = {}
-    cache = None
     if world == "full":
-        (ROOT / "_checkout").mkdir(exist_ok=True)
-        cache = tempfile.mkdtemp(prefix="world_cache_", dir=ROOT / "_checkout")
         bm, lt, w1_launches, key = bench_world(dev, dims, cache, ms)
     else:
         terrain.launches = 0
@@ -780,11 +804,7 @@ def phase_main_path(dev, world: str):
     say(f"main path ({world}): world {name} f32 built through W1 in {ms['world'] / 1e3:.2f} s ({w1_launches} W1 "
         f"launches; {bm.bricks.shape[0]} bricks, {bm.bricks.numel() * 4 / 1e9:.3f} GB); line table + brick lines "
         f"{ms['line table'] / 1e3:.2f} s ({lt.num_regions} regions), on {card_line()}")
-    try:
-        return main_path_frames(dev, world, bm, lt, cache and (cache, key)), w1_launches
-    finally:
-        if cache:
-            shutil.rmtree(cache, ignore_errors=True)
+    return main_path_frames(dev, world, bm, lt, (cache, key) if world == "full" else None), w1_launches
 
 
 def main_path_frames(dev, world, bm, lt, memo):
@@ -2063,6 +2083,433 @@ def phase_remainder(dev):
     return kernels
 
 
+# phase 13, multi-device: the port's torch.distributed layer on ranks that
+# share the one card (gloo, collectives staged through host memory), then
+# on one rank over NCCL.  Both check that the decompositions are exact at
+# full size; neither measures scaling across cards.
+MD_RANKS = 4
+MD_FRAMES = 8  # timed chained frames of each sharded layout, after the warm-up
+MD_NCCL_FRAMES = 2  # the NCCL rank's (depth cut: its gates are the same)
+MD_RAYS = 1 << 20  # raytrace_sharded's batch
+MD_AXIS_RAYS = 4096  # axis-aligned rays through every slab of the app world
+# K4-slab's bytes a ray in round 0: start, dir, pad (12 B each) and active
+# (4 B) in, status and result (32 B) out; and a paused ray's state row (35
+# words) out.  The kernel writes a row for every ray, but a ray that is done
+# needs none, so the bound counts the paused rays' rows only.
+SLAB_RAY_BYTES = 40 + 4 + 32
+SLAB_ROW_BYTES = 4 * 35
+
+
+def md_label(n: int, backend: str) -> str:
+    if backend == "gloo":
+        return f"{n} ranks sharing one card (gloo, host-staged): not a scale-out figure"
+    return f"{n} rank over NCCL on one card: not a scale-out figure"
+
+
+def md_in_turns(mesh, fn):
+    """``fn()`` on one rank at a time, the others waiting at a barrier (so a
+    kernel's time is not shared with the other ranks' work); returns this
+    rank's result."""
+    import torch.distributed as dist
+
+    out = None
+    for turn in range(mesh.size):
+        dist.barrier()
+        if turn == mesh.rank:
+            out = fn()
+    dist.barrier()
+    return out
+
+
+def md_k1_check(bm, lt, o, d, max_steps, use_macro, mesh, plain_on_rank):
+    """K1 alone on this rank's rays, timed in turns; on ``plain_on_rank``
+    also its plain version on the same rays (the gate: bit-equal) and its
+    time.  Returns a dict for the kernels line."""
+    from voxelengine_tpu_torch.kernels import bigtrace
+    from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_k1, trace_brickmap_lt
+
+    args, kw = line_kernel_args(bm, lt, o, d, max_steps)
+    ms = md_in_turns(mesh, lambda: cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=use_macro, **kw), repeats=10))
+    rec = {"ms": ms, "rays": o.shape[0]}
+    if mesh.rank == plain_on_rank:
+        got = trace_brickmap_k1(bm, lt, o, d, max_steps, use_macro)
+        want, p_ms = events_ms(lambda: trace_brickmap_lt(bm, lt, o, d, max_steps, use_macro))
+        diffs = compare(got, want)
+        rec.update(plain_ms=p_ms, diffs=list(diffs[:4]), err=diffs[4], steps=int(got.steps.sum()),
+                   hits=int(want.hit.sum()),
+                   table=hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick))
+    return rec
+
+
+def md_rank(mesh, cache, key, frames):
+    """One rank of phase 13 (see :func:`phase_multi_device`); returns its
+    measurements and gates as plain values."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from voxelengine_tpu_torch.config import Environment, RenderConfig
+    from voxelengine_tpu_torch.core.brickmap import BrickMap, build_brickmap_terrain
+    from voxelengine_tpu_torch.core.layout import Layout
+    from voxelengine_tpu_torch.io.checkpoint import generate_or_load, line_table_or_build
+    from voxelengine_tpu_torch.kernels import bigtrace, bmtrace
+    from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines, trace_brickmap_hbm
+    from voxelengine_tpu_torch.ops.trace import (
+        TraceOut, _dims, _edge_pad, _init_state, _ray_setup, kernel_result, run_slab, unpack_slab_state,
+    )
+    from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_mxu
+    from voxelengine_tpu_torch.parallel import distributed as D
+    from voxelengine_tpu_torch.parallel import sharded as S
+    from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, probe_use_macro, render_frame
+
+    dev, n, r = mesh.device, mesh.size, mesh.rank
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"rank": r}
+
+    def sync_wall(fn):
+        """``(fn(), host ms)`` from a barrier (ranks start together; rank 0's
+        single-device checks would otherwise count in the others' time)
+        to the end of the work on the card."""
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def not_cached():
+        raise RuntimeError("the bench world is not in phase 5's cache")
+
+    def load():
+        world = generate_or_load(cache, key, not_cached, device=dev)
+        return world, materialize_brick_lines(world, line_table_or_build(cache, key + "_lt1", world))
+
+    # the bench world and its line table from phase 5's cache
+    (bm, lt), out["load_ms"] = sync_wall(load)
+    out["frames"] = frames
+    dims, W, H = WORLDS["full"]
+    cfg = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
+    origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)  # bench.py:191-192
+    euler = torch.tensor([-0.25, 0.75, 0.0], device=dev)
+    po, pd, _, _, _ = primary_rays(cfg, origin, euler, 1)
+    use_macro = probe_use_macro(bm, lt, po, pd, cfg)
+    cfg = dataclasses.replace(cfg, trace_use_macro=use_macro)
+    out["use_macro"] = use_macro
+    env = Environment.default(dev)
+
+    # 1. the pixel-sharded frames: warm-up, timed chained frames, then the
+    # gate at both parities against single-device frames on rank 0
+    ref = {}
+    if r == 0:
+        fb1 = make_framebuffer(cfg, dev)
+        for i in range(frames + 2):
+            render_frame(bm, fb1, origin, euler + 1e-5 * i, env, i, cfg, lt=lt)
+            if i >= frames:
+                ref[i] = fb1.clone()
+    for kind in ("rows", "cyclic"):
+        render = S.render_frame_sharded if kind == "rows" else S.render_frame_cyclic
+        fb = S.make_framebuffer_rows(cfg, mesh) if kind == "rows" else S.make_framebuffer_cyclic(cfg, mesh)
+        bigtrace.launches = 0  # the path's launches
+        render(bm, fb, origin, euler, env, 0, cfg, mesh, lt)
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(1, frames + 1):
+            render(bm, fb, origin, euler + 1e-5 * i, env, i, cfg, mesh, lt)
+        end.record()
+        torch.cuda.synchronize(dev)
+        out[f"{kind}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / frames
+        out[f"{kind}_ms"] = start.elapsed_time(end) / frames
+        out[f"{kind}_launches"] = bigtrace.launches
+        diffs = []
+        for i in (frames, frames + 1):
+            if i > frames:
+                render(bm, fb, origin, euler + 1e-5 * i, env, i, cfg, mesh, lt)
+            img = S.gather_rows(fb, mesh)
+            if kind == "cyclic":
+                img = torch.from_numpy(S.cyclic_to_image(img, cfg)).to(dev)
+            if r == 0:
+                diffs.append(int((img != ref[i]).any(dim=-1).sum()))
+        out[f"{kind}_diffs"] = diffs
+        if r == 0:
+            out[f"{kind}_checksum"] = float(img.double().sum())
+        px, py_r = S.band_pixels(cfg, mesh, dev) if kind == "rows" else S.cyclic_pixels(cfg, mesh, dev)
+        o, d, _ = S._rays_for_pixels(cfg, origin, euler + 1e-5 * frames, frames, px, py_r, cfg.ortho_size)
+        out[f"{kind}_k1"] = md_k1_check(bm, lt, o.contiguous(), d, cfg.max_steps, use_macro, mesh, 0)
+    del ref
+
+    # 2. raytrace_sharded on random rays through K1, its mean
+    o, d = random_rays(dims, MD_RAYS, 1.5, 401, dev)
+    bigtrace.launches = 0
+    res, mean = S.raytrace_sharded(bm, o, d, mesh, cfg.max_steps, lt)
+    out["raytrace_launches"] = bigtrace.launches
+    got = TraceOut(*(S.gather_rows(f, mesh) for f in res))
+    if r == 0:
+        want = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps)
+        out["raytrace_diffs"] = list(full_diffs(got, want))
+        single = float(fdiv32(want.steps.to(torch.float32).sum(), MD_RAYS))
+        out["raytrace_mean"], out["raytrace_mean_single"] = float(mean), single
+    k = MD_RAYS // n
+    out["raytrace_k1"] = md_k1_check(bm, lt, o[r * k:(r + 1) * k].contiguous(), d[r * k:(r + 1) * k].contiguous(),
+                                     cfg.max_steps, True, mesh, 0)
+
+    # 3. the replicated walk over each rank's slab row, on a frame's rays
+    zw, out["zw_build_ms"] = sync_wall(lambda: D.make_zsharded_hbm(bm, n, r))
+    out["zw_bytes"] = sum(t.numel() * 4 for t in (zw.brick_lines_stack, zw.region_lines_stack))
+    bigtrace.launches = 0
+    zout, out["zw_trace_ms"] = sync_wall(lambda: D.trace_brickmap_hbm_zsharded(zw, po, pd, mesh, cfg.max_steps))
+    out["zw_launches"] = bigtrace.launches
+    if r == 0:
+        want = trace_brickmap_hbm(bm, lt, po, pd, cfg.max_steps, use_macro=True)
+        h = want.hit
+        out["zw_diffs"] = [int((zout.hit != want.hit).sum()), int((zout.normal[h] != want.normal[h]).any(1).sum()),
+                           int((zout.position[h] != want.position[h]).any(1).sum())]
+        out["zw_steps_over"] = int((zout.steps > want.steps).sum())
+        out["zw_steps_equal"] = float((zout.steps == want.steps).float().mean())
+    placeholder = BrickMap(meta=torch.zeros(1, dtype=torch.int32, device=dev),
+                           brick_idx=torch.zeros(1, dtype=torch.int32, device=dev),
+                           bricks=torch.zeros((1, bm.words_per_brick), dtype=torch.int32, device=dev),
+                           grid_dims=bm.grid_dims, factor=bm.factor, coarse_layout=Layout.LINEAR,
+                           brick_layout=bm.brick_layout, dense_slots=False)
+    out["zw_k1"] = md_k1_check(placeholder, zw.line_table(r), po, pd, cfg.max_steps, True, mesh, 0)
+    del zw, bm, lt
+    torch.cuda.empty_cache()
+
+    # 4. the app world (dense slots, LINEAR): migration through K4-slab
+    app, out["app_build_ms"] = sync_wall(lambda: build_brickmap_terrain(APP_WORLD, 32, device=dev))
+    acfg = RenderConfig(width=APP_SIZE[0], height=APP_SIZE[1], checkerboard=True, tile_order=True,
+                        shadow_rays=True, ao_samples=APP_AO, reflections=True)
+    aorigin = torch.tensor([APP_WORLD[0] / 2, APP_CAMERA_Y, APP_WORLD[2] / 2], device=dev)
+    fo, fd, _, _, _ = primary_rays(acfg, aorigin, euler, 1)
+    gen = torch.Generator(device=dev).manual_seed(402)
+    m = MD_AXIS_RAYS // 2
+    xy = torch.rand((MD_AXIS_RAYS, 2), generator=gen, device=dev) * (APP_WORLD[0] - 4) + 2
+    zs = torch.cat([torch.full((m, 1), APP_WORLD[2] - 0.5, device=dev), torch.full((m, 1), 0.5, device=dev)])
+    xo = torch.cat([xy, zs], dim=1)
+    xd = torch.cat([torch.tensor([[0.0, 0.0, -1.0]], device=dev).expand(m, 3),
+                    torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(m, 3)]).contiguous()
+    gx, gy, gz = app.grid_dims
+    slab_gz = gz // n
+    for name, (o, d) in (("frame", (fo.contiguous(), fd)), ("axis", (xo, xd))):
+        stats = []
+        bmtrace.slab_launches = 0
+        zres, ms = sync_wall(lambda: D.trace_brickmap_zsharded(app, o, d, mesh, acfg.max_steps, stats))
+        out[f"mig_{name}_ms"], out[f"mig_{name}_launches"] = ms, bmtrace.slab_launches
+        out[f"mig_{name}_rounds"] = stats
+        if r == 0:
+            out[f"mig_{name}_diffs"] = list(full_diffs(zres, trace_brickmap_mxu(app, o, d, acfg.max_steps)))
+            out[f"mig_{name}_hits"] = int(zres.hit.sum())
+        # K4 alone on the same rays, single-device, beside K4-slab's round 0
+        dd, start_c, start_normal, active = _ray_setup(app.grid_dims, app.factor, o, d)
+        pad = _edge_pad(start_c.to(torch.int32), _dims(app.grid_dims, torch.int32, dev), dd)
+        k4 = (start_c.contiguous(), dd.contiguous(), active.to(torch.int32), pad.contiguous())
+        out[f"k4_{name}_ms"] = md_in_turns(mesh, lambda: r == 0 and cuda_ms(lambda: bmtrace.bmtrace(
+            *k4, app.meta, app.bricks, grid_dims=app.grid_dims, factor=app.factor, max_steps=acfg.max_steps,
+            coarse_layout=app.coarse_layout, brick_layout=app.brick_layout), repeats=10))
+        # K4-slab against its plain version on this rank's round-0 rays
+        meta_s, bricks_s, _ = D.shard_world_z(app, n)
+        own = torch.nonzero(active & (torch.clamp(start_c.to(torch.int32)[:, 2] // slab_gz, 0, n - 1) == r)).squeeze(1)
+        setup = (start_c[own].contiguous(), dd[own].contiguous(), active[own].to(torch.int32), pad[own].contiguous())
+        kw = dict(grid_dims=app.grid_dims, z0=r * slab_gz, slab_gz=slab_gz, factor=app.factor,
+                  max_steps=acfg.max_steps, brick_layout=app.brick_layout)
+        k_ms = md_in_turns(mesh, lambda: own.numel() and cuda_ms(
+            lambda: bmtrace.bmtrace_slab(meta_s[r], bricks_s[r], rays=setup, **kw), repeats=10))
+        if own.numel() == 0:
+            continue
+        rows, status, *kres = bmtrace.bmtrace_slab(meta_s[r], bricks_s[r], rays=setup, **kw)
+        spec = app.grid_dims + (app.factor, app.coarse_layout, app.brick_layout)
+        local = D._slab_bm(spec, meta_s[r], bricks_s[r], slab_gz)
+        st = _init_state(local, o[own], d[own], full_gz=gz)
+        (p_rows, p_status, *pres), p_ms = events_ms(lambda: run_slab(local, st, acfg.max_steps, r * slab_gz, gz))
+        st = unpack_slab_state(p_rows)
+        paused = status == 1
+        done = ~paused
+        fin = kernel_result(*pres, start_c[own], start_normal[own], app.factor)
+        kr = kernel_result(*kres, start_c[own], start_normal[own], app.factor)
+        bad = {
+            "pause points": int((status != p_status).sum()),
+            "paused cell": int((rows[paused, bmtrace.STATE_CELL] != st["ccell"][paused]).any(1).sum()),
+            "paused tmax": int((rows[paused, bmtrace.STATE_TMAX].view(torch.float32) != st["ctmax"][paused]).any(1).sum()),
+            "paused entry t": int((rows[paused, bmtrace.STATE_TLAST].view(torch.float32) != st["centry_t"][paused]).sum()),
+            "paused steps": int((rows[paused, bmtrace.STATE_STEPS] != st["steps"][paused]).sum()),
+        }
+        bad.update({f"done {f}": v for f, v in zip(("hit", "steps", "normal", "position"),
+                                                   full_diffs(TraceOut(*(t[done] for t in kr)),
+                                                              TraceOut(*(t[done] for t in fin))))})
+        h = kr.hit & done
+        err = torch_max((kr.position[h] - fin.position[h]).abs(), (kr.normal[h] - fin.normal[h]).abs())
+        out[f"slab_{name}"] = {
+            "ms": k_ms, "plain_ms": p_ms, "rays": int(own.numel()), "paused": int(paused.sum()), "bad": bad,
+            "err": err, "steps": int(rows[:, bmtrace.STATE_STEPS].sum()),
+            "table": hit_table_bytes(TraceOut(*(t[done] for t in fin)), app.world_dims, app.brick_layout, app.factor,
+                                     app.words_per_brick),
+        }
+
+    # 5. the z-sharded frames with shadows, AO 4 and reflections
+    zw_app = D.make_zsharded_hbm(app, n, r)
+    lt_app = materialize_brick_lines(app, make_line_table(app))
+    primary = dataclasses.replace(acfg, shadow_rays=False, ao_samples=0, reflections=False)
+    for name, c, use_zw in (("migration", acfg, False), ("zw", acfg, True), ("zw_primary", primary, True)):
+        fb = make_framebuffer(c, dev)
+        bigtrace.launches = bmtrace.slab_launches = 0
+        _, ms = sync_wall(lambda: D.render_frame_zsharded(app, fb, aorigin, euler, env, 1, c, mesh,
+                                                           zw=zw_app if use_zw else None))
+        out[f"zframe_{name}"] = {"ms": ms, "k1": bigtrace.launches, "k4slab": bmtrace.slab_launches}
+        if r == 0:
+            want = render_frame(app, make_framebuffer(c, dev), aorigin, euler, env, 1, c, lt=lt_app if use_zw else None)
+            diff = (fb - want).abs()
+            out[f"zframe_{name}"].update(max_diff=float(diff.max()), pixels=int((diff > 0).any(-1).sum()))
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    out["staged_bytes"] = mesh.staged_bytes
+    return out
+
+
+def fdiv32(a, b):
+    """float32 ``a / b`` as one IEEE division."""
+    import torch
+
+    return a / torch.tensor(float(b), dtype=torch.float32, device=a.device)
+
+
+def md_gates(label, res, card):
+    """Print the gates of one run (every rank's results ``res``) and raise on
+    a failed one."""
+    r0 = res[0]
+    fails = []
+    for kind in ("rows", "cyclic"):
+        say(f"multi-device ({label}): render_frame_{'sharded' if kind == 'rows' else 'cyclic'} {WORLDS['full'][1]}x"
+            f"{WORLDS['full'][2]}, gathered "
+            f"vs single-device render_frame at both parities (tolerance: bit-equal): pixel diffs {r0[f'{kind}_diffs']}"
+            f", checksum {r0[f'{kind}_checksum']:.6f}; K1 vs plain on rank 0's rays {r0[f'{kind}_k1']['diffs']}, "
+            f"on {card}")
+        fails += [f"{kind} frame"] * (any(r0[f"{kind}_diffs"]) or any(r0[f"{kind}_k1"]["diffs"]))
+    rel = abs(r0["raytrace_mean"] - r0["raytrace_mean_single"]) / r0["raytrace_mean_single"]
+    say(f"multi-device ({label}): raytrace_sharded, {MD_RAYS} rays through K1, gathered vs single-device K1 "
+        f"(tolerance: bit-equal): diffs (hit, steps, normal, position) {r0['raytrace_diffs']}; mean steps "
+        f"{r0['raytrace_mean']:.6f} vs {r0['raytrace_mean_single']:.6f} (relative {rel:.2e}, tolerance 1e-6), on {card}")
+    fails += ["raytrace_sharded"] * (any(r0["raytrace_diffs"]) or rel > 1e-6 or any(r0["raytrace_k1"]["diffs"]))
+    say(f"multi-device ({label}): trace_brickmap_hbm_zsharded (K1's replicated walk, make_zsharded_hbm row a rank) on "
+        f"the frame's rays vs single-device K1 (tolerance: bit-equal on hits, normals, positions): diffs "
+        f"{r0['zw_diffs']}; rays whose steps exceed the single walk's {r0['zw_steps_over']} (must be 0), steps equal "
+        f"on {r0['zw_steps_equal']:.4f} of rays; K1 vs plain on rank 0's row {r0['zw_k1']['diffs']}, on {card}")
+    fails += ["replicated walk"] * (any(r0["zw_diffs"]) or r0["zw_steps_over"] > 0 or any(r0["zw_k1"]["diffs"]))
+    for name in ("frame", "axis"):
+        say(f"multi-device ({label}): trace_brickmap_zsharded through K4-slab, app world, {name} rays vs single-device "
+            f"K4 (tolerance: bit-equal): diffs (hit, steps, normal, position) {r0[f'mig_{name}_diffs']}, hits "
+            f"{r0[f'mig_{name}_hits']}, on {card}")
+        fails += [f"migration {name}"] * any(r0[f"mig_{name}_diffs"])
+        for x in res:
+            s = x.get(f"slab_{name}")
+            if s:
+                say(f"multi-device ({label}): K4-slab vs its plain slab walk on rank {x['rank']}'s round-0 {name} rays "
+                    f"({s['rays']} rays, {s['paused']} paused; tolerance: bit-equal): {json.dumps(s['bad'])}")
+                fails += [f"K4-slab rank {x['rank']}"] * any(s["bad"].values())
+    for name, tol in (("migration", 1e-6), ("zw", 3e-2), ("zw_primary", 0.0)):
+        z = r0[f"zframe_{name}"]
+        say(f"multi-device ({label}): render_frame_zsharded ({name}) {APP_SIZE[0]}x{APP_SIZE[1]} vs single-device "
+            f"render_frame: max abs "
+            f"diff {z['max_diff']:.3e} (tolerance {tol:g}), {z['pixels']} pixels differ, on {card}")
+        fails += [f"z-sharded frame {name}"] * (z["max_diff"] > tol)
+    if fails:
+        raise SystemExit(f"multi-device ({label}): gates failed: {fails}")
+
+
+def md_times(label, res, wall_s, card):
+    tag = f"{label}, on {card}"
+    for kind in ("rows", "cyclic"):
+        say(f"multi-device ({tag}): {kind} {WORLDS['full'][1]}x{WORLDS['full'][2]}, {res[0]['frames']} chained frames: ms/frame by CUDA events "
+            f"per rank {[round(x[f'{kind}_ms'], 3) for x in res]}, host wall per rank "
+            f"{[round(x[f'{kind}_wall_ms'], 3) for x in res]} (slowest {max(x[f'{kind}_wall_ms'] for x in res):.3f}); "
+            f"K1 alone per rank (in turns) {[round(x[f'{kind}_k1']['ms'], 4) for x in res]} ms; K1 launches "
+            f"{sum(x[f'{kind}_launches'] for x in res)}")
+    say(f"multi-device ({tag}): raytrace_sharded K1 per rank (in turns) {[round(x['raytrace_k1']['ms'], 4) for x in res]}"
+        f" ms; replicated walk: make_zsharded_hbm row {[round(x['zw_build_ms'], 1) for x in res]} ms, "
+        f"{[x['zw_bytes'] for x in res]} B of lines, trace {[round(x['zw_trace_ms'], 2) for x in res]} ms (host wall, "
+        f"synchronised), K1 alone per rank (in turns) {[round(x['zw_k1']['ms'], 4) for x in res]} ms")
+    for name in ("frame", "axis"):
+        rounds = [[(s["sent_up"], s["sent_down"]) for s in x[f"mig_{name}_rounds"]] for x in res]
+        say(f"multi-device ({tag}): migration ({name} rays): {len(res)} rounds, rays sent (up, down) per rank and "
+            f"round {rounds}, K4-slab launches {sum(x[f'mig_{name}_launches'] for x in res)}, trace "
+            f"{[round(x[f'mig_{name}_ms'], 2) for x in res]} ms (host wall); K4-slab alone on round 0 "
+            f"{ {x['rank']: round(x[f'slab_{name}']['ms'], 4) for x in res if f'slab_{name}' in x} } ms, its plain "
+            f"{ {x['rank']: round(x[f'slab_{name}']['plain_ms'], 1) for x in res if f'slab_{name}' in x} } ms; "
+            f"single-device K4 alone on the same {name} rays {res[0][f'k4_{name}_ms']:.4f} ms")
+    for name in ("migration", "zw", "zw_primary"):
+        say(f"multi-device ({tag}): render_frame_zsharded ({name}): "
+            f"{[round(x[f'zframe_{name}']['ms'], 1) for x in res]} ms per rank (host wall, one frame), K1 launches "
+            f"{sum(x[f'zframe_{name}']['k1'] for x in res)}, K4-slab launches "
+            f"{sum(x[f'zframe_{name}']['k4slab'] for x in res)}")
+    say(f"multi-device ({tag}): bench world load {[round(x['load_ms']) for x in res]} ms, app world build "
+        f"{[round(x['app_build_ms']) for x in res]} ms; max_memory_allocated per rank "
+        f"{[x['max_memory_allocated'] for x in res]} B; bytes staged through the host per rank "
+        f"{[x['staged_bytes'] for x in res]}; run_ranks wall {wall_s:.1f} s")
+
+
+def md_kernels(res):
+    """The kernels line's records of phase 13 (the gloo run's)."""
+    r0 = res[0]
+    recs = []
+    paths = (("rows", "bigtrace_sharded_rows", "render_frame_sharded"),
+             ("cyclic", "bigtrace_sharded_cyclic", "render_frame_cyclic"),
+             ("raytrace", "bigtrace_raytrace_sharded", "raytrace_sharded"),
+             ("zw", "bigtrace_zsharded_hbm", "trace_brickmap_hbm_zsharded"))
+    for key, name, path in paths:
+        k = r0[f"{key}_k1"]
+        launches = sum(x[f"{key}_launches"] for x in res)
+        recs.append(kernel_entry(
+            name, "bigtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1348", launches, k["err"], k["ms"],
+            k["plain_ms"], k["rays"], k["table"], k["steps"], path=path, ranks=len(res),
+            ms_per_rank=[x[f"{key}_k1"]["ms"] for x in res], timed_on="rank 0's rays, ranks in turns",
+        ))
+    owner = max((x for x in res if "slab_frame" in x), key=lambda x: x["slab_frame"]["rays"])
+    s = owner["slab_frame"]
+    launches = sum(x["mig_frame_launches"] + x["mig_axis_launches"] for x in res)
+    recs.append(kernel_entry(
+        "bmtrace_slab", "zslab.cu", "voxelengine_tpu/ops/trace.py:221 _run_loop(slab=) (XLA, no pallas_call)",
+        launches, s["err"], s["ms"], s["plain_ms"], s["rays"], s["table"], s["steps"],
+        ray_bytes=SLAB_RAY_BYTES + SLAB_ROW_BYTES * s["paused"] / s["rays"],
+        path="trace_brickmap_zsharded (frame and axis rays)", timed_on=f"rank {owner['rank']}'s round-0 frame rays",
+    ))
+    return recs
+
+
+def phase_multi_device(dev, cache, key):
+    """Phase 13: the multi-device entries on 4 ranks sharing the card over
+    gloo, then on 1 rank over NCCL; returns the kernels line's records."""
+    import torch
+
+    from voxelengine_tpu_torch.parallel.mesh import run_ranks
+
+    card = card_line()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    (ROOT / "_checkout").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    res = run_ranks(md_rank, MD_RANKS, "gloo", "cuda", cache, key, MD_FRAMES, timeout=900,
+                    workdir=str(ROOT / "_checkout"))
+    wall = time.perf_counter() - t0
+    label = md_label(MD_RANKS, "gloo")
+    md_gates(label, res, card)
+    md_times(label, res, wall, card)
+    kernels = md_kernels(res)
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise SystemExit(f"multi-device: kernels never launched on their path: {idle}")
+    t0 = time.perf_counter()
+    res1 = run_ranks(md_rank, 1, "nccl", "cuda", cache, key, MD_NCCL_FRAMES, timeout=900,
+                     workdir=str(ROOT / "_checkout"))
+    wall1 = time.perf_counter() - t0
+    label1 = md_label(1, "nccl")
+    md_gates(label1, res1, card)
+    md_times(label1, res1, wall1, card)
+    say(f"multi-device: phase 13 in {wall + wall1:.1f} s; no multi-card number exists: the card is one H100, "
+        f"on {card}")
+    return kernels
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -2081,18 +2528,24 @@ def main(argv=None):
     say(f"device: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    phase_noise(dev)
-    phase_kernel_vs_plain(dev)
-    w1 = phase_terrain(dev)
-    demo, _ = phase_main_path(dev, "demo")
-    bench, w1["launches"] = phase_main_path(dev, "full")
-    kernels = [bench, demo, w1]
-    err = phase_dense_vs_plain(dev)
-    kernels += phase_dense_path(dev, err)
-    kernels += phase_bmtrace(dev)
-    kernels.append(phase_sparse(dev))
-    kernels += phase_app_frame(dev)
-    kernels += phase_remainder(dev)
+    (ROOT / "_checkout").mkdir(exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="world_cache_", dir=ROOT / "_checkout")  # the bench world's, phases 5 and 13
+    try:
+        phase_noise(dev)
+        phase_kernel_vs_plain(dev)
+        w1 = phase_terrain(dev)
+        demo, _ = phase_main_path(dev, "demo")
+        bench, w1["launches"] = phase_main_path(dev, "full", cache)
+        kernels = [bench, demo, w1]
+        err = phase_dense_vs_plain(dev)
+        kernels += phase_dense_path(dev, err)
+        kernels += phase_bmtrace(dev)
+        kernels.append(phase_sparse(dev))
+        kernels += phase_app_frame(dev)
+        kernels += phase_remainder(dev)
+        kernels += phase_multi_device(dev, cache, bench_key(WORLDS["full"][0]))
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise SystemExit(f"kernels never launched on their path: {idle}")

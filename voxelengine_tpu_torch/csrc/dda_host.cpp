@@ -1,5 +1,5 @@
-// Host build of dda.cuh, crossings.cuh, grid_dda.cuh and ray_setup.cuh: the Hopper kernels'
-// per-ray logic compiled by a C++ compiler (-ffp-contract=off), so the CPU
+// Host build of dda.cuh, crossings.cuh, grid_dda.cuh, ray_setup.cuh and zslab.cuh: the Hopper
+// kernels' per-ray logic compiled by a C++ compiler (-ffp-contract=off), so the CPU
 // tests can hold it against the plain torch traces and the JAX package
 // before the kernels ever run on the card.  One entry per kernel, taking its
 // launcher's arguments minus the stream (K4's also minus its instantiation
@@ -12,6 +12,7 @@
 #include "crossings.cuh"
 #include "dda.cuh"
 #include "grid_dda.cuh"
+#include "zslab.cuh"
 
 namespace {
 
@@ -301,4 +302,25 @@ extern "C" int vx_trace_grid_limbs_host(const float* start, const float* dir, co
   const vx::GridParams P = {X, Y, Z, max_steps};
   return grid_rays(P, vx::LimbFetch{limbs, plane}, layout, n, start, dir, active, pad, hit, pos,
                    normal, steps);
+}
+
+// K4-slab (zslab.cu::vx_zslab), ray by ray: one round of the z-sharded walk
+// over the rank's slab.
+extern "C" int vx_zslab_host(const float* start, const float* dir, const int* active, const int* pad,
+                             const int* rows_in, const int* meta, const int* bricks, int m, int gx, int gy,
+                             int gz, int z0, int slab_gz, int factor, int wpb, int max_steps,
+                             int brick_layout, int iter_limit, int* rows_out, int* status, int* flags,
+                             float* pos, float* normal, int* steps) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::SlabFetch F = {meta, bricks, gx, gy, z0, slab_gz, wpb};
+  for (int i = 0; i < m; ++i) {
+    vx::TraceResult r;
+    const long long w = (long long)i * vx::STATE_WORDS;
+    status[i] = rows_in != nullptr
+        ? vx::slab_round(P, F, rows_in + w, nullptr, nullptr, 0, nullptr, rows_out + w, r)
+        : vx::slab_round(P, F, nullptr, start + 3 * i, dir + 3 * i, active[i], pad + 3 * i,
+                         rows_out + w, r);
+    store(r, i, flags, pos, normal, steps);
+  }
+  return 0;
 }

@@ -7,6 +7,11 @@ version is :func:`voxelengine_tpu_torch.ops.trace.trace_brickmap`, which
 on the CPU.  ``launches`` counts the launches made through :func:`bmtrace`
 (both instantiations; ``shared_launches`` those with ``meta`` in shared
 memory).
+
+:func:`bmtrace_slab` wraps K4-slab (``csrc/zslab.cu``), K4's loop over one
+z-slab of a larger world for the z-sharded migration
+(:mod:`voxelengine_tpu_torch.parallel.distributed`); ``slab_launches``
+counts its launches.
 """
 
 from __future__ import annotations
@@ -70,3 +75,70 @@ def bmtrace(
     launches += 1
     shared_launches += meta_in_shared(nc)
     return outs
+
+
+slab_launches = 0
+# a ray's state row (csrc/zslab.cuh::pack_state): its length, and the
+# fields that say where a paused ray stopped
+STATE_WORDS = 35
+STATE_CELL = slice(13, 16)  # the coarse cell (x, y, z)
+STATE_TMAX = slice(16, 19)  # its tMax, float bits
+STATE_TLAST = 19  # the last coarse step's crossing time, float bits
+STATE_STEPS = 27
+
+
+def bmtrace_slab(
+    meta: torch.Tensor, bricks: torch.Tensor, *, grid_dims, z0: int, slab_gz: int, factor: int, max_steps: int,
+    brick_layout: Layout, rays=None, rows=None,
+):
+    """One round of the z-sharded walk on the card, one thread a ray
+    (K4-slab, ``csrc/zslab.cu``).  Its plain version is
+    :func:`voxelengine_tpu_torch.ops.trace.run_slab`; it has no TPU
+    kernel (the JAX package runs the round as XLA,
+    ``voxelengine_tpu/ops/trace.py:221``).
+
+    ``meta`` (``int32[gx * gy * slab_gz]``) and ``bricks`` (``int32[gx *
+    gy * slab_gz, wpb]``) are chunk rows ``z0 .. z0 + slab_gz - 1`` of a
+    LINEAR dense-slot world whose chunk grid is ``grid_dims``.  Round 0
+    passes ``rays = (start, d, active, pad)`` from K4's ray setup over the
+    whole grid; later rounds pass ``rows``, the ``int32[m, STATE_WORDS]``
+    states of rays paused elsewhere.  Returns ``(rows, status, flags,
+    position, normal, steps)``: each ray's state after the round, its
+    status (0 done, 1 paused at the slab's boundary) and, for a ray that
+    is done, its result with ``flags = hit | hit_imm << 1``.  Launches on
+    the current stream without synchronising and raises if the launch is
+    refused."""
+    global slab_launches
+    gx, gy, gz = grid_dims
+    per = gx * gy * slab_gz
+    wpb = (factor**3 + 31) // 32
+    if gx * gy * gz * wpb >= 2**31 or not 1 <= factor <= 32 or not 0 <= z0 <= gz - slab_gz:
+        raise ValueError(f"bmtrace_slab: slab z0={z0} +{slab_gz} of grid {grid_dims} at factor {factor} is outside "
+                         "the kernel's int32 indices or the grid")
+    if (rays is None) == (rows is None):
+        raise ValueError("bmtrace_slab: pass the ray setup (round 0) or the handed-on state rows, not both")
+    if rays is not None:
+        dev = build.check_rays("bmtrace_slab", *rays)
+        m = rays[0].shape[0]
+        ptrs = [t.data_ptr() for t in rays] + [None]
+    else:
+        dev = rows.device
+        build.require_cuda("bmtrace_slab", dev)
+        m = rows.shape[0]
+        build.check("bmtrace_slab", "rows", rows, torch.int32, (m, STATE_WORDS), dev)
+        ptrs = [None] * 4 + [rows.data_ptr()]
+    build.check("bmtrace_slab", "meta", meta, torch.int32, (per,), dev)
+    build.check("bmtrace_slab", "bricks", bricks, torch.int32, (per, wpb), dev)
+    rows_out = torch.empty((m, STATE_WORDS), dtype=torch.int32, device=dev)
+    status = torch.empty((m,), dtype=torch.int32, device=dev)
+    outs = build.ray_outputs(m, dev)
+    if m == 0:
+        return (rows_out, status) + outs
+    build.launch(
+        "bmtrace_slab", build.load_kernel("zslab").vx_zslab, *ptrs, meta.data_ptr(), bricks.data_ptr(),
+        m, gx, gy, gz, z0, slab_gz, factor, wpb, max_steps, brick_layout.value,
+        3 * max_steps + 64,  # iteration cap, as K4's: never reached
+        rows_out.data_ptr(), status.data_ptr(), *(o.data_ptr() for o in outs), dev=dev,
+    )
+    slab_launches += 1
+    return (rows_out, status) + outs

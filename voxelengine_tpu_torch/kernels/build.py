@@ -35,7 +35,7 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 # library name -> source; each CUDA library holds the kernels of one source
 KERNEL_SOURCES = {
     "bigtrace": "bigtrace.cu", "rrtrace": "rrtrace.cu", "gridtrace": "gridtrace.cu", "bmtrace": "bmtrace.cu",
-    "terrain": "terrain.cu", "crossings": "crossings.cu",
+    "terrain": "terrain.cu", "crossings": "crossings.cu", "zslab": "zslab.cu",
 }
 # host library name -> source (g++): the kernels' per-ray and per-voxel logic
 HOST_SOURCES = {"dda_host": "dda_host.cpp", "terrain_host": "terrain_host.cpp"}
@@ -62,6 +62,10 @@ SIGNATURES = {
     # meta, bricks; n, gx, gy, gz, factor, wpb, max_steps, coarse_layout,
     # brick_layout, iter_limit, shared_meta; counter (int32 scratch), outputs
     "vx_trace_brickmap_dense": _RAYS + [_P] * 2 + [_I] * 11 + [_P] + _OUTS,
+    # rays (round 0) or null, rows_in (later rounds) or null, meta, bricks;
+    # m, gx, gy, gz, z0, slab_gz, factor, wpb, max_steps, brick_layout,
+    # iter_limit; rows_out, status, outputs (K4-slab)
+    "vx_zslab": _RAYS + [_P] * 3 + [_I] * 11 + [_P] * 2 + _OUTS,
     # z0, factor, chunks_x, chunks_y, wpb, brick_layout, octaves; occ
     # (uint8), bmin, bmax, words
     "vx_terrain_slab": [_I] * 7 + [_P] * 4,
@@ -82,6 +86,7 @@ HOST_ENTRIES = {
     "vx_trace_grid_limbs_host": _RAYS + [_P, _L] + [_I] * 6 + _OUTS,
     # limbs, plane, words16, out: K3's staging alone
     "vx_limb_words_host": [_P, _L, _I, _P],
+    "vx_zslab_host": SIGNATURES["vx_zslab"],
     "vx_terrain_slab_host": SIGNATURES["vx_terrain_slab"],
     "vx_noise_points_host": SIGNATURES["vx_noise_points"],
 }
