@@ -108,12 +108,21 @@ Phases, one stdout line each (plus the kernels' build logs):
    1024^3 app world with dense slots, ``trace_brickmap_zsharded`` (ray
    migration through K4-slab) on a 1280x720 frame's rays and 4,096
    axis-aligned rays against single-device K4, K4-slab against its plain
-   slab walk on each rank's round-0 rays, and ``render_frame_zsharded``
+   slab walk on each rank's round-0 rays, each K4-slab launch of the two
+   traces run again alone (ranks in turns) beside its bound, and
+   ``render_frame_zsharded``
    with shadows, AO 4 and reflections through K4-slab and through K1
    (and primary-only through K1) against single-device frames; then the
    same on 1 rank over NCCL (2 timed frames).  The parent builds every
    kernel first, so ranks only load the libraries.  Its times are labelled
-   as ranks sharing one card: they measure no scale-out.
+   as ranks sharing one card: they measure no scale-out;
+14. the port's bench harness (``voxelengine_tpu_torch/bench.py``,
+   ``bench.run``): the bench world from phase 5's cache through K1
+   (``pallas``) and through K4's compact instantiation (``xla``, no line
+   table), and the 1024^3 world with its raw bricks kept on the host (the
+   16k world's flow), each with its own exactness gate (0 hit diffs) and
+   its JSON line; then K4-compact against its plain version on the bench
+   frame's 1,036,800 rays and its time.
 
 Each kernel's path (the bench world's frames for K1, and the demo world's
 for its second record; the bench world's build for W1; the frames of
@@ -124,7 +133,8 @@ phase-11 frames for K1 with secondary rays, its ``raytrace`` for K1 on a
 batch, its TILED_LINEAR world's ``raytrace`` and frame for K4; the 2D demo for
 K1 on a 2D world, one ``trace_grid_2d`` call for K2 on it, one
 ``trace_ray_crossings`` for the record kernel; in phase 13 each sharded
-entry for K1 and the migration traces for K4-slab, counted in every rank)
+entry for K1 and the migration traces for K4-slab, counted in every rank;
+the harness's ``xla`` run on the bench world for K4-compact)
 runs
 with the launch counts set to 0 just before it and read just after;
 launches made to compare or time a kernel are not counted.  Then the run's
@@ -2293,10 +2303,23 @@ def md_rank(mesh, cache, key, frames):
                     torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(m, 3)]).contiguous()
     gx, gy, gz = app.grid_dims
     slab_gz = gz // n
+    slab_calls = []  # every K4-slab launch of the two migration traces, timed afterwards
+    real_slab = bmtrace.bmtrace_slab
+
+    def recording_slab(meta, bricks, *, rays=None, rows=None, **kw):
+        res = real_slab(meta, bricks, rays=rays, rows=rows, **kw)
+        if res[0].shape[0]:  # a launch (the wrapper launches nothing for no rays)
+            slab_calls.append((meta, bricks, rays, rows, kw, res))
+        return res
+
     for name, (o, d) in (("frame", (fo.contiguous(), fd)), ("axis", (xo, xd))):
         stats = []
         bmtrace.slab_launches = 0
-        zres, ms = sync_wall(lambda: D.trace_brickmap_zsharded(app, o, d, mesh, acfg.max_steps, stats))
+        bmtrace.bmtrace_slab = recording_slab
+        try:
+            zres, ms = sync_wall(lambda: D.trace_brickmap_zsharded(app, o, d, mesh, acfg.max_steps, stats))
+        finally:
+            bmtrace.bmtrace_slab = real_slab
         out[f"mig_{name}_ms"], out[f"mig_{name}_launches"] = ms, bmtrace.slab_launches
         out[f"mig_{name}_rounds"] = stats
         if r == 0:
@@ -2348,6 +2371,9 @@ def md_rank(mesh, cache, key, frames):
                                      app.words_per_brick),
         }
 
+    out["slab_launches"] = md_in_turns(mesh, lambda: [slab_launch_time(app, *c) for c in slab_calls])
+    del slab_calls
+
     # 5. the z-sharded frames with shadows, AO 4 and reflections
     zw_app = D.make_zsharded_hbm(app, n, r)
     lt_app = materialize_brick_lines(app, make_line_table(app))
@@ -2365,6 +2391,32 @@ def md_rank(mesh, cache, key, frames):
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     out["staged_bytes"] = mesh.staged_bytes
     return out
+
+
+def slab_launch_time(app, meta, bricks, rays, rows, kw, res):
+    """One recorded K4-slab launch of a migration trace, run again alone:
+    ``{rays, round0, paused, ms, bound_ms}``, its time by CUDA events over 10
+    launches and its bound (:func:`bound`: ray bytes in and out, the paused
+    rays' state rows out, a handed-on row in for each ray of a later round,
+    the table words of its hits; the DDA steps it took)."""
+    import torch
+
+    from voxelengine_tpu_torch.kernels import bmtrace
+    from voxelengine_tpu_torch.ops.trace import TraceOut
+
+    ms = cuda_ms(lambda: bmtrace.bmtrace_slab(meta, bricks, rays=rays, rows=rows, **kw), repeats=10)
+    rows_out, status, flags, pos, nrm, steps = res
+    m = rows_out.shape[0]
+    paused = int((status == 1).sum())
+    done_hit = ((flags & 1) == 1) & (status == 0)
+    table = hit_table_bytes(TraceOut(done_hit, pos, nrm, steps), app.world_dims, app.brick_layout, app.factor,
+                            app.words_per_brick)
+    taken = rows_out[:, bmtrace.STATE_STEPS].long()
+    if rows is not None:
+        taken = taken - rows[:, bmtrace.STATE_STEPS].long()
+    per_ray = SLAB_RAY_BYTES if rows is None else SLAB_ROW_BYTES + SLAB_RAY_BYTES - 40
+    bound_ms, _ = bound(m, table + SLAB_ROW_BYTES * paused, int(taken.sum()), per_ray)
+    return {"rays": m, "round0": rows is None, "paused": paused, "ms": ms, "bound_ms": bound_ms}
 
 
 def fdiv32(a, b):
@@ -2437,6 +2489,13 @@ def md_times(label, res, wall_s, card):
             f"{ {x['rank']: round(x[f'slab_{name}']['ms'], 4) for x in res if f'slab_{name}' in x} } ms, its plain "
             f"{ {x['rank']: round(x[f'slab_{name}']['plain_ms'], 1) for x in res if f'slab_{name}' in x} } ms; "
             f"single-device K4 alone on the same {name} rays {res[0][f'k4_{name}_ms']:.4f} ms")
+    launches = [dict(x, rank=r["rank"]) for r in res for x in r["slab_launches"]]
+    each = [(x["rank"], x["rays"], 0 if x["round0"] else "later", x["paused"], round(x["ms"], 4),
+             round(x["bound_ms"], 5)) for x in launches]
+    say(f"multi-device ({tag}): each K4-slab launch of the two migration traces, run again alone (ranks in turns; "
+        f"rank, rays, round 0 or a handed-on round, paused rays, ms, bound ms): {each}"
+        f"; {len(launches)} launches, sum(ms) {sum(x['ms'] for x in launches):.4f}, "
+        f"launches x (ms - bound) = sum(ms - bound) {sum(x['ms'] - x['bound_ms'] for x in launches):.4f} ms")
     for name in ("migration", "zw", "zw_primary"):
         say(f"multi-device ({tag}): render_frame_zsharded ({name}): "
             f"{[round(x[f'zframe_{name}']['ms'], 1) for x in res]} ms per rank (host wall, one frame), K1 launches "
@@ -2467,11 +2526,14 @@ def md_kernels(res):
     owner = max((x for x in res if "slab_frame" in x), key=lambda x: x["slab_frame"]["rays"])
     s = owner["slab_frame"]
     launches = sum(x["mig_frame_launches"] + x["mig_axis_launches"] for x in res)
+    each = [x for r in res for x in r["slab_launches"]]
     recs.append(kernel_entry(
         "bmtrace_slab", "zslab.cu", "voxelengine_tpu/ops/trace.py:221 _run_loop(slab=) (XLA, no pallas_call)",
         launches, s["err"], s["ms"], s["plain_ms"], s["rays"], s["table"], s["steps"],
         ray_bytes=SLAB_RAY_BYTES + SLAB_ROW_BYTES * s["paused"] / s["rays"],
         path="trace_brickmap_zsharded (frame and axis rays)", timed_on=f"rank {owner['rank']}'s round-0 frame rays",
+        launch_ms=[x["ms"] for x in each], launch_bound_ms=[x["bound_ms"] for x in each],
+        launches_x_ms_minus_bound=sum(x["ms"] - x["bound_ms"] for x in each),
     ))
     return recs
 
@@ -2510,6 +2572,100 @@ def phase_multi_device(dev, cache, key):
     return kernels
 
 
+# phase 14, the port's bench harness (voxelengine_tpu_torch/bench.py) on
+# the card: its launches on each route, which the harness's own gate checks
+HARNESS_WARM = 3  # bench.run's warm-up frames at its default 8 frames a batch
+HARNESS_FRAMES = 1 + HARNESS_WARM + 3 * 8 + 1  # frame 0, warm-up, 3 batches of 8, the gate's trace
+
+
+def phase_harness(dev, cache, key):
+    """Phase 14: ``bench.run`` on the bench world from phase 5's cache
+    through K1 (``pallas``) and K4's compact instantiation (``xla``), and on
+    the 1024^3 world with its raw bricks kept on the host (the 16k flow);
+    then K4-compact against its plain version on the bench frame's rays.
+    Returns K4-compact's record."""
+    import torch
+
+    from voxelengine_tpu_torch import bench
+    from voxelengine_tpu_torch.config import RenderConfig
+    from voxelengine_tpu_torch.io.checkpoint import generate_or_load
+    from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, terrain
+    from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup, trace_brickmap
+    from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table
+    from voxelengine_tpu_torch.render.frame import primary_rays
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    counts = {}
+    for world, backend, host in (("full", "pallas", False), ("full", "xla", False), ("small", "pallas", True)):
+        bigtrace.launches = bmtrace.launches = bmtrace.compact_launches = terrain.launches = 0
+        t0 = time.perf_counter()
+        res = bench.run(world=world, backend=backend, cache_dir=cache, device=dev, host_bricks=host)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"K1": bigtrace.launches, "K4": bmtrace.launches, "K4-compact": bmtrace.compact_launches,
+               "W1": terrain.launches}
+        counts[world, backend] = got
+        want = {"K4": 0, "W1": 0 if world == "full" else bench.WORLDS[world][2] // 32}
+        if backend == "xla":
+            want.update({"K1": 0, "K4-compact": HARNESS_FRAMES})
+        else:
+            want["K4-compact"] = 0
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if world == "full" and backend == "pallas" and got["K1"] < HARNESS_FRAMES:
+            bad["K1"] = (got["K1"], f">= {HARNESS_FRAMES}")
+        metric = bench.metric_name(world, 1080, False, 0, False)
+        say(f"bench harness ({world}, {backend}{', raw bricks on the host' if host else ''}): "
+            f"{json.dumps(res.record)}")
+        say(f"bench harness ({world}, {backend}): gate hit diffs {res.hit_diffs} (must be 0), launches {got}, "
+            f"framebuffer checksum {float(res.framebuffer.double().sum()):.6f}, {wall:.1f} s with the world's "
+            f"load{' and build' if world == 'small' else ''}, on {card}")
+        if res.hit_diffs or bad or res.record["metric"] != metric or res.record["device"] != card:
+            raise SystemExit(f"bench harness ({world}, {backend}): diffs {res.hit_diffs}, launches off {bad}, "
+                             f"metric {res.record['metric']!r}, device {res.record['device']!r}")
+        del res
+
+    # K4-compact against its plain version on the bench frame's rays
+    def not_cached():
+        raise SystemExit("the bench world is not in phase 5's cache")
+
+    bm = generate_or_load(cache, key, not_cached, device=dev)
+    dims, W, H = WORLDS["full"]
+    cfg = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
+    origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)  # bench.py:191-192
+    euler = torch.tensor(bench.EULER, device=dev)
+    o, d, _, _, _ = primary_rays(cfg, origin, euler, 1)
+    got = trace_brickmap_no_table(bm, o, d, cfg.max_steps)
+    want, p_ms = events_ms(lambda: trace_brickmap(bm, o, d, cfg.max_steps))
+    meta = "shared" if bmtrace.meta_in_shared(bm.num_chunks) else "global"
+    diffs = compare(got, want)
+    check_diffs(f"bench harness: K4-compact ({meta} meta) vs plain on the bench frame's rays", diffs, o.shape[0],
+                int(want.hit.sum()))
+    dd, start_c, _, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
+    pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, dev), dd)
+    args = (start_c.contiguous(), dd.contiguous(), active.to(torch.int32), pad.contiguous(), bm.meta, bm.brick_idx,
+            bm.bricks)
+    kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=cfg.max_steps, coarse_layout=bm.coarse_layout,
+              brick_layout=bm.brick_layout)
+    k_ms = cuda_ms(lambda: bmtrace.bmtrace_compact(*args, **kw), repeats=10)
+    # the bound's table bytes: each distinct hit word and hit chunk's meta
+    # word (hit_table_bytes), and the hit chunks' brick_idx words
+    h = hit_voxels(want, bm.world_dims) // bm.factor
+    gx, gy, _ = bm.grid_dims
+    slot_bytes = 4 * int(torch.unique(h[:, 0] + h[:, 1] * gx + h[:, 2] * gx * gy).numel())
+    table = hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick) + slot_bytes
+    steps_sum = int(want.steps.sum())
+    say(f"bench harness: K4-compact ({meta} meta) {k_ms:.4f} ms, "
+        f"plain trace_brickmap {p_ms:.1f} ms on the bench frame's {o.shape[0]} rays, sum(steps) {steps_sum}; "
+        f"phase 14 in {time.perf_counter() - t_phase:.1f} s, on {card}")
+    return kernel_entry(
+        "bmtrace_compact", "bmtrace.cu",
+        "none: voxelengine_tpu/ops/trace.py:411,435 trace_brickmap / trace_brickmap_staged (XLA, no pallas_call)",
+        counts["full", "xla"]["K4-compact"], diffs[4], k_ms, p_ms, o.shape[0], table, steps_sum,
+        path="bench.run(backend='xla') on the bench world", table_form=f"compact, {meta} meta",
+    )
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -2544,6 +2700,7 @@ def main(argv=None):
         kernels += phase_app_frame(dev)
         kernels += phase_remainder(dev)
         kernels += phase_multi_device(dev, cache, bench_key(WORLDS["full"][0]))
+        kernels.append(phase_harness(dev, cache, bench_key(WORLDS["full"][0])))
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     idle = [k["name"] for k in kernels if k["launches"] < 1]

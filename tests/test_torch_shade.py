@@ -10,8 +10,10 @@ mode out of this file; the JAX side runs once, in a subprocess whose XLA:CPU
 neither contracts FMAs nor runs the algebraic simplifier
 (``tests/test_torch_render.py`` module doc).  The port's route through a
 line table with the macro levels off runs the same chunk walk on the CPU
-and is held to the same frames.  The card lane holds K1 on each secondary
-batch type, and a frame through K4, against the plain versions.
+and is held to the same frames; so is the compact form of the world
+without a line table, against JAX's frames of that form.  The card lane
+holds K1 on each secondary batch type, and a frame through K4, against the
+plain versions.
 """
 
 import dataclasses
@@ -91,7 +93,7 @@ def _jax_reference():
     from voxelengine_tpu.config import Projection as JProj
     from voxelengine_tpu.config import RenderConfig as JCfg
     from voxelengine_tpu.core.bitgrid import BitGrid
-    from voxelengine_tpu.core.brickmap import build_brickmap
+    from voxelengine_tpu.core.brickmap import build_brickmap, compact_brickmap
     from voxelengine_tpu.core.layout import Layout
     from voxelengine_tpu.render import frame as jframe
 
@@ -101,6 +103,13 @@ def _jax_reference():
         v = getattr(bm, k)
         out[f"bm/{k}"] = np.asarray(getattr(v, "value", v))
     env = JEnv.default()
+    # the same world in compact form, without a line table: JAX's XLA walk
+    cbm = compact_brickmap(bm)
+    cfg = JCfg(staged_trace=False, **_fields(FRAMES["all_three"][0], (JView, JProj)))
+    fb = jframe.make_framebuffer(cfg)
+    for fn in FRAMES["all_three"][1]:
+        fb = jframe.render_frame(cbm, fb, jnp.asarray(ORIGIN), jnp.asarray(EULER), env, jnp.int32(fn), cfg)
+        out[f"compact/all_three/{fn}"] = np.asarray(fb)
     for name, (change, frames) in FRAMES.items():
         kw = _fields(change, (JView, JProj))
         cfg = JCfg(staged_trace=False, **kw)
@@ -246,13 +255,14 @@ def test_secondary_route_through_line_table(ref):
 
 
 def test_compact_world_without_line_table_refused_on_card_route(ref, monkeypatch):
-    """A compact world has no kernel without a line table: a card call is
-    refused with a message naming ``make_line_table`` (CPU tensors routed as
-    card tensors; nothing is built or launched)."""
+    """A compact world whose brick words stay on the host
+    (``load_world_host_bricks``) has nothing to trace without a line table:
+    a card call is refused with a message naming ``make_line_table`` (CPU
+    tensors routed as card tensors; nothing is built or launched)."""
     from voxelengine_tpu_torch.core.brickmap import compact_brickmap
 
     monkeypatch.setattr(trace2, "_is_cuda", lambda t: True)
-    bm = compact_brickmap(_bm(ref))
+    bm = dataclasses.replace(compact_brickmap(_bm(ref)), bricks=None)
     cfg = RenderConfig(**BASE)
     with pytest.raises(ValueError, match="make_line_table"):
         frame.render_frame(bm, frame.make_framebuffer(cfg, device="cpu"), _t(ORIGIN), _t(EULER),
@@ -260,6 +270,47 @@ def test_compact_world_without_line_table_refused_on_card_route(ref, monkeypatch
     o = torch.zeros(4, 3)
     with pytest.raises(ValueError, match="make_line_table"):
         frame._secondary_trace(bm, None, cfg, o, o + 1.0, 8)
+
+
+def test_compact_world_without_line_table_routes_to_k4_compact(ref, monkeypatch):
+    """A compact world without a line table goes to K4's compact entry on a
+    card call, every trace of the frame (the entry is replaced by a spy that
+    runs its g++ build, ``vx_trace_brickmap_compact_host``), and the frames
+    are JAX's on the same compact world, bit for bit."""
+    from voxelengine_tpu_torch.core.brickmap import compact_brickmap
+    from voxelengine_tpu_torch.kernels import bmtrace, build
+
+    host = build.load_dda_host()
+    bm = compact_brickmap(_bm(ref))
+    seen = []
+
+    def spy(start, d, active, pad, meta, brick_idx, bricks, *, grid_dims, factor, max_steps, coarse_layout,
+            brick_layout):
+        seen.append(max_steps)
+        n = start.shape[0]
+        outs = (torch.empty(n, dtype=torch.int32), torch.empty(n, 3), torch.empty(n, 3),
+                torch.empty(n, dtype=torch.int32))
+        host.vx_trace_brickmap_compact_host(
+            *(t.data_ptr() for t in (start, d, active, pad, meta, brick_idx, bricks)), n, *grid_dims, factor,
+            bricks.shape[1], max_steps, coarse_layout.value, brick_layout.value, 3 * max_steps + 64,
+            *(t.data_ptr() for t in outs))
+        return outs
+
+    def dense(*a, **k):
+        raise AssertionError("a compact world reached the dense-slot entry")
+
+    monkeypatch.setattr(trace2, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(bmtrace, "bmtrace_compact", spy)
+    monkeypatch.setattr(bmtrace, "bmtrace", dense)
+    change, frames = FRAMES["all_three"]
+    cfg = RenderConfig(**_fields(change, (DebugView, Projection)))
+    fb = frame.make_framebuffer(cfg, device="cpu")
+    env = Environment.default(device="cpu")
+    for fn in frames:
+        frame.render_frame(bm, fb, _t(ORIGIN), _t(EULER), env, fn, cfg)
+        np.testing.assert_array_equal(fb.numpy(), ref[f"compact/all_three/{fn}"], err_msg=f"compact frame {fn}")
+    # a frame: the primary, shadow and reflection traces, then 2 AO traces
+    assert seen == [MAX_STEPS, MAX_STEPS, MAX_STEPS, 8, 8] * 2
 
 
 def test_dense_slot_world_without_line_table_routes_to_k4(ref, monkeypatch):

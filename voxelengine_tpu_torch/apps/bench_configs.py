@@ -5,7 +5,8 @@ Counterpart of the JAX package's ``apps/bench_configs.py``:
   1. oracle hit-trace parity  (the port's numpy oracle copy; K4 on the card)
   2. 64^3 dense grid, 1024x1024 depth rays (K2, ``trace_grid_vpu``)
   3. 512^3 brickmap @720p     (W1 world, ``render_frame`` with the line table: K1)
-  4. 8k x 512 x 8k @1080p     (``--full``: the port's bench harness, not ported yet)
+  4. 8k x 512 x 8k @1080p     (``--full``: the port's bench harness,
+                              ``python -m voxelengine_tpu_torch.bench``)
   5. interactive edits        (``edit_voxels`` + re-trace through K1)
 
     python -m voxelengine_tpu_torch.apps.bench_configs
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import subprocess
 import sys
 import time
 
@@ -27,10 +29,6 @@ import numpy as np
 import torch
 
 from voxelengine_tpu_torch.utils.profiling import device_ms
-
-FULL_NOT_PORTED = ("--full (config 4 = bench.py's 8192x512x8192 run) needs the port's bench harness, ROADMAP "
-                   "Queue 1 item 2, which is not ported yet")
-
 
 def config1(n: int = 100, device=None) -> str:
     """Hits of ``trace_brickmap_no_table`` (K4 for card rays) against the
@@ -131,10 +129,9 @@ def config5(size: int = 256, edits: int = 64, rays: int = 1024, reps: int = 4, d
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--full", action="store_true", help="also run config 4 (not ported yet: exits with an error)")
+    ap.add_argument("--full", action="store_true",
+                    help="also run config 4: the bench harness (python -m voxelengine_tpu_torch.bench)")
     args = ap.parse_args(argv)
-    if args.full:
-        raise SystemExit(FULL_NOT_PORTED)
     if not torch.cuda.is_available():
         raise SystemExit("bench_configs: no CUDA device (torch.cuda.is_available() is false); the configs time the "
                          "card and have no CPU fallback")
@@ -144,6 +141,9 @@ def main(argv=None):
         t0 = time.perf_counter()
         line = fn()
         print(f"[{fn.__name__}] {line}  (setup+run {time.perf_counter() - t0:.1f}s, {card})", flush=True)
+    if args.full:  # config 4 in its own process, as the JAX configs run bench.py
+        return subprocess.run([sys.executable, "-m", "voxelengine_tpu_torch.bench"]).returncode
+    return 0
 
 
 if __name__ == "__main__":

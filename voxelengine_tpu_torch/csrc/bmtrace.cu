@@ -1,4 +1,4 @@
-// Dense-slot brickmap traversal for Hopper (sm_90a): K4.
+// Brickmap traversal without a line table for Hopper (sm_90a): K4.
 //
 // Replaces voxelengine_tpu/ops/pallas_trace2.py::_bm_kernel, the TPU kernel
 // of trace_brickmap_mxu, and computes the same function: per ray, the
@@ -9,6 +9,14 @@
 // DenseSlotFetch policy in place of the line table.  The TPU kernel's
 // one-hot bf16 limb matmuls exist because Mosaic has no per-lane gather;
 // here a thread reads the word it needs.
+//
+// vx_trace_brickmap_compact is the same kernel over a compact brickmap
+// (CompactFetch: the brick slot from brick_idx).  It has no TPU kernel: the
+// JAX package walks a compact world without a line table in XLA
+// (voxelengine_tpu/ops/trace.py:411,435, trace_brickmap and
+// trace_brickmap_staged, which give the same results), and the TPU kernel
+// takes dense slots only (pallas_trace2.py:335).  Its bound is K4's; a
+// descend costs one more dependent load, the slot word.
 //
 // What bounds it on this card: the bytes of the rays (40 B in, 32 B out per
 // ray) plus the table bytes the rays touch (at least the brick word and the
@@ -31,8 +39,9 @@
 // global meta on terrains of 16-224 KB of meta (L1 holds most of the meta
 // words the rays touch either way).
 //
-// Two instantiations of one template, chosen by the wrapper from the
-// table's size alone (kernels/bmtrace.py::meta_in_shared):
+// For each table form (dense slots, compact), two instantiations of one
+// template, chosen by the wrapper from the meta table's size alone
+// (kernels/bmtrace.py::meta_in_shared):
 //   SHARED_META: meta in shared memory, for num_chunks * 4 bytes up to
 //     VX_SMEM_META_LIMIT below: the 227 KB a block can have (above 48 KB by
 //     cudaFuncSetAttribute), since no size up to 224 KB measured slower
@@ -55,17 +64,19 @@ namespace {
 
 constexpr int THREADS = 1024;  // 1024 x 64 registers: one block fills an SM's register file
 
-template <bool SHARED_META>
+// Fetch: DenseSlotFetch or CompactFetch, with meta in shared memory when
+// Fetch::SHARED.
+template <class Fetch>
 __global__ void __launch_bounds__(THREADS, 1)
-bmtrace_kernel(vx::TraceParams P, vx::DenseSlotFetch<SHARED_META> F, int n, int num_chunks,
+bmtrace_kernel(vx::TraceParams P, Fetch F, int n, int num_chunks,
                int* __restrict__ counter,
                const float* __restrict__ start, const float* __restrict__ dir,
                const int* __restrict__ active, const int* __restrict__ pad,
                int* __restrict__ flags, float* __restrict__ pos,
                float* __restrict__ normal, int* __restrict__ steps) {
   extern __shared__ int4 smem_meta[];
-  vx::DenseSlotFetch<SHARED_META> Fl = F;
-  if constexpr (SHARED_META) {
+  Fetch Fl = F;
+  if constexpr (Fetch::SHARED) {
     int* meta = reinterpret_cast<int*>(smem_meta);
     int head = 0;  // words copied by 16-byte loads
     if ((reinterpret_cast<uintptr_t>(F.meta_words) & 15) == 0) {
@@ -97,21 +108,21 @@ bmtrace_kernel(vx::TraceParams P, vx::DenseSlotFetch<SHARED_META> F, int n, int 
   }
 }
 
-template <bool SHARED_META>
-int launch(const vx::TraceParams& P, const vx::DenseSlotFetch<SHARED_META>& F, int n,
+template <class Fetch>
+int launch(const vx::TraceParams& P, const Fetch& F, int n,
            int num_chunks, int* counter, const float* start, const float* dir, const int* active,
            const int* pad, int* flags, float* pos, float* normal, int* steps,
            cudaStream_t stream) {
-  const size_t smem = SHARED_META ? (size_t)num_chunks * sizeof(int) : 0;
+  const size_t smem = Fetch::SHARED ? (size_t)num_chunks * sizeof(int) : 0;
   if (smem > VX_SMEM_META_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(bmtrace_kernel<SHARED_META>,
+    e = cudaFuncSetAttribute(bmtrace_kernel<Fetch>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bmtrace_kernel<SHARED_META>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bmtrace_kernel<Fetch>,
                                                       THREADS, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -121,7 +132,7 @@ int launch(const vx::TraceParams& P, const vx::DenseSlotFetch<SHARED_META>& F, i
   const int blocks = (int)(wanted < (long long)per_sm * sms ? wanted : (long long)per_sm * sms);
   e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bmtrace_kernel<SHARED_META><<<blocks, THREADS, smem, stream>>>(
+  bmtrace_kernel<Fetch><<<blocks, THREADS, smem, stream>>>(
       P, F, n, num_chunks, counter, start, dir, active, pad, flags, pos, normal, steps);
   return static_cast<int>(cudaGetLastError());
 }
@@ -145,8 +156,30 @@ extern "C" int vx_trace_brickmap_dense(const float* start, const float* dir, con
   if (n == 0) return 0;
   if (shared_meta) {
     const vx::DenseSlotFetch<true> F = {meta, bricks, gx, gy, coarse_layout, wpb};
-    return launch<true>(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
+    return launch(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
   }
   const vx::DenseSlotFetch<false> F = {meta, bricks, gx, gy, coarse_layout, wpb};
-  return launch<false>(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
+  return launch(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
+}
+
+// The compact instantiation: as vx_trace_brickmap_dense, with each chunk's
+// brick slot in brick_idx (int32[num_chunks], -1 for an empty chunk) and
+// bricks int32[num_bricks, wpb].
+extern "C" int vx_trace_brickmap_compact(const float* start, const float* dir, const int* active,
+                                         const int* pad, const int* meta, const int* brick_idx,
+                                         const int* bricks, int n, int gx, int gy, int gz,
+                                         int factor, int wpb, int max_steps, int coarse_layout,
+                                         int brick_layout, int iter_limit, int shared_meta,
+                                         int* counter, int* flags, float* pos, float* normal,
+                                         int* steps, void* stream) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int nc = gx * gy * gz;
+  if (n == 0) return 0;
+  if (shared_meta) {
+    const vx::CompactFetch<true> F = {{meta, bricks, gx, gy, coarse_layout, wpb}, brick_idx};
+    return launch(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
+  }
+  const vx::CompactFetch<false> F = {{meta, bricks, gx, gy, coarse_layout, wpb}, brick_idx};
+  return launch(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
 }

@@ -68,7 +68,9 @@
 //   DenseSlotFetch (K4, pallas_trace2.py:78-90,130-132,201):
 //     chunk index ci = sample_index(cx, cy, cz) in the coarse layout,
 //     meta word at meta[ci], brick slot ci, brick word at bricks[ci*wpb + (bit>>5)];
-//     with SHARED_META the meta words are a copy in the block's shared memory.
+//     with SHARED_META the meta words are a copy in the block's shared memory;
+//   CompactFetch (K4's compact instantiation; ops/trace.py:275-278, XLA):
+//     DenseSlotFetch with the brick slot read from brick_idx[ci] (-1 -> 0).
 //
 // Two compile-time flags, so that the production build keeps its
 // instruction stream:
@@ -223,6 +225,7 @@ struct LineTableFetch {
 // meta_words points at the block's shared-memory copy.
 template <bool SHARED_META = false>
 struct DenseSlotFetch {
+  static constexpr bool SHARED = SHARED_META;
   const int* meta_words;
   const int* bricks;
   int gx, gy;         // chunk grid (x, y)
@@ -236,6 +239,21 @@ struct DenseSlotFetch {
     return ldg((fine ? bricks : meta_words) + i);
   }
   VX_HD int brick_base(int c) const { return c * wpb; }
+};
+
+// K4's tables for a compact brickmap: meta by chunk index as above, the
+// chunk's brick slot from brick_idx (the wrapper keeps num_bricks * wpb below
+// 2^31).  Only a descend reads brick_idx, one dependent load before the
+// brick words.  Empty chunks hold -1, which the walk reaches only through an
+// occupied meta word; it reads as slot 0 all the same, as the XLA walk
+// clamps it, so no read leaves the table.
+template <bool SHARED_META = false>
+struct CompactFetch : DenseSlotFetch<SHARED_META> {
+  const int* brick_idx;
+  VX_HD int brick_base(int c) const {
+    const int s = ldg(brick_idx + c);
+    return (s > 0 ? s : 0) * this->wpb;
+  }
 };
 
 // Advance axis with the reference's tie-break: x if strictly smallest,

@@ -240,6 +240,20 @@ extern "C" int vx_trace_brickmap_dense_host(const float* start, const float* dir
   return brickmap_rays(P, F, n, start, dir, active, pad, flags, pos, normal, steps);
 }
 
+// K4's compact instantiation (bmtrace.cu::vx_trace_brickmap_compact), as
+// the dense host entry: brick slots from brick_idx.
+extern "C" int vx_trace_brickmap_compact_host(const float* start, const float* dir,
+                                              const int* active, const int* pad, const int* meta,
+                                              const int* brick_idx, const int* bricks, int n,
+                                              int gx, int gy, int gz, int factor, int wpb,
+                                              int max_steps, int coarse_layout, int brick_layout,
+                                              int iter_limit, int* flags, float* pos,
+                                              float* normal, int* steps) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::CompactFetch<> F = {{meta, bricks, gx, gy, coarse_layout, wpb}, brick_idx};
+  return brickmap_rays(P, F, n, start, dir, active, pad, flags, pos, normal, steps);
+}
+
 // K2 (gridtrace.cu::vx_trace_grid): trace_grid_vpu's function, ray setup
 // and fix-up included.
 extern "C" int vx_trace_grid_full_host(const float* origins, int os, const float* rays, int rs,

@@ -10,8 +10,8 @@ voxels in place.
 Where the rays go on the card: with a line table (built by
 :meth:`~VoxelRaytracer3D.upload_world` for LINEAR worlds, as in JAX), K1 with
 the macro levels off, which computes ``trace_brickmap``'s function, the one
-the JAX facade traces; without one, K4 for a dense-slot world, and a
-compact world is refused.  On the CPU the plain walk.  Edits go through
+the JAX facade traces; without one, K4 (its dense-slot or compact
+instantiation by the world's form).  On the CPU the plain walk.  Edits go through
 :func:`~voxelengine_tpu_torch.ops.bigtrace.apply_edits_hbm` where there is a
 line table, else :func:`~voxelengine_tpu_torch.core.brickmap.apply_edits`.
 

@@ -1,12 +1,19 @@
-"""Wrapper of K4, the Hopper dense-slot brickmap traversal kernel
-(``csrc/bmtrace.cu``).
+"""Wrapper of K4, the Hopper brickmap traversal kernel without a line
+table (``csrc/bmtrace.cu``).
 
-It replaces ``voxelengine_tpu/ops/pallas_trace2.py::_bm_kernel``; its plain
-version is :func:`voxelengine_tpu_torch.ops.trace.trace_brickmap`, which
+:func:`bmtrace` (dense slots) replaces
+``voxelengine_tpu/ops/pallas_trace2.py::_bm_kernel``; its plain version is
+:func:`voxelengine_tpu_torch.ops.trace.trace_brickmap`, which
 :func:`voxelengine_tpu_torch.ops.trace2.trace_brickmap_mxu` runs for rays
 on the CPU.  ``launches`` counts the launches made through :func:`bmtrace`
 (both instantiations; ``shared_launches`` those with ``meta`` in shared
 memory).
+
+:func:`bmtrace_compact` is K4's compact instantiation, for compact worlds
+without a line table, with the same plain version; it has no TPU kernel
+(the JAX package walks such a world in XLA, ``voxelengine_tpu/ops/
+trace.py:411,435``).  ``compact_launches`` counts its launches
+(``compact_shared_launches`` those with ``meta`` in shared memory).
 
 :func:`bmtrace_slab` wraps K4-slab (``csrc/zslab.cu``), K4's loop over one
 z-slab of a larger world for the z-sharded migration
@@ -15,6 +22,8 @@ counts its launches.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -31,6 +40,40 @@ def meta_in_shared(num_chunks: int) -> bool:
     """Whether K4 runs its shared-memory-meta instantiation for a world of
     ``num_chunks`` chunks: by the table's size alone."""
     return 4 * num_chunks <= SMEM_META_LIMIT
+
+
+def _k4(entry: str, start, d, active, pad, tables, *, grid_dims, factor: int, max_steps: int,
+        coarse_layout: Layout, brick_layout: Layout):
+    """Launch one of K4's table forms: ``entry`` is its launcher, ``tables``
+    its table tensors (checked by the caller).  Returns the outputs and
+    whether ``meta`` went to shared memory, or None where no ray means no
+    launch."""
+    gx, gy, gz = grid_dims
+    nc = gx * gy * gz
+    dev = start.device
+    n = start.shape[0]
+    outs = build.ray_outputs(n, dev)
+    if n == 0:
+        return outs, None
+    shared = meta_in_shared(nc)
+    counter = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launcher on the stream
+    build.launch(
+        "bmtrace", getattr(build.load_kernel("bmtrace"), entry),
+        start.data_ptr(), d.data_ptr(), active.data_ptr(), pad.data_ptr(), *(t.data_ptr() for t in tables),
+        n, gx, gy, gz, factor, (factor**3 + 31) // 32, max_steps, coarse_layout.value, brick_layout.value,
+        3 * max_steps + 64,  # iteration cap, as K1's: never reached (ops/trace.py)
+        int(shared), counter.data_ptr(), *(o.data_ptr() for o in outs), dev=dev,
+    )
+    return outs, shared
+
+
+def _check_grid(kernel: str, grid_dims, factor: int, coarse_layout: Layout, brick_words: int) -> None:
+    """Raise unless K4's int32 indices hold ``brick_words`` brick words and
+    the chunk grid suits ``coarse_layout``."""
+    if brick_words >= 2**31 or math.prod(grid_dims) >= 2**31 or not 1 <= factor <= 32:
+        raise ValueError(f"{kernel}: grid {grid_dims} at factor {factor} is outside the kernel's int32 indices")
+    if coarse_layout is not Layout.LINEAR and any(g % 8 for g in grid_dims):
+        raise ValueError(f"{kernel}: coarse layout {coarse_layout.name} needs a chunk grid divisible by 8")
 
 
 def bmtrace(
@@ -50,30 +93,45 @@ def bmtrace(
     stream without synchronising and raises if the launch is refused.
     """
     global launches, shared_launches
-    gx, gy, gz = grid_dims
-    nc = gx * gy * gz
+    nc = math.prod(grid_dims)
     wpb = (factor**3 + 31) // 32
-    if nc * wpb >= 2**31 or not 1 <= factor <= 32:
-        raise ValueError(f"bmtrace: grid {grid_dims} at factor {factor} is outside the kernel's int32 indices")
-    if coarse_layout is not Layout.LINEAR and any(g % 8 for g in grid_dims):
-        raise ValueError(f"bmtrace: coarse layout {coarse_layout.name} needs a chunk grid divisible by 8")
+    _check_grid("bmtrace", grid_dims, factor, coarse_layout, nc * wpb)
     dev = build.check_rays("bmtrace", start, d, active, pad)
     build.check("bmtrace", "meta", meta, torch.int32, (nc,), dev)
     build.check("bmtrace", "bricks", bricks, torch.int32, (nc, wpb), dev)
-    n = start.shape[0]
-    outs = build.ray_outputs(n, dev)
-    if n == 0:
-        return outs
-    counter = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launcher on the stream
-    build.launch(
-        "bmtrace", build.load_kernel("bmtrace").vx_trace_brickmap_dense,
-        start.data_ptr(), d.data_ptr(), active.data_ptr(), pad.data_ptr(), meta.data_ptr(), bricks.data_ptr(),
-        n, gx, gy, gz, factor, wpb, max_steps, coarse_layout.value, brick_layout.value,
-        3 * max_steps + 64,  # iteration cap, as K1's: never reached (ops/trace.py)
-        int(meta_in_shared(nc)), counter.data_ptr(), *(o.data_ptr() for o in outs), dev=dev,
-    )
-    launches += 1
-    shared_launches += meta_in_shared(nc)
+    outs, shared = _k4("vx_trace_brickmap_dense", start, d, active, pad, (meta, bricks), grid_dims=grid_dims,
+                       factor=factor, max_steps=max_steps, coarse_layout=coarse_layout, brick_layout=brick_layout)
+    if shared is not None:
+        launches += 1
+        shared_launches += shared
+    return outs
+
+
+compact_launches = compact_shared_launches = 0
+
+
+def bmtrace_compact(
+    start, d, active, pad, meta: torch.Tensor, brick_idx: torch.Tensor, bricks: torch.Tensor, *,
+    grid_dims, factor: int, max_steps: int, coarse_layout: Layout, brick_layout: Layout,
+):
+    """:func:`bmtrace` over a compact brickmap (K4's compact instantiation):
+    ``brick_idx`` (``int32[num_chunks]``, by chunk index; -1 for an empty
+    chunk) gives each chunk's row of ``bricks`` (``int32[num_bricks,
+    wpb]``).  Same rays, outputs and instantiation choice."""
+    global compact_launches, compact_shared_launches
+    nc = math.prod(grid_dims)
+    wpb = (factor**3 + 31) // 32
+    _check_grid("bmtrace_compact", grid_dims, factor, coarse_layout, bricks.shape[0] * wpb)
+    dev = build.check_rays("bmtrace_compact", start, d, active, pad)
+    build.check("bmtrace_compact", "meta", meta, torch.int32, (nc,), dev)
+    build.check("bmtrace_compact", "brick_idx", brick_idx, torch.int32, (nc,), dev)
+    build.check("bmtrace_compact", "bricks", bricks, torch.int32, (None, wpb), dev)
+    outs, shared = _k4("vx_trace_brickmap_compact", start, d, active, pad, (meta, brick_idx, bricks),
+                       grid_dims=grid_dims, factor=factor, max_steps=max_steps, coarse_layout=coarse_layout,
+                       brick_layout=brick_layout)
+    if shared is not None:
+        compact_launches += 1
+        compact_shared_launches += shared
     return outs
 
 

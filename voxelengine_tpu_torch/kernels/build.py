@@ -62,6 +62,8 @@ SIGNATURES = {
     # meta, bricks; n, gx, gy, gz, factor, wpb, max_steps, coarse_layout,
     # brick_layout, iter_limit, shared_meta; counter (int32 scratch), outputs
     "vx_trace_brickmap_dense": _RAYS + [_P] * 2 + [_I] * 11 + [_P] + _OUTS,
+    # ... meta, brick_idx, bricks; then as vx_trace_brickmap_dense
+    "vx_trace_brickmap_compact": _RAYS + [_P] * 3 + [_I] * 11 + [_P] + _OUTS,
     # rays (round 0) or null, rows_in (later rounds) or null, meta, bricks;
     # m, gx, gy, gz, z0, slab_gz, factor, wpb, max_steps, brick_layout,
     # iter_limit; rows_out, status, outputs (K4-slab)
@@ -73,7 +75,7 @@ SIGNATURES = {
     "vx_noise_points": [_I, _I, _P, _F, _I, _I, _F, _F, _P, _P],
 }
 # host-build entry -> its C signature: the kernel launcher's it mirrors,
-# except K4's, which has no instantiation flag and no work counter; and the
+# except K4's two, which have no instantiation flag and no work counter; and the
 # grid walk alone on prepared rays (vx_trace_grid_host, *_limbs_host)
 HOST_ENTRIES = {
     "vx_trace_host": SIGNATURES["vx_bigtrace"],
@@ -82,6 +84,7 @@ HOST_ENTRIES = {
     "vx_trace_grid_full_host": SIGNATURES["vx_trace_grid"],
     "vx_trace_grid_limbs_full_host": SIGNATURES["vx_trace_grid_limbs"],
     "vx_trace_brickmap_dense_host": _RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
+    "vx_trace_brickmap_compact_host": _RAYS + [_P] * 3 + [_I] * 10 + _OUTS,
     "vx_trace_grid_host": _RAYS + [_P] + [_I] * 6 + _OUTS,
     "vx_trace_grid_limbs_host": _RAYS + [_P, _L] + [_I] * 6 + _OUTS,
     # limbs, plane, words16, out: K3's staging alone

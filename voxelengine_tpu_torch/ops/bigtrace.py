@@ -511,7 +511,8 @@ def trace_brickmap_hbm(
     distance).  Rays on a CUDA device run in K1 (one launch); rays on the
     CPU run the plain :func:`trace_brickmap_lt`, or with ``use_macro=False``
     and no counters the plain chunk-by-chunk
-    :func:`~voxelengine_tpu_torch.ops.trace.trace_brickmap`.
+    :func:`~voxelengine_tpu_torch.ops.trace.trace_brickmap` (the line-table
+    walk, the same function, where the world's bricks stay on the host).
 
     Returns the :class:`TraceOut`, as the JAX function does; with
     ``return_iters`` also each ray's iteration count (on the card the loop
@@ -522,7 +523,7 @@ def trace_brickmap_hbm(
     """
     diag = return_iters or return_phases
     if not origins.is_cuda:
-        if use_macro or diag:
+        if use_macro or diag or bm.bricks is None:
             res = trace_brickmap_lt(bm, lt, origins, rays, max_steps, use_macro, diag)
         else:
             res = trace_brickmap(bm, origins, rays, max_steps)

@@ -144,11 +144,12 @@ def render_frame_sharded(
     updated in place and returned; the world is whole on every rank.  The
     rank renders its pre-remap rows with the single-device machinery: tile
     order within the band, :func:`~voxelengine_tpu_torch.render.frame.
-    shade_pixels` (K1 with ``lt``, K4 for a dense-slot world without one,
-    the plain walk for CPU tensors) and the pair-select composite.  The
-    checkerboard remap ``y = 2y' + (x even) + (frame even)`` commutes with
-    row bands except for the even-frame ``+2`` seam, covered by one halo
-    ray row: the row before the band, recomputed here."""
+    shade_pixels` (K1 with ``lt``, K4 for a dense-slot or compact world
+    without one, the plain walk for CPU tensors) and the pair-select
+    composite.  The checkerboard remap ``y = 2y' + (x even) + (frame
+    even)`` commutes with row bands except for the even-frame ``+2`` seam,
+    covered by one halo ray row: the row before the band, recomputed
+    here."""
     W = cfg.width
     cb = cfg.checkerboard
     rows_local = _rows_local(cfg, mesh)

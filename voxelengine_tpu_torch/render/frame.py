@@ -21,10 +21,10 @@ ignores those three flags, as the JAX dense path does.
 
 Where the rays go: with a line table, through
 :func:`~voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_hbm` (K1 for CUDA
-tensors).  Without one, CUDA rays over a dense-slot world go through
-:func:`~voxelengine_tpu_torch.ops.trace2.trace_brickmap_mxu` (K4), and a
-compact world is refused, since only the plain walk could trace it there;
-CPU rays run the plain :func:`~voxelengine_tpu_torch.ops.trace.trace_brickmap`.
+tensors).  Without one, CUDA rays go through
+:func:`~voxelengine_tpu_torch.ops.trace2.trace_brickmap_no_table` (K4, in
+its dense-slot or compact instantiation by the world's form); CPU rays run
+the plain :func:`~voxelengine_tpu_torch.ops.trace.trace_brickmap`.
 """
 
 from __future__ import annotations
@@ -188,7 +188,7 @@ def _secondary_trace(bm: BrickMap, lt: Optional[LineTable], cfg: RenderConfig, o
     """Secondary-ray trace (shadows, reflections, AO): through the line
     table where there is one (K1 for CUDA rays), else
     :func:`~voxelengine_tpu_torch.ops.trace2.trace_brickmap_no_table`
-    (K4 for CUDA rays over a dense-slot world)."""
+    (K4 for CUDA rays)."""
     if lt is not None:
         return trace_brickmap_hbm(bm, lt, origins, dirs, max_steps, use_macro=cfg.trace_use_macro)
     return trace_brickmap_no_table(bm, origins, dirs, max_steps)
@@ -328,7 +328,7 @@ def shade_pixels(
     With ``lt`` the rays go through the line-table traversal (K1 for CUDA
     tensors; with ``cfg.trace_stage_steps``, the staged trace), with the
     macro skip levels when ``cfg.trace_use_macro``; otherwise through
-    ``trace_brickmap_no_table`` (K4 for CUDA rays over a dense-slot world)."""
+    ``trace_brickmap_no_table`` (K4 for CUDA rays)."""
     if lt is not None and cfg.trace_stage_steps:
         out = trace_brickmap_hbm_staged(
             bm, lt, origins, dirs, cfg.max_steps, stage_steps=cfg.trace_stage_steps,
