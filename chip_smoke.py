@@ -6,7 +6,7 @@
 Phases, one stdout line each (plus the kernels' build logs):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile every CUDA kernel (K1-K5, W1) from
+2. build: compile every CUDA kernel (K1-K5, W1, K4-slab, the record and camera kernels) from
    ``voxelengine_tpu_torch/csrc``, one nvcc per source, all started
    together; ptxas registers and spills of each instantiation;
 3. noise: worldgen noise on the card against ``native/golden_noise.json``,
@@ -122,10 +122,32 @@ Phases, one stdout line each (plus the kernels' build logs):
    table), and the 1024^3 world with its raw bricks kept on the host (the
    16k world's flow), each with its own exactness gate (0 hit diffs) and
    its JSON line; then K4-compact against its plain version on the bench
-   frame's 1,036,800 rays and its time.
+   frame's 1,036,800 rays and its time;
+15. the camera kernel (``csrc/camera.cu``: glibc's ``sinf`` and ``cosf``,
+   which the reference's XLA:CPU computes, and the basis of
+   ``get_directions``) against its plain version (``core/libm.py``) on
+   1,187,869 angle triples (a grid over [-3.3, 3.3], +-64 ulp of every
+   multiple of pi/4 up to 120, |x| in [120, 1e5], the bench, demo and
+   drifted cameras), bit for bit; the card's basis at the cameras against
+   the CPU port's; its time and its plain version's for one triple (the
+   frame's call); the CUDA kernels of a frame's ray setup, of which the
+   basis must be one launch;
+16. the measurement scripts (``voxelengine_tpu_torch/experiments/``) on
+   the bench world from phase 5's cache: the frame breakdown (S0 ray
+   setup, S1 with K1, S2 the frame; primary and with shadows, AO 4 and
+   reflections: ms a frame over 5 batches, CUDA kernels and device ms a
+   frame, busy share), the shard projection (K1 on each rank's pixels for
+   N = 2, 4, 8 in row bands and block-cyclic, one shard's frame, frame_N and
+   the imbalance) and the 1080p demo image of both fields (its PNG's size
+   and checksum, and the pixels apart from the JAX reference's TPU render
+   in ``docs/``, information only);
+17. the block-cyclic frame at 1920x1080 (32x30 blocks) on 8 gloo ranks
+   sharing the card, the 512^3 terrain at 8 octaves built by W1, both
+   parities through K1 against single-device ``render_frame``: 0 byte
+   diffs.
 
-Each kernel's path (the bench world's frames for K1, and the demo world's
-for its second record; the bench world's build for W1; the frames of
+Each kernel's path (the bench world's frames for K1 and the camera kernel,
+and the demo world's for K1's second record; the bench world's build for W1; the frames of
 phase 8 for K2, the phase-8 batch for K3 and the 128^3 grid for its global
 instantiation, the phase-9 128^3 batch for K4 with shared meta and its
 512x256x512 batch for K4 with global meta, the phase-10 batch for K5; the
@@ -141,12 +163,14 @@ launches made to compare or time a kernel are not counted.  Then the run's
 wall time, one JSON line describing each kernel (its time, its plain
 version's, and its bound: the larger of its bytes (rays in and out plus
 the table words its hits need; W1's output) over the card's memory rate
-and its operations over its float32 rate; with the macro levels on, the
+and its operations over the card's instruction issue rate (SMs x 4 x 32 x
+the SM clock, read on the card: the kernels fuse no multiply-add; W1's
+integer instructions also over the INT32 pipe's half rate); with the macro levels on, the
 operations of the DDA events the diag build counts, since a macro skip
 charges steps it never walks; for K2 and K3 the bytes of their wrappers'
 whole function, origins and raw directions in, the hit byte, position,
-normal and steps out; for W1 the operations a voxel counted from its
-source, :func:`w1_ops_per_voxel`), the card line again, and last
+normal and steps out; for W1 the instructions a voxel counted in its
+SASS, :func:`w1_sass_count`), the card line again, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0)
 before the last line.  Needs one CUDA device; there is no CPU fallback.
 Imports nothing of JAX.
@@ -155,6 +179,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import re
@@ -168,9 +193,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FRAMES = 8  # timed chained frames after the warm-up
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the tensor cores
+# H100 SXM peak (NVIDIA data sheet): HBM3 bytes/s.  The operation rates are
+# read on the card (issue_rates): the kernels are built with --fmad=false
+# and count an integer op as one, so no op is a fused pair and the limit is
+# the instruction issue rate, not the data sheet's 67e12 float32 rate (an
+# FMA counted as two)
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 # K1, K4 and K5 read start, dir, pad (12 B each) and active (4 B) and write
 # flags, steps (4 B each), position and normal (12 B each) per ray
 RAY_BYTES = 72
@@ -187,7 +215,7 @@ EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
 # threads a block of each library's kernels (csrc/*.cu)
 BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256, "crossings": 32,
-                 "zslab": 128}
+                 "zslab": 128, "camera": 128}
 # the app's frame (apps/voxel_app.py:64-68,178-188): the 1024^3 world at
 # factor 32, 1280x720, shadows, AO 4, reflections; the facade's batch size
 APP_WORLD = (1024, 1024, 1024)
@@ -222,6 +250,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.cache
+def issue_rates() -> dict:
+    """The card's instruction rates, a lane-op a second: ``issue`` (4
+    schedulers an SM each issue one 32-lane warp instruction a clock: SMs x
+    4 x 32 x the SM clock), ``int32`` and ``fp64`` (64 lanes an SM a clock,
+    half of it), with the SM count and the clock (``nvidia-smi``'s
+    ``clocks.max.sm``) they come from."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    hz = float(out.stdout.strip().splitlines()[0]) * 1e6
+    return {"sms": sms, "clock_hz": hz, "issue": sms * 4 * 32 * hz, "int32": sms * 64 * hz, "fp64": sms * 64 * hz}
+
+
 def cuda_ms(fn, repeats: int = 1) -> float:
     """Mean device time of ``fn()`` over ``repeats`` runs, by CUDA events,
     after one untimed run (a kernel's first launch also loads it)."""
@@ -243,9 +287,9 @@ def bound(rays: int, table_bytes: int, work: int, ray_bytes: float = RAY_BYTES):
     (``ray_bytes`` a ray in and out, and the ``table_bytes`` its hits need,
     see :func:`hit_table_bytes`) over the memory rate and the float
     operations of its ``work`` DDA steps (or executed events) over the
-    float32 rate."""
+    card's instruction issue rate (:func:`issue_rates`)."""
     bytes_ms = (rays * ray_bytes + table_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = work * OPS_PER_STEP / F32_OPS_PER_S * 1e3
+    ops_ms = work * OPS_PER_STEP / issue_rates()["issue"] * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -304,27 +348,6 @@ def grid_ray_bytes(origins, rays) -> float:
     def data_bytes(t):
         return 4 * math.prod(size for size, stride in zip(t.shape, t.stride()) if stride != 0)
     return GRID_OUT_BYTES + (data_bytes(origins) + data_bytes(rays)) / rays.shape[0]
-
-
-def kernel_profile(fn, calls: int = 1):
-    """``(names, ms)``: the CUDA kernels ``calls`` runs of ``fn()`` launch
-    (memory copies and sets excluded) and the device time of each, by
-    ``torch.profiler``; ``(None, None)`` where the profiler records no
-    device activity.  A short kernel's own time: CUDA events around a
-    host-bound call also time the card's idle gaps."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
-        return None, None
-    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
-    return [e.name for e in kernels], [e.time_range.elapsed_us() / 1e3 for e in kernels]
 
 
 def phase_build():
@@ -529,10 +552,19 @@ def phase_terrain(dev):
     voxels = dims[0] * dims[1] * f
     out_bytes = gx * gy * (1 + 24 + 4 * wpb)
     bytes_ms = out_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = voxels * w1_ops_per_voxel(OCTAVES) / F32_OPS_PER_S * 1e3
+    sass = w1_sass_count(OCTAVES)
+    rates = issue_rates()
+    # the instructions a voxel over the issue rate, and its integer ones
+    # over the INT32 pipe's half rate: the larger is the operations' bound
+    ops_ms = voxels * max(sass["per_voxel"] / rates["issue"], sass["int_per_voxel"] / rates["int32"]) * 1e3
+    hand_ms = voxels * w1_ops_per_voxel(OCTAVES) / rates["issue"] * 1e3
+    say(f"terrain: W1's SASS (cuobjdump -sass of {sass['library']}): {json.dumps(sass)}; the hand count "
+        f"{w1_ops_per_voxel(OCTAVES)} ops a voxel ({hand_ms:.3f} ms at the issue rate)")
     say(f"times: W1 {ms:.3f} ms, plain solid_at + _slab_to_chunks {plain_ms:.1f} ms on the slab z0={z0} of "
         f"{dims} f{f} ({voxels} voxels, {gx * gy} chunks, {occupied} occupied); bound {max(bytes_ms, ops_ms):.3f} ms "
-        f"({w1_ops_per_voxel(OCTAVES)} ops a voxel over {F32_OPS_PER_S:.3g} op/s), on {card_line()}")
+        f"({sass['per_voxel']} instructions a voxel, {sass['int_per_voxel']} of them integer, over the issue rate "
+        f"{rates['issue']:.4g} and the INT32 rate {rates['int32']:.4g} lane-ops/s: {rates['sms']} SMs at "
+        f"{rates['clock_hz'] / 1e6:.0f} MHz), W1 at {ms / max(bytes_ms, ops_ms):.3f}x its bound, on {card_line()}")
     return {
         "name": "terrain_slab", "route": "cuda", "source": "voxelengine_tpu_torch/csrc/terrain.cu",
         "replaces": "voxelengine_tpu/core/brickmap.py:284 build_brickmap_terrain_compact (XLA under jax.jit, "
@@ -540,7 +572,56 @@ def phase_terrain(dev):
         "launches": None, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,  # no PyTorch call computes Perlin terrain
-        "voxels": voxels, "ops_per_voxel": w1_ops_per_voxel(OCTAVES), "out_bytes": out_bytes,
+        "voxels": voxels, "ops_per_voxel": sass["per_voxel"], "int_ops_per_voxel": sass["int_per_voxel"],
+        "hand_ops_per_voxel": w1_ops_per_voxel(OCTAVES), "out_bytes": out_bytes,
+    }
+
+
+# SASS mnemonics by pipe (Hopper): integer arithmetic and logic on the INT32
+# pipe; conversions and the rest counted apart
+SASS_INT = ("IADD3", "IMAD", "LOP3", "SHF", "ISETP", "IMNMX", "LEA", "SEL", "PRMT", "IABS", "SGXT", "BMSK",
+            "POPC", "FLO", "BREV", "VIMNMX", "IMUL")
+SASS_FLOAT = ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FSET", "FCHK")
+SASS_CONVERT = ("F2I", "I2F", "F2F", "FRND", "I2FP", "F2IP")
+
+
+def w1_sass_count(octaves: int) -> dict:
+    """W1's instructions a voxel from its SASS (``cuobjdump -sass`` of the
+    built terrain library): the octave loop is the innermost backward
+    branch whose body holds ``floorf``'s FRND (3 an octave, so the body
+    holds FRND / 3 octaves, however the compiler unrolled it); the rest of
+    a voxel is the enclosing loop's body less that loop.  Each instruction
+    is one warp instruction, one op a lane, and a lane computes a voxel."""
+    from voxelengine_tpu_torch.kernels import build
+
+    lib = build.kernel_library("terrain")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    part = next(p for p in re.split(r"\n\s*Function : ", sass)[1:] if "terrain_slab" in p.split("\n", 1)[0])
+    ins = [(int(a, 16), op.strip()) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+    loops = sorted(((int(m.group(1), 16), a) for a, op in ins
+                    if (m := re.search(r"BRA (?:\S+, )?0x([0-9a-f]+)", op)) and int(m.group(1), 16) < a),
+                   key=lambda t: t[1] - t[0])
+
+    def body(lo, hi):
+        return [op.split()[1] if op.startswith("@") else op.split()[0] for a, op in ins if lo <= a <= hi]
+
+    def count(ops, names):
+        return sum(1 for op in ops if op.split(".")[0] in names)
+
+    inner = next((lo, hi) for lo, hi in loops if count(body(lo, hi), ("FRND",)) >= 3)
+    outer = next(((lo, hi) for lo, hi in loops if lo <= inner[0] and hi >= inner[1] and (lo, hi) != inner), inner)
+    ib, ob = body(*inner), body(*outer)
+    per = len(ib) / (count(ib, ("FRND",)) / 3)  # instructions an octave
+    rest = len(ob) - len(ib)
+    per_int = count(ib, SASS_INT) / (count(ib, ("FRND",)) / 3)
+    rest_int = count(ob, SASS_INT) - count(ib, SASS_INT)
+    return {
+        "library": lib.name, "instructions": len(ins), "octave_loop": len(ib),
+        "octaves_a_pass": count(ib, ("FRND",)) // 3, "per_octave": per, "int_per_octave": per_int,
+        "float_per_octave": count(ib, SASS_FLOAT) / (count(ib, ("FRND",)) / 3),
+        "convert_per_octave": count(ib, SASS_CONVERT) / (count(ib, ("FRND",)) / 3),
+        "rest_a_voxel": rest, "per_voxel": octaves * per + rest, "int_per_voxel": octaves * per_int + rest_int,
     }
 
 
@@ -827,7 +908,7 @@ def main_path_frames(dev, world, bm, lt, memo):
 
     from voxelengine_tpu_torch.config import Environment, RenderConfig
     from voxelengine_tpu_torch.io.checkpoint import memo_json
-    from voxelengine_tpu_torch.kernels import bigtrace
+    from voxelengine_tpu_torch.kernels import bigtrace, camera
     from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm, trace_brickmap_lt
     from voxelengine_tpu_torch.ops.trace import trace_brickmap
     from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, probe_use_macro, render_frame
@@ -858,7 +939,7 @@ def main_path_frames(dev, world, bm, lt, memo):
     cfg = dataclasses.replace(cfg, trace_use_macro=use_macro)
     fb = make_framebuffer(cfg, dev)
 
-    bigtrace.launches = 0  # count the main path's launches only
+    bigtrace.launches = camera.launches = 0  # count the main path's launches only
     render_frame(bm, fb, origin, euler, env, 0, cfg, lt=lt)  # warm-up
     torch.cuda.synchronize()
     counts = [bigtrace.launches]
@@ -870,10 +951,12 @@ def main_path_frames(dev, world, bm, lt, memo):
         counts.append(bigtrace.launches)
     end.record()
     torch.cuda.synchronize()
-    launches = bigtrace.launches
+    launches, camera_launches = bigtrace.launches, camera.launches
     frame_ms = start.elapsed_time(end) / FRAMES
     if any(b != a + 1 for a, b in zip([0] + counts, counts)):
         raise SystemExit(f"K1 was not launched once per frame: launch counts {counts}")
+    if camera_launches != FRAMES + 1:
+        raise SystemExit(f"the camera kernel was launched {camera_launches} times in {FRAMES + 1} frames")
 
     if tuple(fb.shape) != (H, W, 3) or not bool(torch.isfinite(fb).all()):
         raise SystemExit("framebuffer has the wrong shape or non-finite values")
@@ -897,7 +980,7 @@ def main_path_frames(dev, world, bm, lt, memo):
         raise SystemExit(f"implausible hit fraction {hit_frac}")
     say(f"main path ({world}): {W}x{H} checkerboard tile_order, use_macro={use_macro}, {FRAMES} chained frames: "
         f"{frame_ms:.3f} ms/frame, {rays_per_frame / frame_ms / 1e3:.3f} Mrays/s primary, "
-        f"hit fraction {hit_frac:.4f}, K1 launches {launches}, "
+        f"hit fraction {hit_frac:.4f}, K1 launches {launches}, camera kernel launches {camera_launches}, "
         f"framebuffer checksum {float(fb.double().sum()):.6f}")
 
     # the diag build on the same rays: counters, warp iterations
@@ -926,7 +1009,7 @@ def main_path_frames(dev, world, bm, lt, memo):
         "bigtrace" if world == "full" else "bigtrace_demo_world", "bigtrace.cu",
         "voxelengine_tpu/ops/pallas_bigtrace.py:1348", launches, diffs[4], k_ms, p_ms,
         o.shape[0], hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick), steps_sum,
-        events if use_macro else None,
+        events if use_macro else None, camera_launches=camera_launches,
     )
 
 
@@ -1019,6 +1102,7 @@ def phase_dense_path(dev, err):
     from voxelengine_tpu_torch.ops.gridtrace import trace_grid_mxu, trace_grid_vpu, words_to_limb_rows
     from voxelengine_tpu_torch.ops.trace import trace_grid
     from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, render_frame_dense
+    from voxelengine_tpu_torch.utils.profiling import kernel_profile
     from voxelengine_tpu_torch.worldgen.terrain import generate_world
 
     t0 = time.perf_counter()
@@ -1494,6 +1578,7 @@ def phase_app_frame(dev):
     from voxelengine_tpu_torch.engine import raytracer
     from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, terrain
     from voxelengine_tpu_torch.ops.bigtrace import brick_lines_view, make_line_table, trace_brickmap_hbm, trace_brickmap_lt
+    from voxelengine_tpu_torch.utils.profiling import kernel_profile
     from voxelengine_tpu_torch.ops.trace import TraceOut, _dims, _edge_pad, _ray_setup, trace_brickmap
     from voxelengine_tpu_torch.render.camera import get_directions_np
     from voxelengine_tpu_torch.render.frame import block_permutation_from_steps, make_framebuffer, render_frame
@@ -2666,6 +2751,180 @@ def phase_harness(dev, cache, key):
     )
 
 
+# phase 15, the camera kernel (csrc/camera.cu): glibc's sinf and cosf, as
+# the reference's XLA:CPU computes them, and the basis of get_directions
+CAMERA_GRID = 1 << 20  # pitch and yaw angle pairs of the grid over [-3.3, 3.3]
+# the cameras whose basis the card and the CPU must give alike: the bench's
+# (bench.py:192) and its drifted frames (bench.py:324; this script's main
+# path adds 1e-5 * i in torch), the demo's (apps/voxel_app.py:198), the
+# JAX package's sharding tests' and the 1080p cyclic check's
+CAMERAS = [(-0.25, 0.75, 0.0), (0.3, 0.8, 0.0), (0.9, 0.3, 0.0), (-0.5, 0.75, 0.0)]
+# the basis' work a triple: per angle the reduction (a product, a fused
+# step, two conversions) and the two polynomials (4 products and 3 fused
+# steps for the sine, 4 and 4 for the cosine, the signs and 2 roundings):
+# 24 float64 ops; the basis 9 products, 3 differences and 7 negations
+CAMERA_FP64_OPS, CAMERA_F32_OPS, CAMERA_BYTES = 2 * 24, 19, 12 + 36
+
+
+def camera_angles():
+    """The phase's angle triples, float32 numpy ``[n, 3]``: the grid as
+    pitch and (reversed) yaw, +-64 ulp of every multiple of pi/4 up to 120
+    and random |x| in [120, 1e5] in both, and the cameras with the bench
+    drift."""
+    import numpy as np
+
+    f32 = np.float32
+    x = np.linspace(-3.3, 3.3, CAMERA_GRID, dtype=f32)
+    k = np.arange(-152, 153)
+    edges = ((k * np.pi / 4).astype(f32).view(np.int32)[:, None] + np.arange(-64, 65)).astype(np.int32).view(f32)
+    edges = edges[np.isfinite(edges) & (np.abs(edges) <= 120)].reshape(-1)
+    rng = np.random.default_rng(15)
+    large = (120 + rng.random(100_000) * (1e5 - 120)).astype(f32) * rng.choice(f32([-1, 1]), 100_000)
+    a = np.concatenate([x, edges, large])
+    e = np.stack([a, a[::-1], np.zeros_like(a)], 1)
+    cams = np.asarray(CAMERAS, f32)
+    drift = cams[:1] + (f32(1e-5) * np.arange(1, FRAMES + 1, dtype=f32))[:, None]
+    return np.concatenate([e, cams, drift]).astype(f32)
+
+
+def phase_camera(dev, launches):
+    """Phase 15: the camera kernel against its plain version
+    (``render/camera.py::basis_plain``, ``core/libm.py``) on the card over
+    :func:`camera_angles`, bit for bit; the basis of :data:`CAMERAS` and
+    the drifted bench camera on the card and on the CPU, bit for bit; the
+    kernel's and the plain version's times at the frame's shape (one
+    triple); the CUDA kernels of a frame's ray setup, of which the basis
+    must be one.  ``launches``: the kernel's on the main path (phase 5).
+    Returns the kernel's record."""
+    import numpy as np
+    import torch
+
+    from voxelengine_tpu_torch.config import RenderConfig
+    from voxelengine_tpu_torch.kernels import camera as ck
+    from voxelengine_tpu_torch.render import camera as cam
+    from voxelengine_tpu_torch.render.frame import primary_rays
+    from voxelengine_tpu_torch.utils.profiling import kernel_profile
+
+    card = card_line()
+    angles = camera_angles()
+    e = torch.from_numpy(angles).to(dev)
+    got = ck.camera_basis(e)
+    want = torch.cat(cam.basis_plain(e), dim=1)
+    diffs = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    err = float((got - want).abs().max())
+    if diffs or err:
+        raise SystemExit(f"camera kernel vs plain on {e.shape[0]} triples: {diffs} word diffs, max abs err {err}")
+    cams = torch.from_numpy(angles[-len(CAMERAS) - FRAMES:])
+    on_card = torch.cat(cam.get_directions(cams.to(dev)), dim=1).cpu()
+    on_cpu = torch.cat(cam.get_directions(cams), dim=1)
+    cpu_diffs = int((on_card.view(torch.int32) != on_cpu.view(torch.int32)).sum())
+    say(f"camera: kernel vs plain (libm's sincosf in torch ops) on {e.shape[0]} angle triples on the card (tolerance: "
+        f"equal): {diffs} diffs, max abs err {err}; the basis of {cams.shape[0]} cameras (bench, demo, "
+        f"drifted bench) on the card vs the CPU port: {cpu_diffs} diffs")
+    if cpu_diffs:
+        raise SystemExit("the card's camera basis differs from the CPU port's")
+
+    one = torch.tensor(CAMERAS[0], device=dev)
+    k_ms = cuda_ms(lambda: ck.camera_basis(one.reshape(1, 3)), repeats=100)
+    p_ms = cuda_ms(lambda: cam.basis_plain(one), repeats=20)
+    dims, W, H = WORLDS["full"]
+    cfg = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
+    origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)
+    setup, setup_ms = kernel_profile(lambda: primary_rays(cfg, origin, one, 1), FRAMES)
+    if setup is None:
+        raise SystemExit("camera: the profiler recorded no device activity")
+    basis = [t for k, t in zip(setup, setup_ms) if "camera_basis" in k]
+    dev_ms = sum(basis) / max(len(basis), 1)  # the kernel's own device time a launch
+    setup, basis = len(setup) / FRAMES, len(basis) / FRAMES
+    rates = issue_rates()
+    bytes_ms = CAMERA_BYTES / HBM_BYTES_PER_S * 1e3
+    ops_ms = (CAMERA_FP64_OPS / rates["fp64"] + CAMERA_F32_OPS / rates["issue"]) * 1e3
+    say(f"camera: kernel {k_ms:.5f} ms (CUDA events over 100 launches), {dev_ms:.5f} ms of device time a launch "
+        f"(torch.profiler), plain {p_ms:.4f} ms for one triple (the frame's call); bound "
+        f"{max(bytes_ms, ops_ms):.3g} ms; a frame's ray setup launches {setup} CUDA kernels ({basis} for the "
+        f"basis); main-path launches {launches}, "
+        f"on {card}")
+    if basis != 1:
+        raise SystemExit(f"the basis took {basis} kernels a frame's ray setup, not 1")
+    return {
+        "name": "camera", "route": "cuda", "source": "voxelengine_tpu_torch/csrc/camera.cu",
+        "replaces": "none: voxelengine_tpu/render/camera.py:19-34 get_directions (jnp.sin and jnp.cos inside the "
+                    "jitted frame, glibc's sinf and cosf on XLA:CPU; no pallas_call)",
+        "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # torch.sin and torch.cos compute other functions (not glibc's)
+        "device_ms": dev_ms, "triples_compared": int(e.shape[0]), "setup_kernels": setup,
+    }
+
+
+# phases 16-17, the measurement scripts (voxelengine_tpu_torch/experiments/)
+def phase_experiments(dev, cache):
+    """Phase 16: the frame breakdown (S0 ray setup, S1 + K1, S2 the
+    frame; primary and shaded) on the bench world from phase 5's cache;
+    the shard projection (N = 2, 4, 8, row bands and block-cyclic) on the
+    same scene; the 1080p demo image of both fields (primary), its size,
+    checksum and pixels apart from the JAX reference's TPU render."""
+    import hashlib
+
+    from voxelengine_tpu_torch.experiments import bench_frame_breakdown as b1
+    from voxelengine_tpu_torch.experiments import bench_shard_projection as b2
+    from voxelengine_tpu_torch.experiments import render_demo as b4
+    from voxelengine_tpu_torch.experiments.scene import bench_scene
+
+    card = card_line()
+    t0 = time.perf_counter()
+    scene = bench_scene("full", dev, cache)
+    breakdown = {}
+    for shading in b1.SHADINGS:
+        breakdown[shading] = res = b1.measure(scene, shading, batches=5, frames=FRAMES)
+        for line in b1.report(shading, res, card):
+            say(f"frame breakdown: {line}")
+        if not all("kernels_per_frame" in res[st] for st in b1.STAGES):
+            raise SystemExit("frame breakdown: the profiler recorded no device activity")
+    say(json.dumps({"frame_breakdown": breakdown, "device": card}))
+    proj = b2.project(scene, (2, 4, 8), repeats=10, frames=FRAMES)
+    one = proj["1"]
+    say(f"shard projection: N=1 K1 {one['k1_ms'][0]} ms, rest {one['rest_ms']} ms, frame {one['frame_ms']} ms")
+    for layout in b2.LAYOUTS:
+        for n, r in proj[layout].items():
+            if "refused" in r:
+                say(f"shard projection: N={n} {layout}: not measured, {r['refused']}")
+                continue
+            say(f"shard projection: N={n} {layout}: K1 a rank {' '.join(f'{k:.4f}' for k in r['k1_ms'])} ms, "
+                f"imbalance (max/mean) {r['imbalance']}, rest of a shard's frame {r['rest_ms']} ms, projected frame_N "
+                f"{r['frame_ms']} ms")
+    say(json.dumps({"shard_projection": proj, "device": card}))
+    img = b4.render(scene)
+    png = b4._encode_png(img)
+    ref = b4.decode_png((b4.DOCS / b4.name("full", False, 0, False)).read_bytes())
+    apart = int((img != ref).any(-1).sum())
+    say(f"demo image (full, both fields, primary): {img.shape[1]}x{img.shape[0]} PNG {len(png)} bytes, sha256 "
+        f"{hashlib.sha256(png).hexdigest()}, {apart} of {img.shape[0] * img.shape[1]} pixels apart from "
+        f"docs/{b4.name('full', False, 0, False)} (the JAX reference's TPU render: information, not a gate)")
+    if not 0 < int(img.max()) or img.shape != (1080, 1920, 3):
+        raise SystemExit("the demo image is empty or of the wrong shape")
+    say(f"experiments: phase 16 in {time.perf_counter() - t0:.1f} s, on {card}")
+
+
+def phase_cyclic_1080p(dev):
+    """Phase 17: ``experiments/verify_cyclic_1080p``: 8 gloo ranks sharing
+    the card render 1920x1080 block-cyclic frames (32x30 blocks) of the
+    512^3 terrain (W1, 8 octaves) through K1, both parities, against
+    single-device ``render_frame``: 0 byte diffs."""
+    import torch
+
+    from voxelengine_tpu_torch.experiments import verify_cyclic_1080p as b3
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = b3.run(dev, ranks=b3.RANKS, workdir=str(ROOT / "_checkout"))
+    say(f"cyclic 1080p: {json.dumps(rec)} in {time.perf_counter() - t0:.1f} s, on {card_line()}")
+    if not rec["ok"] or rec["geometry"] != list(b3.GEOMETRY_1080P) or any(k < 2 for k in rec["k1_launches"]):
+        raise SystemExit(f"cyclic 1080p: byte diffs {rec['byte_diffs']}, geometry {rec['geometry']}, "
+                         f"K1 launches {rec['k1_launches']}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -2701,6 +2960,9 @@ def main(argv=None):
         kernels += phase_remainder(dev)
         kernels += phase_multi_device(dev, cache, bench_key(WORLDS["full"][0]))
         kernels.append(phase_harness(dev, cache, bench_key(WORLDS["full"][0])))
+        kernels.insert(0, phase_camera(dev, bench["camera_launches"]))
+        phase_experiments(dev, cache)
+        phase_cyclic_1080p(dev)
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     idle = [k["name"] for k in kernels if k["launches"] < 1]

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import re
 import shutil
@@ -218,11 +219,24 @@ def tree_functions(torch):
     }
 
 
+def own_profiling():
+    """This checkout's ``voxelengine_tpu_torch/utils/profiling.py``, loaded
+    from its file under a name of its own, so that a worker whose tree (an
+    earlier one, first on ``sys.path``) lacks ``kernel_profile`` still has
+    it."""
+    spec = importlib.util.spec_from_file_location(
+        "_kernel_ab_profiling", ROOT / "voxelengine_tpu_torch" / "utils" / "profiling.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def worker(tree: Path, data: Path, defines: str) -> None:
     """Time every case of ``data`` with ``tree``'s ``voxelengine_tpu_torch``,
     its CUDA libraries built with the extra nvcc ``defines``; print one
     JSON line."""
-    import chip_smoke as cs  # this checkout's, before the tree (which may hold its own) goes first on sys.path
+    profiling = own_profiling()  # before the tree goes first on sys.path
 
     sys.path.insert(0, str(tree))
     import torch
@@ -258,7 +272,7 @@ def worker(tree: Path, data: Path, defines: str) -> None:
         digest[name] = h.hexdigest()[:16]
         # kernels and device time a call (a dense frame: a run of 8 frames / 8)
         calls = REPEATS if kind != "dense_frames" else 1
-        names, dev = cs.kernel_profile(fn, calls)
+        names, dev = profiling.kernel_profile(fn, calls)
         per = calls * (8 if kind == "dense_frames" else 1)
         kernels[name], dev_ms[name] = (None, None) if names is None else (len(names) / per, sum(dev) / per)
         t0 = time.perf_counter()

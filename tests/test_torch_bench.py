@@ -2,10 +2,9 @@
 repo's ``bench.py`` and the JAX package, on the CPU at a tiny size.
 
 ``run(device="cpu")`` on a 128x64x128 terrain at 4 octaves (camera at
-y = 50 so the frame sees terrain, Euler angles (-0.24, 0.76, 0) next to the
-bench camera's: torch's and XLA's ``sin`` and ``cos`` differ by an ulp at
-some of the bench camera's drifted angles and agree at all of these),
-64x48, 2 frames x 2 batches: its final
+y = 50 so the frame sees terrain, Euler angles (-0.24, 0.76, 0), and on one
+route the bench camera's own (-0.25, 0.75, 0)), 64x48, 2 frames x 2
+batches: its final
 framebuffer equals the JAX package's ``render_frame`` loop over the same
 world with the same frame numbers and camera drift (frame 0, then frames
 1 .. 6 at ``euler + float32(1e-5) * i``), bit for bit, for the ``pallas``
@@ -39,6 +38,7 @@ from voxelengine_tpu_torch.io.checkpoint import load_world
 
 ROOT = Path(__file__).resolve().parent.parent
 DIMS, OCTAVES, CAMERA_Y, EULER = (128, 64, 128), 4, 50.0, (-0.24, 0.76, 0.0)
+BENCH_EULER = (-0.25, 0.75, 0.0)  # bench.py:192
 SIZE = dict(width=64, height=48)
 TINY = dict(world="small", dims=DIMS, octaves=OCTAVES, camera_y=CAMERA_Y, euler=EULER, frames=2, batches=2,
             device="cpu", **SIZE)
@@ -49,6 +49,7 @@ ROUTES = {
     "xla": (dict(backend="xla"), "plain"),
     "pallas_host_bricks_blocksort_staged": (dict(backend="pallas", host_bricks=True, blocksort=True, stage=8,
                                                  iters=True), "twice0"),
+    "pallas_bench_camera": (dict(backend="pallas", euler=BENCH_EULER), "bench_camera"),
 }
 LAST_FRAME = 6  # frame 0, warm-up 1-2, batches 3-4 and 5-6
 
@@ -71,8 +72,8 @@ def _jax_reference():
     cfg = JCfg(checkerboard=True, tile_order=True, **SIZE)
     env = JEnv.default()
     origin = jnp.asarray([DIMS[0] / 2, CAMERA_Y, DIMS[2] / 2], jnp.float32)
-    euler = jnp.asarray(EULER, jnp.float32)
-    for seq, zeros in (("plain", 1), ("twice0", 2)):
+    for seq, zeros, e in (("plain", 1, EULER), ("twice0", 2, EULER), ("bench_camera", 1, BENCH_EULER)):
+        euler = jnp.asarray(e, jnp.float32)
         fb = make_framebuffer(cfg)
         for _ in range(zeros):
             fb = render_frame(bm, fb, origin, euler, env, jnp.int32(0), cfg)
@@ -119,7 +120,7 @@ def cache(tmp_path_factory):
 @pytest.mark.parametrize("name", sorted(ROUTES))
 def test_run_on_cpu_bit_equal_to_jax_frames(ref, cache, capsys, name):
     kw, seq = ROUTES[name]
-    res = bench.run(cache_dir=cache, **TINY, **kw)
+    res = bench.run(cache_dir=cache, **{**TINY, **kw})
     np.testing.assert_array_equal(res.framebuffer.numpy(), ref[f"{seq}/{LAST_FRAME}"])
     assert res.hit_diffs == 0
     rec = res.record

@@ -42,9 +42,9 @@ ROOT = Path(__file__).resolve().parent.parent
 N = 4
 BM_KEYS = ("meta", "brick_idx", "bricks", "grid_dims", "factor", "coarse_layout", "brick_layout", "dense_slots")
 FIELDS = ("hit", "position", "normal", "steps")
-# tests/test_parallel.py's origin; its camera (0.9, 0.3, 0) is one where
-# torch's and XLA's sin differ by an ulp (the camera basis is held to 2 ulp
-# in tests/test_torch_render.py), so this file uses the render tests'
+# tests/test_parallel.py's origin; its camera (0.9, 0.3, 0) is rendered as
+# the rows frame's own case, against JAX's mesh and the single device; the
+# other frames use the render tests' camera
 EULER_JAX = [0.9, 0.3, 0.0]
 ORIGIN, EULER = [16.0, 20.0, 16.0], [-0.5, 0.8, 0.0]
 # tests/test_parallel.py's frames: (kind, world, RenderConfig fields, line table, frame numbers)
@@ -114,6 +114,11 @@ def _jax_reference():
             fb = render(bms[w], fb, origin, euler, env, jnp.int32(fn), cfg, mesh, lts[w] if use_lt else None)
             img = np.asarray(fb) if kind == "frame_rows" else js.cyclic_to_image(fb, cfg)
             out[f"{name}/{fn}"] = img
+    cfg = RenderConfig(**FRAMES["rows"][2])
+    fb = jax.device_put(jfb(cfg), NamedSharding(mesh, P("rows")))
+    for fn in (0, 1):
+        fb = js.render_frame_sharded(bms["tiled"], fb, origin, jnp.asarray(EULER_JAX), env, jnp.int32(fn), cfg, mesh)
+        out[f"rows_jax_camera/{fn}"] = np.asarray(fb)
     for name, (w, use_lt, max_steps) in RAYTRACE.items():
         kw = dict(lt=lts[w], tile=256, num_slots=4) if use_lt else {}
         res, mean = js.raytrace_sharded(bms[w], jnp.asarray(origins), jnp.asarray(rays), mesh, max_steps, **kw)
@@ -217,6 +222,15 @@ def test_sharded_frame_at_jax_camera_bit_equal_to_single_device(both):
     for fn in (0, 1):
         render_frame(bm, fb, torch.tensor(ORIGIN), torch.tensor(EULER_JAX), Environment.default(device="cpu"), fn, cfg)
         np.testing.assert_array_equal(ranks[0][f"rows_jax_camera/{fn}"], fb.numpy())
+
+
+def test_sharded_frame_at_jax_camera_bit_equal_to_jax(both):
+    """tests/test_parallel.py's camera (0.9, 0.3, 0): the port's 4 ranks
+    equal JAX's 4-device mesh, 0 pixel diffs on both parities."""
+    jax_ref, ranks, _ = both
+    for fn in (0, 1):
+        got, want = ranks[0][f"rows_jax_camera/{fn}"], jax_ref[f"rows_jax_camera/{fn}"]
+        assert int((got != want).any(-1).sum()) == 0, f"frame {fn}"
 
 
 @pytest.mark.parametrize("name", list(RAYTRACE))

@@ -6,10 +6,11 @@ As in ``test_torch_trace.py``, the JAX side runs in a subprocess whose
 XLA:CPU has neither FMA contraction nor the algebraic simplifier, so that
 both packages round every op of the expressions as written.  Without the
 simplifier's rewrite of ``px / W`` into ``px * (1/W)``, rays and frames
-are bit-equal at a width that is not a power of two too.  One difference
-remains and is stated where it is tested: ``sin``/``cos``/``tan`` are each
-library's own, so the camera basis is held to 2 ulp (it comes out
-bit-equal on this CPU).
+are bit-equal at a width that is not a power of two too.  XLA:CPU's
+``sin``, ``cos`` and ``tan`` are glibc's ``sinf``, ``cosf`` and ``tanf``,
+which the port computes in ``core/libm.py``: the camera basis is bit-equal
+too, on a sweep of angles and at JAX's own cameras, where the frames' hit,
+steps and pixels are counted against JAX's.
 """
 
 import os
@@ -31,6 +32,11 @@ ROOT = Path(__file__).resolve().parent.parent
 BM_KEYS = ("meta", "brick_idx", "bricks", "grid_dims", "factor", "coarse_layout", "brick_layout", "dense_slots")
 EULERS = np.array([[-0.25, 0.75, 0.0], [-0.5, 0.8, 0.0], [0.3, -1.2, 0.0], [0.0, 0.0, 0.0]], np.float32)
 ORIGIN = np.array([32.0, 48.0, 32.0], np.float32)
+# JAX's own cameras: tests/test_parallel.py's, the bench's (bench.py:192);
+# the JAX side adds the bench's drift euler + float32(1e-5) * i, i = 1..6
+# (bench.py:324)
+JAX_CAMERAS = np.array([[0.9, 0.3, 0.0], [-0.25, 0.75, 0.0]], np.float32)
+N_DRIFT = 6
 # name: (width, height, checkerboard, tile_order, projection, frame numbers)
 FRAMES = {
     "cb_tile_64": (64, 64, True, True, "PERSPECTIVE", (1, 2)),
@@ -38,6 +44,14 @@ FRAMES = {
     "ortho_64": (64, 64, True, False, "ORTHOGRAPHIC", (3,)),
     "cb_tile_96": (96, 64, True, True, "PERSPECTIVE", (1,)),
 }
+
+
+def _trig_sweep():
+    """Angles for the trig functions against JAX's jitted ones: a grid over
+    [-3.3, 3.3] and random |x| up to 1e4."""
+    rng = np.random.default_rng(9)
+    big = (rng.random(20_000) * 2e4 - 1e4).astype(np.float32)
+    return np.concatenate([np.linspace(-3.3, 3.3, 200_001, dtype=np.float32), big])
 
 
 def _world():
@@ -59,6 +73,7 @@ def _jax_reference():
     from voxelengine_tpu.core.bitgrid import BitGrid
     from voxelengine_tpu.core.brickmap import build_brickmap
     from voxelengine_tpu.core.layout import Layout
+    from voxelengine_tpu.ops.trace import trace_brickmap
     from voxelengine_tpu.render import camera as jcam
     from voxelengine_tpu.render import shading as jsh
     from voxelengine_tpu.render.frame import make_framebuffer, primary_rays, render_frame
@@ -72,7 +87,28 @@ def _jax_reference():
         for k, v in zip(("fwd", "up", "right"), jax.jit(jcam.get_directions)(jnp.asarray(e))):
             out[f"basis{i}/{k}"] = np.asarray(v)
 
+    x = jnp.asarray(_trig_sweep())
+    for k, f in (("sin", jnp.sin), ("cos", jnp.cos), ("tan", jnp.tan)):
+        out[f"trig/{k}"] = np.asarray(jax.jit(f)(x))
+
     env = JEnv.default()
+    # the frames at JAX's own cameras: the primary trace's hit and steps and
+    # the frame (cb_tile_64, frame 1, a fresh framebuffer)
+    W, H, cb, to, proj, _ = FRAMES["cb_tile_64"]
+    cfg = JCfg(width=W, height=H, checkerboard=cb, tile_order=to, projection=JProj[proj], staged_trace=False,
+               max_steps=256)
+    bench = jnp.asarray(JAX_CAMERAS[1])
+    cams = [jnp.asarray(e) for e in JAX_CAMERAS] + [bench + jnp.float32(1e-5) * i for i in range(1, N_DRIFT + 1)]
+    trace = jax.jit(lambda o, d: trace_brickmap(bm, o, d, cfg.max_steps))
+    for j, e in enumerate(cams):
+        out[f"cam{j}/euler"] = np.asarray(e)
+        out[f"cam{j}/basis"] = np.stack([np.asarray(v) for v in jax.jit(jcam.get_directions)(e)])
+        o, d = jax.jit(primary_rays, static_argnums=0)(cfg, jnp.asarray(ORIGIN), e, jnp.int32(1))[:2]
+        res = trace(o, d)
+        out[f"cam{j}/hit"], out[f"cam{j}/steps"] = np.asarray(res.hit), np.asarray(res.steps)
+        out[f"cam{j}/frame"] = np.asarray(render_frame(bm, make_framebuffer(cfg), jnp.asarray(ORIGIN), e, env,
+                                                       jnp.int32(1), cfg))
+
     for name, (W, H, cb, to, proj, frames) in FRAMES.items():
         cfg = JCfg(width=W, height=H, checkerboard=cb, tile_order=to, projection=JProj[proj],
                    staged_trace=False, max_steps=256)
@@ -141,11 +177,46 @@ def _t(a):
 
 @pytest.mark.parametrize("i", range(len(EULERS)))
 def test_camera_basis_within_2_ulp(ref, i):
+    """The basis is bit-equal (0 ulp) to JAX's."""
     got = camera.get_directions(_t(EULERS[i]))
     for k, g in zip(("fwd", "up", "right"), got):
-        want = ref[f"basis{i}/{k}"]
-        ulp = np.spacing(np.maximum(np.abs(want), np.float32(1e-30)).astype(np.float32))
-        assert (np.abs(g.numpy() - want) <= 2 * ulp).all(), k
+        np.testing.assert_array_equal(g.numpy(), ref[f"basis{i}/{k}"], err_msg=k)
+
+
+@pytest.mark.parametrize("fn", ["sin", "cos", "tan"])
+def test_trig_bit_equal_to_jax(ref, fn):
+    """``core/libm.py`` against JAX's jitted ``jnp.sin``, ``jnp.cos`` and
+    ``jnp.tan`` on 220,001 angles: 0 diffs."""
+    from voxelengine_tpu_torch.core import libm
+
+    f = {"sin": libm.sinf, "cos": libm.cosf, "tan": libm.tanf}[fn]
+    got = f(_t(_trig_sweep())).numpy()
+    assert int((got.view(np.int32) != ref[f"trig/{fn}"].view(np.int32)).sum()) == 0
+
+
+@pytest.mark.parametrize("j", range(len(JAX_CAMERAS) + N_DRIFT))
+def test_frames_at_jax_cameras_count_zero_diffs(ref, j):
+    """At tests/test_parallel.py's camera, the bench's and the bench's six
+    drifted ones: the basis, and the counts of hit, steps and pixel diffs
+    of the primary trace and the frame against JAX's, all 0."""
+    from voxelengine_tpu_torch.ops.trace import trace_brickmap
+
+    bm = brickmap_from_numpy({k: ref[f"bm/{k}"] for k in BM_KEYS}, device="cpu")
+    cfg = _cfg("cb_tile_64")
+    e = _t(ref[f"cam{j}/euler"])
+    basis = torch.stack(camera.get_directions(e)).numpy()
+    np.testing.assert_array_equal(basis, ref[f"cam{j}/basis"])
+    o, d = frame.primary_rays(cfg, _t(ORIGIN), e, 1)[:2]
+    res = trace_brickmap(bm, o, d, cfg.max_steps)
+    fb = frame.render_frame(bm, frame.make_framebuffer(cfg, device="cpu"), _t(ORIGIN), e,
+                            Environment.default(device="cpu"), 1, cfg)
+    counts = {
+        "hit": int((res.hit.numpy() != ref[f"cam{j}/hit"]).sum()),
+        "steps": int((res.steps.numpy() != ref[f"cam{j}/steps"]).sum()),
+        "pixels": int((fb.numpy() != ref[f"cam{j}/frame"]).any(-1).sum()),
+    }
+    assert counts == {"hit": 0, "steps": 0, "pixels": 0}
+    assert 0 < int(res.hit.sum()) < res.hit.numel()  # the camera sees the world and the sky
 
 
 @pytest.mark.parametrize("name", sorted(FRAMES))

@@ -190,6 +190,18 @@ def _line_table(bm, bricks_host, key, cache_dir, device):
     return lt
 
 
+def macro_decision(bm, lt, cfg, o, d, key, cache_dir, origin_host, euler_host) -> bool:
+    """``probe_use_macro`` on the frame's rays ``o``, ``d``, memoized on
+    disk (``memo_json``) under every input of the probe: the world's
+    ``key``, the resolution, the step budget and the camera."""
+    from voxelengine_tpu_torch.io.checkpoint import memo_json
+    from voxelengine_tpu_torch.render.frame import probe_use_macro
+
+    pk = (f"{key}_macroprobe_v1_{cfg.width}x{cfg.height}_ms{cfg.max_steps}"
+          f"_cam{'_'.join(str(float(v)) for v in origin_host)}_e{'_'.join(str(float(e)) for e in euler_host)}")
+    return bool(memo_json(cache_dir, pk, lambda: probe_use_macro(bm, lt, o, d, cfg)))
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -241,12 +253,11 @@ def run(
     with the ``pallas`` backend, as the JAX flow).  Raises ``SystemExit(4)``
     when the exactness gate fails."""
     from voxelengine_tpu_torch.config import Environment, RenderConfig
-    from voxelengine_tpu_torch.io.checkpoint import memo_json
     from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm, trace_brickmap_hbm_staged
     from voxelengine_tpu_torch.ops.trace import trace_brickmap
     from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table
     from voxelengine_tpu_torch.render.frame import (
-        block_permutation_from_steps, make_framebuffer, primary_rays, probe_use_macro, render_frame,
+        block_permutation_from_steps, make_framebuffer, primary_rays, render_frame,
     )
 
     if world not in WORLDS or backend not in BACKENDS:
@@ -279,9 +290,7 @@ def run(
         # either way (the gate below checks every run); the decision is a
         # scene property, memoized on disk under every input of the probe
         t0 = time.perf_counter()
-        pk = (f"{key}_macroprobe_v1_{cfg.width}x{cfg.height}_ms{cfg.max_steps}"
-              f"_cam{'_'.join(str(float(v)) for v in origin_host)}_e{'_'.join(str(float(e)) for e in euler_host)}")
-        use_macro = bool(memo_json(cache_dir, pk, lambda: probe_use_macro(bm, lt, o, d, cfg)))
+        use_macro = macro_decision(bm, lt, cfg, o, d, key, cache_dir, origin_host, euler_host)
         cfg = dataclasses.replace(cfg, trace_use_macro=use_macro)
         log(f"macro probe: use_macro={use_macro} ({time.perf_counter() - t0:.1f}s)")
 

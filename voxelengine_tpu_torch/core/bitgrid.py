@@ -154,6 +154,14 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
 
 
+def np_pack_bits(bits: np.ndarray) -> np.ndarray:
+    """Numpy twin of :func:`pack_bits` for host-side and oracle use: flat
+    ``uint32`` words (the JAX package's ``np_pack_bits``)."""
+    b = bits.reshape(-1, 32).astype(np.uint32)
+    shifts = np.arange(32, dtype=np.uint32)
+    return np.bitwise_or.reduce(b << shifts, axis=-1).astype(np.uint32)
+
+
 def unpack_bits(words: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`pack_bits`: int32 words ``[..., n]`` -> flat bool
     bits ``[..., 32 n]``."""

@@ -35,10 +35,10 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 # library name -> source; each CUDA library holds the kernels of one source
 KERNEL_SOURCES = {
     "bigtrace": "bigtrace.cu", "rrtrace": "rrtrace.cu", "gridtrace": "gridtrace.cu", "bmtrace": "bmtrace.cu",
-    "terrain": "terrain.cu", "crossings": "crossings.cu", "zslab": "zslab.cu",
+    "terrain": "terrain.cu", "crossings": "crossings.cu", "zslab": "zslab.cu", "camera": "camera.cu",
 }
 # host library name -> source (g++): the kernels' per-ray and per-voxel logic
-HOST_SOURCES = {"dda_host": "dda_host.cpp", "terrain_host": "terrain_host.cpp"}
+HOST_SOURCES = {"dda_host": "dda_host.cpp", "terrain_host": "terrain_host.cpp", "camera_host": "camera_host.cpp"}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _RAYS = [_P] * 4  # start, dir, active, pad
@@ -73,6 +73,8 @@ SIGNATURES = {
     "vx_terrain_slab": [_I] * 7 + [_P] * 4,
     # kind, n, in, scale, seed, octaves, lacunarity, decay, fout, uout
     "vx_noise_points": [_I, _I, _P, _F, _I, _I, _F, _F, _P, _P],
+    # euler (f32[n, 3]), n, out (f32[n, 9]: -forward, -up, right)
+    "vx_camera_basis": [_P, _I, _P],
 }
 # host-build entry -> its C signature: the kernel launcher's it mirrors,
 # except K4's two, which have no instantiation flag and no work counter; and the
@@ -92,6 +94,9 @@ HOST_ENTRIES = {
     "vx_zslab_host": SIGNATURES["vx_zslab"],
     "vx_terrain_slab_host": SIGNATURES["vx_terrain_slab"],
     "vx_noise_points_host": SIGNATURES["vx_noise_points"],
+    "vx_camera_basis_host": SIGNATURES["vx_camera_basis"],
+    # x, n, sin, cos: glibc_sincosf alone
+    "vx_sincosf_host": [_P, _I, _P, _P],
 }
 
 

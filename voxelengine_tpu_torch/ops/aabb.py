@@ -44,3 +44,9 @@ def ray_aabb(start, direction, bmin, bmax):
         dim=-1,
     )
     return hit, t_min, point, normal
+
+
+def aabb_contains(pos, bmin, bmax):
+    """Inclusive containment test (``VolumeRaytracer.cu:119-122``): whether
+    ``bmin <= pos <= bmax`` on every axis of the last."""
+    return torch.all((pos >= bmin) & (pos <= bmax), dim=-1)

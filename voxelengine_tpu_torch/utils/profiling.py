@@ -60,6 +60,26 @@ def device_ms(fn, reps: int = 1, device=None):
     return out, (time.perf_counter() - t0) * 1000.0 / reps
 
 
+def kernel_profile(fn, calls: int = 1):
+    """``(names, ms)``: the CUDA kernels ``calls`` runs of ``fn()`` launch
+    (memory copies and sets excluded) and the device time of each, by
+    ``torch.profiler``; ``(None, None)`` where the profiler records no
+    device activity.  A short kernel's own time: CUDA events around a
+    host-bound call also time the card's idle gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return None, None
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    return [e.name for e in kernels], [e.time_range.elapsed_us() / 1e3 for e in kernels]
+
+
 @dataclass
 class FrameTimer:
     """EMA frame-time tracker (``main.cu:177-194``, alpha = 1/100)."""
