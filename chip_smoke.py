@@ -55,8 +55,10 @@ Phases, one stdout line each (plus the kernels' build logs):
    1,048,576 rays over a 128^3 terrain at factor 8 and on a small
    TILED_MORTON world (meta in shared memory), and on 65,536 rays over a
    random 512x256x512 world at factor 8 whose 512 KB of meta exceed
-   shared memory (K4's global-meta instantiation); times, K4 also on the
-   128^3 rays sorted by direction octant, then start chunk;
+   shared memory (K4's global-meta instantiation); K4-compact on the
+   128^3 rays over that world made compact against the plain trace;
+   times, K4 also on the 128^3 rays sorted by direction octant, then start
+   chunk;
 10. sparse world: the 16384x512x16384 world at factor 32 of
    ``tests/test_pallas_bigtrace.py:500-531`` (512x16x512 chunks, 8192
    regions, L2 and L3 real), 262,144 near, horizon and sky rays: K1 macro
@@ -122,7 +124,9 @@ Phases, one stdout line each (plus the kernels' build logs):
    table), and the 1024^3 world with its raw bricks kept on the host (the
    16k world's flow), each with its own exactness gate (0 hit diffs) and
    its JSON line; then K4-compact against its plain version on the bench
-   frame's 1,036,800 rays and its time;
+   frame's 1,036,800 rays and its time, and the instantiation the ``xla``
+   run took (by size: the bench world's 4 MB of meta in global memory)
+   with its launch counts;
 15. the camera kernel (``csrc/camera.cu``: glibc's ``sinf`` and ``cosf``,
    which the reference's XLA:CPU computes, and the basis of
    ``get_directions``) against its plain version (``core/libm.py``) on
@@ -160,7 +164,7 @@ the harness's ``xla`` run on the bench world for K4-compact)
 runs
 with the launch counts set to 0 just before it and read just after;
 launches made to compare or time a kernel are not counted.  Then the run's
-wall time, one JSON line describing each kernel (its time, its plain
+wall time and each phase's, one JSON line describing each kernel (its time, its plain
 version's, and its bound: the larger of its bytes (rays in and out plus
 the table words its hits need; W1's output) over the card's memory rate
 and its operations over the card's instruction issue rate (SMs x 4 x 32 x
@@ -215,7 +219,7 @@ EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
 # threads a block of each library's kernels (csrc/*.cu)
 BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256, "crossings": 32,
-                 "zslab": 128, "camera": 128}
+                 "zslab": 1024, "camera": 128}
 # the app's frame (apps/voxel_app.py:64-68,178-188): the 1024^3 world at
 # factor 32, 1280x720, shadows, AO 4, reflections; the facade's batch size
 APP_WORLD = (1024, 1024, 1024)
@@ -1279,11 +1283,11 @@ def phase_bmtrace(dev):
     import torch
 
     from voxelengine_tpu_torch.core.bitgrid import BitGrid
-    from voxelengine_tpu_torch.core.brickmap import build_brickmap
+    from voxelengine_tpu_torch.core.brickmap import build_brickmap, compact_brickmap
     from voxelengine_tpu_torch.core.layout import Layout
     from voxelengine_tpu_torch.kernels import bmtrace
     from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup, trace_brickmap
-    from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_mxu
+    from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_mxu, trace_brickmap_no_table
     from voxelengine_tpu_torch.worldgen.terrain import generate_world
 
     def kernel_args(bm, o, d):
@@ -1346,6 +1350,12 @@ def phase_bmtrace(dev):
     gdiffs = compare(ggot, gwant)
     check_diffs(f"on-chip brickmap: K4 (global meta) vs plain, random {gname} f8", gdiffs, go.shape[0],
                 int(gwant.hit.sum()))
+
+    # K4-compact on the same random rays over the world made compact
+    cbm = compact_brickmap(bm)
+    cdiffs = compare(trace_brickmap_no_table(cbm, o, d, 2048), want)
+    check_diffs(f"on-chip brickmap: K4-compact ({'shared' if bmtrace.meta_in_shared(cbm.num_chunks) else 'global'} "
+                "meta) vs plain, compact_brickmap of the 128^3 f8 world", cdiffs, o.shape[0], int(want.hit.sum()))
 
     args, kw = kernel_args(bm, o, d)
     sargs = direction_sorted(*args[:4])
@@ -2451,7 +2461,7 @@ def md_rank(mesh, cache, key, frames):
         err = torch_max((kr.position[h] - fin.position[h]).abs(), (kr.normal[h] - fin.normal[h]).abs())
         out[f"slab_{name}"] = {
             "ms": k_ms, "plain_ms": p_ms, "rays": int(own.numel()), "paused": int(paused.sum()), "bad": bad,
-            "err": err, "steps": int(rows[:, bmtrace.STATE_STEPS].sum()),
+            "err": err, "steps": int(torch.where(paused, rows[:, bmtrace.STATE_STEPS], kres[3]).sum()),
             "table": hit_table_bytes(TraceOut(*(t[done] for t in fin)), app.world_dims, app.brick_layout, app.factor,
                                      app.words_per_brick),
         }
@@ -2496,7 +2506,7 @@ def slab_launch_time(app, meta, bricks, rays, rows, kw, res):
     done_hit = ((flags & 1) == 1) & (status == 0)
     table = hit_table_bytes(TraceOut(done_hit, pos, nrm, steps), app.world_dims, app.brick_layout, app.factor,
                             app.words_per_brick)
-    taken = rows_out[:, bmtrace.STATE_STEPS].long()
+    taken = torch.where(status == 1, rows_out[:, bmtrace.STATE_STEPS], steps).long()  # a done ray writes no row
     if rows is not None:
         taken = taken - rows[:, bmtrace.STATE_STEPS].long()
     per_ray = SLAB_RAY_BYTES if rows is None else SLAB_ROW_BYTES + SLAB_RAY_BYTES - 40
@@ -2683,14 +2693,15 @@ def phase_harness(dev, cache, key):
     t_phase = time.perf_counter()
     counts = {}
     for world, backend, host in (("full", "pallas", False), ("full", "xla", False), ("small", "pallas", True)):
-        bigtrace.launches = bmtrace.launches = bmtrace.compact_launches = terrain.launches = 0
+        bigtrace.launches = bmtrace.launches = bmtrace.compact_launches = bmtrace.compact_shared_launches = 0
+        terrain.launches = 0
         t0 = time.perf_counter()
         res = bench.run(world=world, backend=backend, cache_dir=cache, device=dev, host_bricks=host)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {"K1": bigtrace.launches, "K4": bmtrace.launches, "K4-compact": bmtrace.compact_launches,
                "W1": terrain.launches}
-        counts[world, backend] = got
+        counts[world, backend] = dict(got, shared=bmtrace.compact_shared_launches)
         want = {"K4": 0, "W1": 0 if world == "full" else bench.WORLDS[world][2] // 32}
         if backend == "xla":
             want.update({"K1": 0, "K4-compact": HARNESS_FRAMES})
@@ -2710,7 +2721,8 @@ def phase_harness(dev, cache, key):
                              f"metric {res.record['metric']!r}, device {res.record['device']!r}")
         del res
 
-    # K4-compact against its plain version on the bench frame's rays
+    # K4-compact against its plain version on the bench frame's rays, and
+    # the instantiation the xla run took with its launch counts
     def not_cached():
         raise SystemExit("the bench world is not in phase 5's cache")
 
@@ -2722,7 +2734,12 @@ def phase_harness(dev, cache, key):
     o, d, _, _, _ = primary_rays(cfg, origin, euler, 1)
     got = trace_brickmap_no_table(bm, o, d, cfg.max_steps)
     want, p_ms = events_ms(lambda: trace_brickmap(bm, o, d, cfg.max_steps))
-    meta = "shared" if bmtrace.meta_in_shared(bm.num_chunks) else "global"
+    shared = bmtrace.meta_in_shared(bm.num_chunks)
+    meta = "shared" if shared else "global"
+    xla = counts["full", "xla"]
+    if xla["shared"] != xla["K4-compact"] * shared:
+        raise SystemExit(f"bench harness (full, xla): {xla['shared']} of {xla['K4-compact']} K4-compact launches "
+                         f"had meta in shared memory, not all in the {meta}-meta instantiation")
     diffs = compare(got, want)
     check_diffs(f"bench harness: K4-compact ({meta} meta) vs plain on the bench frame's rays", diffs, o.shape[0],
                 int(want.hit.sum()))
@@ -2740,13 +2757,14 @@ def phase_harness(dev, cache, key):
     slot_bytes = 4 * int(torch.unique(h[:, 0] + h[:, 1] * gx + h[:, 2] * gx * gy).numel())
     table = hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick) + slot_bytes
     steps_sum = int(want.steps.sum())
-    say(f"bench harness: K4-compact ({meta} meta) {k_ms:.4f} ms, "
-        f"plain trace_brickmap {p_ms:.1f} ms on the bench frame's {o.shape[0]} rays, sum(steps) {steps_sum}; "
-        f"phase 14 in {time.perf_counter() - t_phase:.1f} s, on {card}")
+    say(f"bench harness: K4-compact ({meta} meta; the xla run's launches {xla['K4-compact']}, "
+        f"{xla['shared']} of them shared meta) {k_ms:.4f} ms, plain trace_brickmap {p_ms:.1f} ms on the bench "
+        f"frame's {o.shape[0]} rays, sum(steps) {steps_sum}; phase 14 in {time.perf_counter() - t_phase:.1f} s, "
+        f"on {card}")
     return kernel_entry(
         "bmtrace_compact", "bmtrace.cu",
         "none: voxelengine_tpu/ops/trace.py:411,435 trace_brickmap / trace_brickmap_staged (XLA, no pallas_call)",
-        counts["full", "xla"]["K4-compact"], diffs[4], k_ms, p_ms, o.shape[0], table, steps_sum,
+        xla["K4-compact"], diffs[4], k_ms, p_ms, o.shape[0], table, steps_sum,
         path="bench.run(backend='xla') on the bench world", table_form=f"compact, {meta} meta",
     )
 
@@ -2830,9 +2848,25 @@ def phase_camera(dev, launches):
     dims, W, H = WORLDS["full"]
     cfg = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
     origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)
-    setup, setup_ms = kernel_profile(lambda: primary_rays(cfg, origin, one, 1), FRAMES)
-    if setup is None:
-        raise SystemExit("camera: the profiler recorded no device activity")
+    # the wrapper's count says how often the profiled ray setups launched
+    # the basis kernel (kernel_profile runs FRAMES of them in its warm-up
+    # step and FRAMES recorded), the profile that each launch is one CUDA
+    # kernel.  The profiler can drop an event (CUPTI), and the ray setup's
+    # other kernels vary by a few a profile, so only a profile with fewer
+    # basis kernels than FRAMES is taken again, up to 3 times; every
+    # attempt's counts (kernels, basis kernels) are printed
+    attempts = []
+    for _ in range(3):
+        before = ck.launches
+        setup, setup_ms = kernel_profile(lambda: primary_rays(cfg, origin, one, 1), FRAMES)
+        if setup is None:
+            raise SystemExit("camera: the profiler recorded no device activity")
+        if ck.launches - before != 2 * FRAMES:
+            raise SystemExit(f"camera: {2 * FRAMES} ray setups launched the basis kernel {ck.launches - before} "
+                             "times")
+        attempts.append((len(setup), sum("camera_basis" in k for k in setup)))
+        if attempts[-1][1] >= FRAMES:
+            break
     basis = [t for k, t in zip(setup, setup_ms) if "camera_basis" in k]
     dev_ms = sum(basis) / max(len(basis), 1)  # the kernel's own device time a launch
     setup, basis = len(setup) / FRAMES, len(basis) / FRAMES
@@ -2842,7 +2876,8 @@ def phase_camera(dev, launches):
     say(f"camera: kernel {k_ms:.5f} ms (CUDA events over 100 launches), {dev_ms:.5f} ms of device time a launch "
         f"(torch.profiler), plain {p_ms:.4f} ms for one triple (the frame's call); bound "
         f"{max(bytes_ms, ops_ms):.3g} ms; a frame's ray setup launches {setup} CUDA kernels ({basis} for the "
-        f"basis); main-path launches {launches}, "
+        f"basis; kernels and basis kernels of each profile of {FRAMES} taken {attempts}); main-path launches "
+        f"{launches}, "
         f"on {card}")
     if basis != 1:
         raise SystemExit(f"the basis took {basis} kernels a frame's ray setup, not 1")
@@ -2942,33 +2977,42 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     say(f"device: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    phase_build()
+    secs = {}  # each phase's wall seconds, printed with the total
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            secs[name] = round(time.perf_counter() - t, 1)
+
+    timed("build", phase_build)
     (ROOT / "_checkout").mkdir(exist_ok=True)
     cache = tempfile.mkdtemp(prefix="world_cache_", dir=ROOT / "_checkout")  # the bench world's, phases 5 and 13
     try:
-        phase_noise(dev)
-        phase_kernel_vs_plain(dev)
-        w1 = phase_terrain(dev)
-        demo, _ = phase_main_path(dev, "demo")
-        bench, w1["launches"] = phase_main_path(dev, "full", cache)
+        timed("noise", phase_noise, dev)
+        timed("kernel vs plain", phase_kernel_vs_plain, dev)
+        w1 = timed("terrain", phase_terrain, dev)
+        demo, _ = timed("main path demo", phase_main_path, dev, "demo")
+        bench, w1["launches"] = timed("main path full", phase_main_path, dev, "full", cache)
         kernels = [bench, demo, w1]
-        err = phase_dense_vs_plain(dev)
-        kernels += phase_dense_path(dev, err)
-        kernels += phase_bmtrace(dev)
-        kernels.append(phase_sparse(dev))
-        kernels += phase_app_frame(dev)
-        kernels += phase_remainder(dev)
-        kernels += phase_multi_device(dev, cache, bench_key(WORLDS["full"][0]))
-        kernels.append(phase_harness(dev, cache, bench_key(WORLDS["full"][0])))
-        kernels.insert(0, phase_camera(dev, bench["camera_launches"]))
-        phase_experiments(dev, cache)
-        phase_cyclic_1080p(dev)
+        err = timed("dense vs plain", phase_dense_vs_plain, dev)
+        kernels += timed("dense path", phase_dense_path, dev, err)
+        kernels += timed("bmtrace", phase_bmtrace, dev)
+        kernels.append(timed("sparse", phase_sparse, dev))
+        kernels += timed("app frame", phase_app_frame, dev)
+        kernels += timed("remainder", phase_remainder, dev)
+        kernels += timed("multi-device", phase_multi_device, dev, cache, bench_key(WORLDS["full"][0]))
+        kernels.append(timed("harness", phase_harness, dev, cache, bench_key(WORLDS["full"][0])))
+        kernels.insert(0, timed("camera", phase_camera, dev, bench["camera_launches"]))
+        timed("experiments", phase_experiments, dev, cache)
+        timed("cyclic 1080p", phase_cyclic_1080p, dev)
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise SystemExit(f"kernels never launched on their path: {idle}")
-    say(f"wall time: {time.perf_counter() - t_start:.1f} s, kernel builds included")
+    say(f"wall time: {time.perf_counter() - t_start:.1f} s, kernel builds included; by phase (s): {json.dumps(secs)}")
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card_line()}")
     say(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ turns on one NVIDIA GPU.
     python3 kernel_ab.py --quick                  # without the 1024^3 demo frame (~95 s of worldgen)
     python3 kernel_ab.py --sass sass_out          # also write each K1/K4 library's SASS there
     python3 kernel_ab.py --variant='-maxrregcount=72'  # this checkout built with other nvcc flags too
+    python3 kernel_ab.py --only 'K4-compact|K4-slab'  # only the cases whose names match (inputs built for them)
 
 The inputs are made once, in this process, on the card: the demo frame's
 460,800 rays over the 1024^3 terrain (``chip_smoke.py`` phase 5), the
@@ -18,7 +19,13 @@ chunk of the clipped start; without ``--quick`` also K4 on terrains of
 16-224 KB of meta with each of its two instantiations (shared or global
 meta, forced through the wrapper's limit).  K3 is also timed in its global
 instantiation (plain blocks, the four-plane fetch; forced through the
-wrapper's limit) on the config-2 batch.  K2 and K3 are timed alone (the
+wrapper's limit) on the config-2 batch.  K4-compact (``bmtrace_compact``)
+on the bench frame's 1,036,800 rays over the 8192x512x8192 world (built by
+W1) and on K4's random rays over the 128^3 terrain made compact; K4-slab
+(``bmtrace_slab``) on the 1024^3 world with dense slots at 4 slabs: round
+0 on the slab that owns the 1280x720 frame's rays, round 1 on the rows it
+hands down (made once by this checkout's K4-slab), and the whole world as
+one slab (one rank's whole walk), beside K4 on the same rays.  K2 and K3 are timed alone (the
 kernel's launch; a tree whose kernel takes prepared rays gets them from
 its own ray setup, made once) and as the whole ``trace_grid_vpu`` /
 ``trace_grid_mxu`` call; the dense frame as 8 chained ``render_frame_dense``
@@ -38,9 +45,13 @@ call also counts the card's idle gaps; a count of kernels a call that is
 not a whole number shows that the profiler lost events).  Each worker
 also prints a digest of every kernel's outputs (for K2 and K3 alone: of
 hit and steps, which are the same before the wrapper's zero-step fix-up),
-so the trees' results can be seen to be equal.  Prints each library's ptxas registers and spills, one
-JSON line per worker, and the card's name and power limit.  Needs one CUDA
-device.  Imports nothing of JAX.
+so the trees' results can be seen to be equal (K4-slab's: the statuses,
+the paused rays' rows and the done rays' results, since a tree may leave a
+done ray's row unwritten).  Prints each library's ptxas registers and
+spills, one JSON line per worker, and the card's name and power limit;
+with ``--sass``, also whether each kernel function of the first earlier
+tree has the same SASS in this checkout.  Needs one CUDA device.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -66,17 +77,21 @@ def say(*parts):
     print(*parts, flush=True)
 
 
-def make_inputs(dev, quick: bool, refills):
-    """``{case: (kernel, args, kw)}`` for the workers, built on ``dev``."""
+def make_inputs(dev, quick: bool, refills, only=None):
+    """``{case: (kernel, args, kw)}`` for the workers, built on ``dev``;
+    with ``only`` (a regex), the cases whose names match it."""
     import torch
 
     import chip_smoke as cs
     from voxelengine_tpu_torch.config import MAX_STEPS, RenderConfig
-    from voxelengine_tpu_torch.core.brickmap import build_brickmap, build_brickmap_terrain_compact
+    from voxelengine_tpu_torch.core.brickmap import build_brickmap, build_brickmap_terrain_compact, compact_brickmap
     from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines
     from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup
     from voxelengine_tpu_torch.render.frame import primary_rays
     from voxelengine_tpu_torch.worldgen.terrain import generate_world
+
+    def wanted(name):
+        return only is None or re.search(only, name) is not None
 
     cases = {}
     # the dense path (phase 8): K2 on the last frame's rays, K3 on the config-2 batch, the frames
@@ -144,7 +159,96 @@ def make_inputs(dev, quick: bool, refills):
     rays, kw = k4_args(bm)
     cases["K4 random"] = ("bmtrace", rays + (bm.meta, bm.bricks), kw)
     cases["K4 sorted"] = ("bmtrace", cs.direction_sorted(*rays) + (bm.meta, bm.bricks), kw)
-    return cases
+    # K4-compact on K4's random rays over the same terrain made compact
+    cbm = compact_brickmap(bm)
+    name = "K4-compact random rays, 128^3 compact"
+    cases[name] = ("bmtrace_compact", rays + (cbm.meta, cbm.brick_idx, cbm.bricks), kw)
+    if wanted("K4-compact bench frame"):
+        compact_bench_cases(cases, dev)
+    if wanted("K4-slab"):
+        slab_cases(cases, dev)
+    return {k: v for k, v in cases.items() if wanted(k)}
+
+
+def ray_args(bm, o, d, max_steps):
+    """K4's ray inputs and keywords for ``bm`` (its wrapper's ray setup)."""
+    import torch
+
+    from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup
+
+    dd, start_c, _, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
+    pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, o.device), dd)
+    kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=max_steps, coarse_layout=bm.coarse_layout,
+              brick_layout=bm.brick_layout)
+    return (start_c.contiguous(), dd.contiguous(), active.to(torch.int32), pad.contiguous()), kw
+
+
+def compact_bench_cases(cases, dev):
+    """K4-compact on the bench frame's rays (``chip_smoke.py`` phase 14)."""
+    import torch
+
+    import chip_smoke as cs
+    from voxelengine_tpu_torch.config import RenderConfig
+    from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
+    from voxelengine_tpu_torch.render.frame import primary_rays
+
+    dims, W, H = cs.WORLDS["full"]
+    bm = build_brickmap_terrain_compact(dims, 32, device=dev)
+    cfg = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
+    origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)
+    o, d, _, _, _ = primary_rays(cfg, origin, torch.tensor([-0.25, 0.75, 0.0], device=dev), 1)
+    rays, kw = ray_args(bm, o, d, cfg.max_steps)
+    args = rays + (bm.meta, bm.brick_idx, bm.bricks)
+    name = "K4-compact bench frame"
+    cases[name] = ("bmtrace_compact", args, kw)
+
+
+def slab_cases(cases, dev):
+    """K4-slab on the 1024^3 world with dense slots at 4 slabs (``chip_smoke.py``
+    phase 13's migration world and frame): round 0 on the slab that owns
+    the frame's rays, round 1 on the rows it hands down, the whole world
+    as one slab; K4 on the same rays."""
+    import torch
+
+    import chip_smoke as cs
+    from voxelengine_tpu_torch.config import RenderConfig
+    from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain
+    from voxelengine_tpu_torch.kernels import bmtrace
+    from voxelengine_tpu_torch.parallel.distributed import shard_world_z
+    from voxelengine_tpu_torch.render.frame import primary_rays
+
+    app = build_brickmap_terrain(cs.APP_WORLD, 32, device=dev)
+    cfg = RenderConfig(width=cs.APP_SIZE[0], height=cs.APP_SIZE[1], checkerboard=True, tile_order=True)
+    origin = torch.tensor([cs.APP_WORLD[0] / 2, cs.APP_CAMERA_Y, cs.APP_WORLD[2] / 2], device=dev)
+    o, d, _, _, _ = primary_rays(cfg, origin, torch.tensor([-0.25, 0.75, 0.0], device=dev), 1)
+    rays, kw4 = ray_args(app, o, d, cfg.max_steps)
+    n = 4
+    meta_s, bricks_s, slab_gz = shard_world_z(app, n)
+    owner = torch.clamp(rays[0][:, 2].to(torch.int32) // slab_gz, 0, n - 1)
+    k = int(torch.mode(owner[rays[2] != 0]).values)
+    idx = torch.nonzero((rays[2] != 0) & (owner == k)).squeeze(1)
+    own = tuple(t[idx].contiguous() for t in rays)
+    gz = app.grid_dims[2]
+    skw = dict(grid_dims=app.grid_dims, slab_gz=slab_gz, factor=app.factor, max_steps=cfg.max_steps,
+               brick_layout=app.brick_layout)
+    slab = lambda j: (meta_s[j].clone(), bricks_s[j].clone())  # noqa: E731
+    rows, status, *_ = bmtrace.bmtrace_slab(*slab(k), rays=own, z0=k * slab_gz, **skw)
+    down = (status == 1) & (rows[:, bmtrace.STATE_CELL.start + 2] < k * slab_gz)
+    handed = rows[down].contiguous()
+    few = tuple(t[:2048].contiguous() for t in own)
+    groups = {
+        f"K4-slab round 0, slab {k} of 4 ({idx.numel()} frame rays)": (slab(k) + (own, None), dict(skw, z0=k * slab_gz)),
+        f"K4-slab round 0, slab {k} of 4, 2048 of its frame rays": (slab(k) + (few, None), dict(skw, z0=k * slab_gz)),
+        f"K4-slab round 1, slab {k - 1} of 4 ({handed.shape[0]} handed-down rows)":
+            (slab(k - 1) + (None, handed), dict(skw, z0=(k - 1) * slab_gz)),
+        f"K4-slab whole world as one slab ({o.shape[0]} frame rays)":
+            ((app.meta, app.bricks, rays, None), dict(skw, z0=0, slab_gz=gz)),
+    }
+    for name, (args, kw) in groups.items():
+        cases[name] = ("bmtrace_slab", args, kw)
+    cases[f"K4-slab beside: K4 on slab {k}'s round-0 rays"] = ("bmtrace", own + (app.meta, app.bricks), kw4)
+    cases["K4-slab beside: K4 on 2048 of them"] = ("bmtrace", few + (app.meta, app.bricks), kw4)
+    cases["K4-slab beside: K4 on the whole frame"] = ("bmtrace", rays + (app.meta, app.bricks), kw4)
 
 
 def tree_functions(torch):
@@ -210,8 +314,17 @@ def tree_functions(torch):
     def plain(fn):
         return lambda args, kw: ((lambda: fn(*args, **kw)), (lambda out: out))
 
+    def slab(args, kw):
+        meta, bricks, rays, rows = args
+
+        def digested(out):  # statuses, paused rays' rows, done rays' results
+            paused = out[1] == 1
+            return (out[1], out[0][paused]) + tuple(t[~paused] for t in out[2:])
+        return (lambda: bmtrace.bmtrace_slab(meta, bricks, rays=rays, rows=rows, **kw)), digested
+
     return {
         "bigtrace": plain(bigtrace.bigtrace), "bmtrace": plain(bmtrace.bmtrace), "rrtrace": k5,
+        "bmtrace_compact": plain(bmtrace.bmtrace_compact), "bmtrace_slab": slab,
         "grid": alone(gridtrace.gridtrace, lambda g: g.words),
         "grid_limbs": alone(gridtrace.gridtrace_limbs, lambda g: ops_grid.words_to_limb_rows(g.words)),
         "grid_call": call(ops_grid.trace_grid_vpu), "grid_limbs_call": call(ops_grid.trace_grid_mxu),
@@ -328,6 +441,18 @@ def sass_summary(sass: str):
                f"BRX {count('BRX')})")
 
 
+def sass_functions(sass: str) -> dict:
+    """``{kernel function: its instructions}`` of a ``cuobjdump -sass`` dump,
+    the anonymous namespace's per-file tag taken out of the names (it
+    differs between trees) so that the same kernel of two trees pairs up."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = re.sub(r"_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "_ZN_anon_",
+                      part.split("\n", 1)[0].strip())
+        out[name] = tuple(re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part))
+    return out
+
+
 def ptxas_lines(tree: Path):
     for log in sorted((tree / "voxelengine_tpu_torch" / "kernels" / "_build").glob("lib*.log")):
         flags = " ".join(f for f in log.read_text().split(None, 40)[:40] if f.startswith("-D"))
@@ -343,6 +468,7 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true", help="leave out the 1024^3 demo frame")
     ap.add_argument("--sass", type=Path, help="directory for cuobjdump -sass of each tree's kernel libraries")
     ap.add_argument("--refills", default="32,16,8,4,1", help="K5's refills to time, comma-separated")
+    ap.add_argument("--only", help="a regex: time only the cases whose names match it")
     ap.add_argument("--variant", action="append", default=[],
                     help="extra nvcc flags of one more build of this checkout (--variant='-maxrregcount=72'); "
                          "repeatable")
@@ -363,11 +489,12 @@ def main(argv=None):
     say(f"card: {cs.card_line()}")
     data = ROOT / "_checkout" / "kernel_ab_inputs.pt"
     data.parent.mkdir(exist_ok=True)
-    torch.save(make_inputs(dev, args.quick, [int(r) for r in args.refills.split(",")]), data)
+    torch.save(make_inputs(dev, args.quick, [int(r) for r in args.refills.split(",")], args.only), data)
     builds = [(b.resolve(), "") for b in args.before] + [(ROOT, "")] + [(ROOT, v) for v in args.variant]
     order = builds + builds[::-1] if len(builds) > 1 else builds
     runs = [run_worker(t, v, data) for t, v in order]
     order, runs = [b for b, r in zip(order, runs) if r], [r for r in runs if r]
+    sass_of = {}
     for tree in dict.fromkeys(t for t, _ in builds):
         say(f"ptxas, {tree}:")
         for line in ptxas_lines(tree):
@@ -380,10 +507,18 @@ def main(argv=None):
                     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
                     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True)
                     out.write_text(sass.stdout + sass.stderr)
+                    sass_of.setdefault(tree, {}).update(sass_functions(sass.stdout))
                     flags = [f for f in lib.with_suffix(".log").read_text().split()[:40] if f.startswith("-D")]
                     say(f"  SASS of {lib.name} {' '.join(flags)} -> {out}")
                     for line in sass_summary(sass.stdout):
                         say(f"    {line}")
+    if args.before and args.sass:
+        before, after = sass_of.get(args.before[0].resolve(), {}), sass_of.get(ROOT, {})
+        same = sorted(k for k in before.keys() & after.keys() if before[k] == after[k])
+        differ = sorted(k for k in before.keys() & after.keys() if before[k] != after[k])
+        say(f"SASS of {args.before[0]} against this checkout: {len(same)} kernel functions identical "
+            f"instruction for instruction: {same}; differ: {differ}; only in this checkout: "
+            f"{sorted(after.keys() - before.keys())}; only there: {sorted(before.keys() - after.keys())}")
     names = dict.fromkeys(k for r in runs for k in r["ms"])
     say("case: " + " | ".join(f"{t}{' ' + v if v else ''}" for t, v in order))
     for name in names:

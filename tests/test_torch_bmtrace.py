@@ -41,19 +41,25 @@ BM_KEYS = ("meta", "brick_idx", "bricks", "grid_dims", "factor", "coarse_layout"
 COMPACT_WORLDS = {
     "random_linear": ("random", "LINEAR", "LINEAR"),
     "random_tiled": ("random", "TILED_LINEAR", "TILED_MORTON"),
+    "random_morton": ("random", "TILED_MORTON", "TILED_LINEAR"),
+    "random_odd": ("random_odd", "LINEAR", "TILED_MORTON"),  # 9x5x7 = 315 chunks, not a multiple of 32
     "terrain_tiled": ("terrain", "LINEAR", "TILED_LINEAR"),
     "terrain_linear": ("terrain", "LINEAR", "LINEAR"),
 }
+# the random worlds' dense shapes, [z, y, x]
+RANDOM_SHAPES = {"random": (64, 64, 64), "random_odd": (56, 40, 72)}
+
 TERRAIN = ((128, 64, 128), 32, 6)  # world dims, factor, octaves
 MAX_STEPS = 256
 
 
-def _random_dense():
-    """A sparse random 64^3 world over a floor, with one all-solid chunk (the
-    compact form's shared full brick, slot 0) and empty chunks (slot -1)."""
+def _random_dense(shape=(64, 64, 64)):
+    """A sparse random world of ``shape`` ([z, y, x]) over a floor, with one
+    all-solid chunk (the compact form's shared full brick, slot 0) and empty
+    chunks (slot -1)."""
     rng = np.random.default_rng(97)
-    dense = rng.random((64, 64, 64)) < 0.001
-    dense[:, :3, :] = rng.random((64, 3, 64)) < 0.5
+    dense = rng.random(shape) < 0.001
+    dense[:, :3, :] = rng.random((shape[0], 3, shape[2])) < 0.5
     dense[8:16, 16:24, 24:32] = True
     return dense
 
@@ -66,8 +72,8 @@ def _port_compact_world(name, device):
     from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
 
     kind, cl, bl = COMPACT_WORLDS[name]
-    if kind == "random":
-        dense = torch.from_numpy(_random_dense()).to(device)
+    if kind in RANDOM_SHAPES:
+        dense = torch.from_numpy(_random_dense(RANDOM_SHAPES[kind])).to(device)
         return compact_brickmap(build_brickmap(BitGrid.from_dense(dense), 8, coarse_layout=Layout[cl],
                                                brick_layout=Layout[bl]))
     dims, f, octaves = TERRAIN
@@ -76,7 +82,8 @@ def _port_compact_world(name, device):
 
 def _compact_rays(dims, seed, n=1536):
     """Rays from inside and outside the world toward random points in it,
-    with axis-aligned ones, one on the maximal x face and one that misses."""
+    with axis-aligned ones, one on each maximal face heading in (they start
+    in the edge pad cells) and one that misses."""
     rng = np.random.default_rng(seed)
     w = np.asarray(dims, np.float32)
     o = (rng.random((n, 3)) * w * 1.8 - w * 0.4).astype(np.float32)
@@ -86,6 +93,9 @@ def _compact_rays(dims, seed, n=1536):
     d[0:3] = -np.eye(3)
     o[3], d[3] = [w[0], w[1] / 3, w[2] / 2], [-1.0, 0.0, 0.0]
     o[4], d[4] = [w[0] * 2, w[1] * 2, w[2] * 2], [0.0, 1.0, 0.0]
+    o[5], d[5] = [w[0] / 3, w[1], w[2] / 3], [0.0, -1.0, 0.0]
+    o[6], d[6] = [w[0] * 0.6, w[1] * 0.4, w[2]], [0.0, 0.0, -1.0]
+    o[7], d[7] = [w[0], w[1] * 0.8, w[2]], np.asarray([-1.0, -0.5, -1.0]) / 1.5
     return o, d.astype(np.float32)
 
 
@@ -103,8 +113,9 @@ def _jax_reference():
 
     out = {}
     for name, (kind, cl, bl) in COMPACT_WORLDS.items():
-        if kind == "random":
-            bm = j_compact(j_build(JGrid.from_dense(_random_dense()), 8, coarse_layout=JL[cl], brick_layout=JL[bl]))
+        if kind in RANDOM_SHAPES:
+            dense = _random_dense(RANDOM_SHAPES[kind])
+            bm = j_compact(j_build(JGrid.from_dense(dense), 8, coarse_layout=JL[cl], brick_layout=JL[bl]))
         else:
             dims, f, octaves = TERRAIN
             bm = j_terrain(dims, f, octaves=octaves, brick_layout=JL[bl])
@@ -182,7 +193,7 @@ def test_host_build_of_compact_instantiation_matches_jax(ref, host_lib, name):
     assert not bm.dense_slots
     slots = bm.brick_idx
     assert bool((slots == -1).any()), "the world should have empty chunks"
-    if COMPACT_WORLDS[name][0] == "random":
+    if COMPACT_WORLDS[name][0] in RANDOM_SHAPES:
         assert bool((slots == 0).any()), "the random world should use the shared full brick"
     o, d = (torch.from_numpy(a) for a in _compact_rays(bm.world_dims, 98))
     got = _host_compact(host_lib, bm, o, d, MAX_STEPS)
@@ -192,10 +203,23 @@ def test_host_build_of_compact_instantiation_matches_jax(ref, host_lib, name):
     np.testing.assert_array_equal(got.steps.numpy(), ref[f"{name}/steps"])
     np.testing.assert_array_equal(got.normal.numpy(), ref[f"{name}/normal"])
     np.testing.assert_array_equal(got.position.numpy(), ref[f"{name}/position"])
-    if COMPACT_WORLDS[name][0] == "random":  # the card lane's world (terrains: tests/test_torch_terrain.py)
+    if COMPACT_WORLDS[name][0] in RANDOM_SHAPES:  # the card lane's world (terrains: tests/test_torch_terrain.py)
         port = _port_compact_world(name, "cpu")
         for k in ("meta", "brick_idx", "bricks"):
             assert torch.equal(getattr(port, k), getattr(bm, k)), k
+
+
+@pytest.mark.parametrize("name", sorted(COMPACT_WORLDS))
+def test_host_build_of_compact_instantiation_matches_plain_walk(ref, host_lib, name):
+    """The same host build == the port's plain ``trace_brickmap`` on the
+    compact world, bit for bit: LINEAR and both tiled coarse layouts, a
+    chunk count that is not a multiple of 32, rays that start in the edge
+    pad cells."""
+    bm = brickmap_from_numpy({k: ref[f"{name}/{k}"] for k in BM_KEYS}, device="cpu")
+    o, d = (torch.from_numpy(a) for a in _compact_rays(bm.world_dims, 98))
+    got = _host_compact(host_lib, bm, o, d, MAX_STEPS)
+    for f, g, w in zip(("hit", "position", "normal", "steps"), got, trace_brickmap(bm, o, d, MAX_STEPS)):
+        assert torch.equal(g, w), f
 
 
 def test_compact_launcher_signature_extends_the_host_entry():

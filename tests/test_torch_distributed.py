@@ -439,12 +439,10 @@ def test_one_slab_round_matches_jax_run_loop(both):
     assert paused > 0
 
 
-def test_far_face_entry_traced_as_the_whole_grid():
-    """Rays entering a 64-chunk-deep grid through its far z face heading
-    down start in the edge pad cell z == gz (the clip's gz - 1e-6 rounds
-    to gz).  The last slab traces them as the whole grid does (JAX's
-    migration pauses them everywhere and reports a miss); plain walk, one
-    process, hand-offs simulated by running the slabs in order."""
+def _far_face_world():
+    """Rays entering a 64-chunk-deep grid (2x2x64 chunks at factor 8, half
+    the top voxel layer and all of the bottom one solid) through its far z
+    face, heading down."""
     rng = np.random.default_rng(5)
     dense = np.zeros((512, 16, 16), bool)  # [z, y, x]: a 2x2x64-chunk grid at factor 8
     dense[-1] = rng.random((16, 16)) < 0.5  # half the top voxel layer
@@ -454,6 +452,17 @@ def test_far_face_entry_traced_as_the_whole_grid():
     o = torch.from_numpy(np.stack([rng.random(n) * 14 + 1, rng.random(n) * 14 + 1, np.full(n, 600.0)], -1)
                          .astype(np.float32))
     d = torch.tensor([[0.0, 0.0, -1.0]]).expand(n, 3).contiguous()
+    return bm, o, d
+
+
+def test_far_face_entry_traced_as_the_whole_grid():
+    """Rays entering a 64-chunk-deep grid through its far z face heading
+    down start in the edge pad cell z == gz (the clip's gz - 1e-6 rounds
+    to gz).  The last slab traces them as the whole grid does (JAX's
+    migration pauses them everywhere and reports a miss); plain walk, one
+    process, hand-offs simulated by running the slabs in order."""
+    bm, o, d = _far_face_world()
+    n = o.shape[0]
     want = trace_brickmap(bm, o, d)
     assert (_init_state(bm, o, d)["ccell"][:, 2] == 64).all() and want.hit.all()
     gz, slabs = 64, 4
@@ -482,6 +491,8 @@ def test_far_face_entry_traced_as_the_whole_grid():
 
 
 def _host_round(lib, local_meta, local_bricks, grid, z0, slab_gz, factor, layout, max_steps, rays=None, rows=None):
+    """One round of K4-slab's host build over a slab.  Rows of rays that
+    are done stay as allocated (zeros): the round writes paused rows only."""
     m = (rays[0] if rays is not None else rows).shape[0]
     rows_out = torch.zeros((m, bmtrace.STATE_WORDS), dtype=torch.int32)
     status = torch.zeros((m,), dtype=torch.int32)
@@ -489,10 +500,96 @@ def _host_round(lib, local_meta, local_bricks, grid, z0, slab_gz, factor, layout
     ptrs = [t.data_ptr() for t in rays] + [None] if rays is not None else [None] * 4 + [rows.data_ptr()]
     wpb = (factor**3 + 31) // 32
     rc = lib.vx_zslab_host(*ptrs, local_meta.data_ptr(), local_bricks.data_ptr(), m, *grid, z0, slab_gz, factor, wpb,
-                           max_steps, layout.value, 3 * max_steps + 64, rows_out.data_ptr(), status.data_ptr(),
+                           max_steps, layout.value, 3 * max_steps + 64, None, rows_out.data_ptr(), status.data_ptr(),
                            *(o.data_ptr() for o in outs))
     assert rc == 0
     return rows_out, status, outs
+
+
+def _slab_rounds(bm, o, d, slabs, max_steps):
+    """The migration of rays ``o``, ``d`` over ``bm`` cut into ``slabs``
+    z-slabs, round by round, through K4-slab's host build and the plain
+    slab walk side by side, hand-offs simulated in
+    one process: each round both pause the same rays at the same coarse
+    cell, tMax, entry time and step count, and finish the others with the
+    same results.  Returns the final results and the paused rays of each
+    round."""
+    lib = build.load_dda_host()
+    meta, bricks, slab_gz = distributed.shard_world_z(bm, slabs)
+    spec = bm.grid_dims + (bm.factor, bm.coarse_layout, bm.brick_layout)
+    grid = bm.grid_dims
+    gz = grid[2]
+    n = o.shape[0]
+    dd, start_c, start_normal, active = _ray_setup(grid, bm.factor, o, d)
+    pad = _edge_pad(start_c.to(torch.int32), _dims(grid, torch.int32, "cpu"), dd)
+    st0 = _init_state(distributed._slab_bm(spec, meta[0], bricks[0], slab_gz), o, d, full_gz=gz)
+    owner = torch.clamp(st0["ccell"][:, 2] // slab_gz, 0, slabs - 1)
+    flags = torch.zeros(n, dtype=torch.int32)
+    pos, nrm, steps = torch.zeros(n, 3), torch.zeros(n, 3), torch.zeros(n, dtype=torch.int32)
+    pending = {k: torch.nonzero(active & (owner == k)).squeeze(1) for k in range(slabs)}
+    rows = {k: None for k in range(slabs)}
+    plain = {k: {key: v[pending[k]] for key, v in st0.items()} for k in range(slabs)}
+    paused_per_round = []
+    for rnd in range(slabs):
+        moved = {k: ([], [], []) for k in range(slabs)}
+        paused_per_round.append(0)
+        for k in range(slabs):
+            idx = pending[k]
+            local = distributed._slab_bm(spec, meta[k], bricks[k], slab_gz)
+            args = (lib, meta[k], bricks[k], grid, k * slab_gz, slab_gz, bm.factor, bm.brick_layout, max_steps)
+            if rnd == 0:
+                sel = (start_c[idx].contiguous(), dd[idx].contiguous(), active[idx].to(torch.int32),
+                       pad[idx].contiguous())
+                rows_out, status, outs = _host_round(*args, rays=sel)
+            else:
+                rows_out, status, outs = _host_round(*args, rows=rows[k])
+            p_rows, p_status, *p_res = run_slab(local, plain[k], max_steps, k * slab_gz, gz)
+            assert torch.equal(status, p_status), f"round {rnd} slab {k}: pause points differ"
+            paused = status == 1
+            paused_per_round[-1] += int(paused.sum())
+            # a paused ray's state: coarse cell, tMax, entry time, steps
+            ps = unpack_slab_state(p_rows)
+            cc = ps["ccell"]
+            assert torch.equal(rows_out[paused, bmtrace.STATE_CELL], cc[paused])
+            assert torch.equal(rows_out[paused, bmtrace.STATE_TMAX].view(torch.float32), ps["ctmax"][paused])
+            assert torch.equal(rows_out[paused, bmtrace.STATE_TLAST].view(torch.float32), ps["centry_t"][paused])
+            assert torch.equal(rows_out[paused, bmtrace.STATE_STEPS], ps["steps"][paused])
+            # a done ray's result, and no state row written for it
+            done = ~paused
+            assert not rows_out[done].any(), f"round {rnd} slab {k}: a done ray's row was written"
+            kr = kernel_result(*outs, start_c[idx], start_normal[idx], bm.factor)
+            pr = kernel_result(*p_res, start_c[idx], start_normal[idx], bm.factor)
+            for g, w in zip(kr, pr):
+                assert torch.equal(g[done], w[done]), f"round {rnd} slab {k}"
+            flags[idx[done]], pos[idx[done]], nrm[idx[done]], steps[idx[done]] = (
+                outs[0][done], outs[1][done], outs[2][done], outs[3][done])
+            for j in torch.nonzero(paused).squeeze(1).tolist():
+                t = int(torch.clamp(cc[j, 2] // slab_gz, 0, slabs - 1))
+                moved[t][0].append(int(idx[j]))
+                moved[t][1].append(rows_out[j])
+                moved[t][2].append(p_rows[j])
+        for k in range(slabs):
+            ids, rs, prs = moved[k]
+            pending[k] = torch.tensor(ids, dtype=torch.long)
+            rows[k] = torch.stack(rs) if rs else torch.zeros((0, bmtrace.STATE_WORDS), dtype=torch.int32)
+            plain[k] = torch.stack(prs) if prs else p_rows[:0]
+    assert all(p.numel() == 0 for p in pending.values())
+    return kernel_result(flags, pos, nrm, steps, start_c, start_normal, bm.factor), paused_per_round
+
+
+def _assert_whole_grid(got, bm, o, d, max_steps=2048):
+    want = trace_brickmap(bm, o, d, max_steps)
+    for f, g, w in zip(FIELDS, got, want):
+        assert torch.equal(g, w), f
+    return want
+
+
+def _random_rays_and_axis_rays():
+    inp = _inputs()
+    o = torch.cat([torch.from_numpy(inp["o"]), torch.from_numpy(inp["ao"])])
+    d = torch.cat([torch.from_numpy(inp["d"]), torch.from_numpy(inp["ad"])])
+    bm = build_brickmap(BitGrid.from_dense(torch.from_numpy(inp["dense"])), 8, coarse_layout=Layout.LINEAR)
+    return bm, o, d
 
 
 @pytest.mark.parametrize("max_steps", [2048, 24])
@@ -502,76 +599,84 @@ def test_k4_slab_host_build_matches_plain_slab_walk(max_steps):
     step count, and finish the others with the same results; the final
     results equal the single-device trace.  ``max_steps=24`` cuts rays by
     their budget."""
-    lib = build.load_dda_host()
-    inp = _inputs()
-    dense, o, d = inp["dense"], torch.from_numpy(inp["o"]), torch.from_numpy(inp["d"])
-    o = torch.cat([o, torch.from_numpy(inp["ao"])])
-    d = torch.cat([d, torch.from_numpy(inp["ad"])])
-    bm = build_brickmap(BitGrid.from_dense(torch.from_numpy(dense)), 8, coarse_layout=Layout.LINEAR)
-    meta, bricks, slab_gz = distributed.shard_world_z(bm, N)
-    spec = bm.grid_dims + (bm.factor, bm.coarse_layout, bm.brick_layout)
-    grid = bm.grid_dims
-    gz = grid[2]
-    n = o.shape[0]
-    dd, start_c, start_normal, active = _ray_setup(grid, bm.factor, o, d)
-    pad = _edge_pad(start_c.to(torch.int32), _dims(grid, torch.int32, "cpu"), dd)
-    st0 = _init_state(distributed._slab_bm(spec, meta[0], bricks[0], slab_gz), o, d, full_gz=gz)
-    owner = torch.clamp(st0["ccell"][:, 2] // slab_gz, 0, N - 1)
-    flags = torch.zeros(n, dtype=torch.int32)
-    pos, nrm, steps = torch.zeros(n, 3), torch.zeros(n, 3), torch.zeros(n, dtype=torch.int32)
-    pending = {k: torch.nonzero(active & (owner == k)).squeeze(1) for k in range(N)}
-    rows = {k: None for k in range(N)}
-    plain = {k: {key: v[pending[k]] for key, v in st0.items()} for k in range(N)}
-    total_paused = 0
-    for rnd in range(N):
-        moved = {k: ([], [], []) for k in range(N)}
-        for k in range(N):
-            idx = pending[k]
-            local = distributed._slab_bm(spec, meta[k], bricks[k], slab_gz)
-            if rnd == 0:
-                sel = (start_c[idx].contiguous(), dd[idx].contiguous(), active[idx].to(torch.int32),
-                       pad[idx].contiguous())
-                rows_out, status, outs = _host_round(lib, meta[k], bricks[k], grid, k * slab_gz, slab_gz, bm.factor,
-                                                     bm.brick_layout, max_steps, rays=sel)
-            else:
-                rows_out, status, outs = _host_round(lib, meta[k], bricks[k], grid, k * slab_gz, slab_gz, bm.factor,
-                                                     bm.brick_layout, max_steps, rows=rows[k])
-            p_rows, p_status, *p_res = run_slab(local, plain[k], max_steps, k * slab_gz, gz)
-            assert torch.equal(status, p_status), f"round {rnd} slab {k}: pause points differ"
-            paused = status == 1
-            total_paused += int(paused.sum())
-            # a paused ray's state: coarse cell, tMax, entry time, steps
-            ps = unpack_slab_state(p_rows)
-            cc = ps["ccell"]
-            assert torch.equal(rows_out[paused, bmtrace.STATE_CELL], cc[paused])
-            assert torch.equal(rows_out[paused, bmtrace.STATE_TMAX].view(torch.float32), ps["ctmax"][paused])
-            assert torch.equal(rows_out[paused, bmtrace.STATE_TLAST].view(torch.float32), ps["centry_t"][paused])
-            assert torch.equal(rows_out[paused, bmtrace.STATE_STEPS], ps["steps"][paused])
-            # a done ray's result
-            done = ~paused
-            kr = kernel_result(*outs, start_c[idx], start_normal[idx], bm.factor)
-            pr = kernel_result(*p_res, start_c[idx], start_normal[idx], bm.factor)
-            for g, w in zip(kr, pr):
-                assert torch.equal(g[done], w[done]), f"round {rnd} slab {k}"
-            flags[idx[done]], pos[idx[done]], nrm[idx[done]], steps[idx[done]] = (
-                outs[0][done], outs[1][done], outs[2][done], outs[3][done])
-            for j in torch.nonzero(paused).squeeze(1).tolist():
-                t = int(torch.clamp(cc[j, 2] // slab_gz, 0, N - 1))
-                moved[t][0].append(int(idx[j]))
-                moved[t][1].append(rows_out[j])
-                moved[t][2].append(p_rows[j])
-        for k in range(N):
-            ids, rs, prs = moved[k]
-            pending[k] = torch.tensor(ids, dtype=torch.long)
-            rows[k] = torch.stack(rs) if rs else torch.zeros((0, bmtrace.STATE_WORDS), dtype=torch.int32)
-            plain[k] = torch.stack(prs) if prs else p_rows[:0]
-    assert all(p.numel() == 0 for p in pending.values()) and total_paused > 0
-    got = kernel_result(flags, pos, nrm, steps, start_c, start_normal, bm.factor)
-    want = trace_brickmap(bm, o, d, max_steps)
-    for f, g, w in zip(FIELDS, got, want):
-        assert torch.equal(g, w), f
+    bm, o, d = _random_rays_and_axis_rays()
+    got, paused = _slab_rounds(bm, o, d, N, max_steps)
+    assert sum(paused) > 0
+    want = _assert_whole_grid(got, bm, o, d, max_steps)
     if max_steps == 24:
         assert ((want.steps == 24) & ~want.hit).any()
+
+
+def test_k4_slab_host_build_pauses_at_every_slab_boundary():
+    """Rays along +z and -z through empty columns of a 4-slab grid pause at
+    each of its 3 inner boundaries, one round after another, and finish in
+    the last slab they enter: the pause is asked after every coarse step in
+    z, here the only steps there are."""
+    dense = np.zeros((64, 64, 64), bool)  # [z, y, x]
+    dense[:, :4, :] = True  # a floor, under the rays
+    dense[-2:, 40:, :32] = True  # a block at the far end of some upward rays
+    dense[:2, 40:, 32:] = True  # and of some downward rays
+    bm = build_brickmap(BitGrid.from_dense(torch.from_numpy(dense)), 8, coarse_layout=Layout.LINEAR)
+    rng = np.random.default_rng(11)
+    n = 64
+    xy = rng.random((n, 2)) * [24.0, 52.0] + [4.0, 8.0]  # x in [4, 28), above the floor
+    xy[n // 2:, 0] += 32.0  # the downward rays' x in [36, 60)
+    up = np.concatenate([xy[: n // 2], np.full((n // 2, 1), -5.0)], 1)
+    down = np.concatenate([xy[n // 2:], np.full((n // 2, 1), 70.0)], 1)
+    o = torch.from_numpy(np.concatenate([up, down]).astype(np.float32))
+    d = torch.from_numpy(np.concatenate([np.tile([[0.0, 0.0, 1.0]], (n // 2, 1)),
+                                         np.tile([[0.0, 0.0, -1.0]], (n // 2, 1))]).astype(np.float32))
+    got, paused = _slab_rounds(bm, o, d, N, 2048)
+    assert paused == [n, n, n, 0]
+    want = _assert_whole_grid(got, bm, o, d)
+    assert want.hit.any() and not want.hit.all()
+
+
+def test_k4_slab_host_build_on_slabs_one_chunk_deep():
+    """A 64x64x32 world at factor 8 in 4 slabs of one chunk row each:
+    random and axis rays through it, every round against the plain walk,
+    the results the whole grid's."""
+    inp = _inputs()
+    dense = inp["dense"][:32]
+    bm = build_brickmap(BitGrid.from_dense(torch.from_numpy(np.ascontiguousarray(dense))), 8,
+                        coarse_layout=Layout.LINEAR)
+    assert bm.grid_dims == (8, 8, 4)
+    o = torch.cat([torch.from_numpy(inp["o"]), torch.from_numpy(inp["ao"]) * torch.tensor([1.0, 1.0, 0.5])])
+    d = torch.cat([torch.from_numpy(inp["d"]), torch.from_numpy(inp["ad"])])
+    got, paused = _slab_rounds(bm, o, d, 4, 2048)
+    assert paused[0] > 0 and paused[2] > 0
+    _assert_whole_grid(got, bm, o, d)
+
+
+def test_k4_slab_host_build_traces_the_far_face_pad_cell():
+    """The far-face rays of ``test_far_face_entry_traced_as_the_whole_grid``
+    (starting in the edge pad cell z == gz, which the last slab owns)
+    through K4-slab's host build: every round equals the plain walk and the
+    results equal the whole grid's, hits on both layers."""
+    bm, o, d = _far_face_world()
+    got, paused = _slab_rounds(bm, o, d, 4, 2048)
+    assert paused[0] > 0
+    _assert_whole_grid(got, bm, o, d)
+    assert (got.position[:, 2] < 8).any() and (got.position[:, 2] > 500).any()
+
+
+def test_k4_slab_host_build_follows_an_edit():
+    """An edit of a dense-slot world between two traces: the rounds after
+    the edit read the edited slabs' meta and bricks, so they equal the plain
+    walk of the edited world, whose results differ from the first trace's."""
+    from voxelengine_tpu_torch.core.brickmap import apply_edits
+
+    inp = _inputs()
+    bm = build_brickmap(BitGrid.from_dense(torch.from_numpy(inp["slab"])), 8, coarse_layout=Layout.LINEAR)
+    o, d = torch.from_numpy(inp["o"]), torch.from_numpy(inp["d"])
+    before, _ = _slab_rounds(bm, o, d, N, 2048)
+    # fill a 16^3 block of empty space in slab 2 (z 32..47): new occupied chunks
+    g = torch.arange(16)
+    x, y, z = (t.reshape(-1) for t in torch.meshgrid(g + 24, g + 24, g + 32, indexing="ij"))
+    apply_edits(bm, x, y, z, torch.ones_like(x, dtype=torch.bool))
+    after, _ = _slab_rounds(bm, o, d, N, 2048)
+    _assert_whole_grid(after, bm, o, d)
+    assert not torch.equal(after.hit, before.hit)
 
 
 def test_dryrun_multichip_on_two_cpu_ranks():
@@ -599,7 +704,7 @@ def test_bmtrace_slab_refuses_cpu_tensors_and_bad_slabs():
 
 def test_zslab_launcher_signature_is_the_host_entrys():
     assert build.HOST_ENTRIES["vx_zslab_host"] == build.SIGNATURES["vx_zslab"]
-    assert len(build.SIGNATURES["vx_zslab"]) == 24
+    assert len(build.SIGNATURES["vx_zslab"]) == 25
     assert isinstance(build.load_dda_host().vx_zslab_host, ctypes._CFuncPtr)
 
 
@@ -648,6 +753,52 @@ def test_k4_slab_on_card_matches_plain_slab_walk(cuda_device):
         for g, w in zip(got, want):
             assert torch.equal(g[~paused], w[~paused])
     assert bmtrace.slab_launches == before + N
+
+
+@pytest.mark.cuda
+def test_k4_slab_resumed_round_on_card_matches_plain_slab_walk(cuda_device):
+    """K4-slab over the 4 slabs of the 64^3 world with geometry in one
+    slab, round 0 then a handed-on round: statuses, paused rows and done
+    rays' results == the plain slab walk's, and the launches counted."""
+    inp = _inputs()
+    bm = build_brickmap(BitGrid.from_dense(torch.from_numpy(inp["slab"]).to(cuda_device)), 8,
+                        coarse_layout=Layout.LINEAR)
+    o, d = torch.from_numpy(inp["o"]).to(cuda_device), torch.from_numpy(inp["d"]).to(cuda_device)
+    meta, bricks, slab_gz = distributed.shard_world_z(bm, N)
+    spec = bm.grid_dims + (bm.factor, bm.coarse_layout, bm.brick_layout)
+    gz = bm.grid_dims[2]
+    dd, start_c, start_normal, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
+    pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, cuda_device), dd)
+    owner = torch.clamp(start_c.to(torch.int32)[:, 2] // slab_gz, 0, N - 1)
+    before = bmtrace.slab_launches
+    launched = 0
+    for k in range(N):
+        idx = torch.nonzero(active & (owner == k)).squeeze(1)
+        kw = dict(grid_dims=bm.grid_dims, z0=k * slab_gz, slab_gz=slab_gz, factor=bm.factor, max_steps=2048,
+                  brick_layout=bm.brick_layout)
+        local = distributed._slab_bm(spec, meta[k], bricks[k], slab_gz)
+        rays = (start_c[idx].contiguous(), dd[idx].contiguous(), active[idx].to(torch.int32), pad[idx].contiguous())
+        rows, status, *res = bmtrace.bmtrace_slab(meta[k], bricks[k], rays=rays, **kw)
+        p_rows, p_status, *p_res = run_slab(local, _init_state(local, o[idx], d[idx], full_gz=gz), 2048,
+                                            k * slab_gz, gz)
+        launched += idx.numel() > 0
+        paused = status == 1
+        assert torch.equal(status, p_status)
+        st = unpack_slab_state(p_rows)
+        assert torch.equal(rows[paused, bmtrace.STATE_CELL], st["ccell"][paused])
+        assert torch.equal(rows[paused, bmtrace.STATE_STEPS], st["steps"][paused])
+        got = kernel_result(*res, start_c[idx], start_normal[idx], bm.factor)
+        want = kernel_result(*p_res, start_c[idx], start_normal[idx], bm.factor)
+        for g, w in zip(got, want):
+            assert torch.equal(g[~paused], w[~paused])
+        # the paused rays resumed from the kernel's rows in this slab again:
+        # each pauses at once, where it stood
+        if bool(paused.any()):
+            again = bmtrace.bmtrace_slab(meta[k], bricks[k], rows=rows[paused].contiguous(), **kw)
+            launched += 1
+            assert bool((again[1] == 1).all())
+            assert torch.equal(again[0][:, :34], rows[paused][:, :34])  # word 34, the iterations, restarts
+    assert bmtrace.slab_launches == before + launched
 
 
 @pytest.mark.cuda

@@ -319,12 +319,13 @@ extern "C" int vx_trace_grid_limbs_host(const float* start, const float* dir, co
 }
 
 // K4-slab (zslab.cu::vx_zslab), ray by ray: one round of the z-sharded walk
-// over the rank's slab.
+// over the rank's slab.  The launcher's counter has no host counterpart.
 extern "C" int vx_zslab_host(const float* start, const float* dir, const int* active, const int* pad,
                              const int* rows_in, const int* meta, const int* bricks, int m, int gx, int gy,
                              int gz, int z0, int slab_gz, int factor, int wpb, int max_steps,
-                             int brick_layout, int iter_limit, int* rows_out, int* status, int* flags,
-                             float* pos, float* normal, int* steps) {
+                             int brick_layout, int iter_limit, int* counter, int* rows_out, int* status,
+                             int* flags, float* pos, float* normal, int* steps) {
+  (void)counter;
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
   const vx::SlabFetch F = {meta, bricks, gx, gy, z0, slab_gz, wpb};
   for (int i = 0; i < m; ++i) {

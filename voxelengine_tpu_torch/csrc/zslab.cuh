@@ -18,12 +18,17 @@
 // chunk is in the slab.  A coarse cell outside the full grid (with its edge
 // pads) is not paused: ray_iterate ends the ray there as a miss, as the whole
 // grid would.  The edge pad cell cz == gz belongs to the last slab, which
-// reads it clamped as the whole grid does.
+// reads it clamped as the whole grid does.  The answer depends only on the
+// level and the coarse cell, and only its z can turn it from stay to pause
+// (a step in x or y keeps the slab, or leaves the grid, which is no pause):
+// so slab_walk asks before a ray's first iteration and after each iteration
+// that ends at the coarse level in another coarse z than it started from
+// (a coarse step in z, or an ascend whose step is in z), and nowhere else.
 //
 // A paused ray travels as STATE_WORDS int32 words (floats bitcast, the
 // flags packed): the whole RayState, so the resumed walk is the one the
 // single-device walk would have run.  Its iteration count restarts at each
-// round, as the JAX loop's does.
+// round, as the JAX loop's does.  A ray that is done writes no state row.
 #pragma once
 
 #include <string.h>
@@ -122,11 +127,24 @@ VX_HD void unpack_state(RayState& S, const int* w) {
   S.it = w[34];
 }
 
+// Run a started or resumed ray until it is done or pauses at the slab's
+// boundary (module note: the pause is asked only where its answer can
+// change); returns SlabStatus.
+VX_HD int slab_walk(const TraceParams& P, const SlabFetch& F, RayState& S) {
+  if (slab_pause(P, F, S)) return SLAB_PAUSED;
+  for (;;) {
+    const int cz = S.fine ? S.ccz : S.cz;  // the coarse z before the iteration
+    if (ray_iterate(P, F, S)) return SLAB_DONE;
+    if (!S.fine && S.cz != cz && slab_pause(P, F, S)) return SLAB_PAUSED;
+  }
+}
+
 // One ray's round.  `in` is the ray's handed-on state (STATE_WORDS words;
 // its iteration count restarts), or null to start the ray from the ray
-// setup's start, direction, active flag and edge pad, as K4 does.  Writes
-// the state after the round to `out` and, for a ray that is done, its
-// result to `r` (zeros for a ray that never started); returns SlabStatus.
+// setup's start, direction, active flag and edge pad, as K4 does.  A ray
+// that pauses writes its state to `out`; a ray that is done writes its
+// result to `r` (zeros for a ray that never started) and leaves `out` as it
+// was.  Returns SlabStatus.
 VX_HD int slab_round(const TraceParams& P, const SlabFetch& F, const int* in, const float* start,
                      const float* dir, int active, const int* pad, int* out, TraceResult& r) {
   RayState S;
@@ -137,19 +155,13 @@ VX_HD int slab_round(const TraceParams& P, const SlabFetch& F, const int* in, co
     S.it = 0;
   } else if (!ray_init(S, start[0], start[1], start[2], dir[0], dir[1], dir[2], active, pad[0], pad[1],
                        pad[2])) {
-    for (int k = 0; k < STATE_WORDS; ++k) out[k] = 0;
     return SLAB_DONE;
   }
-  int status = SLAB_DONE;
-  for (;;) {
-    if (slab_pause(P, F, S)) {
-      status = SLAB_PAUSED;
-      break;
-    }
-    if (ray_iterate(P, F, S)) break;
-  }
-  pack_state(S, out);
-  if (status == SLAB_DONE) r = ray_result(P, S);
+  const int status = slab_walk(P, F, S);
+  if (status == SLAB_PAUSED)
+    pack_state(S, out);
+  else
+    r = ray_result(P, S);
   return status;
 }
 

@@ -13,7 +13,7 @@ frame by CUDA events, as the median, least and largest of ``--batches``
 batches of ``--frames`` frames, and the host's enqueue time a frame (the
 host clock until the batch's last call returns); the CUDA kernels a frame and their device
 ms a frame, from ``torch.profiler`` (``utils/profiling.py::
-kernel_profile``, one more batch); and the device-busy share, device ms
+kernel_profile``, two more batches: its warm-up and the recorded one); and the device-busy share, device ms
 over the median ms.  Shadings: ``primary`` (the bench frame) and ``shaded``
 (shadows, AO 4, reflections: S2 adds their traces to the shading).
 
@@ -79,7 +79,7 @@ def measure(scene: Scene, shading: str, batches: int = 5, frames: int = 8) -> di
         rec = spread(ms)
         rec["batches_ms"], rec["host_ms"] = ms, spread(host)["median"]
         if scene.device.type == "cuda":
-            frame_no = iter(range(first, first + frames))
+            frame_no = iter(range(first, first + 2 * frames))  # kernel_profile's warm-up and recorded calls
             names, dev_ms = kernel_profile(lambda: fn(next(frame_no)), frames)
             if names is not None:
                 rec["kernels_per_frame"] = len(names) / frames

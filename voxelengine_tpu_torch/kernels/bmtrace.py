@@ -149,8 +149,8 @@ def bmtrace_slab(
     meta: torch.Tensor, bricks: torch.Tensor, *, grid_dims, z0: int, slab_gz: int, factor: int, max_steps: int,
     brick_layout: Layout, rays=None, rows=None,
 ):
-    """One round of the z-sharded walk on the card, one thread a ray
-    (K4-slab, ``csrc/zslab.cu``).  Its plain version is
+    """One round of the z-sharded walk on the card (K4-slab,
+    ``csrc/zslab.cu``).  Its plain version is
     :func:`voxelengine_tpu_torch.ops.trace.run_slab`; it has no TPU
     kernel (the JAX package runs the round as XLA,
     ``voxelengine_tpu/ops/trace.py:221``).
@@ -161,11 +161,11 @@ def bmtrace_slab(
     passes ``rays = (start, d, active, pad)`` from K4's ray setup over the
     whole grid; later rounds pass ``rows``, the ``int32[m, STATE_WORDS]``
     states of rays paused elsewhere.  Returns ``(rows, status, flags,
-    position, normal, steps)``: each ray's state after the round, its
-    status (0 done, 1 paused at the slab's boundary) and, for a ray that
-    is done, its result with ``flags = hit | hit_imm << 1``.  Launches on
-    the current stream without synchronising and raises if the launch is
-    refused."""
+    position, normal, steps)``: each ray's status (0 done, 1 paused at the
+    slab's boundary), a paused ray's state after the round (the rows of
+    rays that are done are left unwritten) and, for a ray that is done, its
+    result with ``flags = hit | hit_imm << 1``.  Launches on the current
+    stream without synchronising and raises if the launch is refused."""
     global slab_launches
     gx, gy, gz = grid_dims
     per = gx * gy * slab_gz
@@ -192,11 +192,12 @@ def bmtrace_slab(
     outs = build.ray_outputs(m, dev)
     if m == 0:
         return (rows_out, status) + outs
+    counter = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launcher on the stream
     build.launch(
         "bmtrace_slab", build.load_kernel("zslab").vx_zslab, *ptrs, meta.data_ptr(), bricks.data_ptr(),
         m, gx, gy, gz, z0, slab_gz, factor, wpb, max_steps, brick_layout.value,
         3 * max_steps + 64,  # iteration cap, as K4's: never reached
-        rows_out.data_ptr(), status.data_ptr(), *(o.data_ptr() for o in outs), dev=dev,
+        counter.data_ptr(), rows_out.data_ptr(), status.data_ptr(), *(o.data_ptr() for o in outs), dev=dev,
     )
     slab_launches += 1
     return (rows_out, status) + outs

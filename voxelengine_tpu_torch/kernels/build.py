@@ -66,8 +66,8 @@ SIGNATURES = {
     "vx_trace_brickmap_compact": _RAYS + [_P] * 3 + [_I] * 11 + [_P] + _OUTS,
     # rays (round 0) or null, rows_in (later rounds) or null, meta, bricks;
     # m, gx, gy, gz, z0, slab_gz, factor, wpb, max_steps, brick_layout,
-    # iter_limit; rows_out, status, outputs (K4-slab)
-    "vx_zslab": _RAYS + [_P] * 3 + [_I] * 11 + [_P] * 2 + _OUTS,
+    # iter_limit; counter (int32 scratch), rows_out, status, outputs (K4-slab)
+    "vx_zslab": _RAYS + [_P] * 3 + [_I] * 11 + [_P] * 3 + _OUTS,
     # z0, factor, chunks_x, chunks_y, wpb, brick_layout, octaves; occ
     # (uint8), bmin, bmax, words
     "vx_terrain_slab": [_I] * 7 + [_P] * 4,

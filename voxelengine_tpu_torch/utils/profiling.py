@@ -65,18 +65,27 @@ def kernel_profile(fn, calls: int = 1):
     (memory copies and sets excluded) and the device time of each, by
     ``torch.profiler``; ``(None, None)`` where the profiler records no
     device activity.  A short kernel's own time: CUDA events around a
-    host-bound call also time the card's idle gaps."""
-    from torch.profiler import ProfilerActivity, profile
+    host-bound call also time the card's idle gaps.  ``fn`` runs
+    ``2 * calls`` times: the first ``calls`` in the profiler's warm-up
+    step, whose events are dropped (the first kernels after the profiler
+    starts can go unrecorded), the rest recorded."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device:
         return None, None
-    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    # not copies, sets or the warm-up schedule's step annotation
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset", "ProfilerStep"))]
     return [e.name for e in kernels], [e.time_range.elapsed_us() / 1e3 for e in kernels]
 
 
