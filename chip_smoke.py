@@ -6,7 +6,7 @@
 Phases, one stdout line each (plus the kernels' build logs):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile every CUDA kernel (K1-K5, W1, K4-slab, the record and camera kernels) from
+2. build: compile every CUDA kernel (K1-K5, W1, K4-slab, the record, camera and ray-setup kernels) from
    ``voxelengine_tpu_torch/csrc``, one nvcc per source, all started
    together; ptxas registers and spills of each instantiation;
 3. noise: worldgen noise on the card against ``native/golden_noise.json``,
@@ -127,15 +127,23 @@ Phases, one stdout line each (plus the kernels' build logs):
    frame's 1,036,800 rays and its time, and the instantiation the ``xla``
    run took (by size: the bench world's 4 MB of meta in global memory)
    with its launch counts;
-15. the camera kernel (``csrc/camera.cu``: glibc's ``sinf`` and ``cosf``,
-   which the reference's XLA:CPU computes, and the basis of
-   ``get_directions``) against its plain version (``core/libm.py``) on
-   1,187,869 angle triples (a grid over [-3.3, 3.3], +-64 ulp of every
-   multiple of pi/4 up to 120, |x| in [120, 1e5], the bench, demo and
-   drifted cameras), bit for bit; the card's basis at the cameras against
-   the CPU port's; its time and its plain version's for one triple (the
-   frame's call); the CUDA kernels of a frame's ray setup, of which the
-   basis must be one launch;
+15. the camera and ray-setup kernels: the camera kernel
+   (``csrc/camera.cu``: glibc's ``sinf`` and ``cosf``, which the
+   reference's XLA:CPU computes, and the basis of ``get_directions``)
+   against its plain version (``core/libm.py``) on 1,187,869 angle triples
+   (a grid over [-3.3, 3.3], +-64 ulp of every multiple of pi/4 up to 120,
+   |x| in [120, 1e5], the bench, demo and drifted cameras), bit for bit;
+   ``get_directions`` at the cameras on the card against the CPU port's;
+   its time and its plain version's for one triple.  The ray-setup kernel
+   (``csrc/rays.cu``: ``primary_rays`` in one launch, the basis included)
+   against its plain version (``primary_rays_plain``), 0 word diffs in
+   origins, directions, px, py and py_r: the bench frame (both parities),
+   the demo frame, a block permutation, no checkerboard, an odd height,
+   1x1 pixel blocks, orthographic with a pair and a tensor window, and its
+   ``pixels`` entry on 4 ranks' ``band_pixels`` and ``cyclic_pixels``; a
+   frame's ray setup is exactly one CUDA kernel, the ray kernel (the
+   wrapper's count, and a profile in which no other kernel runs); its time
+   and its plain version's on the bench frame;
 16. the measurement scripts (``voxelengine_tpu_torch/experiments/``) on
    the bench world from phase 5's cache: the frame breakdown (S0 ray
    setup, S1 with K1, S2 the frame; primary and with shadows, AO 4 and
@@ -150,7 +158,8 @@ Phases, one stdout line each (plus the kernels' build logs):
    parities through K1 against single-device ``render_frame``: 0 byte
    diffs.
 
-Each kernel's path (the bench world's frames for K1 and the camera kernel,
+Each kernel's path (the bench world's frames for K1 and the ray kernel,
+``get_directions`` at the phase-15 cameras for the camera kernel,
 and the demo world's for K1's second record; the bench world's build for W1; the frames of
 phase 8 for K2, the phase-8 batch for K3 and the 128^3 grid for its global
 instantiation, the phase-9 128^3 batch for K4 with shared meta and its
@@ -219,7 +228,7 @@ EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
 # threads a block of each library's kernels (csrc/*.cu)
 BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256, "crossings": 32,
-                 "zslab": 1024, "camera": 128}
+                 "zslab": 1024, "camera": 128, "rays": 256}
 # the app's frame (apps/voxel_app.py:64-68,178-188): the 1024^3 world at
 # factor 32, 1280x720, shadows, AO 4, reflections; the facade's batch size
 APP_WORLD = (1024, 1024, 1024)
@@ -912,7 +921,7 @@ def main_path_frames(dev, world, bm, lt, memo):
 
     from voxelengine_tpu_torch.config import Environment, RenderConfig
     from voxelengine_tpu_torch.io.checkpoint import memo_json
-    from voxelengine_tpu_torch.kernels import bigtrace, camera
+    from voxelengine_tpu_torch.kernels import bigtrace, rays
     from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm, trace_brickmap_lt
     from voxelengine_tpu_torch.ops.trace import trace_brickmap
     from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, probe_use_macro, render_frame
@@ -943,7 +952,7 @@ def main_path_frames(dev, world, bm, lt, memo):
     cfg = dataclasses.replace(cfg, trace_use_macro=use_macro)
     fb = make_framebuffer(cfg, dev)
 
-    bigtrace.launches = camera.launches = 0  # count the main path's launches only
+    bigtrace.launches = rays.launches = 0  # count the main path's launches only
     render_frame(bm, fb, origin, euler, env, 0, cfg, lt=lt)  # warm-up
     torch.cuda.synchronize()
     counts = [bigtrace.launches]
@@ -955,12 +964,12 @@ def main_path_frames(dev, world, bm, lt, memo):
         counts.append(bigtrace.launches)
     end.record()
     torch.cuda.synchronize()
-    launches, camera_launches = bigtrace.launches, camera.launches
+    launches, ray_launches = bigtrace.launches, rays.launches
     frame_ms = start.elapsed_time(end) / FRAMES
     if any(b != a + 1 for a, b in zip([0] + counts, counts)):
         raise SystemExit(f"K1 was not launched once per frame: launch counts {counts}")
-    if camera_launches != FRAMES + 1:
-        raise SystemExit(f"the camera kernel was launched {camera_launches} times in {FRAMES + 1} frames")
+    if ray_launches != FRAMES + 1:
+        raise SystemExit(f"the ray-setup kernel was launched {ray_launches} times in {FRAMES + 1} frames")
 
     if tuple(fb.shape) != (H, W, 3) or not bool(torch.isfinite(fb).all()):
         raise SystemExit("framebuffer has the wrong shape or non-finite values")
@@ -984,7 +993,7 @@ def main_path_frames(dev, world, bm, lt, memo):
         raise SystemExit(f"implausible hit fraction {hit_frac}")
     say(f"main path ({world}): {W}x{H} checkerboard tile_order, use_macro={use_macro}, {FRAMES} chained frames: "
         f"{frame_ms:.3f} ms/frame, {rays_per_frame / frame_ms / 1e3:.3f} Mrays/s primary, "
-        f"hit fraction {hit_frac:.4f}, K1 launches {launches}, camera kernel launches {camera_launches}, "
+        f"hit fraction {hit_frac:.4f}, K1 launches {launches}, ray kernel launches {ray_launches}, "
         f"framebuffer checksum {float(fb.double().sum()):.6f}")
 
     # the diag build on the same rays: counters, warp iterations
@@ -1013,7 +1022,7 @@ def main_path_frames(dev, world, bm, lt, memo):
         "bigtrace" if world == "full" else "bigtrace_demo_world", "bigtrace.cu",
         "voxelengine_tpu/ops/pallas_bigtrace.py:1348", launches, diffs[4], k_ms, p_ms,
         o.shape[0], hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick), steps_sum,
-        events if use_macro else None, camera_launches=camera_launches,
+        events if use_macro else None, rays_launches=ray_launches,
     )
 
 
@@ -2770,7 +2779,8 @@ def phase_harness(dev, cache, key):
 
 
 # phase 15, the camera kernel (csrc/camera.cu): glibc's sinf and cosf, as
-# the reference's XLA:CPU computes them, and the basis of get_directions
+# the reference's XLA:CPU computes them, and the basis of get_directions;
+# and the ray-setup kernel (csrc/rays.cu), which computes the same basis
 CAMERA_GRID = 1 << 20  # pitch and yaw angle pairs of the grid over [-3.3, 3.3]
 # the cameras whose basis the card and the CPU must give alike: the bench's
 # (bench.py:192) and its drifted frames (bench.py:324; this script's main
@@ -2805,23 +2815,20 @@ def camera_angles():
     return np.concatenate([e, cams, drift]).astype(f32)
 
 
-def phase_camera(dev, launches):
-    """Phase 15: the camera kernel against its plain version
-    (``render/camera.py::basis_plain``, ``core/libm.py``) on the card over
-    :func:`camera_angles`, bit for bit; the basis of :data:`CAMERAS` and
-    the drifted bench camera on the card and on the CPU, bit for bit; the
-    kernel's and the plain version's times at the frame's shape (one
-    triple); the CUDA kernels of a frame's ray setup, of which the basis
-    must be one.  ``launches``: the kernel's on the main path (phase 5).
-    Returns the kernel's record."""
-    import numpy as np
+def phase_camera(dev, ray_launches):
+    """Phase 15, the camera and ray-setup kernels.  The camera kernel
+    against its plain version (``render/camera.py::basis_plain``,
+    ``core/libm.py``) on the card over :func:`camera_angles`, bit for bit;
+    ``get_directions`` of :data:`CAMERAS` and the drifted bench camera on
+    the card (the camera kernel's path, counted) and on the CPU, bit for
+    bit; the kernel's and the plain version's times for one triple.  Then
+    the ray-setup kernel (:func:`ray_cases`, :func:`ray_setup_record`).
+    ``ray_launches``: the ray kernel's on the main path (phase 5).
+    Returns the two kernels' records."""
     import torch
 
-    from voxelengine_tpu_torch.config import RenderConfig
     from voxelengine_tpu_torch.kernels import camera as ck
     from voxelengine_tpu_torch.render import camera as cam
-    from voxelengine_tpu_torch.render.frame import primary_rays
-    from voxelengine_tpu_torch.utils.profiling import kernel_profile
 
     card = card_line()
     angles = camera_angles()
@@ -2833,62 +2840,191 @@ def phase_camera(dev, launches):
     if diffs or err:
         raise SystemExit(f"camera kernel vs plain on {e.shape[0]} triples: {diffs} word diffs, max abs err {err}")
     cams = torch.from_numpy(angles[-len(CAMERAS) - FRAMES:])
+    ck.launches = 0  # the camera kernel's path: get_directions on the card
     on_card = torch.cat(cam.get_directions(cams.to(dev)), dim=1).cpu()
+    launches = ck.launches
     on_cpu = torch.cat(cam.get_directions(cams), dim=1)
     cpu_diffs = int((on_card.view(torch.int32) != on_cpu.view(torch.int32)).sum())
     say(f"camera: kernel vs plain (libm's sincosf in torch ops) on {e.shape[0]} angle triples on the card (tolerance: "
-        f"equal): {diffs} diffs, max abs err {err}; the basis of {cams.shape[0]} cameras (bench, demo, "
-        f"drifted bench) on the card vs the CPU port: {cpu_diffs} diffs")
+        f"equal): {diffs} diffs, max abs err {err}; get_directions of {cams.shape[0]} cameras (bench, demo, "
+        f"drifted bench) on the card ({launches} camera kernel launch) vs the CPU port: {cpu_diffs} diffs")
     if cpu_diffs:
         raise SystemExit("the card's camera basis differs from the CPU port's")
 
     one = torch.tensor(CAMERAS[0], device=dev)
     k_ms = cuda_ms(lambda: ck.camera_basis(one.reshape(1, 3)), repeats=100)
     p_ms = cuda_ms(lambda: cam.basis_plain(one), repeats=20)
-    dims, W, H = WORLDS["full"]
-    cfg = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
-    origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)
-    # the wrapper's count says how often the profiled ray setups launched
-    # the basis kernel (kernel_profile runs FRAMES of them in its warm-up
-    # step and FRAMES recorded), the profile that each launch is one CUDA
-    # kernel.  The profiler can drop an event (CUPTI), and the ray setup's
-    # other kernels vary by a few a profile, so only a profile with fewer
-    # basis kernels than FRAMES is taken again, up to 3 times; every
-    # attempt's counts (kernels, basis kernels) are printed
-    attempts = []
-    for _ in range(3):
-        before = ck.launches
-        setup, setup_ms = kernel_profile(lambda: primary_rays(cfg, origin, one, 1), FRAMES)
-        if setup is None:
-            raise SystemExit("camera: the profiler recorded no device activity")
-        if ck.launches - before != 2 * FRAMES:
-            raise SystemExit(f"camera: {2 * FRAMES} ray setups launched the basis kernel {ck.launches - before} "
-                             "times")
-        attempts.append((len(setup), sum("camera_basis" in k for k in setup)))
-        if attempts[-1][1] >= FRAMES:
-            break
-    basis = [t for k, t in zip(setup, setup_ms) if "camera_basis" in k]
-    dev_ms = sum(basis) / max(len(basis), 1)  # the kernel's own device time a launch
-    setup, basis = len(setup) / FRAMES, len(basis) / FRAMES
     rates = issue_rates()
     bytes_ms = CAMERA_BYTES / HBM_BYTES_PER_S * 1e3
     ops_ms = (CAMERA_FP64_OPS / rates["fp64"] + CAMERA_F32_OPS / rates["issue"]) * 1e3
-    say(f"camera: kernel {k_ms:.5f} ms (CUDA events over 100 launches), {dev_ms:.5f} ms of device time a launch "
-        f"(torch.profiler), plain {p_ms:.4f} ms for one triple (the frame's call); bound "
-        f"{max(bytes_ms, ops_ms):.3g} ms; a frame's ray setup launches {setup} CUDA kernels ({basis} for the "
-        f"basis; kernels and basis kernels of each profile of {FRAMES} taken {attempts}); main-path launches "
-        f"{launches}, "
-        f"on {card}")
-    if basis != 1:
-        raise SystemExit(f"the basis took {basis} kernels a frame's ray setup, not 1")
-    return {
+    say(f"camera: kernel {k_ms:.5f} ms (CUDA events over 100 launches), plain {p_ms:.4f} ms for one triple; bound "
+        f"{max(bytes_ms, ops_ms):.3g} ms; launches on its path (get_directions) {launches}, on {card}")
+    camera = {
         "name": "camera", "route": "cuda", "source": "voxelengine_tpu_torch/csrc/camera.cu",
         "replaces": "none: voxelengine_tpu/render/camera.py:19-34 get_directions (jnp.sin and jnp.cos inside the "
                     "jitted frame, glibc's sinf and cosf on XLA:CPU; no pallas_call)",
         "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,  # torch.sin and torch.cos compute other functions (not glibc's)
-        "device_ms": dev_ms, "triples_compared": int(e.shape[0]), "setup_kernels": setup,
+        "triples_compared": int(e.shape[0]), "path": "get_directions",
+    }
+    return [ray_setup_record(dev, ray_launches, *ray_cases(dev)), camera]
+
+
+# the ray-setup kernel (csrc/rays.cu): a perspective ray writes its
+# direction (12 B) and px, py, py_r (int64, 24 B); its work a ray: 2
+# conversions and 2 divisions for u and v, 4 ops for ux and vy, 2 scales,
+# 12 for the direction, 5 for its squared norm, the root through float64
+# (3), 3 divisions, and ~17 integer ops for the pixel and the remap
+RAY_BYTES_OUT, RAY_OPS = 36, 50
+RAY_THREADS = 256  # a block of csrc/rays.cu, which computes the basis once
+
+
+def ray_diffs(got, want):
+    """``(word diffs, max abs err)`` of two ray tuples (float rows compared
+    as int32 words)."""
+    import torch
+
+    def words(t):
+        t = t.reshape(-1)
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    if [tuple(g.shape) for g in got] != [tuple(w.shape) for w in want]:
+        raise SystemExit(f"ray shapes differ: {[tuple(g.shape) for g in got]} vs {[tuple(w.shape) for w in want]}")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want) if g.dtype == torch.float32)
+    return sum(int((words(g) != words(w)).sum()) for g, w in zip(got, want)), err
+
+
+def ray_cases(dev) -> int:
+    """The ray kernel against its plain version on the card, 0 word diffs
+    in every output: the bench frame (1920x1080, checkerboard, tile order,
+    both parities), the demo frame (1280x720), a block permutation, no
+    checkerboard, an odd height, 1x1 pixel blocks (untiled), orthographic
+    with a pair and with a tensor window, and the ``pixels`` entry on each
+    rank's pixels of a 4-rank ``band_pixels`` and ``cyclic_pixels``
+    layout.  Returns the rays compared and the largest absolute error."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from voxelengine_tpu_torch.config import Projection, RenderConfig
+    from voxelengine_tpu_torch.kernels import rays
+    from voxelengine_tpu_torch.parallel import sharded
+    from voxelengine_tpu_torch.parallel.mesh import Mesh
+    from voxelengine_tpu_torch.render.frame import block_geometry, block_permutation_from_steps, primary_rays
+    from voxelengine_tpu_torch.render.frame import primary_rays_plain
+
+    dims, W, H = WORLDS["full"]
+    dW, dH = APP_SIZE
+    bench = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
+    demo = RenderConfig(width=dW, height=dH, checkerboard=True, tile_order=True)
+    ortho = dataclasses.replace(demo, projection=Projection.ORTHOGRAPHIC, ortho_size=APP_ORTHO)
+    bw, bh, nb = block_geometry(demo)
+    steps = torch.from_numpy(np.random.default_rng(13).integers(0, 500, nb * bw * bh)).to(dev)
+    perm = block_permutation_from_steps(steps, demo)
+    origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)
+    bench_e = torch.tensor(CAMERAS[0], device=dev)
+    # name: (cfg, euler, frame numbers, block_perm, ortho_size)
+    cases = {
+        "bench 1920x1080": (bench, bench_e, (1, 2), None, None),
+        "demo 1280x720": (demo, torch.tensor(CAMERAS[1], device=dev), (1, 2), None, None),
+        "block_perm 1280x720": (demo, bench_e, (1, 2), perm, None),
+        "no checkerboard 1280x720": (dataclasses.replace(demo, checkerboard=False), bench_e, (0,), None, None),
+        "odd height 1280x719": (dataclasses.replace(demo, height=719), bench_e, (1, 2), None, None),
+        "1x1 blocks 1279x718": (dataclasses.replace(demo, width=1279, height=718), bench_e, (1,), None, None),
+        "ortho pair 1280x720": (ortho, bench_e, (1, 2), None, None),
+        "ortho tensor 1280x720": (ortho, bench_e, (1,), None, torch.tensor([150.5, 90.25], device=dev)),
+    }
+    compared, err, lines = 0, 0.0, []
+    for name, (cfg, e, frames, bp, osz) in cases.items():
+        for fn in frames:
+            ed = e + 1e-5 * fn  # the bench drift
+            before = rays.launches
+            got = primary_rays(cfg, origin, ed, fn, bp, osz)
+            if rays.launches != before + 1:
+                raise SystemExit(f"ray setup ({name}): {rays.launches - before} ray kernel launches, not 1")
+            n, e_max = ray_diffs(got, primary_rays_plain(cfg, origin, ed, fn, bp, osz))
+            compared, err = compared + got[1].shape[0], max(err, e_max)
+            lines.append(f"{name} frame {fn}: {n}")
+            if n:
+                raise SystemExit(f"ray kernel vs plain ({name}, frame {fn}): {n} word diffs")
+    for layout, pixels in (("band", sharded.band_pixels), ("cyclic", sharded.cyclic_pixels)):
+        n = 0
+        for rank in range(MD_RANKS):
+            px, py_r = pixels(bench, Mesh(None, rank, MD_RANKS, "rows", dev), dev)
+            for fn in (1, 2):
+                ed = bench_e + 1e-5 * fn
+                got = sharded._rays_for_pixels(bench, origin, ed, fn, px, py_r, bench.ortho_size)
+                d, e_max = ray_diffs(got, sharded._rays_for_pixels_plain(bench, origin, ed, fn, px, py_r,
+                                                                          bench.ortho_size))
+                n, compared, err = n + d, compared + px.shape[0], max(err, e_max)
+        lines.append(f"pixels entry, {layout}_pixels of {MD_RANKS} ranks at 1920x1080, frames 1 and 2: {n}")
+        if n:
+            raise SystemExit(f"ray kernel's pixels entry vs plain ({layout}): {n} word diffs")
+    say(f"rays: kernel vs plain on the card (tolerance: equal; word diffs in origins, dirs, px, py, py_r): "
+        f"{'; '.join(lines)}; {compared} rays compared, max abs err {err}")
+    return compared, err
+
+
+def ray_setup_record(dev, launches, compared, err):
+    """The gate (a frame's ray setup is exactly one CUDA kernel, the ray
+    kernel), the kernel's times on the bench frame and its record, with
+    ``compared`` and ``err`` from :func:`ray_cases`."""
+    import torch
+
+    from voxelengine_tpu_torch.config import RenderConfig
+    from voxelengine_tpu_torch.kernels import rays
+    from voxelengine_tpu_torch.render.frame import primary_rays, primary_rays_plain
+    from voxelengine_tpu_torch.utils.profiling import kernel_profile
+
+    card = card_line()
+    dims, W, H = WORLDS["full"]
+    cfg = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
+    origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)
+    one = torch.tensor(CAMERAS[0], device=dev)
+    # the wrapper's count says how many launches the profiled ray setups
+    # made (kernel_profile runs FRAMES of them in its warm-up step and
+    # FRAMES recorded): exactly one each.  The profile shows that no other
+    # kernel ran.  The profiler can drop events (CUPTI), so a profile with
+    # fewer ray kernels than FRAMES, or none, is taken again, up to 3
+    # times; every attempt's (kernels, ray kernels) is printed
+    attempts = []
+    for _ in range(3):
+        before = rays.launches
+        setup, setup_ms = kernel_profile(lambda: primary_rays(cfg, origin, one, 1), FRAMES)
+        if rays.launches - before != 2 * FRAMES:
+            raise SystemExit(f"rays: {2 * FRAMES} ray setups launched the ray kernel {rays.launches - before} times")
+        setup, setup_ms = setup or [], setup_ms or []
+        attempts.append((len(setup), sum("rays_kernel" in k for k in setup)))
+        if attempts[-1][1] >= FRAMES:
+            break
+    others = sorted({k for k in setup if "rays_kernel" not in k})
+    ray_ms = [t for k, t in zip(setup, setup_ms) if "rays_kernel" in k]
+    dev_ms = sum(ray_ms) / max(len(ray_ms), 1)  # the kernel's own device time a launch
+    k_ms = cuda_ms(lambda: primary_rays(cfg, origin, one, 1), repeats=100)
+    p_ms = cuda_ms(lambda: primary_rays_plain(cfg, origin, one, 1), repeats=20)
+    n = W * (H // 2)
+    rates = issue_rates()
+    blocks = -(-n // RAY_THREADS)
+    bytes_ms = (n * RAY_BYTES_OUT + 24) / HBM_BYTES_PER_S * 1e3  # rays out; euler and origin in
+    ops_ms = (n * RAY_OPS / rates["issue"] + blocks * CAMERA_FP64_OPS / rates["fp64"]) * 1e3
+    say(f"rays: the bench frame's ray setup ({n} rays) launches {len(setup) / FRAMES} CUDA kernels a frame, "
+        f"{len(ray_ms) / FRAMES} of them the ray kernel (kernels and ray kernels of each profile of {FRAMES} taken: "
+        f"{attempts}; other kernels {others}); the wrapper counted {2 * FRAMES} launches for {2 * FRAMES} ray "
+        f"setups; kernel {k_ms:.5f} ms a call (CUDA events over 100 calls), {dev_ms:.5f} ms of device time a launch "
+        f"(torch.profiler), plain {p_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.3g} ms (bytes {bytes_ms:.3g}, "
+        f"operations {ops_ms:.3g}); main-path launches {launches}, on {card}")
+    if others or len(ray_ms) != FRAMES:
+        raise SystemExit(f"a frame's ray setup is not exactly the ray kernel: {len(ray_ms)} ray kernels in "
+                         f"{FRAMES} ray setups, other kernels {others}")
+    return {
+        "name": "rays", "route": "cuda", "source": "voxelengine_tpu_torch/csrc/rays.cu",
+        "replaces": "none: voxelengine_tpu/render/frame.py:171-220 primary_rays (XLA ops fused into the jitted "
+                    "frame; no pallas_call)",
+        "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # no PyTorch call computes a frame's rays
+        "device_ms": dev_ms, "rays": n, "rays_compared": compared, "setup_kernels": len(setup) / FRAMES,
     }
 
 
@@ -3004,7 +3140,7 @@ def main(argv=None):
         kernels += timed("remainder", phase_remainder, dev)
         kernels += timed("multi-device", phase_multi_device, dev, cache, bench_key(WORLDS["full"][0]))
         kernels.append(timed("harness", phase_harness, dev, cache, bench_key(WORLDS["full"][0])))
-        kernels.insert(0, timed("camera", phase_camera, dev, bench["camera_launches"]))
+        kernels[:0] = timed("camera and rays", phase_camera, dev, bench["rays_launches"])
         timed("experiments", phase_experiments, dev, cache)
         timed("cyclic 1080p", phase_cyclic_1080p, dev)
     finally:

@@ -8,6 +8,7 @@ turns on one NVIDIA GPU.
     python3 kernel_ab.py --sass sass_out          # also write each K1/K4 library's SASS there
     python3 kernel_ab.py --variant='-maxrregcount=72'  # this checkout built with other nvcc flags too
     python3 kernel_ab.py --only 'K4-compact|K4-slab'  # only the cases whose names match (inputs built for them)
+    python3 kernel_ab.py --quick --only 'ray setup' --before _checkout/prev  # the bench frame's primary_rays in two trees
 
 The inputs are made once, in this process, on the card: the demo frame's
 460,800 rays over the 1024^3 terrain (``chip_smoke.py`` phase 5), the
@@ -25,7 +26,10 @@ W1) and on K4's random rays over the 128^3 terrain made compact; K4-slab
 (``bmtrace_slab``) on the 1024^3 world with dense slots at 4 slabs: round
 0 on the slab that owns the 1280x720 frame's rays, round 1 on the rows it
 hands down (made once by this checkout's K4-slab), and the whole world as
-one slab (one rank's whole walk), beside K4 on the same rays.  K2 and K3 are timed alone (the
+one slab (one rank's whole walk), beside K4 on the same rays.  The bench
+frame's ray setup: one ``primary_rays`` call at 1920x1080 (the ray-setup
+kernel, ``csrc/rays.cu``, in a tree that has it; an earlier tree's eager
+ops).  K2 and K3 are timed alone (the
 kernel's launch; a tree whose kernel takes prepared rays gets them from
 its own ray setup, made once) and as the whole ``trace_grid_vpu`` /
 ``trace_grid_mxu`` call; the dense frame as 8 chained ``render_frame_dense``
@@ -94,6 +98,11 @@ def make_inputs(dev, quick: bool, refills, only=None):
         return only is None or re.search(only, name) is not None
 
     cases = {}
+    # the bench frame's ray setup (phase 15): primary_rays, whatever kernels the tree launches for it
+    dims, W, H = cs.WORLDS["full"]
+    cases["ray setup, bench frame (primary_rays call)"] = (
+        "ray_setup", (torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev),
+                      torch.tensor(cs.CAMERAS[0], device=dev)), dict(width=W, height=H))
     # the dense path (phase 8): K2 on the last frame's rays, K3 on the config-2 batch, the frames
     g = generate_world((64, 64, 64), octaves=8, device=dev)
     grid = (g.words, g.dims, g.layout.value)
@@ -262,7 +271,7 @@ def tree_functions(torch):
     from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, gridtrace, rrtrace
     from voxelengine_tpu_torch.ops import gridtrace as ops_grid
     from voxelengine_tpu_torch.ops import trace as ops_trace
-    from voxelengine_tpu_torch.render.frame import make_framebuffer, render_frame_dense
+    from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, render_frame_dense
 
     fused = "origins" in inspect.signature(gridtrace.gridtrace).parameters
     has_refill = "refill" in inspect.signature(rrtrace.rrtrace).parameters
@@ -314,6 +323,10 @@ def tree_functions(torch):
     def plain(fn):
         return lambda args, kw: ((lambda: fn(*args, **kw)), (lambda out: out))
 
+    def ray_setup(args, kw):
+        cfg = RenderConfig(width=kw["width"], height=kw["height"], checkerboard=True, tile_order=True)
+        return (lambda: primary_rays(cfg, *args, 1)), (lambda out: out)
+
     def slab(args, kw):
         meta, bricks, rays, rows = args
 
@@ -328,7 +341,7 @@ def tree_functions(torch):
         "grid": alone(gridtrace.gridtrace, lambda g: g.words),
         "grid_limbs": alone(gridtrace.gridtrace_limbs, lambda g: ops_grid.words_to_limb_rows(g.words)),
         "grid_call": call(ops_grid.trace_grid_vpu), "grid_limbs_call": call(ops_grid.trace_grid_mxu),
-        "dense_frames": frames,
+        "dense_frames": frames, "ray_setup": ray_setup,
     }
 
 

@@ -36,6 +36,7 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 KERNEL_SOURCES = {
     "bigtrace": "bigtrace.cu", "rrtrace": "rrtrace.cu", "gridtrace": "gridtrace.cu", "bmtrace": "bmtrace.cu",
     "terrain": "terrain.cu", "crossings": "crossings.cu", "zslab": "zslab.cu", "camera": "camera.cu",
+    "rays": "rays.cu",
 }
 # host library name -> source (g++): the kernels' per-ray and per-voxel logic
 HOST_SOURCES = {"dda_host": "dda_host.cpp", "terrain_host": "terrain_host.cpp", "camera_host": "camera_host.cpp"}
@@ -75,6 +76,14 @@ SIGNATURES = {
     "vx_noise_points": [_I, _I, _P, _F, _I, _I, _F, _F, _P, _P],
     # euler (f32[n, 3]), n, out (f32[n, 9]: -forward, -up, right)
     "vx_camera_basis": [_P, _I, _P],
+    # euler, origin, window (null or f32[2]), block_perm (null or int64);
+    # n, W, H, bw, bh, checkerboard, even_frame, ortho; a, b (scale_x and
+    # scale_y, or the orthographic window); basis (null or f32[9]), rows
+    # (f32[n, 3]), px, py, py_r (int64[n])
+    "vx_rays_frame": [_P] * 4 + [_I] * 8 + [_F] * 2 + [_P] * 5,
+    # euler, origin, window, px, py_r; n, W, H, checkerboard, even_frame,
+    # ortho; a, b; basis, rows, py
+    "vx_rays_pixels": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_P] * 3,
 }
 # host-build entry -> its C signature: the kernel launcher's it mirrors,
 # except K4's two, which have no instantiation flag and no work counter; and the
@@ -95,6 +104,8 @@ HOST_ENTRIES = {
     "vx_terrain_slab_host": SIGNATURES["vx_terrain_slab"],
     "vx_noise_points_host": SIGNATURES["vx_noise_points"],
     "vx_camera_basis_host": SIGNATURES["vx_camera_basis"],
+    "vx_rays_frame_host": SIGNATURES["vx_rays_frame"],
+    "vx_rays_pixels_host": SIGNATURES["vx_rays_pixels"],
     # x, n, sin, cos: glibc_sincosf alone
     "vx_sincosf_host": [_P, _I, _P, _P],
 }

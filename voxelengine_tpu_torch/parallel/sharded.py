@@ -33,12 +33,15 @@ import torch
 from voxelengine_tpu_torch.config import Environment, Projection, RenderConfig
 from voxelengine_tpu_torch.core.brickmap import BrickMap
 from voxelengine_tpu_torch.core.exact import fdiv
+from voxelengine_tpu_torch.kernels import rays as rays_kernel
 from voxelengine_tpu_torch.ops.bigtrace import LineTable, trace_brickmap_hbm
 from voxelengine_tpu_torch.ops.trace import TraceOut
 from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table
 from voxelengine_tpu_torch.parallel.mesh import Mesh, all_gather, make_mesh, psum  # noqa: F401  (make_mesh re-exported)
 from voxelengine_tpu_torch.render import camera as cam
-from voxelengine_tpu_torch.render.frame import _block_side, block_geometry, checkerboard_pair_select, shade_pixels
+from voxelengine_tpu_torch.render.frame import (
+    _block_side, _is_cuda, _kernel_rays, _projection_args, block_geometry, checkerboard_pair_select, shade_pixels,
+)
 
 F32 = torch.float32
 
@@ -47,7 +50,22 @@ def _rays_for_pixels(cfg: RenderConfig, origin, euler, frame_number: int, px, py
     """Primary rays for any set of ``(px, pre-remap py)`` pixels: the
     per-shard core of :func:`~voxelengine_tpu_torch.render.frame.primary_rays`
     (the same checkerboard remap, projection and camera math).  Returns
-    ``(origins, dirs, py)``."""
+    ``(origins, dirs, py)``.  On the card one launch of the ray-setup
+    kernel's ``pixels`` entry (``kernels/rays.py``); on the CPU
+    :func:`_rays_for_pixels_plain`."""
+    if not _is_cuda(origin):
+        return _rays_for_pixels_plain(cfg, origin, euler, frame_number, px, py_r, osz)
+    origin = origin.to(F32)
+    out, basis, py = rays_kernel.pixel_rays(
+        euler.to(F32), origin, px, py_r, width=cfg.width, height=cfg.height, checkerboard=cfg.checkerboard,
+        even_frame=frame_number % 2 == 0, **_projection_args(cfg, osz, origin.device),
+    )
+    return (*_kernel_rays(origin, out, basis), py)
+
+
+def _rays_for_pixels_plain(cfg: RenderConfig, origin, euler, frame_number: int, px, py_r, osz):
+    """:func:`_rays_for_pixels` in eager torch ops: the ``pixels`` entry's
+    plain version, which the CPU runs."""
     W, H = cfg.width, cfg.height
     if cfg.checkerboard:
         py = py_r * 2 + (px % 2 == 0).to(px.dtype) + int(frame_number % 2 == 0)

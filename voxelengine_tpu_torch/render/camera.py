@@ -5,9 +5,11 @@ Euler pitch/yaw to a (forward, up, right) basis with the reference's signs
 generator with the reference's 3.1415 pi (``Renderer.cu:44-59``) and the
 orthographic variant (``Renderer.cu:61-70``).  ``sin``, ``cos`` and
 ``tan`` are glibc's ``sinf``, ``cosf`` and ``tanf``, which the reference's
-XLA:CPU computes: on the card the basis is one launch of the camera kernel
-(``kernels/camera.py``), elsewhere :func:`basis_plain` (``core/libm.py``);
-``tan`` of the half field of view is taken once on the host.
+XLA:CPU computes: on the card :func:`get_directions` is one launch of the
+camera kernel (``kernels/camera.py``), elsewhere :func:`basis_plain`
+(``core/libm.py``); ``tan`` of the half field of view is taken once on the
+host.  A frame's rays on the card take the basis inside the ray-setup
+kernel (``kernels/rays.py``, the same ``csrc/camera.cuh``), not from here.
 """
 
 from __future__ import annotations
@@ -77,28 +79,43 @@ def tan_half_fov(fov_degrees: float) -> float:
     return float(libm.tanf(torch.tensor(fov / np.float32(2.0))))
 
 
+@functools.lru_cache(maxsize=64)
+def perspective_scales(width: int, height: int, fov_degrees: float):
+    """``(scale_x, scale_y)`` of the pinhole (``Renderer.cu:44-59``): the
+    half field of view's tangent, and it times the aspect ratio, each a
+    float32 value (as a Python float), taken on the host once a
+    configuration."""
+    scale_y = tan_half_fov(fov_degrees)
+    return float(np.float32(scale_y) * (np.float32(width) / np.float32(height))), scale_y
+
+
+def ortho_window(ortho_size, device):
+    """The orthographic window ``(sx, sy)``: float32 values (as Python
+    floats) of a pair of numbers, or the elements of a ``[2]`` tensor (the
+    interactive zoom's, which changes without a new configuration) as
+    float32 on ``device``, never read on the host."""
+    if isinstance(ortho_size, torch.Tensor):
+        osz = ortho_size.to(device=device, dtype=torch.float32)
+        return osz[0], osz[1]
+    return float(np.float32(ortho_size[0])), float(np.float32(ortho_size[1]))
+
+
 def ray_direction(fwd, up, right, width: int, height: int, u, v, fov_degrees):
     """Perspective primary-ray direction for uv in [0,1]^2
     (``Renderer.cu:44-59``); returns ``[..., 3]``."""
-    aspect = np.float32(width) / np.float32(height)
     ux = u * 2.0 - 1.0
     vy = v * 2.0 - 1.0
-    scale_y = tan_half_fov(fov_degrees)
-    scale_x = float(np.float32(scale_y) * aspect)
+    scale_x, scale_y = perspective_scales(width, height, fov_degrees)
     d = fwd + ux[..., None] * scale_x * right + vy[..., None] * scale_y * up
     return d / sqrt_rn(dot3(d, d))[..., None]
 
 
 def ray_origin_ortho(fwd, up, right, width: int, height: int, u, v, origin, ortho_size):
     """Orthographic ray origin; the direction is ``fwd`` (``Renderer.cu:61-70``).
-    ``ortho_size`` is a pair of numbers or a ``[2]`` tensor (the
-    interactive zoom's, which changes without a new configuration)."""
+    ``ortho_size`` is a pair of numbers or a ``[2]`` tensor
+    (:func:`ortho_window`)."""
     ratio = float(np.float32(width) / np.float32(height))
-    if isinstance(ortho_size, torch.Tensor):
-        osz = ortho_size.to(device=fwd.device, dtype=torch.float32)
-        sx, sy = osz[0], osz[1]
-    else:
-        sx, sy = float(np.float32(ortho_size[0])), float(np.float32(ortho_size[1]))
+    sx, sy = ortho_window(ortho_size, fwd.device)
     return (
         origin.to(torch.float32)
         + right * ((u * 2.0 - 1.0) * sx * ratio)[..., None]

@@ -19,6 +19,10 @@ a dense :class:`~voxelengine_tpu_torch.core.bitgrid.BitGrid` world (the
 small-world path, K2 on the card), which traces no secondary rays and
 ignores those three flags, as the JAX dense path does.
 
+The primary rays of a CUDA frame are one launch of the ray-setup kernel
+(:func:`primary_rays`, ``kernels/rays.py``), the camera basis included;
+the CPU builds them in torch ops (:func:`primary_rays_plain`).
+
 Where the rays go: with a line table, through
 :func:`~voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_hbm` (K1 for CUDA
 tensors).  Without one, CUDA rays go through
@@ -38,6 +42,7 @@ from voxelengine_tpu_torch.config import FLT_EPS_DDA, DebugView, Environment, Pr
 from voxelengine_tpu_torch.core.bitgrid import BitGrid
 from voxelengine_tpu_torch.core.brickmap import BrickMap
 from voxelengine_tpu_torch.core.exact import dot3, fdiv, sqrt_rn
+from voxelengine_tpu_torch.kernels import rays as rays_kernel
 from voxelengine_tpu_torch.ops.bigtrace import LineTable, trace_brickmap_hbm, trace_brickmap_hbm_staged
 from voxelengine_tpu_torch.ops.gridtrace import trace_grid_vpu
 from voxelengine_tpu_torch.ops.noise import random_float
@@ -138,6 +143,36 @@ def composite_frame(framebuffer, color, write, cfg: RenderConfig, frame_number: 
     return checkerboard_pair_select(framebuffer, h, w, h_prev, w_prev, frame_number)
 
 
+def _is_cuda(t: torch.Tensor) -> bool:
+    """Whether rays on ``t``'s device come from the ray-setup kernel (one
+    place, so a test can route a CPU call as a card call)."""
+    return t.is_cuda
+
+
+def _projection_args(cfg: RenderConfig, ortho_size, device) -> dict:
+    """The ray-setup kernel's projection arguments (``kernels/rays.py``):
+    ``ortho``, and ``a``, ``b`` (``scale_x``, ``scale_y``; or the
+    orthographic window of ``ortho_size``, else ``cfg.ortho_size``, which as
+    a ``[2]`` tensor goes to the kernel as ``window`` instead)."""
+    if cfg.projection is Projection.PERSPECTIVE:
+        a, b = cam.perspective_scales(cfg.width, cfg.height, cfg.fov_degrees)
+        return dict(ortho=False, a=a, b=b)
+    osz = cfg.ortho_size if ortho_size is None else ortho_size
+    if isinstance(osz, torch.Tensor):
+        return dict(ortho=True, a=0.0, b=0.0, window=osz.to(device=device, dtype=F32).reshape(2).contiguous())
+    a, b = cam.ortho_window(osz, device)
+    return dict(ortho=True, a=a, b=b)
+
+
+def _kernel_rays(origin: torch.Tensor, rows: torch.Tensor, basis):
+    """``(origins, dirs)`` of the ray-setup kernel's ``rows``: directions,
+    from one origin (a row stride of 0, as the plain version broadcasts
+    it), or, with a ``basis`` (orthographic), origins along ``fwd``."""
+    if basis is None:
+        return origin.expand_as(rows), rows
+    return rows, basis[:3].expand(rows.shape[0], 3)
+
+
 def primary_rays(cfg: RenderConfig, origin: torch.Tensor, euler: torch.Tensor, frame_number: int,
                  block_perm=None, ortho_size=None):
     """The frame's primary rays on ``origin``'s device.
@@ -149,7 +184,30 @@ def primary_rays(cfg: RenderConfig, origin: torch.Tensor, euler: torch.Tensor, f
     order where given (:func:`block_permutation_from_steps`).
     ``ortho_size`` (a ``[2]`` tensor) overrides ``cfg.ortho_size``, as the
     interactive zoom does (``SetOrthoWindowSize``, ``main.cu:94-107``).
+    On the card one launch of the ray-setup kernel (``kernels/rays.py``),
+    the camera basis included; on the CPU :func:`primary_rays_plain`.
     """
+    if not _is_cuda(origin):
+        return primary_rays_plain(cfg, origin, euler, frame_number, block_perm, ortho_size)
+    W, H = cfg.width, cfg.height
+    rows = H // 2 if cfg.checkerboard else H
+    bw, bh = _block_side(W), _block_side(rows)
+    tiled = cfg.tile_order and bw * bh > 1
+    if tiled and block_perm is not None:
+        block_perm = torch.as_tensor(block_perm, device=origin.device).to(torch.int64)
+    origin = origin.to(F32)
+    out, basis, px, py, py_r = rays_kernel.frame_rays(
+        euler.to(F32), origin, n=rows * W, width=W, height=H, tile=(bw, bh) if tiled else (W, 1),
+        checkerboard=cfg.checkerboard, even_frame=frame_number % 2 == 0, block_perm=block_perm if tiled else None,
+        **_projection_args(cfg, ortho_size, origin.device),
+    )
+    return (*_kernel_rays(origin, out, basis), px, py, py_r)
+
+
+def primary_rays_plain(cfg: RenderConfig, origin: torch.Tensor, euler: torch.Tensor, frame_number: int,
+                       block_perm=None, ortho_size=None):
+    """:func:`primary_rays` in eager torch ops: the ray-setup kernel's
+    plain version, which the CPU runs."""
     dev = origin.device
     W, H = cfg.width, cfg.height
     rows = H // 2 if cfg.checkerboard else H

@@ -60,6 +60,14 @@ def device_ms(fn, reps: int = 1, device=None):
     return out, (time.perf_counter() - t0) * 1000.0 / reps
 
 
+MARKER_KERNELS = 32  # torch.cuda._sleep(0) launches around kernel_profile's recorded calls
+
+
+def _markers() -> None:
+    for _ in range(MARKER_KERNELS):
+        torch.cuda._sleep(0)
+
+
 def kernel_profile(fn, calls: int = 1):
     """``(names, ms)``: the CUDA kernels ``calls`` runs of ``fn()`` launch
     (memory copies and sets excluded) and the device time of each, by
@@ -67,8 +75,11 @@ def kernel_profile(fn, calls: int = 1):
     device activity.  A short kernel's own time: CUDA events around a
     host-bound call also time the card's idle gaps.  ``fn`` runs
     ``2 * calls`` times: the first ``calls`` in the profiler's warm-up
-    step, whose events are dropped (the first kernels after the profiler
-    starts can go unrecorded), the rest recorded."""
+    step, whose events are dropped, the rest recorded.  The profiler can
+    lose the first kernels of the recorded step (3-5 of them once other
+    processes have used the card), so :data:`MARKER_KERNELS` marker
+    kernels (``spin_kernel``) are launched before the recorded calls and
+    after them, and left out of the result."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
@@ -78,14 +89,17 @@ def kernel_profile(fn, calls: int = 1):
             fn()
         torch.cuda.synchronize()
         prof.step()
+        _markers()
         for _ in range(calls):
             fn()
+        _markers()
         torch.cuda.synchronize()
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device:
         return None, None
-    # not copies, sets or the warm-up schedule's step annotation
-    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset", "ProfilerStep"))]
+    # not copies, sets, the warm-up schedule's step annotation or the markers
+    kernels = [e for e in device
+               if not e.name.startswith(("Memcpy", "Memset", "ProfilerStep")) and "spin_kernel" not in e.name]
     return [e.name for e in kernels], [e.time_range.elapsed_us() / 1e3 for e in kernels]
 
 
