@@ -6,7 +6,7 @@
 Phases, one stdout line each (plus the kernels' build logs):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile every CUDA kernel (K1-K5, W1, K4-slab, the record, camera and ray-setup kernels) from
+2. build: compile every CUDA kernel (K1-K5, W1, K4-slab, the record, camera, ray-setup and shading kernels) from
    ``voxelengine_tpu_torch/csrc``, one nvcc per source, all started
    together; ptxas registers and spills of each instantiation;
 3. noise: worldgen noise on the card against ``native/golden_noise.json``,
@@ -157,8 +157,26 @@ Phases, one stdout line each (plus the kernels' build logs):
    sharing the card, the 512^3 terrain at 8 octaves built by W1, both
    parities through K1 against single-device ``render_frame``: 0 byte
    diffs.
+18. the fused frame kernels on the bench frame (phase 5's cache): K1's
+   rays entry (``vx_bigtrace_rays``: the ray setup, the walk and the
+   ``hit_imm`` fix-up in one launch) against ``vx_bigtrace`` after the
+   eager setup and fix-up, macro on and off, production and diag builds,
+   and K4-compact's rays entry against its prepared entry, 0 word diffs;
+   the launch gates by ``torch.profiler`` (the trace stage exactly 1 CUDA
+   kernel, the primary frame exactly 3: the ray kernel, K1, the shading
+   kernel); the shading kernel (``csrc/shade.cu``) against
+   ``shade_traced_plain`` and ``composite_frame`` at both parities and its
+   ``shade`` entry on 4 ranks' band and cyclic pixels, 0 word diffs in
+   color, write and framebuffer; its times and bound.  Its other gates
+   run where their worlds are: the demo frame, each debug view, the
+   crosshair without checkerboard, 1280x719 and a block permutation in
+   phase 5; the dense frame (and its launch gate, 3 CUDA kernels) in phase
+   8; the app frame with shadows, AO 4 and reflections in phase 11; K4's
+   and K4-compact's rays entries against their prepared entries on the
+   random rays in phase 9.
 
-Each kernel's path (the bench world's frames for K1 and the ray kernel,
+Each kernel's path (the bench world's frames for K1, the ray kernel and
+the shading kernel,
 ``get_directions`` at the phase-15 cameras for the camera kernel,
 and the demo world's for K1's second record; the bench world's build for W1; the frames of
 phase 8 for K2, the phase-8 batch for K3 and the 128^3 grid for its global
@@ -212,12 +230,13 @@ FRAMES = 8  # timed chained frames after the warm-up
 # the instruction issue rate, not the data sheet's 67e12 float32 rate (an
 # FMA counted as two)
 HBM_BYTES_PER_S = 3.35e12
-# K1, K4 and K5 read start, dir, pad (12 B each) and active (4 B) and write
-# flags, steps (4 B each), position and normal (12 B each) per ray
+# the prepared-ray entries (K1's vx_bigtrace, K4's and K5's) read start,
+# dir, pad (12 B each) and active (4 B) and write flags, steps (4 B each),
+# position and normal (12 B each) per ray
 RAY_BYTES = 72
-# K2 and K3 read origins and raw directions (f32[N, 3] each, fewer bytes
-# where the origin is one row broadcast) and write hit (1 B), position,
-# normal (12 B each) and steps (4 B) per ray
+# K2, K3 and the rays entries of K1 and K4 read origins and raw directions
+# (f32[N, 3] each, fewer bytes where a row is broadcast) and write hit
+# (1 B), position, normal (12 B each) and steps (4 B) per ray
 GRID_OUT_BYTES = 29
 # float ops of one DDA step: the axis pick (3 compares), the two entry
 # coordinates off the stepped axis (2 mul + 2 add), the tMax add; ray setup
@@ -228,7 +247,7 @@ EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
 # threads a block of each library's kernels (csrc/*.cu)
 BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256, "crossings": 32,
-                 "zslab": 1024, "camera": 128, "rays": 256}
+                 "zslab": 1024, "camera": 128, "rays": 256, "shade": 256}
 # the app's frame (apps/voxel_app.py:64-68,178-188): the 1024^3 world at
 # factor 32, 1280x720, shadows, AO 4, reflections; the facade's batch size
 APP_WORLD = (1024, 1024, 1024)
@@ -354,12 +373,16 @@ def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, ra
     }
 
 
+def data_bytes(t) -> int:
+    """The distinct float32 data of ``t``: a broadcast row counts once."""
+    return 4 * math.prod(size for size, stride in zip(t.shape, t.stride()) if stride != 0)
+
+
 def grid_ray_bytes(origins, rays) -> float:
-    """Bytes a ray that K2 or K3 must move: the distinct float32 data of
+    """Bytes a ray that K2, K3 or a rays entry of K1 or K4 must move: the
+    distinct float32 data of
     ``origins`` and ``rays`` (a broadcast origin counts once) over the rays,
     plus :data:`GRID_OUT_BYTES`."""
-    def data_bytes(t):
-        return 4 * math.prod(size for size, stride in zip(t.shape, t.stride()) if stride != 0)
     return GRID_OUT_BYTES + (data_bytes(origins) + data_bytes(rays)) / rays.shape[0]
 
 
@@ -829,6 +852,29 @@ def line_kernel_args(bm, lt, o, d, max_steps):
     return args, kw
 
 
+def k1_rays_call(bm, lt, o, d, max_steps, use_macro):
+    """A call of K1's rays entry on rays ``o``, ``d``, the launch the frame
+    path makes (``ops/bigtrace.py::trace_brickmap_k1``), for timing."""
+    from voxelengine_tpu_torch.kernels import bigtrace
+    from voxelengine_tpu_torch.ops.bigtrace import _kernel_tables
+
+    tables, kw = _kernel_tables(bm, lt, max_steps, use_macro)
+    return lambda: bigtrace.bigtrace_rays(o, d, *tables, **kw)
+
+
+def k4_rays_call(bm, o, d, max_steps):
+    """A call of K4's rays entry in ``bm``'s form (dense slots or compact)
+    on rays ``o``, ``d``, the launch the frame path makes
+    (``ops/trace2.py::_trace_brickmap_kernel``), for timing."""
+    from voxelengine_tpu_torch.kernels import bmtrace
+
+    kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=max_steps, coarse_layout=bm.coarse_layout,
+              brick_layout=bm.brick_layout)
+    if bm.dense_slots:
+        return lambda: bmtrace.bmtrace_rays(o, d, bm.meta, bm.bricks, **kw)
+    return lambda: bmtrace.bmtrace_compact_rays(o, d, bm.meta, bm.brick_idx, bm.bricks, **kw)
+
+
 def bench_world(dev, dims, cache: str, ms: dict):
     """The bench flow's world (``bench.py:132-178,216-233``) through the
     port's checkpoint layer: ``generate_or_load`` builds the world through W1
@@ -921,7 +967,7 @@ def main_path_frames(dev, world, bm, lt, memo):
 
     from voxelengine_tpu_torch.config import Environment, RenderConfig
     from voxelengine_tpu_torch.io.checkpoint import memo_json
-    from voxelengine_tpu_torch.kernels import bigtrace, rays
+    from voxelengine_tpu_torch.kernels import bigtrace, rays, shade
     from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm, trace_brickmap_lt
     from voxelengine_tpu_torch.ops.trace import trace_brickmap
     from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, probe_use_macro, render_frame
@@ -952,7 +998,7 @@ def main_path_frames(dev, world, bm, lt, memo):
     cfg = dataclasses.replace(cfg, trace_use_macro=use_macro)
     fb = make_framebuffer(cfg, dev)
 
-    bigtrace.launches = rays.launches = 0  # count the main path's launches only
+    bigtrace.launches = rays.launches = shade.launches = 0  # count the main path's launches only
     render_frame(bm, fb, origin, euler, env, 0, cfg, lt=lt)  # warm-up
     torch.cuda.synchronize()
     counts = [bigtrace.launches]
@@ -964,12 +1010,13 @@ def main_path_frames(dev, world, bm, lt, memo):
         counts.append(bigtrace.launches)
     end.record()
     torch.cuda.synchronize()
-    launches, ray_launches = bigtrace.launches, rays.launches
+    launches, ray_launches, shade_launches = bigtrace.launches, rays.launches, shade.launches
     frame_ms = start.elapsed_time(end) / FRAMES
     if any(b != a + 1 for a, b in zip([0] + counts, counts)):
         raise SystemExit(f"K1 was not launched once per frame: launch counts {counts}")
-    if ray_launches != FRAMES + 1:
-        raise SystemExit(f"the ray-setup kernel was launched {ray_launches} times in {FRAMES + 1} frames")
+    if ray_launches != FRAMES + 1 or shade_launches != FRAMES + 1:
+        raise SystemExit(f"the ray-setup and shading kernels were launched {ray_launches} and {shade_launches} "
+                         f"times in {FRAMES + 1} frames")
 
     if tuple(fb.shape) != (H, W, 3) or not bool(torch.isfinite(fb).all()):
         raise SystemExit("framebuffer has the wrong shape or non-finite values")
@@ -993,8 +1040,10 @@ def main_path_frames(dev, world, bm, lt, memo):
         raise SystemExit(f"implausible hit fraction {hit_frac}")
     say(f"main path ({world}): {W}x{H} checkerboard tile_order, use_macro={use_macro}, {FRAMES} chained frames: "
         f"{frame_ms:.3f} ms/frame, {rays_per_frame / frame_ms / 1e3:.3f} Mrays/s primary, "
-        f"hit fraction {hit_frac:.4f}, K1 launches {launches}, ray kernel launches {ray_launches}, "
-        f"framebuffer checksum {float(fb.double().sum()):.6f}")
+        f"hit fraction {hit_frac:.4f}, K1 launches {launches}, ray kernel launches {ray_launches}, shading kernel "
+        f"launches {shade_launches}, framebuffer checksum {float(fb.double().sum()):.6f}")
+    if world == "demo":
+        demo_shade_gates(bm, lt, cfg, origin, euler, env)
 
     # the diag build on the same rays: counters, warp iterations
     res, iters, phases = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=use_macro,
@@ -1005,25 +1054,166 @@ def main_path_frames(dev, world, bm, lt, memo):
     events = phase_counts(phases, f"main path ({world})")
     k1_share = warp_iters_line(iters, pdg[-1], got.steps, f"main path ({world})")
 
-    # times: K1 (macro off, on) and K5 alone (ray setup excluded), the plain trace
+    # times, macro off and on: K1's rays entry (the frame path's launch) and
+    # its prepared entry (the walk alone, ray setup excluded); K5 alone; the
+    # plain trace
     args, kw = line_kernel_args(bm, lt, o, d, cfg.max_steps)
+    r_off = cuda_ms(k1_rays_call(bm, lt, o, d, cfg.max_steps, False), repeats=10)
+    r_on = cuda_ms(k1_rays_call(bm, lt, o, d, cfg.max_steps, True), repeats=10)
     t_off = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
     t_on = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=True, **kw), repeats=10)
     t_k5, k5_share = k5_sweep(args, kw, use_macro)
     share_line(f"main path ({world})", k1_share, k5_share)
-    k_ms = t_on if use_macro else t_off
+    k_ms, walk_ms = (r_on, t_on) if use_macro else (r_off, t_off)
     plain = trace_brickmap_lt if use_macro else (lambda bm, lt, *a: trace_brickmap(bm, *a))
     _, p_ms = events_ms(lambda: plain(bm, lt, o, d, cfg.max_steps))
     steps_sum = int(got.steps.sum())
-    say(f"times ({world}): K1 macro off {t_off:.3f} ms, K1 macro on {t_on:.3f} ms, K5 (use_macro={use_macro}) {k5_times(t_k5)}, "
+    say(f"times ({world}): K1's rays entry macro off {r_off:.3f} ms, macro on {r_on:.3f} ms; the walk alone "
+        f"(vx_bigtrace) macro off {t_off:.3f} ms, macro on {t_on:.3f} ms; K5 (use_macro={use_macro}) {k5_times(t_k5)}, "
         f"plain {'macro walk' if use_macro else 'trace'} {p_ms:.3f} ms, {o.shape[0]} frame rays, "
         f"sum(steps) {steps_sum}, executed events {events}, on {card_line()}")
     return kernel_entry(
         "bigtrace" if world == "full" else "bigtrace_demo_world", "bigtrace.cu",
         "voxelengine_tpu/ops/pallas_bigtrace.py:1348", launches, diffs[4], k_ms, p_ms,
         o.shape[0], hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick), steps_sum,
-        events if use_macro else None, rays_launches=ray_launches,
+        events if use_macro else None, ray_bytes=grid_ray_bytes(o, d), walk_ms=walk_ms, rays_launches=ray_launches,
+        shade_launches=shade_launches,
     )
+
+
+# the shading kernel's gates (csrc/shade.cu) across the phases: frames
+# compared and the largest absolute error, for its record (phase 18)
+SHADE_GATES = {"frames": 0, "rays": 0, "err": 0.0}
+
+
+def word_diffs(a, b) -> int:
+    """Elements of ``a`` and ``b`` that differ, float32 compared as int32
+    words (so a signed zero or a NaN's payload counts)."""
+    import torch
+
+    a, b = a.reshape(-1), b.reshape(-1)
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def shade_gate(what, bm, lt, cfg, origin, euler, env, fn, trace, block_perm=None, ortho_size=None, pixels=None):
+    """The shading kernel against its plain versions on one frame's rays,
+    the same traces feeding both (``trace(origins, dirs)`` the primary;
+    the secondary traces through ``lt``, or ``bm``'s K4): its ``shade``
+    entry (color, write) against ``shade_traced_plain`` and, for a whole
+    frame, its composite entry against ``composite_frame`` over a
+    framebuffer of stale values.  ``pixels = (px, py_r)``: a rank's pixels
+    (``_rays_for_pixels``), the ``shade`` entry only.  0 word diffs, or
+    the run fails."""
+    import torch
+
+    from voxelengine_tpu_torch.parallel import sharded
+    from voxelengine_tpu_torch.render.frame import (
+        composite_frame, primary_rays, shade_and_composite, shade_traced, shade_traced_plain,
+    )
+
+    if pixels is None:
+        o, d, px, py, py_r = primary_rays(cfg, origin, euler, fn, block_perm, ortho_size)
+    else:
+        px, py_r = pixels
+        o, d, py = sharded._rays_for_pixels(cfg, origin, euler, fn, px, py_r, cfg.ortho_size)
+    out = trace(o, d)
+    args = (bm, out, o, d, px, py, py_r, origin, env, fn, cfg, lt)
+    got, want = shade_traced(*args), shade_traced_plain(*args)
+    diffs = {"color": word_diffs(got[0], want[0]), "write": word_diffs(got[1], want[1])}
+    err = float((got[0] - want[0]).abs().max())
+    if pixels is None:
+        gen = torch.Generator(device=origin.device).manual_seed(fn)
+        stale = torch.rand((cfg.height, cfg.width, 3), generator=gen, device=origin.device)
+        fb = shade_and_composite(stale.clone(), *args, block_perm=block_perm)
+        diffs["framebuffer"] = word_diffs(fb, composite_frame(stale.clone(), *want, cfg, fn, block_perm))
+        err = max(err, float((fb - composite_frame(stale.clone(), *want, cfg, fn, block_perm)).abs().max()))
+    SHADE_GATES["frames"] += 1
+    SHADE_GATES["rays"] += o.shape[0]
+    SHADE_GATES["err"] = max(SHADE_GATES["err"], err)
+    say(f"shade: {what}, frame {fn} ({o.shape[0]} rays): shading kernel vs plain (tolerance: equal words) diffs "
+        f"{json.dumps(diffs)}")
+    if any(diffs.values()):
+        raise SystemExit(f"shade: the shading kernel disagrees with its plain version: {what}, frame {fn}")
+
+
+def prepared_result(outs, bm, o, d):
+    """A prepared-ray entry's outputs (K1's ``bigtrace``, K4's ``bmtrace``
+    and ``bmtrace_compact``) after the eager ray setup and ``hit_imm``
+    fix-up, as the frame path ran them until the rays entries
+    (``ops/trace.py::_ray_setup``, ``kernel_result``)."""
+    from voxelengine_tpu_torch.ops.trace import _ray_setup, kernel_result
+
+    _, start_c, start_normal, _ = _ray_setup(bm.grid_dims, bm.factor, o, d)
+    return kernel_result(*outs[:4], start_c, start_normal, bm.factor)
+
+
+def rays_entry_gate(what, got, want, got_diag=None, want_diag=None):
+    """0 word diffs in hit, steps, normal and position (and the diag
+    counters where given) between a rays entry and its prepared-ray entry
+    fed by the eager setup, or the run fails."""
+    diffs = {k: word_diffs(getattr(got, k), getattr(want, k)) for k in ("hit", "steps", "normal", "position")}
+    if got_diag is not None:
+        diffs["diag"] = word_diffs(got_diag, want_diag)
+    say(f"{what} (tolerance: equal words): diffs {json.dumps(diffs)}, {got.hit.shape[0]} rays, "
+        f"{int(got.hit.sum())} hits")
+    if any(diffs.values()):
+        raise SystemExit(f"{what}: the rays entry disagrees with the prepared-ray entry")
+
+
+def launch_gate(what, fn, kernels):
+    """Exactly one launch of each of ``kernels`` (name fragments) a call of
+    ``fn`` and nothing else, by ``torch.profiler`` over :data:`FRAMES`
+    calls.  The profiler can drop events, so a profile with too few of
+    them is taken again, up to 3 times; another kernel fails at once.
+    Returns the kernel names of one call and its device ms."""
+    from voxelengine_tpu_torch.utils.profiling import kernel_profile
+
+    attempts = []
+    for _ in range(3):
+        names, ms = kernel_profile(fn, FRAMES)
+        names, ms = names or [], ms or []
+        others = sorted({n for n in names if not any(k in n for k in kernels)})
+        counts = [sum(k in n for n in names) for k in kernels]
+        attempts.append(counts)
+        if others:
+            raise SystemExit(f"{what}: other CUDA kernels than {kernels} ran: {others}")
+        if counts == [FRAMES] * len(kernels):
+            per = [n for n in names[:len(kernels)]]
+            say(f"{what}: {len(names) / FRAMES} CUDA kernels a call ({', '.join(kernels)}: {counts} in {FRAMES} "
+                f"calls), {sum(ms) / FRAMES:.5f} ms of device time a call (torch.profiler); attempts {attempts}")
+            return per, [sum(ms) / FRAMES]
+    raise SystemExit(f"{what}: not exactly one launch each of {kernels} a call: {attempts} in {FRAMES} calls")
+
+
+def demo_shade_gates(bm, lt, cfg, origin, euler, env):
+    """The shading kernel on the demo frame (1280x720): both parities, each
+    debug view (STEPS with shadow steps), the crosshair without
+    checkerboard, 1280x719 and a block permutation."""
+    import dataclasses
+
+    from voxelengine_tpu_torch.config import DebugView
+    from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm
+    from voxelengine_tpu_torch.render.frame import block_permutation_from_steps, primary_rays
+
+    def trace_for(c):
+        return lambda o, d: trace_brickmap_hbm(bm, lt, o, d, c.max_steps, use_macro=c.trace_use_macro)
+
+    cases = [("demo frame", cfg, (1, 2), None)]
+    for view, extra in ((DebugView.DEBUG, {}), (DebugView.NORMALS, {}), (DebugView.DEPTH, {}),
+                        (DebugView.STEPS, dict(shadow_rays=True))):
+        cases.append((f"{view.name} view", dataclasses.replace(cfg, debug_view=view, **extra), (1,), None))
+    nocb = dataclasses.replace(cfg, checkerboard=False)
+    cases.append(("crosshair without checkerboard", nocb, (0,), None))
+    odd = dataclasses.replace(cfg, height=cfg.height - 1)
+    cases.append((f"{odd.width}x{odd.height}", odd, (1, 2), None))
+    o, d, _, _, _ = primary_rays(cfg, origin, euler, 1)
+    perm = block_permutation_from_steps(trace_for(cfg)(o, d).steps, cfg)
+    cases.append(("block_perm", cfg, (1, 2), perm))
+    for what, c, frames, bp in cases:
+        for fn in frames:
+            shade_gate(what, bm, lt, c, origin, euler + 1e-5 * fn, env, fn, trace_for(c), block_perm=bp)
 
 
 def random_grid(dims, fill, seed, dev):
@@ -1038,13 +1228,14 @@ def random_grid(dims, fill, seed, dev):
 
 
 def render_dense_plain(grid, fb, origin, euler, env, frame_number, cfg):
-    """``render_frame_dense`` with the plain ``trace_grid`` in K2's place."""
+    """``render_frame_dense`` with the plain ``trace_grid`` in K2's place and
+    the plain shading and composite in the shading kernel's."""
     from voxelengine_tpu_torch.ops.trace import trace_grid
-    from voxelengine_tpu_torch.render.frame import composite_frame, primary_rays, shade_traced
+    from voxelengine_tpu_torch.render.frame import composite_frame, primary_rays, shade_traced_plain
 
     origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number)
     out = trace_grid(grid, origins, dirs, cfg.max_steps)
-    color, write = shade_traced(None, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg)
+    color, write = shade_traced_plain(None, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg)
     return composite_frame(fb, color, write, cfg, frame_number)
 
 
@@ -1178,15 +1369,21 @@ def phase_dense_path(dev, err):
         f"{fo.shape[0] / frame_ms / 1e3:.3f} Mrays/s primary, hit fraction {hit_frac:.4f}, "
         f"K2 launches {k2_launches}, framebuffer checksum {float(fb.double().sum()):.6f}")
 
+    for fn in (1, 2):
+        shade_gate("dense frame", None, None, cfg, origin, euler + 1e-5 * fn, env, fn,
+                   lambda o, d: trace_grid_vpu(g, o, d, cfg.max_steps))
+
     # the CUDA kernels one dense frame and one trace_grid_vpu call launch
-    frame_kernels, frame_dev = kernel_profile(lambda: render_frame_dense(g, fb, origin, euler, env, FRAMES + 1, cfg))
+    frame_kernels, frame_dev = launch_gate(
+        "dense path: one render_frame_dense frame", lambda: render_frame_dense(g, fb, origin, euler, env, 1, cfg),
+        ("rays_kernel", "grid_kernel", "shade_kernel"))
     call_kernels, _ = kernel_profile(lambda: trace_grid_vpu(g, fo, fd, cfg.max_steps))
     if call_kernels is None:
-        say("dense path: kernels a frame: not measured (torch.profiler recorded no device activity)")
+        say("dense path: kernels a call: not measured (torch.profiler recorded no device activity)")
     else:
-        say(f"dense path: CUDA kernels launched by one render_frame_dense frame: {len(frame_kernels)} "
-            f"({sum(frame_dev):.4f} ms of device time); by one trace_grid_vpu call on its rays: {len(call_kernels)} "
-            f"({', '.join(sorted(set(call_kernels)))})")
+        say(f"dense path: CUDA kernels launched by one trace_grid_vpu call on its rays: {len(call_kernels)} "
+            f"({', '.join(sorted(set(call_kernels)))}); a frame {len(frame_kernels)} ({sum(frame_dev):.4f} ms of "
+            f"device time)")
         if len(call_kernels) != 1:
             raise SystemExit(f"trace_grid_vpu launched {len(call_kernels)} CUDA kernels, not K2 alone")
 
@@ -1362,29 +1559,45 @@ def phase_bmtrace(dev):
 
     # K4-compact on the same random rays over the world made compact
     cbm = compact_brickmap(bm)
-    cdiffs = compare(trace_brickmap_no_table(cbm, o, d, 2048), want)
+    cgot = trace_brickmap_no_table(cbm, o, d, 2048)
+    cdiffs = compare(cgot, want)
     check_diffs(f"on-chip brickmap: K4-compact ({'shared' if bmtrace.meta_in_shared(cbm.num_chunks) else 'global'} "
                 "meta) vs plain, compact_brickmap of the 128^3 f8 world", cdiffs, o.shape[0], int(want.hit.sum()))
 
+    # the rays entries (the frame path's) against the prepared-ray entries
+    # fed by the eager setup, every word of every output
+    prepared = {
+        "K4": (got, lambda *a, **k: bmtrace.bmtrace(*a, bm.meta, bm.bricks, **k)),
+        "K4-compact": (cgot, lambda *a, **k: bmtrace.bmtrace_compact(*a, cbm.meta, cbm.brick_idx, cbm.bricks, **k)),
+    }
+    for what, (rays_out, entry) in prepared.items():
+        args, kw = kernel_args(bm, o, d)
+        want_k = prepared_result(entry(*args, **kw), bm, o, d)
+        rays_entry_gate(f"on-chip brickmap: {what}'s rays entry vs its prepared entry, 128^3 f8 random rays",
+                        rays_out, want_k)
+
+    # times: the rays entry (the frame path's launch) and, ray setup
+    # excluded, the walk alone, also on the rays sorted by direction
     args, kw = kernel_args(bm, o, d)
     sargs = direction_sorted(*args[:4])
-    gargs, gkw = kernel_args(gbm, go, gd)
-    k_ms = cuda_ms(lambda: bmtrace.bmtrace(*args, bm.meta, bm.bricks, **kw), repeats=10)
+    k_ms = cuda_ms(k4_rays_call(bm, o, d, 2048), repeats=10)
+    g_ms = cuda_ms(k4_rays_call(gbm, go, gd, 2048), repeats=10)
+    walk_ms = cuda_ms(lambda: bmtrace.bmtrace(*args, bm.meta, bm.bricks, **kw), repeats=10)
     sorted_ms = cuda_ms(lambda: bmtrace.bmtrace(*sargs, bm.meta, bm.bricks, **kw), repeats=10)
-    g_ms = cuda_ms(lambda: bmtrace.bmtrace(*gargs, gbm.meta, gbm.bricks, **gkw), repeats=10)
     p_ms = cuda_ms(lambda: trace_brickmap(bm, o, d), repeats=1)
     gp_ms = cuda_ms(lambda: trace_brickmap(gbm, go, gd), repeats=1)
     steps_sum, g_steps = int(want.steps.sum()), int(gwant.steps.sum())
-    say(f"times: K4 (shared meta) {k_ms:.3f} ms, on the same rays sorted by direction octant then start chunk "
-        f"{sorted_ms:.3f} ms (sorted/unsorted {sorted_ms / k_ms:.3f}), plain trace_brickmap {p_ms:.3f} ms, "
+    say(f"times: K4 (shared meta) {k_ms:.3f} ms (the walk alone {walk_ms:.3f} ms, on the same rays sorted by "
+        f"direction octant then start chunk {sorted_ms:.3f} ms, sorted/unsorted {sorted_ms / walk_ms:.3f}), plain trace_brickmap {p_ms:.3f} ms, "
         f"{o.shape[0]} rays, sum(steps) {steps_sum}; K4 (global meta) {g_ms:.3f} ms, plain {gp_ms:.3f} ms on the "
         f"{gname} world's {go.shape[0]} rays, sum(steps) {g_steps}, on {card_line()}")
     replaces = "voxelengine_tpu/ops/pallas_trace2.py:39"
     return [
         kernel_entry("bmtrace", "bmtrace.cu", replaces, launches, err, k_ms, p_ms, o.shape[0],
-                     table_bytes(want, bm), steps_sum),
+                     table_bytes(want, bm), steps_sum, ray_bytes=grid_ray_bytes(o, d), walk_ms=walk_ms,
+                     sorted_walk_ms=sorted_ms),
         kernel_entry("bmtrace_global_meta", "bmtrace.cu", replaces, g_launches, gdiffs[4], g_ms, gp_ms,
-                     go.shape[0], table_bytes(gwant, gbm), g_steps),
+                     go.shape[0], table_bytes(gwant, gbm), g_steps, ray_bytes=grid_ray_bytes(go, gd)),
     ]
 
 
@@ -1525,13 +1738,14 @@ def phase_sparse(dev):
 def render_plain(bm, fb, origin, euler, env, frame_number, cfg, plain, block_perm=None, ortho_size=None,
                  primary=None):
     """``render_frame`` into ``fb`` with every trace (primary, shadow,
-    reflection, AO) the plain ``plain(bm, origins, dirs, max_steps)``;
-    ``primary`` reuses a plain primary trace of the same rays."""
-    from voxelengine_tpu_torch.render.frame import composite_frame, primary_rays, shade_traced
+    reflection, AO) the plain ``plain(bm, origins, dirs, max_steps)`` and
+    the plain shading and composite; ``primary`` reuses a plain primary
+    trace of the same rays."""
+    from voxelengine_tpu_torch.render.frame import composite_frame, primary_rays, shade_traced_plain
 
     o, d, px, py, py_r = primary_rays(cfg, origin, euler, frame_number, block_perm, ortho_size)
     out = primary if primary is not None else plain(bm, o, d, cfg.max_steps)
-    color, write = shade_traced(bm, out, o, d, px, py, py_r, origin, env, frame_number, cfg,
+    color, write = shade_traced_plain(bm, out, o, d, px, py, py_r, origin, env, frame_number, cfg,
                                 secondary=lambda a, b, ms: plain(bm, a, b, ms))
     return composite_frame(fb, color, write, cfg, frame_number, block_perm)
 
@@ -1561,7 +1775,7 @@ def app_batches(bm, lt, cfg, origin, euler, env, fn):
     traces them: ``[(kind, origins, dirs, max_steps, K1 result)]``, the
     primary first."""
     from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm
-    from voxelengine_tpu_torch.render.frame import primary_rays, shade_traced
+    from voxelengine_tpu_torch.render.frame import primary_rays, shade_traced_plain
 
     o, d, px, py, py_r = primary_rays(cfg, origin, euler, fn)
     out = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=cfg.trace_use_macro)
@@ -1573,7 +1787,7 @@ def app_batches(bm, lt, cfg, origin, euler, env, fn):
         batches.append((next(kinds), a.contiguous(), b.contiguous(), ms, res))
         return res
 
-    shade_traced(bm, out, o, d, px, py, py_r, origin, env, fn, cfg, lt, secondary=k1)
+    shade_traced_plain(bm, out, o, d, px, py, py_r, origin, env, fn, cfg, lt, secondary=k1)
     return batches
 
 
@@ -1598,7 +1812,7 @@ def phase_app_frame(dev):
     from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, terrain
     from voxelengine_tpu_torch.ops.bigtrace import brick_lines_view, make_line_table, trace_brickmap_hbm, trace_brickmap_lt
     from voxelengine_tpu_torch.utils.profiling import kernel_profile
-    from voxelengine_tpu_torch.ops.trace import TraceOut, _dims, _edge_pad, _ray_setup, trace_brickmap
+    from voxelengine_tpu_torch.ops.trace import TraceOut, trace_brickmap
     from voxelengine_tpu_torch.render.camera import get_directions_np
     from voxelengine_tpu_torch.render.frame import block_permutation_from_steps, make_framebuffer, render_frame
     from voxelengine_tpu_torch.render.graphics import Graphics
@@ -1672,15 +1886,14 @@ def phase_app_frame(dev):
     origin_t, euler_t = (torch.from_numpy(a).to(dev) for a in (origin, e_gate))
     batches = app_batches(bm, lt, cfg, origin_t, euler_t, env, fn)
     primary_hit = batches[0][4].hit
-    k1_total = {"rays": 0, "steps": 0, "events": 0, "table": 0, "ms": 0.0, "plain_ms": 0.0}
+    k1_total = {"rays": 0, "steps": 0, "events": 0, "table": 0, "ms": 0.0, "plain_ms": 0.0, "ray_bytes": 0.0}
     plain_primary = None
     for kind, o, d, ms, res in batches:
         want, p_ms = events_ms(lambda: plain(bm, o, d, ms))
         if kind == "primary":
             plain_primary = want
         every, hits = full_diffs(res, want), full_diffs(res, want, primary_hit)
-        args, kw = line_kernel_args(bm, lt, o, d, ms)
-        k_ms = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=cfg.trace_use_macro, **kw), repeats=10)
+        k_ms = cuda_ms(k1_rays_call(bm, lt, o, d, ms, cfg.trace_use_macro), repeats=10)
         _, ph = trace_brickmap_hbm(bm, lt, o, d, ms, use_macro=cfg.trace_use_macro, return_phases=True)
         events = sum(int(ph[k].sum()) for k in EVENTS)
         k1_total["rays"] += o.shape[0]
@@ -1689,6 +1902,7 @@ def phase_app_frame(dev):
         k1_total["table"] += hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick)
         k1_total["ms"] += k_ms
         k1_total["plain_ms"] += p_ms
+        k1_total["ray_bytes"] += o.shape[0] * grid_ray_bytes(o, d)
         say(f"app frame: {kind} batch ({o.shape[0]} rays, max_steps {ms}, hits {int(want.hit.sum())}): K1 vs plain "
             f"(tolerance: bit-equal) diffs (hit, steps, normal, position) on all rays {every}, on the primary hits "
             f"{hits}; K1 {k_ms:.4f} ms, plain {p_ms:.1f} ms, sum(steps) {int(res.steps.sum())}, executed events "
@@ -1719,6 +1933,8 @@ def phase_app_frame(dev):
         pixel_gate(what, fb, want, card)
 
     gfx_gate("the frame through K1 vs the same frame through plain traces")
+    shade_gate(f"app frame, shadows, AO {cfg.ao_samples} and reflections", bm, lt, cfg, origin_t, euler_t, env, fn,
+               lambda o_, d_: trace_brickmap_hbm(bm, lt, o_, d_, cfg.max_steps, use_macro=cfg.trace_use_macro))
     for view in (DebugView.DEBUG, DebugView.NORMALS, DebugView.DEPTH, DebugView.STEPS):
         g.set_debug_view(view)
         gfx_gate(f"{view.name} view through K1")
@@ -1839,34 +2055,30 @@ def phase_app_frame(dev):
                render_plain(rt2.world, make_framebuffer(g2.config, dev), torch.from_numpy(o4).to(dev),
                             torch.from_numpy(e4).to(dev), g2.environment, 0, g2.config, trace_brickmap), card)
 
-    # times of the facade's calls and of the kernels alone (ray setup excluded)
+    # times of the facade's calls and of the kernels' rays entries alone
     call_ms = cuda_ms(lambda: rt.raytrace(o, d, cfg.max_steps), repeats=5)
     call2_ms = cuda_ms(lambda: rt2.raytrace(o2, d2, cfg.max_steps), repeats=5)
-    args, kw = line_kernel_args(bm, lt, o, d, cfg.max_steps)
-    k1_ms = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
+    k1_ms = cuda_ms(k1_rays_call(bm, lt, o, d, cfg.max_steps, False), repeats=10)
     bm2 = rt2.world
-    dd, start_c, _, active = _ray_setup(bm2.grid_dims, bm2.factor, o2, d2)
-    pad = _edge_pad(start_c.to(torch.int32), _dims(bm2.grid_dims, torch.int32, dev), dd)
-    k4_ms = cuda_ms(lambda: bmtrace.bmtrace(
-        start_c, dd, active.to(torch.int32), pad, bm2.meta, bm2.bricks, grid_dims=bm2.grid_dims, factor=bm2.factor,
-        max_steps=cfg.max_steps, coarse_layout=bm2.coarse_layout, brick_layout=bm2.brick_layout), repeats=10)
+    k4_ms = cuda_ms(k4_rays_call(bm2, o2, d2, cfg.max_steps), repeats=10)
     say(f"app frame: raytrace of {FACADE_RAYS} rays {call_ms:.3f} ms through K1 (K1 alone {k1_ms:.3f} ms), "
         f"{call2_ms:.3f} ms through K4 (K4 alone {k4_ms:.3f} ms) (CUDA events), on {card}")
     k1_raytrace = kernel_entry(
         "bigtrace_raytrace", "bigtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1348", raytrace_launches, 0.0,
         k1_ms, p_ms, o.shape[0], hit_table_bytes(k1_out, dims, bm.brick_layout, bm.factor, bm.words_per_brick),
-        int(k1_out.steps.sum()), raytrace_ms=call_ms,
+        int(k1_out.steps.sum()), ray_bytes=grid_ray_bytes(o, d), raytrace_ms=call_ms,
     )
     k4_raytrace = kernel_entry(
         "bmtrace_raytrace", "bmtrace.cu", "voxelengine_tpu/ops/pallas_trace2.py:39", k4_launches, 0.0, k4_ms, p2_ms,
         o2.shape[0], hit_table_bytes(k4_out, bm2.world_dims, bm2.brick_layout, bm2.factor, bm2.words_per_brick),
-        int(k4_out.steps.sum()), raytrace_ms=call2_ms,
+        int(k4_out.steps.sum()), ray_bytes=grid_ray_bytes(o2, d2), raytrace_ms=call2_ms,
     )
 
     k1_frame = kernel_entry(
         "bigtrace_app_frame", "bigtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1348", frame_launches, 0.0,
         k1_total["ms"], k1_total["plain_ms"], k1_total["rays"], k1_total["table"], k1_total["steps"],
-        k1_total["events"] if cfg.trace_use_macro else None, batches_per_frame=per_frame, frame_ms=frame_ms,
+        k1_total["events"] if cfg.trace_use_macro else None, ray_bytes=k1_total["ray_bytes"] / k1_total["rays"],
+        batches_per_frame=per_frame, frame_ms=frame_ms,
         kernels_per_frame=frame_kernels and len(frame_kernels), frame_device_ms=frame_dev and sum(frame_dev),
         edit_ms_k1=e1_ms, edit_ms_k64=e64_ms,
     )
@@ -2004,8 +2216,7 @@ def phase_2d(dev, tmp):
             if not ok:
                 raise SystemExit("2D: the two-level trace breaks the single-level property")
             continue
-        args, kw = line_kernel_args(bm, lt, o3, r3, MAX_STEPS)
-        k1_ms = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
+        k1_ms = cuda_ms(k1_rays_call(bm, lt, o3, r3, MAX_STEPS, False), repeats=10)
         k2_ms = cuda_ms(lambda: gridtrace.gridtrace(o3, r3, g.words, dims=g.dims, layout=g.layout,
                                                     max_steps=MAX_STEPS), repeats=10)
         # each kernel's path, counts at 0 just before: the 2D demo (K1: a
@@ -2025,7 +2236,7 @@ def phase_2d(dev, tmp):
             kernel_entry("bigtrace_2d", "bigtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1348", k1_launches,
                          0.0, k1_ms, p1_ms, n,
                          hit_table_bytes(k1, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick),
-                         int(k1.steps.sum())),
+                         int(k1.steps.sum()), ray_bytes=grid_ray_bytes(o3, r3)),
             kernel_entry("gridtrace_2d", "gridtrace.cu", "voxelengine_tpu/ops/pallas_trace.py:329", k2_launches,
                          0.0, k2_ms, p2_ms, n, hit_table_bytes(k2, g.dims, g.layout), int(k2.steps.sum()),
                          ray_bytes=grid_ray_bytes(o3, r3)),
@@ -2236,15 +2447,13 @@ def md_in_turns(mesh, fn):
 
 
 def md_k1_check(bm, lt, o, d, max_steps, use_macro, mesh, plain_on_rank):
-    """K1 alone on this rank's rays, timed in turns; on ``plain_on_rank``
+    """K1's rays entry alone on this rank's rays, timed in turns; on ``plain_on_rank``
     also its plain version on the same rays (the gate: bit-equal) and its
     time.  Returns a dict for the kernels line."""
-    from voxelengine_tpu_torch.kernels import bigtrace
     from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_k1, trace_brickmap_lt
 
-    args, kw = line_kernel_args(bm, lt, o, d, max_steps)
-    ms = md_in_turns(mesh, lambda: cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=use_macro, **kw), repeats=10))
-    rec = {"ms": ms, "rays": o.shape[0]}
+    ms = md_in_turns(mesh, lambda: cuda_ms(k1_rays_call(bm, lt, o, d, max_steps, use_macro), repeats=10))
+    rec = {"ms": ms, "rays": o.shape[0], "ray_bytes": grid_ray_bytes(o, d)}
     if mesh.rank == plain_on_rank:
         got = trace_brickmap_k1(bm, lt, o, d, max_steps, use_macro)
         want, p_ms = events_ms(lambda: trace_brickmap_lt(bm, lt, o, d, max_steps, use_macro))
@@ -2624,7 +2833,7 @@ def md_kernels(res):
         launches = sum(x[f"{key}_launches"] for x in res)
         recs.append(kernel_entry(
             name, "bigtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1348", launches, k["err"], k["ms"],
-            k["plain_ms"], k["rays"], k["table"], k["steps"], path=path, ranks=len(res),
+            k["plain_ms"], k["rays"], k["table"], k["steps"], ray_bytes=k["ray_bytes"], path=path, ranks=len(res),
             ms_per_rank=[x[f"{key}_k1"]["ms"] for x in res], timed_on="rank 0's rays, ranks in turns",
         ))
     owner = max((x for x in res if "slab_frame" in x), key=lambda x: x["slab_frame"]["rays"])
@@ -2758,7 +2967,9 @@ def phase_harness(dev, cache, key):
             bm.bricks)
     kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=cfg.max_steps, coarse_layout=bm.coarse_layout,
               brick_layout=bm.brick_layout)
-    k_ms = cuda_ms(lambda: bmtrace.bmtrace_compact(*args, **kw), repeats=10)
+    # the rays entry (bench.run(xla)'s launch) and the walk alone
+    k_ms = cuda_ms(k4_rays_call(bm, o, d, cfg.max_steps), repeats=10)
+    walk_ms = cuda_ms(lambda: bmtrace.bmtrace_compact(*args, **kw), repeats=10)
     # the bound's table bytes: each distinct hit word and hit chunk's meta
     # word (hit_table_bytes), and the hit chunks' brick_idx words
     h = hit_voxels(want, bm.world_dims) // bm.factor
@@ -2767,14 +2978,14 @@ def phase_harness(dev, cache, key):
     table = hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick) + slot_bytes
     steps_sum = int(want.steps.sum())
     say(f"bench harness: K4-compact ({meta} meta; the xla run's launches {xla['K4-compact']}, "
-        f"{xla['shared']} of them shared meta) {k_ms:.4f} ms, plain trace_brickmap {p_ms:.1f} ms on the bench "
+        f"{xla['shared']} of them shared meta) {k_ms:.4f} ms (the walk alone {walk_ms:.4f} ms), plain trace_brickmap {p_ms:.1f} ms on the bench "
         f"frame's {o.shape[0]} rays, sum(steps) {steps_sum}; phase 14 in {time.perf_counter() - t_phase:.1f} s, "
         f"on {card}")
     return kernel_entry(
         "bmtrace_compact", "bmtrace.cu",
         "none: voxelengine_tpu/ops/trace.py:411,435 trace_brickmap / trace_brickmap_staged (XLA, no pallas_call)",
-        xla["K4-compact"], diffs[4], k_ms, p_ms, o.shape[0], table, steps_sum,
-        path="bench.run(backend='xla') on the bench world", table_form=f"compact, {meta} meta",
+        xla["K4-compact"], diffs[4], k_ms, p_ms, o.shape[0], table, steps_sum, ray_bytes=grid_ray_bytes(o, d),
+        walk_ms=walk_ms, path="bench.run(backend='xla') on the bench world", table_form=f"compact, {meta} meta",
     )
 
 
@@ -3028,6 +3239,133 @@ def ray_setup_record(dev, launches, compared, err):
     }
 
 
+# phase 18, the fused frame kernels: K1's and K4's rays entries, the
+# shading kernel (csrc/shade.cu)
+# float ops of a primary SHADED ray in shade.cuh::shade_ray (a division
+# counted once): a hit's shading, and a miss's sky (the clamp of 3 channels)
+SHADE_OPS, SHADE_MISS_OPS = 80, 6
+
+
+def shade_bytes(cfg, out, o, d, px, py, write, shadow=False):
+    """Bytes the shading and composite of a primary frame must move, for
+    its bound: each ray's hit (1 B) and pixel (``px``, ``py``: 8 B each);
+    the hits' position and normal (12 B each); the misses' directions, the
+    sky (one row where the direction is broadcast); steps (4 B) where the
+    STEPS or DEBUG view or a shadow trace reads them; the hits' origins in
+    the DEBUG and DEPTH views (one row where broadcast); the pre-remap row
+    (8 B) of the rays in the crosshair's column; the camera position and
+    the environment's three vectors (48 B); 12 B a written pixel."""
+    from voxelengine_tpu_torch.config import DebugView
+
+    n, hits = out.hit.shape[0], int(out.hit.sum())
+    view = cfg.debug_view
+    b = n * (1 + 8 + 8) + 24 * hits + (12 if d.stride(0) == 0 else 12 * (n - hits)) + 48
+    if view in (DebugView.STEPS, DebugView.DEBUG) or shadow:
+        b += 4 * n
+    if view in (DebugView.DEBUG, DebugView.DEPTH):
+        b += 12 if o.stride(0) == 0 else 12 * hits
+    if cfg.crosshair:
+        b += 8 * int((px == cfg.width // 2).sum())
+    return b + 12 * int((write & (py < cfg.height)).sum())
+
+
+def phase_frame_kernels(dev, cache, launches):
+    """Phase 18 on the bench frame (phase 5's cache): K1's rays entry
+    against its prepared-ray entry fed by the eager setup, macro on and
+    off, the diag counters included, and K4-compact's likewise; the launch
+    gates (the trace stage 1 CUDA kernel, the primary frame 3); the
+    shading kernel against its plain versions at both parities and on 4
+    ranks' band and cyclic pixels; its times and its record, with
+    ``launches`` from phase 5's frames."""
+    from voxelengine_tpu_torch.experiments.scene import bench_scene
+    from voxelengine_tpu_torch.kernels import bigtrace, bmtrace
+    from voxelengine_tpu_torch.ops.bigtrace import _kernel_rays, _kernel_tables, trace_brickmap_hbm, trace_brickmap_k1
+    from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table
+    from voxelengine_tpu_torch.parallel import sharded
+    from voxelengine_tpu_torch.parallel.mesh import Mesh
+    from voxelengine_tpu_torch.render.frame import (
+        composite_frame, make_framebuffer, primary_rays, render_frame, shade_and_composite, shade_traced_plain,
+    )
+
+    card = card_line()
+    bm, lt, cfg, origin, euler, env, _ = bench_scene("full", dev, cache)
+    ms = cfg.max_steps
+    o, d, px, py, py_r = primary_rays(cfg, origin, euler, 1)
+
+    # K1's rays entry against vx_bigtrace after the eager setup, diag builds too
+    for use_macro in (False, True):
+        tables, kw = _kernel_tables(bm, lt, ms, use_macro)
+        start_c, dd, active, pad, _ = _kernel_rays(bm, o, d)
+        for diag in (False, True):
+            got = trace_brickmap_k1(bm, lt, o, d, ms, use_macro, diag=diag)
+            outs = bigtrace.bigtrace(start_c, dd, active, pad, *tables, diag=diag, **kw)
+            want = prepared_result(outs, bm, o, d)
+            rays_entry_gate(f"frame kernels: K1's rays entry vs vx_bigtrace, bench frame, use_macro={use_macro}, "
+                            f"diag={diag}", got[0] if diag else got, want, got[1] if diag else None,
+                            outs[4] if diag else None)
+    # K4-compact's rays entry on the same rays (the bench world is compact)
+    kw4 = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=ms, coarse_layout=bm.coarse_layout,
+               brick_layout=bm.brick_layout)
+    start_c, dd, active, pad, _ = _kernel_rays(bm, o, d)
+    want = prepared_result(bmtrace.bmtrace_compact(start_c, dd, active, pad, bm.meta, bm.brick_idx, bm.bricks, **kw4),
+                           bm, o, d)
+    rays_entry_gate("frame kernels: K4-compact's rays entry vs vx_trace_brickmap_compact, bench frame",
+                    trace_brickmap_no_table(bm, o, d, ms), want)
+
+    # the launch gates
+    def trace(o_, d_):
+        return trace_brickmap_hbm(bm, lt, o_, d_, ms, use_macro=cfg.trace_use_macro)
+
+    launch_gate("frame kernels: the trace stage of the bench frame (trace_brickmap_hbm)", lambda: trace(o, d),
+                ("bigtrace_kernel",))
+    fb = make_framebuffer(cfg, dev)
+    _, frame_dev = launch_gate("frame kernels: the primary bench frame (render_frame)",
+                               lambda: render_frame(bm, fb, origin, euler, env, 1, cfg, lt=lt),
+                               ("rays_kernel", "bigtrace_kernel", "shade_kernel"))
+
+    # the shading kernel's gates
+    for fn in (1, 2):
+        shade_gate("bench frame", bm, lt, cfg, origin, euler + 1e-5 * fn, env, fn, trace)
+    for layout, pixels in (("band", sharded.band_pixels), ("cyclic", sharded.cyclic_pixels)):
+        for rank in range(MD_RANKS):
+            pix = pixels(cfg, Mesh(None, rank, MD_RANKS, "rows", dev), dev)
+            for fn in (1, 2):
+                shade_gate(f"shade entry on {layout}_pixels, rank {rank} of {MD_RANKS}", bm, lt, cfg, origin,
+                           euler + 1e-5 * fn, env, fn, trace, pixels=pix)
+
+    # times on the bench frame's rays: the composite entry, its plain versions
+    out = trace(o, d)
+    args = (bm, out, o, d, px, py, py_r, origin, env, 1, cfg, lt)
+    _, dev_ms = launch_gate("frame kernels: the shading of the bench frame (shade_and_composite)",
+                            lambda: shade_and_composite(fb, *args), ("shade_kernel",))
+    k_ms = cuda_ms(lambda: shade_and_composite(fb, *args), repeats=100)
+    p_ms = cuda_ms(lambda: composite_frame(fb, *shade_traced_plain(*args), cfg, 1), repeats=10)
+    _, write = shade_traced_plain(*args)
+    n = o.shape[0]
+    written = int((write & (py < cfg.height)).sum())
+    bytes_ = shade_bytes(cfg, out, o, d, px, py, write)
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    hits = int(out.hit.sum())
+    ops_ms = (hits * SHADE_OPS + (n - hits) * SHADE_MISS_OPS) / issue_rates()["issue"] * 1e3
+    say(f"frame kernels: shading kernel on the bench frame ({n} rays, {written} pixels written): composite entry "
+        f"{k_ms:.5f} ms a call (CUDA events over 100 calls), {dev_ms[0]:.5f} ms of device time (torch.profiler); "
+        f"plain shade_traced_plain + composite_frame {p_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.5f} ms (bytes "
+        f"{bytes_ms:.5f}: {bytes_ / n:.1f} B a ray; operations {ops_ms:.5f}); the primary frame {frame_dev[0]:.5f} "
+        f"ms of device time; gates: {SHADE_GATES['frames']} frames, {SHADE_GATES['rays']} rays, 0 diffs; main-path "
+        f"launches {launches}, on {card}")
+    return {
+        "name": "shade", "route": "cuda", "source": "voxelengine_tpu_torch/csrc/shade.cu",
+        "replaces": "none: voxelengine_tpu/render/frame.py:350-470 shade_traced and :114-169 composite_frame "
+                    "(XLA ops fused into the jitted frame; no pallas_call)",
+        "launches": launches, "max_abs_err": SHADE_GATES["err"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # no PyTorch call shades a frame
+        "device_ms": dev_ms[0], "rays": n, "hits": hits, "pixels_written": written, "bytes": bytes_,
+        "frame_device_ms": frame_dev[0],
+        "gate_frames": SHADE_GATES["frames"], "gate_rays": SHADE_GATES["rays"],
+    }
+
+
 # phases 16-17, the measurement scripts (voxelengine_tpu_torch/experiments/)
 def phase_experiments(dev, cache):
     """Phase 16: the frame breakdown (S0 ray setup, S1 + K1, S2 the
@@ -3143,6 +3481,7 @@ def main(argv=None):
         kernels[:0] = timed("camera and rays", phase_camera, dev, bench["rays_launches"])
         timed("experiments", phase_experiments, dev, cache)
         timed("cyclic 1080p", phase_cyclic_1080p, dev)
+        kernels.append(timed("frame kernels", phase_frame_kernels, dev, cache, bench["shade_launches"]))
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     idle = [k["name"] for k in kernels if k["launches"] < 1]

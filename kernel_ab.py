@@ -9,6 +9,7 @@ turns on one NVIDIA GPU.
     python3 kernel_ab.py --variant='-maxrregcount=72'  # this checkout built with other nvcc flags too
     python3 kernel_ab.py --only 'K4-compact|K4-slab'  # only the cases whose names match (inputs built for them)
     python3 kernel_ab.py --quick --only 'ray setup' --before _checkout/prev  # the bench frame's primary_rays in two trees
+    python3 kernel_ab.py --quick --only 'bench frame' --before _checkout/prev --sass sass_out  # the frame's kernels, in turns
 
 The inputs are made once, in this process, on the card: the demo frame's
 460,800 rays over the 1024^3 terrain (``chip_smoke.py`` phase 5), the
@@ -16,13 +17,21 @@ dense path's 64^3 terrain with the last dense frame's 460,800 rays and the
 config-2 batch of 1,048,576 rays (phase 8), the sparse 16k world's 262,144
 rays (phase 10), and K4's 1,048,576 random rays over the 128^3 terrain at
 factor 8 (phase 9), as given and sorted by direction octant, then by the
-chunk of the clipped start; without ``--quick`` also K4 on terrains of
+chunk of the clipped start, and as given through the tree's whole
+``trace_brickmap_no_table`` call; without ``--quick`` also K4 on terrains of
 16-224 KB of meta with each of its two instantiations (shared or global
 meta, forced through the wrapper's limit).  K3 is also timed in its global
 instantiation (plain blocks, the four-plane fetch; forced through the
-wrapper's limit) on the config-2 batch.  K4-compact (``bmtrace_compact``)
-on the bench frame's 1,036,800 rays over the 8192x512x8192 world (built by
-W1) and on K4's random rays over the 128^3 terrain made compact; K4-slab
+wrapper's limit) on the config-2 batch.  On the bench frame's 1,036,800
+rays over the 8192x512x8192 world (built by W1), macro levels off: K4-compact
+(``bmtrace_compact``) alone and as the whole ``trace_brickmap_no_table``
+call, K1 alone (``bigtrace``, prepared rays) and as the whole
+``trace_brickmap_hbm`` call (the tree's ray setup, walk and ``hit_imm``
+fix-up: eager ops around ``vx_bigtrace``, or one launch of K1's rays
+entry), the frame's shading and composite (the shading kernel's composite
+entry, or the eager ``shade_traced`` and ``composite_frame``) and 8 chained
+``render_frame`` frames; K4-compact also on K4's random rays over the 128^3
+terrain made compact; K4-slab
 (``bmtrace_slab``) on the 1024^3 world with dense slots at 4 slabs: round
 0 on the slab that owns the 1280x720 frame's rays, round 1 on the rows it
 hands down (made once by this checkout's K4-slab), and the whole world as
@@ -75,6 +84,7 @@ ROOT = Path(__file__).resolve().parent
 REPEATS = 20  # launches (or dense frames) in one timed window
 WINDOWS = 5  # timed windows; the median is reported
 WARM_S = 0.3  # seconds of launches before the first window, so the card's clocks are up
+FRAME_KINDS = ("dense_frames", "bench_frames")  # cases timed as 8 chained frames, reported a frame
 
 
 def say(*parts):
@@ -167,13 +177,17 @@ def make_inputs(dev, quick: bool, refills, only=None):
     bm = build_brickmap(generate_world((128, 128, 128), octaves=8, device=dev), 8)
     rays, kw = k4_args(bm)
     cases["K4 random"] = ("bmtrace", rays + (bm.meta, bm.bricks), kw)
+    # the same rays through the tree's whole trace call (eager setup around
+    # the prepared entry, or one launch of K4's rays entry)
+    cases["K4 random, trace_brickmap_no_table call"] = (
+        "k4_call", (bm, *cs.random_rays(bm.world_dims, 1 << 20, 2.0, 109, dev)), dict(max_steps=2048))
     cases["K4 sorted"] = ("bmtrace", cs.direction_sorted(*rays) + (bm.meta, bm.bricks), kw)
     # K4-compact on K4's random rays over the same terrain made compact
     cbm = compact_brickmap(bm)
     name = "K4-compact random rays, 128^3 compact"
     cases[name] = ("bmtrace_compact", rays + (cbm.meta, cbm.brick_idx, cbm.bricks), kw)
-    if wanted("K4-compact bench frame"):
-        compact_bench_cases(cases, dev)
+    if any(wanted(n) for n in BENCH_FRAME_CASES):
+        bench_frame_cases(cases, dev)
     if wanted("K4-slab"):
         slab_cases(cases, dev)
     return {k: v for k, v in cases.items() if wanted(k)}
@@ -192,24 +206,47 @@ def ray_args(bm, o, d, max_steps):
     return (start_c.contiguous(), dd.contiguous(), active.to(torch.int32), pad.contiguous()), kw
 
 
-def compact_bench_cases(cases, dev):
-    """K4-compact on the bench frame's rays (``chip_smoke.py`` phase 14)."""
+# the cases on the bench frame (bench_frame_cases); --only picks among them by these names
+BENCH_FRAME_CASES = (
+    "K4-compact bench frame", "K4-compact bench frame, trace_brickmap_no_table call", "K1 bench frame, alone",
+    "K1 bench frame, trace_brickmap_hbm call", "bench frame shading (shade + composite)",
+    "bench frames (8 chained render_frame, ms a frame)",
+)
+
+
+def bench_frame_cases(cases, dev):
+    """The bench frame's 1,036,800 rays over the bench world (``chip_smoke.py``
+    phases 5, 14 and 18), macro levels off as the probe decides there:
+    K4-compact alone and as the whole ``trace_brickmap_no_table`` call, K1
+    alone (prepared rays) and as the whole ``trace_brickmap_hbm`` call (a
+    tree's ray setup, walk and fix-up: eager around ``vx_bigtrace``, or K1's
+    rays entry), the frame's shading and composite, and 8 chained
+    ``render_frame`` frames."""
     import torch
 
     import chip_smoke as cs
     from voxelengine_tpu_torch.config import RenderConfig
     from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
+    from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines
     from voxelengine_tpu_torch.render.frame import primary_rays
 
     dims, W, H = cs.WORLDS["full"]
     bm = build_brickmap_terrain_compact(dims, 32, device=dev)
+    lt = materialize_brick_lines(bm, make_line_table(bm))
     cfg = RenderConfig(width=W, height=H, checkerboard=True, tile_order=True)
     origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)
-    o, d, _, _, _ = primary_rays(cfg, origin, torch.tensor([-0.25, 0.75, 0.0], device=dev), 1)
+    euler = torch.tensor(cs.CAMERAS[0], device=dev)
+    o, d, _, _, _ = primary_rays(cfg, origin, euler, 1)
     rays, kw = ray_args(bm, o, d, cfg.max_steps)
-    args = rays + (bm.meta, bm.brick_idx, bm.bricks)
-    name = "K4-compact bench frame"
-    cases[name] = ("bmtrace_compact", args, kw)
+    names = iter(BENCH_FRAME_CASES)
+    cases[next(names)] = ("bmtrace_compact", rays + (bm.meta, bm.brick_idx, bm.bricks), kw)
+    cases[next(names)] = ("k4_call", (bm, o, d), dict(max_steps=cfg.max_steps))
+    args, kw1 = cs.line_kernel_args(bm, lt, o, d, cfg.max_steps)
+    cases[next(names)] = ("bigtrace", args, dict(kw1, use_macro=False))
+    cases[next(names)] = ("k1_call", (bm, lt, o, d), dict(max_steps=cfg.max_steps, use_macro=False))
+    frame_kw = dict(width=W, height=H)
+    cases[next(names)] = ("shade_stage", (bm, lt, origin, euler), frame_kw)
+    cases[next(names)] = ("bench_frames", (bm, lt, origin, euler), frame_kw)
 
 
 def slab_cases(cases, dev):
@@ -271,7 +308,10 @@ def tree_functions(torch):
     from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, gridtrace, rrtrace
     from voxelengine_tpu_torch.ops import gridtrace as ops_grid
     from voxelengine_tpu_torch.ops import trace as ops_trace
-    from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, render_frame_dense
+    from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm
+    from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table
+    from voxelengine_tpu_torch.render import frame as render
+    from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, render_frame, render_frame_dense
 
     fused = "origins" in inspect.signature(gridtrace.gridtrace).parameters
     has_refill = "refill" in inspect.signature(rrtrace.rrtrace).parameters
@@ -327,6 +367,45 @@ def tree_functions(torch):
         cfg = RenderConfig(width=kw["width"], height=kw["height"], checkerboard=True, tile_order=True)
         return (lambda: primary_rays(cfg, *args, 1)), (lambda out: out)
 
+    def k1_call(args, kw):
+        bm, lt, o, d = args
+        return (lambda: trace_brickmap_hbm(bm, lt, o, d, kw["max_steps"], use_macro=kw["use_macro"])), (lambda out: out)
+
+    def k4_call(args, kw):
+        bm, o, d = args
+        return (lambda: trace_brickmap_no_table(bm, o, d, kw["max_steps"])), (lambda out: out)
+
+    def bench_cfg(kw):
+        return RenderConfig(width=kw["width"], height=kw["height"], checkerboard=True, tile_order=True,
+                            trace_use_macro=False)
+
+    def shade_stage(args, kw):
+        """The frame's shading and composite after its primary trace: the
+        shading kernel's composite entry in a tree that has it, else the
+        eager shading and composite."""
+        bm, lt, origin, euler = args
+        cfg = bench_cfg(kw)
+        env = Environment.default(origin.device)
+        fb = make_framebuffer(cfg, origin.device)
+        o, d, px, py, py_r = primary_rays(cfg, origin, euler, 1)
+        trace = (bm, trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=False), o, d, px, py, py_r, origin,
+                 env, 1, cfg, lt)
+        if hasattr(render, "shade_and_composite"):
+            return (lambda: render.shade_and_composite(fb, *trace)), (lambda out: (out,))
+        return (lambda: render.composite_frame(fb, *render.shade_traced(*trace), cfg, 1)), (lambda out: (out,))
+
+    def bench_frames(args, kw):
+        bm, lt, origin, euler = args
+        cfg = bench_cfg(kw)
+        env = Environment.default(origin.device)
+        fb = make_framebuffer(cfg, origin.device)
+
+        def run():
+            for i in range(1, 9):
+                render_frame(bm, fb, origin, euler + 1e-5 * i, env, i, cfg, lt=lt)
+            return (fb,)
+        return run, (lambda out: out)
+
     def slab(args, kw):
         meta, bricks, rays, rows = args
 
@@ -341,7 +420,8 @@ def tree_functions(torch):
         "grid": alone(gridtrace.gridtrace, lambda g: g.words),
         "grid_limbs": alone(gridtrace.gridtrace_limbs, lambda g: ops_grid.words_to_limb_rows(g.words)),
         "grid_call": call(ops_grid.trace_grid_vpu), "grid_limbs_call": call(ops_grid.trace_grid_mxu),
-        "dense_frames": frames, "ray_setup": ray_setup,
+        "dense_frames": frames, "ray_setup": ray_setup, "k1_call": k1_call, "k4_call": k4_call,
+        "shade_stage": shade_stage, "bench_frames": bench_frames,
     }
 
 
@@ -396,17 +476,18 @@ def worker(tree: Path, data: Path, defines: str) -> None:
         for t in digested(outs):
             h.update(t.cpu().numpy().tobytes())
         digest[name] = h.hexdigest()[:16]
-        # kernels and device time a call (a dense frame: a run of 8 frames / 8)
-        calls = REPEATS if kind != "dense_frames" else 1
+        # kernels and device time a call (a frame: a run of 8 frames / 8)
+        frames = kind in FRAME_KINDS
+        calls = REPEATS if not frames else 1
         names, dev = profiling.kernel_profile(fn, calls)
-        per = calls * (8 if kind == "dense_frames" else 1)
+        per = calls * (8 if frames else 1)
         kernels[name], dev_ms[name] = (None, None) if names is None else (len(names) / per, sum(dev) / per)
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < WARM_S:
-            for _ in range(10 if kind != "dense_frames" else 1):
+            for _ in range(10 if not frames else 1):
                 fn()
             torch.cuda.synchronize()
-        reps = REPEATS if kind != "dense_frames" else 1
+        reps = REPEATS if not frames else 1
         windows = []
         for _ in range(WINDOWS):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -415,7 +496,7 @@ def worker(tree: Path, data: Path, defines: str) -> None:
                 fn()
             end.record()
             torch.cuda.synchronize()
-            windows.append(start.elapsed_time(end) / (reps if kind != "dense_frames" else 8))
+            windows.append(start.elapsed_time(end) / (reps if not frames else 8))
         ms[name] = sorted(windows)[WINDOWS // 2]
     print(json.dumps({"tree": str(Path(pkg.__file__).resolve().parent.parent), "defines": defines, "ms": ms,
                       "digest": digest, "kernels": kernels, "dev_ms": dev_ms}), flush=True)
@@ -542,7 +623,7 @@ def main(argv=None):
         say(f"device time (torch.profiler), {name}: "
             + " | ".join(f"{r['dev_ms'][name]:.4f} ms" if r.get("dev_ms", {}).get(name) else "-" for r in runs))
     for name in dict.fromkeys(k for r in runs for k in r.get("kernels", {})):
-        if name.startswith(("K2", "K3", "dense")):
+        if name.startswith(("K1 bench", "K2", "K3", "K4 random", "K4-compact bench", "dense", "bench")):
             say(f"CUDA kernels launched, {name}: "
                 + " | ".join(str(r.get("kernels", {}).get(name, "-")) for r in runs))
     say(f"card: {cs.card_line()}")

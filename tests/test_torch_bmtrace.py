@@ -234,31 +234,31 @@ def test_compact_launcher_signature_extends_the_host_entry():
 
 
 def test_compact_card_route_reaches_the_compact_entry(ref, host_lib, monkeypatch):
-    """A compact world's card call goes to ``bmtrace_compact`` (CPU tensors
-    routed as card tensors; the entry replaced by its g++ build), never to
-    the dense entry, and gives the plain walk's results."""
+    """A compact world's card call goes to ``bmtrace_compact_rays`` (CPU
+    tensors routed as card tensors; the entry replaced by its g++ build),
+    never to the dense entry, and gives the plain walk's results."""
     bm = brickmap_from_numpy({k: ref[f"terrain_tiled/{k}"] for k in BM_KEYS}, device="cpu")
     seen = []
 
-    def compact(start, d, active, pad, meta, brick_idx, bricks, *, grid_dims, factor, max_steps, coarse_layout,
+    def compact(origins, rays, meta, brick_idx, bricks, *, grid_dims, factor, max_steps, coarse_layout,
                 brick_layout):
         assert (meta, brick_idx, bricks) == (bm.meta, bm.brick_idx, bm.bricks)
-        seen.append(start.shape[0])
-        n = start.shape[0]
-        outs = (torch.empty(n, dtype=torch.int32), torch.empty(n, 3), torch.empty(n, 3),
+        seen.append(origins.shape[0])
+        n = origins.shape[0]
+        outs = (torch.empty(n, dtype=torch.bool), torch.empty(n, 3), torch.empty(n, 3),
                 torch.empty(n, dtype=torch.int32))
-        host_lib.vx_trace_brickmap_compact_host(
-            *(t.data_ptr() for t in (start, d, active, pad, meta, brick_idx, bricks)), n, *grid_dims, factor,
-            bm.words_per_brick, max_steps, coarse_layout.value, brick_layout.value, 3 * max_steps + 64,
-            *(t.data_ptr() for t in outs))
+        host_lib.vx_trace_brickmap_compact_rays_host(
+            origins.data_ptr(), 3, rays.data_ptr(), 3, *(t.data_ptr() for t in (meta, brick_idx, bricks)), n,
+            *grid_dims, factor, bm.words_per_brick, max_steps, coarse_layout.value, brick_layout.value,
+            3 * max_steps + 64, *(t.data_ptr() for t in outs))
         return outs
 
     def dense(*a, **k):
         raise AssertionError("a compact world reached the dense-slot entry")
 
     monkeypatch.setattr(trace2, "_is_cuda", lambda t: True)
-    monkeypatch.setattr(bmtrace, "bmtrace_compact", compact)
-    monkeypatch.setattr(bmtrace, "bmtrace", dense)
+    monkeypatch.setattr(bmtrace, "bmtrace_compact_rays", compact)
+    monkeypatch.setattr(bmtrace, "bmtrace_rays", dense)
     o, d = (torch.from_numpy(a) for a in _compact_rays(bm.world_dims, 98))
     got = trace_brickmap_no_table(bm, o, d, MAX_STEPS)
     assert seen == [o.shape[0]]

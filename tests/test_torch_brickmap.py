@@ -15,6 +15,18 @@ from voxelengine_tpu_torch.core import brickmap as TB
 from voxelengine_tpu_torch.core.layout import Layout as TL
 from voxelengine_tpu_torch.io.interop import brickmap_from_numpy
 from voxelengine_tpu_torch.ops import bigtrace as TP
+from torch_shared import terrain_128x64x128_f32_o3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port side on one CPU thread: the suite runs several workers at
+    once, and torch's default of a thread per core each makes its eager
+    loops crawl (results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np_bm(bm):
@@ -74,9 +86,10 @@ def test_slab_to_chunks_bit_equal(rng, factor, layout):
         np.testing.assert_array_equal(a.numpy(), b.view(np.int32) if b.dtype == np.uint32 else b, err_msg=name)
 
 
-def test_build_brickmap_terrain_compact_bit_equal():
-    """The main path's builder at 128x64x128, factor 32, 3 octaves."""
-    t = TB.build_brickmap_terrain_compact((128, 64, 128), 32, octaves=3, device="cpu")
+def test_build_brickmap_terrain_compact_bit_equal(tmp_path_factory):
+    """The main path's builder at 128x64x128, factor 32, 3 octaves (the
+    port's world shared with ``tests/test_torch_macro.py``)."""
+    t = terrain_128x64x128_f32_o3(tmp_path_factory)
     j = JB.build_brickmap_terrain_compact((128, 64, 128), 32, octaves=3)
     _assert_bm_equal(t, j)
     assert bool((t.brick_idx == -1).any())  # empty chunks keep no brick

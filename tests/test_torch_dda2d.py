@@ -148,7 +148,7 @@ def host_kernels(monkeypatch):
     if shutil.which("g++") is None and shutil.which("c++") is None:
         pytest.skip("no C++ compiler for the host build of csrc/dda.cuh")
     lib = build.load_dda_host()
-    kernels = SimpleNamespace(vx_bigtrace=lib.vx_trace_host, vx_trace_grid=lib.vx_trace_grid_full_host)
+    kernels = SimpleNamespace(vx_bigtrace_rays=lib.vx_bigtrace_rays_host, vx_trace_grid=lib.vx_trace_grid_full_host)
     monkeypatch.setattr(dda2d, "_is_cuda", lambda t: True)
     monkeypatch.setattr(build, "require_cuda", lambda kernel, dev: None)
     monkeypatch.setattr(build, "load_kernel", lambda name: kernels)

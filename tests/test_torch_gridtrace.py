@@ -209,6 +209,17 @@ def _jax_reference():
     return out
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port side on one CPU thread: the suite runs several workers at
+    once, and torch's default of a thread per core each makes its eager
+    loops crawl (results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     """Run this file's JAX side in a subprocess with XLA:CPU's FMA

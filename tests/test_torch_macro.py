@@ -57,6 +57,7 @@ from voxelengine_tpu_torch.ops.bigtrace import (
 )
 from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup, kernel_result, trace_brickmap
 from voxelengine_tpu_torch.render import frame
+from torch_shared import terrain_128x64x128_f32_o3
 
 ROOT = Path(__file__).resolve().parent.parent
 BM_KEYS = ("meta", "brick_idx", "bricks", "grid_dims", "factor", "coarse_layout", "brick_layout", "dense_slots")
@@ -216,6 +217,17 @@ def _jax_reference():
     for k in ("hit", "position", "normal", "steps"):
         out[f"rr/{k}"] = np.asarray(getattr(res, k))
     return out
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port side on one CPU thread: the suite runs several workers at
+    once, and torch's default of a thread per core each makes its eager
+    loops crawl (results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -523,10 +535,12 @@ def _port_world(name, device):
     return bm, *(t.to(device) for t in _rays(name))
 
 
-def test_port_worlds_match_the_jax_build(ref):
-    """The card lane's port-built worlds are the JAX package's worlds."""
+def test_port_worlds_match_the_jax_build(ref, tmp_path_factory):
+    """The card lane's port-built worlds are the JAX package's worlds (the
+    terrain the one ``tests/test_torch_brickmap.py`` builds, made once a
+    run)."""
     for name in CASES:
-        bm, _, _ = _port_world(name, "cpu")
+        bm = terrain_128x64x128_f32_o3(tmp_path_factory) if name == "terrain" else _port_world(name, "cpu")[0]
         want = _bm(ref, name)
         for k in ("meta", "brick_idx", "bricks"):
             assert torch.equal(getattr(bm, k), getattr(want, k)), (name, k)

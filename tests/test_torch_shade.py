@@ -275,7 +275,7 @@ def test_compact_world_without_line_table_refused_on_card_route(ref, monkeypatch
 def test_compact_world_without_line_table_routes_to_k4_compact(ref, monkeypatch):
     """A compact world without a line table goes to K4's compact entry on a
     card call, every trace of the frame (the entry is replaced by a spy that
-    runs its g++ build, ``vx_trace_brickmap_compact_host``), and the frames
+    runs its g++ build, ``vx_trace_brickmap_compact_rays_host``), and the frames
     are JAX's on the same compact world, bit for bit."""
     from voxelengine_tpu_torch.core.brickmap import compact_brickmap
     from voxelengine_tpu_torch.kernels import bmtrace, build
@@ -284,15 +284,16 @@ def test_compact_world_without_line_table_routes_to_k4_compact(ref, monkeypatch)
     bm = compact_brickmap(_bm(ref))
     seen = []
 
-    def spy(start, d, active, pad, meta, brick_idx, bricks, *, grid_dims, factor, max_steps, coarse_layout,
+    def spy(origins, rays, meta, brick_idx, bricks, *, grid_dims, factor, max_steps, coarse_layout,
             brick_layout):
         seen.append(max_steps)
-        n = start.shape[0]
-        outs = (torch.empty(n, dtype=torch.int32), torch.empty(n, 3), torch.empty(n, 3),
+        n = origins.shape[0]
+        (o, os), (d, ds) = (build.ray_rows("spy", "", t, n, t.device) for t in (origins, rays))
+        outs = (torch.empty(n, dtype=torch.bool), torch.empty(n, 3), torch.empty(n, 3),
                 torch.empty(n, dtype=torch.int32))
-        host.vx_trace_brickmap_compact_host(
-            *(t.data_ptr() for t in (start, d, active, pad, meta, brick_idx, bricks)), n, *grid_dims, factor,
-            bricks.shape[1], max_steps, coarse_layout.value, brick_layout.value, 3 * max_steps + 64,
+        host.vx_trace_brickmap_compact_rays_host(
+            o.data_ptr(), os, d.data_ptr(), ds, *(t.data_ptr() for t in (meta, brick_idx, bricks)), n, *grid_dims,
+            factor, bricks.shape[1], max_steps, coarse_layout.value, brick_layout.value, 3 * max_steps + 64,
             *(t.data_ptr() for t in outs))
         return outs
 
@@ -300,8 +301,8 @@ def test_compact_world_without_line_table_routes_to_k4_compact(ref, monkeypatch)
         raise AssertionError("a compact world reached the dense-slot entry")
 
     monkeypatch.setattr(trace2, "_is_cuda", lambda t: True)
-    monkeypatch.setattr(bmtrace, "bmtrace_compact", spy)
-    monkeypatch.setattr(bmtrace, "bmtrace", dense)
+    monkeypatch.setattr(bmtrace, "bmtrace_compact_rays", spy)
+    monkeypatch.setattr(bmtrace, "bmtrace_rays", dense)
     change, frames = FRAMES["all_three"]
     cfg = RenderConfig(**_fields(change, (DebugView, Projection)))
     fb = frame.make_framebuffer(cfg, device="cpu")
@@ -382,7 +383,7 @@ def test_k1_secondary_batches_match_plain_on_card(cuda_device, use_macro):
     before = bigtrace.launches
     got = frame.shade_traced(bm, primary, o, d, px, py, py_r, origin, env, 1, cfg, secondary=kernel)
     assert bigtrace.launches - before == 4
-    want = frame.shade_traced(bm, primary, o, d, px, py, py_r, origin, env, 1, cfg, secondary=plain)
+    want = frame.shade_traced_plain(bm, primary, o, d, px, py, py_r, origin, env, 1, cfg, secondary=plain)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert [ms for _, _, ms in batches] == [MAX_STEPS, MAX_STEPS, 8, 8]
@@ -418,8 +419,8 @@ def render_plain(bm, cfg, fn, dev):
     origin, euler = _t(ORIGIN).to(dev), _t(EULER).to(dev)
     o, d, px, py, py_r = frame.primary_rays(cfg, origin, euler, fn)
     out = trace_brickmap(bm, o, d, cfg.max_steps)
-    color, write = frame.shade_traced(bm, out, o, d, px, py, py_r, origin, Environment.default(dev), fn, cfg,
-                                      secondary=lambda a, b, ms: trace_brickmap(bm, a, b, ms))
+    color, write = frame.shade_traced_plain(bm, out, o, d, px, py, py_r, origin, Environment.default(dev), fn, cfg,
+                                            secondary=lambda a, b, ms: trace_brickmap(bm, a, b, ms))
     return frame.composite_frame(frame.make_framebuffer(cfg, dev), color, write, cfg, fn)
 
 

@@ -13,6 +13,17 @@
 // (pallas_bigtrace.py:1514).  Four instantiations, (macro, diag) each on or
 // off; the production ones (diag off) keep their instruction streams.
 //
+// Two entries over one kernel template, by the form of the rays
+// (ray_setup.cuh): vx_bigtrace_rays takes origins and raw directions and
+// computes trace_brickmap_hbm's card branch whole, the ray setup before the
+// walk and the hit_imm fix-up after it (ray_setup.cuh::trace_ray_full); it
+// is the frame path's K1, one launch a trace where the eager setup and
+// fix-up took ~69 more kernels and ~0.46 ms of device time on the bench
+// frame on an H100 (PERF.md).  vx_bigtrace takes the prepared rays of that
+// setup (start, direction, active, pad) and leaves the fix-up to its
+// caller: the walk alone, which kernel_ab.py times.  Each has the four
+// (macro, diag) instantiations.
+//
 // Design: one thread per ray, in the order the caller gives (render_frame's
 // tile_order: 32x32-pixel blocks, so neighbouring threads walk neighbouring
 // chunks and share L1 lines), the loop of dda.cuh::trace_ray, tables read
@@ -43,37 +54,27 @@
 // trace computes it; no fast-math, so 1.0f/d and (b - s)/d stay IEEE.
 #include <cuda_runtime.h>
 
-#include "dda.cuh"
+#include "ray_setup.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 8;  // 8 x 128 threads an SM: at most 64 registers a thread
 
-template <bool MACRO, bool DIAG>
+// Rays: vx::PreparedRays or vx::OriginRays.
+template <bool MACRO, bool DIAG, class Rays>
 __global__ void __launch_bounds__(THREADS, DIAG ? 1 : MIN_BLOCKS)
-bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n,
-                const float* __restrict__ start, const float* __restrict__ dir,
-                const int* __restrict__ active, const int* __restrict__ pad,
-                int* __restrict__ flags, float* __restrict__ pos,
-                float* __restrict__ normal, int* __restrict__ steps,
-                int* __restrict__ diag) {
+bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, Rays R, float* __restrict__ pos,
+                float* __restrict__ normal, int* __restrict__ steps, int* __restrict__ diag) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if constexpr (!DIAG) {
     if (i >= n) return;
   }
   int dg[vx::D_COUNT] = {};
-  vx::TraceResult r = {};
   if (i < n) {
-    r = vx::trace_ray<MACRO, DIAG>(
-        P, F,
-        start[3 * i], start[3 * i + 1], start[3 * i + 2],
-        dir[3 * i], dir[3 * i + 1], dir[3 * i + 2],
-        active[i], pad[3 * i], pad[3 * i + 1], pad[3 * i + 2], dg);
-    flags[i] = r.flags;
-    pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
-    normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
-    steps[i] = r.steps;
+    const vx::TraceResult r = R.template trace<MACRO, DIAG>(P, F, i, dg);
+    R.store_flags(i, r.flags);
+    vx::store_ray(r, i, pos, normal, steps);
   }
   if constexpr (DIAG) {
     // every lane of the warp is here (no early return in this build)
@@ -85,14 +86,26 @@ bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n,
   }
 }
 
-template <bool MACRO, bool DIAG>
-int launch(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, const float* start,
-           const float* dir, const int* active, const int* pad, int* flags, float* pos,
+template <bool MACRO, bool DIAG, class Rays>
+int launch(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, const Rays& R, float* pos,
            float* normal, int* steps, int* diag, cudaStream_t stream) {
   const int blocks = (n + THREADS - 1) / THREADS;
-  bigtrace_kernel<MACRO, DIAG><<<blocks, THREADS, 0, stream>>>(
-      P, F, n, start, dir, active, pad, flags, pos, normal, steps, diag);
+  bigtrace_kernel<MACRO, DIAG><<<blocks, THREADS, 0, stream>>>(P, F, n, R, pos, normal, steps, diag);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of (use_macro, diag != null).
+template <class Rays>
+int launch_any(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, const Rays& R, int use_macro,
+               float* pos, float* normal, int* steps, int* diag, void* stream) {
+  if (n == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (use_macro) {
+    return diag ? launch<true, true>(P, F, n, R, pos, normal, steps, diag, s)
+                : launch<true, false>(P, F, n, R, pos, normal, steps, diag, s);
+  }
+  return diag ? launch<false, true>(P, F, n, R, pos, normal, steps, diag, s)
+              : launch<false, false>(P, F, n, R, pos, normal, steps, diag, s);
 }
 
 }  // namespace
@@ -108,11 +121,22 @@ extern "C" int vx_bigtrace(const float* start, const float* dir, const int* acti
                            float* pos, float* normal, int* steps, int* diag, void* stream) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
   const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (use_macro) {
-    return diag ? launch<true, true>(P, F, n, start, dir, active, pad, flags, pos, normal, steps, diag, s)
-                : launch<true, false>(P, F, n, start, dir, active, pad, flags, pos, normal, steps, diag, s);
-  }
-  return diag ? launch<false, true>(P, F, n, start, dir, active, pad, flags, pos, normal, steps, diag, s)
-              : launch<false, false>(P, F, n, start, dir, active, pad, flags, pos, normal, steps, diag, s);
+  const vx::PreparedRays R = {start, dir, active, pad, flags};
+  return launch_any(P, F, n, R, use_macro, pos, normal, steps, diag, stream);
+}
+
+// The rays entry: origins and raw directions (f32[n, 3], row strides os
+// and rs of 3, or 0 for one shared row); writes hit (one byte a ray, 0 or
+// 1), position and normal after the hit_imm fix-up, and steps.  Otherwise
+// as vx_bigtrace.
+extern "C" int vx_bigtrace_rays(const float* origins, int os, const float* rays, int rs,
+                                const int* region_lines, const int* brick_lines, const int* macro,
+                                const int* macro2, int n, int gx, int gy, int gz, int rx, int ry,
+                                int rz, int factor, int wpb, int max_steps, int brick_layout,
+                                int iter_limit, int use_macro, unsigned char* hit, float* pos,
+                                float* normal, int* steps, int* diag, void* stream) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  const vx::OriginRays R = {origins, os, rays, rs, hit};
+  return launch_any(P, F, n, R, use_macro, pos, normal, steps, diag, stream);
 }

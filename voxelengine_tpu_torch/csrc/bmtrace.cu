@@ -39,6 +39,13 @@
 // global meta on terrains of 16-224 KB of meta (L1 holds most of the meta
 // words the rays touch either way).
 //
+// Each entry has a rays form (vx_trace_brickmap_dense_rays,
+// vx_trace_brickmap_compact_rays: origins and raw directions, the ray setup
+// and the hit_imm fix-up in the kernel, ray_setup.cuh::trace_ray_full), the
+// frame path's K4: one launch a trace where the eager setup and fix-up
+// (ops/trace2.py; pallas_trace2.py:344-356,395-405 in XLA) took ~69 more
+// kernels.  The prepared-ray entries stay for the walk alone.
+//
 // For each table form (dense slots, compact), two instantiations of one
 // template, chosen by the wrapper from the meta table's size alone
 // (kernels/bmtrace.py::meta_in_shared):
@@ -54,7 +61,7 @@
 
 #include <cuda_runtime.h>
 
-#include "dda.cuh"
+#include "ray_setup.cuh"
 
 // Largest meta table (bytes) the SHARED_META instantiation takes; the
 // wrapper's kernels/bmtrace.py::SMEM_META_LIMIT is the same number.
@@ -65,15 +72,11 @@ namespace {
 constexpr int THREADS = 1024;  // 1024 x 64 registers: one block fills an SM's register file
 
 // Fetch: DenseSlotFetch or CompactFetch, with meta in shared memory when
-// Fetch::SHARED.
-template <class Fetch>
+// Fetch::SHARED; Rays: vx::PreparedRays or vx::OriginRays.
+template <class Fetch, class Rays>
 __global__ void __launch_bounds__(THREADS, 1)
-bmtrace_kernel(vx::TraceParams P, Fetch F, int n, int num_chunks,
-               int* __restrict__ counter,
-               const float* __restrict__ start, const float* __restrict__ dir,
-               const int* __restrict__ active, const int* __restrict__ pad,
-               int* __restrict__ flags, float* __restrict__ pos,
-               float* __restrict__ normal, int* __restrict__ steps) {
+bmtrace_kernel(vx::TraceParams P, Fetch F, int n, int num_chunks, int* __restrict__ counter, Rays R,
+               float* __restrict__ pos, float* __restrict__ normal, int* __restrict__ steps) {
   extern __shared__ int4 smem_meta[];
   Fetch Fl = F;
   if constexpr (Fetch::SHARED) {
@@ -96,33 +99,26 @@ bmtrace_kernel(vx::TraceParams P, Fetch F, int n, int num_chunks,
     if (base >= n) return;  // the same for every lane of the warp
     const int i = base + lane;
     if (i < n) {
-      const vx::TraceResult r = vx::trace_ray(
-          P, Fl, start[3 * i], start[3 * i + 1], start[3 * i + 2],
-          dir[3 * i], dir[3 * i + 1], dir[3 * i + 2],
-          active[i], pad[3 * i], pad[3 * i + 1], pad[3 * i + 2]);
-      flags[i] = r.flags;
-      pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
-      normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
-      steps[i] = r.steps;
+      const vx::TraceResult r = R.template trace<false, false>(P, Fl, i, nullptr);
+      R.store_flags(i, r.flags);
+      vx::store_ray(r, i, pos, normal, steps);
     }
   }
 }
 
-template <class Fetch>
-int launch(const vx::TraceParams& P, const Fetch& F, int n,
-           int num_chunks, int* counter, const float* start, const float* dir, const int* active,
-           const int* pad, int* flags, float* pos, float* normal, int* steps,
-           cudaStream_t stream) {
+template <class Fetch, class Rays>
+int launch(const vx::TraceParams& P, const Fetch& F, int n, int num_chunks, int* counter, const Rays& R,
+           float* pos, float* normal, int* steps, cudaStream_t stream) {
   const size_t smem = Fetch::SHARED ? (size_t)num_chunks * sizeof(int) : 0;
   if (smem > VX_SMEM_META_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(bmtrace_kernel<Fetch>,
+    e = cudaFuncSetAttribute(bmtrace_kernel<Fetch, Rays>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bmtrace_kernel<Fetch>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bmtrace_kernel<Fetch, Rays>,
                                                       THREADS, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -132,9 +128,39 @@ int launch(const vx::TraceParams& P, const Fetch& F, int n,
   const int blocks = (int)(wanted < (long long)per_sm * sms ? wanted : (long long)per_sm * sms);
   e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bmtrace_kernel<Fetch><<<blocks, THREADS, smem, stream>>>(
-      P, F, n, num_chunks, counter, start, dir, active, pad, flags, pos, normal, steps);
+  bmtrace_kernel<Fetch, Rays><<<blocks, THREADS, smem, stream>>>(P, F, n, num_chunks, counter, R, pos,
+                                                                  normal, steps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K4 over either table form in the instantiation `shared_meta` picks.
+template <class Rays>
+int dense(const vx::TraceParams& P, const int* meta, const int* bricks, int coarse_layout, int wpb, int n,
+          int shared_meta, int* counter, const Rays& R, float* pos, float* normal, int* steps, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int nc = P.gx * P.gy * P.gz;
+  if (n == 0) return 0;
+  if (shared_meta) {
+    const vx::DenseSlotFetch<true> F = {meta, bricks, P.gx, P.gy, coarse_layout, wpb};
+    return launch(P, F, n, nc, counter, R, pos, normal, steps, s);
+  }
+  const vx::DenseSlotFetch<false> F = {meta, bricks, P.gx, P.gy, coarse_layout, wpb};
+  return launch(P, F, n, nc, counter, R, pos, normal, steps, s);
+}
+
+template <class Rays>
+int compact(const vx::TraceParams& P, const int* meta, const int* brick_idx, const int* bricks,
+            int coarse_layout, int wpb, int n, int shared_meta, int* counter, const Rays& R, float* pos,
+            float* normal, int* steps, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int nc = P.gx * P.gy * P.gz;
+  if (n == 0) return 0;
+  if (shared_meta) {
+    const vx::CompactFetch<true> F = {{meta, bricks, P.gx, P.gy, coarse_layout, wpb}, brick_idx};
+    return launch(P, F, n, nc, counter, R, pos, normal, steps, s);
+  }
+  const vx::CompactFetch<false> F = {{meta, bricks, P.gx, P.gy, coarse_layout, wpb}, brick_idx};
+  return launch(P, F, n, nc, counter, R, pos, normal, steps, s);
 }
 
 }  // namespace
@@ -151,15 +177,8 @@ extern "C" int vx_trace_brickmap_dense(const float* start, const float* dir, con
                                        int iter_limit, int shared_meta, int* counter, int* flags,
                                        float* pos, float* normal, int* steps, void* stream) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int nc = gx * gy * gz;
-  if (n == 0) return 0;
-  if (shared_meta) {
-    const vx::DenseSlotFetch<true> F = {meta, bricks, gx, gy, coarse_layout, wpb};
-    return launch(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
-  }
-  const vx::DenseSlotFetch<false> F = {meta, bricks, gx, gy, coarse_layout, wpb};
-  return launch(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
+  const vx::PreparedRays R = {start, dir, active, pad, flags};
+  return dense(P, meta, bricks, coarse_layout, wpb, n, shared_meta, counter, R, pos, normal, steps, stream);
 }
 
 // The compact instantiation: as vx_trace_brickmap_dense, with each chunk's
@@ -173,13 +192,34 @@ extern "C" int vx_trace_brickmap_compact(const float* start, const float* dir, c
                                          int* counter, int* flags, float* pos, float* normal,
                                          int* steps, void* stream) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int nc = gx * gy * gz;
-  if (n == 0) return 0;
-  if (shared_meta) {
-    const vx::CompactFetch<true> F = {{meta, bricks, gx, gy, coarse_layout, wpb}, brick_idx};
-    return launch(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
-  }
-  const vx::CompactFetch<false> F = {{meta, bricks, gx, gy, coarse_layout, wpb}, brick_idx};
-  return launch(P, F, n, nc, counter, start, dir, active, pad, flags, pos, normal, steps, s);
+  const vx::PreparedRays R = {start, dir, active, pad, flags};
+  return compact(P, meta, brick_idx, bricks, coarse_layout, wpb, n, shared_meta, counter, R, pos, normal,
+                 steps, stream);
+}
+
+// The rays forms: origins and raw directions (f32[n, 3], row strides os
+// and rs of 3, or 0 for one shared row) in place of the prepared rays;
+// writes hit (one byte a ray, 0 or 1), position and normal after the
+// hit_imm fix-up, and steps.  Otherwise as the entries above.
+extern "C" int vx_trace_brickmap_dense_rays(const float* origins, int os, const float* rays, int rs,
+                                            const int* meta, const int* bricks, int n, int gx, int gy,
+                                            int gz, int factor, int wpb, int max_steps, int coarse_layout,
+                                            int brick_layout, int iter_limit, int shared_meta, int* counter,
+                                            unsigned char* hit, float* pos, float* normal, int* steps,
+                                            void* stream) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::OriginRays R = {origins, os, rays, rs, hit};
+  return dense(P, meta, bricks, coarse_layout, wpb, n, shared_meta, counter, R, pos, normal, steps, stream);
+}
+
+extern "C" int vx_trace_brickmap_compact_rays(const float* origins, int os, const float* rays, int rs,
+                                              const int* meta, const int* brick_idx, const int* bricks, int n,
+                                              int gx, int gy, int gz, int factor, int wpb, int max_steps,
+                                              int coarse_layout, int brick_layout, int iter_limit,
+                                              int shared_meta, int* counter, unsigned char* hit, float* pos,
+                                              float* normal, int* steps, void* stream) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::OriginRays R = {origins, os, rays, rs, hit};
+  return compact(P, meta, brick_idx, bricks, coarse_layout, wpb, n, shared_meta, counter, R, pos, normal,
+                 steps, stream);
 }

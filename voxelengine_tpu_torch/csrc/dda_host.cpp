@@ -5,7 +5,9 @@
 // launcher's arguments minus the stream (K4's also minus its instantiation
 // flag and work-counter scratch); K5's runs the kernel's per-lane schedule
 // for one warp.  vx_trace_grid_host and vx_trace_grid_limbs_host run the
-// grid walk alone on prepared rays (start, direction, active, pad).
+// grid walk alone on prepared rays (start, direction, active, pad).  The
+// *_rays_host entries are K1's and K4's rays entries: origins and raw
+// directions, the setup and the hit_imm fix-up included.
 #include <cstring>
 #include <vector>
 
@@ -76,6 +78,24 @@ int grid_full_rays(const vx::GridParams& P, const Fetch& F, int layout, int n,
     }
     return 0;
   });
+}
+
+// A launch's rays one by one, as the kernels' threads take them (Rays:
+// vx::PreparedRays or vx::OriginRays); with DIAG each ray's counters, its
+// own iteration count last (there is no warp here).
+template <bool MACRO, bool DIAG, class Fetch, class Rays>
+int each_ray(const vx::TraceParams& P, const Fetch& F, int n, const Rays& R, float* pos, float* normal,
+             int* steps, int* diag) {
+  for (int i = 0; i < n; ++i) {
+    int dg[vx::D_COUNT];
+    std::memset(dg, 0, sizeof dg);
+    const vx::TraceResult r = R.template trace<MACRO, DIAG>(P, F, i, dg);
+    R.store_flags(i, r.flags);
+    vx::store_ray(r, i, pos, normal, steps);
+    if (DIAG)
+      for (int k = 0; k < vx::D_COUNT; ++k) diag[(long long)k * n + i] = dg[k];
+  }
+  return 0;
 }
 
 void store(const vx::TraceResult& r, int i, int* flags, float* pos, float* normal, int* steps) {
@@ -174,6 +194,24 @@ extern "C" int vx_trace_host(const float* start, const float* dir, const int* ac
                     ++i;
                     return r;
                   });
+}
+
+// K1's rays entry (bigtrace.cu::vx_bigtrace_rays), its arguments minus
+// the stream; `diag` as vx_trace_host's.
+extern "C" int vx_bigtrace_rays_host(const float* origins, int os, const float* rays, int rs,
+                                     const int* region_lines, const int* brick_lines, const int* macro,
+                                     const int* macro2, int n, int gx, int gy, int gz, int rx, int ry,
+                                     int rz, int factor, int wpb, int max_steps, int brick_layout,
+                                     int iter_limit, int use_macro, unsigned char* hit, float* pos,
+                                     float* normal, int* steps, int* diag) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  const vx::OriginRays R = {origins, os, rays, rs, hit};
+  if (use_macro)
+    return diag ? each_ray<true, true>(P, F, n, R, pos, normal, steps, diag)
+                : each_ray<true, false>(P, F, n, R, pos, normal, steps, diag);
+  return diag ? each_ray<false, true>(P, F, n, R, pos, normal, steps, diag)
+              : each_ray<false, false>(P, F, n, R, pos, normal, steps, diag);
 }
 
 // The record instantiation (crossings.cu::vx_trace_crossings), ray by ray.
@@ -338,4 +376,30 @@ extern "C" int vx_zslab_host(const float* start, const float* dir, const int* ac
     store(r, i, flags, pos, normal, steps);
   }
   return 0;
+}
+
+// K4's rays entries (bmtrace.cu::vx_trace_brickmap_dense_rays and
+// _compact_rays), as their prepared-ray host entries: no instantiation flag
+// and no work counter.
+extern "C" int vx_trace_brickmap_dense_rays_host(const float* origins, int os, const float* rays, int rs,
+                                                 const int* meta, const int* bricks, int n, int gx, int gy,
+                                                 int gz, int factor, int wpb, int max_steps,
+                                                 int coarse_layout, int brick_layout, int iter_limit,
+                                                 unsigned char* hit, float* pos, float* normal, int* steps) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::DenseSlotFetch<> F = {meta, bricks, gx, gy, coarse_layout, wpb};
+  return each_ray<false, false>(P, F, n, vx::OriginRays{origins, os, rays, rs, hit}, pos, normal, steps,
+                                nullptr);
+}
+
+extern "C" int vx_trace_brickmap_compact_rays_host(const float* origins, int os, const float* rays, int rs,
+                                                   const int* meta, const int* brick_idx, const int* bricks,
+                                                   int n, int gx, int gy, int gz, int factor, int wpb,
+                                                   int max_steps, int coarse_layout, int brick_layout,
+                                                   int iter_limit, unsigned char* hit, float* pos,
+                                                   float* normal, int* steps) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::CompactFetch<> F = {{meta, bricks, gx, gy, coarse_layout, wpb}, brick_idx};
+  return each_ray<false, false>(P, F, n, vx::OriginRays{origins, os, rays, rs, hit}, pos, normal, steps,
+                                nullptr);
 }

@@ -12,7 +12,8 @@
 // the slab test.
 //
 // __host__ __device__ like dda.cuh: gridtrace.cu runs it inside K2 and K3,
-// dda_host.cpp on the CPU for the tests.
+// bigtrace.cu and bmtrace.cu inside K1's and K4's rays entries
+// (trace_ray_full below), dda_host.cpp on the CPU for the tests.
 #pragma once
 
 #include <math.h>
@@ -73,6 +74,92 @@ VX_HD RaySetup ray_setup(float ox, float oy, float oz, float vx, float vy, float
   const bool on_edge = (int)s.sx == gx || (int)s.sy == gy || (int)s.sz == gz;
   s.padx = on_edge && s.dx < 0.0f; s.pady = on_edge && s.dy < 0.0f; s.padz = on_edge && s.dz < 0.0f;
   return s;
+}
+
+// A ray of global memory read through the read-only data path on the card.
+VX_HD float ldgf(const float* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// K1's and K4's rays entries for one ray: ops/bigtrace.py::trace_brickmap_k1
+// and ops/trace2.py::_trace_brickmap_kernel whole.  ray_setup at the
+// brickmap's factor (ops/trace.py::_ray_setup and _edge_pad), the walk,
+// and ops/trace.py::kernel_result's hit_imm fix-up: a hit at the ray's start
+// reports the clipped start in voxels (start_c * factor, one rounding) and
+// the world-entry normal.  The fix-up computes the setup again instead of
+// keeping it live across the walk, whose loop runs at the production
+// builds' 64-register cap; a hit_imm ray is rare.
+template <bool MACRO = false, bool DIAG = false, class Fetch>
+VX_HD TraceResult trace_ray_full(const TraceParams& P, const Fetch& F, float ox, float oy, float oz,
+                                 float vx, float vy, float vz, int* diag = nullptr) {
+  TraceResult r;
+  {
+    const RaySetup s = ray_setup(ox, oy, oz, vx, vy, vz, P.factor, P.gx, P.gy, P.gz);
+    r = trace_ray<MACRO, DIAG>(P, F, s.sx, s.sy, s.sz, s.dx, s.dy, s.dz, s.active, s.padx, s.pady,
+                               s.padz, diag);
+  }
+  if (r.flags & 2) {
+    const RaySetup s = ray_setup(ox, oy, oz, vx, vy, vz, P.factor, P.gx, P.gy, P.gz);
+    const float ff = (float)P.factor;
+    r.px = s.sx * ff; r.py = s.sy * ff; r.pz = s.sz * ff;
+    r.nx = s.snx; r.ny = s.sny; r.nz = s.snz;
+  }
+  return r;
+}
+
+// The rays of a K1 or K4 launch, in one of two forms, and how a ray's flags
+// are stored (position, normal and steps are stored alike, store_ray):
+//   PreparedRays: the wrapper's ray setup done (start in chunk units,
+//     normalized direction, active, edge pad); flags = hit | hit_imm << 1,
+//     the fix-up left to the wrapper (vx_bigtrace, vx_trace_brickmap_*);
+//   OriginRays: origins (voxels) and raw directions, f32[n, 3] at a row
+//     stride of 3, or 0 for one row shared by every ray (primary_rays
+//     broadcasts the origin, or an orthographic frame's direction);
+//     trace_ray_full does the setup and the fix-up; hit is one byte, 0 or 1,
+//     the bool tensor the wrapper returns (the *_rays entries).
+struct PreparedRays {
+  const float* start;
+  const float* dir;
+  const int* active;
+  const int* pad;
+  int* flags;
+
+  template <bool MACRO, bool DIAG, class Fetch>
+  VX_HD TraceResult trace(const TraceParams& P, const Fetch& F, int i, int* diag) const {
+    return trace_ray<MACRO, DIAG>(P, F, ldgf(start + 3 * i), ldgf(start + 3 * i + 1),
+                                  ldgf(start + 3 * i + 2), ldgf(dir + 3 * i), ldgf(dir + 3 * i + 1),
+                                  ldgf(dir + 3 * i + 2), ldg(active + i), ldg(pad + 3 * i),
+                                  ldg(pad + 3 * i + 1), ldg(pad + 3 * i + 2), diag);
+  }
+  VX_HD void store_flags(int i, int f) const { flags[i] = f; }
+};
+
+struct OriginRays {
+  const float* origins;
+  int os;  // row stride: 3, or 0
+  const float* rays;
+  int rs;
+  unsigned char* hit;
+
+  template <bool MACRO, bool DIAG, class Fetch>
+  VX_HD TraceResult trace(const TraceParams& P, const Fetch& F, int i, int* diag) const {
+    const float* o = origins + (long long)os * i;
+    const float* v = rays + (long long)rs * i;
+    return trace_ray_full<MACRO, DIAG>(P, F, ldgf(o), ldgf(o + 1), ldgf(o + 2), ldgf(v), ldgf(v + 1),
+                                       ldgf(v + 2), diag);
+  }
+  VX_HD void store_flags(int i, int f) const { hit[i] = (unsigned char)(f & 1); }
+};
+
+// Ray i's position, normal and steps, as every brickmap kernel stores them.
+VX_HD void store_ray(const TraceResult& r, int i, float* pos, float* normal, int* steps) {
+  pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
+  normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
+  steps[i] = r.steps;
 }
 
 }  // namespace vx

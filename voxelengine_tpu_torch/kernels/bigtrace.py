@@ -1,12 +1,16 @@
 """Wrapper of K1, the Hopper line-table traversal kernel (``csrc/bigtrace.cu``).
 
 It replaces ``voxelengine_tpu/ops/pallas_bigtrace.py::_bigtrace_kernel``.
-Its plain versions, which
+:func:`bigtrace_rays` is the frame path's entry: origins and raw
+directions in, the ray setup and the ``hit_imm`` fix-up inside the launch
+(``trace_brickmap_hbm``'s card branch whole); :func:`bigtrace` takes the
+prepared rays of that setup and leaves the fix-up to its caller (the walk
+alone).  Its plain versions, which
 :func:`voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_hbm` runs for rays
 on the CPU, are :func:`voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_lt`
 (the macro walk, and the diag counters) and, with the macro levels off,
 :func:`voxelengine_tpu_torch.ops.trace.trace_brickmap`.  ``launches``
-counts the kernel launches made through :func:`bigtrace`, so a run can show
+counts the kernel launches made through both entries, so a run can show
 that its main path reached the kernel.
 """
 
@@ -92,6 +96,63 @@ def bigtrace(
     build.launch(
         "bigtrace", build.load_kernel("bigtrace").vx_bigtrace,
         start.data_ptr(), d.data_ptr(), active.data_ptr(), pad.data_ptr(),
+        region_lines.data_ptr(), brick_lines.data_ptr(), *mptrs,
+        n, gx, gy, gz, *region_dims, factor, wpb, max_steps, brick_layout.value,
+        3 * max_steps + 64,  # iteration cap (pallas_bigtrace.py:1488)
+        int(use_macro), *(o.data_ptr() for o in outs[:4]), outs[4].data_ptr() if diag else None,
+        dev=dev,
+    )
+    launches += 1
+    return outs
+
+
+def bigtrace_rays(
+    origins: torch.Tensor,
+    rays: torch.Tensor,
+    region_lines: torch.Tensor,
+    brick_lines: torch.Tensor,
+    macro: Optional[torch.Tensor] = None,
+    macro2: Optional[torch.Tensor] = None,
+    *,
+    grid_dims,
+    region_dims,
+    factor: int,
+    wpb: int,
+    max_steps: int,
+    brick_layout: Layout,
+    use_macro: bool = False,
+    diag: bool = False,
+):
+    """``trace_brickmap_hbm`` for N rays on the card in one launch: the ray
+    setup, :func:`bigtrace`'s walk and the ``hit_imm`` fix-up.
+
+    ``origins`` (voxels) and ``rays`` (directions, not necessarily
+    normalized) are ``f32[N, 3]`` whose rows are 3 contiguous floats, or one
+    row broadcast (row stride 0, as ``primary_rays`` gives the origin, or an
+    orthographic frame's direction); anything else is copied first.  Tables
+    as for :func:`bigtrace`.  Returns ``(hit bool[N], position f32[N, 3],
+    normal f32[N, 3], steps i32[N])``, the fields of the
+    :class:`~voxelengine_tpu_torch.ops.trace.TraceOut`, and with ``diag`` a
+    fifth ``i32[11, N]`` as :func:`bigtrace`'s.  Launches on the current
+    stream without synchronising and raises if the launch is refused.
+    """
+    global launches
+    dev = origins.device
+    build.require_cuda("bigtrace_rays", dev)
+    n = origins.shape[0]
+    rows = (*build.ray_rows("bigtrace_rays", "origins", origins, n, dev),
+            *build.ray_rows("bigtrace_rays", "rays", rays, n, dev))
+    mptrs = check_line_table("bigtrace_rays", dev, region_lines, brick_lines, macro, macro2, region_dims, factor,
+                             use_macro)
+    outs = build.ray_outputs(n, dev, torch.bool)
+    if diag:
+        outs += (torch.empty((DIAG_ROWS, n), dtype=torch.int32, device=dev),)
+    if n == 0:
+        return outs
+    gx, gy, gz = grid_dims
+    build.launch(
+        "bigtrace_rays", build.load_kernel("bigtrace").vx_bigtrace_rays,
+        rows[0].data_ptr(), rows[1], rows[2].data_ptr(), rows[3],
         region_lines.data_ptr(), brick_lines.data_ptr(), *mptrs,
         n, gx, gy, gz, *region_dims, factor, wpb, max_steps, brick_layout.value,
         3 * max_steps + 64,  # iteration cap (pallas_bigtrace.py:1488)

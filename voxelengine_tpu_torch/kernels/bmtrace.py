@@ -2,17 +2,24 @@
 table (``csrc/bmtrace.cu``).
 
 :func:`bmtrace` (dense slots) replaces
-``voxelengine_tpu/ops/pallas_trace2.py::_bm_kernel``; its plain version is
+``voxelengine_tpu/ops/pallas_trace2.py::_bm_kernel``; :func:`bmtrace_rays`
+is the same kernel from origins and raw directions, the ray setup and the
+``hit_imm`` fix-up inside the launch (the entry of every path of the
+package; :func:`bmtrace` and :func:`bmtrace_compact`, the prepared-ray
+entries, time the walk alone in ``kernel_ab.py`` and are the other side
+of ``chip_smoke.py``'s rays-entry gates).  Its plain
+version is
 :func:`voxelengine_tpu_torch.ops.trace.trace_brickmap`, which
 :func:`voxelengine_tpu_torch.ops.trace2.trace_brickmap_mxu` runs for rays
-on the CPU.  ``launches`` counts the launches made through :func:`bmtrace`
+on the CPU.  ``launches`` counts the launches made through both
 (both instantiations; ``shared_launches`` those with ``meta`` in shared
 memory).
 
 :func:`bmtrace_compact` is K4's compact instantiation, for compact worlds
 without a line table, with the same plain version; it has no TPU kernel
 (the JAX package walks such a world in XLA, ``voxelengine_tpu/ops/
-trace.py:411,435``).  ``compact_launches`` counts its launches
+trace.py:411,435``).  :func:`bmtrace_compact_rays` is its rays form.
+``compact_launches`` counts the launches of both
 (``compact_shared_launches`` those with ``meta`` in shared memory).
 
 :func:`bmtrace_slab` wraps K4-slab (``csrc/zslab.cu``), K4's loop over one
@@ -42,29 +49,40 @@ def meta_in_shared(num_chunks: int) -> bool:
     return 4 * num_chunks <= SMEM_META_LIMIT
 
 
-def _k4(entry: str, start, d, active, pad, tables, *, grid_dims, factor: int, max_steps: int,
-        coarse_layout: Layout, brick_layout: Layout):
-    """Launch one of K4's table forms: ``entry`` is its launcher, ``tables``
-    its table tensors (checked by the caller).  Returns the outputs and
-    whether ``meta`` went to shared memory, or None where no ray means no
-    launch."""
+def _k4(entry: str, rays, tables, *, grid_dims, factor: int, max_steps: int, coarse_layout: Layout,
+        brick_layout: Layout):
+    """Launch one of K4's entries: ``entry`` is its launcher, ``rays`` its
+    ray arguments (tensors and ints: the prepared rays, or origins and
+    directions with their row strides; an ``*_rays`` entry writes ``hit``
+    as bool), ``tables`` its table tensors (all checked by the caller).
+    Returns the outputs and whether ``meta`` went to shared memory, or None
+    where no ray means no launch."""
     gx, gy, gz = grid_dims
     nc = gx * gy * gz
-    dev = start.device
-    n = start.shape[0]
-    outs = build.ray_outputs(n, dev)
+    dev = rays[0].device
+    n = rays[0].shape[0]
+    outs = build.ray_outputs(n, dev, torch.bool if entry.endswith("_rays") else torch.int32)
     if n == 0:
         return outs, None
     shared = meta_in_shared(nc)
     counter = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launcher on the stream
     build.launch(
         "bmtrace", getattr(build.load_kernel("bmtrace"), entry),
-        start.data_ptr(), d.data_ptr(), active.data_ptr(), pad.data_ptr(), *(t.data_ptr() for t in tables),
+        *(r.data_ptr() if isinstance(r, torch.Tensor) else r for r in rays), *(t.data_ptr() for t in tables),
         n, gx, gy, gz, factor, (factor**3 + 31) // 32, max_steps, coarse_layout.value, brick_layout.value,
         3 * max_steps + 64,  # iteration cap, as K1's: never reached (ops/trace.py)
         int(shared), counter.data_ptr(), *(o.data_ptr() for o in outs), dev=dev,
     )
     return outs, shared
+
+
+def _origin_rays(kernel: str, origins, rays) -> tuple:
+    """``(device, (origins, its row stride, rays, its row stride))`` of a
+    rays entry's inputs (``build.ray_rows``)."""
+    dev = origins.device
+    build.require_cuda(kernel, dev)
+    n = origins.shape[0]
+    return dev, (*build.ray_rows(kernel, "origins", origins, n, dev), *build.ray_rows(kernel, "rays", rays, n, dev))
 
 
 def _check_grid(kernel: str, grid_dims, factor: int, coarse_layout: Layout, brick_words: int) -> None:
@@ -99,8 +117,32 @@ def bmtrace(
     dev = build.check_rays("bmtrace", start, d, active, pad)
     build.check("bmtrace", "meta", meta, torch.int32, (nc,), dev)
     build.check("bmtrace", "bricks", bricks, torch.int32, (nc, wpb), dev)
-    outs, shared = _k4("vx_trace_brickmap_dense", start, d, active, pad, (meta, bricks), grid_dims=grid_dims,
+    outs, shared = _k4("vx_trace_brickmap_dense", (start, d, active, pad), (meta, bricks), grid_dims=grid_dims,
                        factor=factor, max_steps=max_steps, coarse_layout=coarse_layout, brick_layout=brick_layout)
+    if shared is not None:
+        launches += 1
+        shared_launches += shared
+    return outs
+
+
+def bmtrace_rays(
+    origins, rays, meta: torch.Tensor, bricks: torch.Tensor, *,
+    grid_dims, factor: int, max_steps: int, coarse_layout: Layout, brick_layout: Layout,
+):
+    """:func:`bmtrace` from ``origins`` (voxels) and raw directions ``rays``
+    (``f32[N, 3]``, rows of 3 contiguous floats or one broadcast row; see
+    :func:`voxelengine_tpu_torch.kernels.bigtrace.bigtrace_rays`): the ray
+    setup and the ``hit_imm`` fix-up run in the launch.  Returns ``(hit
+    bool[N], position, normal, steps)``, the ``TraceOut`` fields."""
+    global launches, shared_launches
+    nc = math.prod(grid_dims)
+    wpb = (factor**3 + 31) // 32
+    _check_grid("bmtrace_rays", grid_dims, factor, coarse_layout, nc * wpb)
+    dev, rows = _origin_rays("bmtrace_rays", origins, rays)
+    build.check("bmtrace_rays", "meta", meta, torch.int32, (nc,), dev)
+    build.check("bmtrace_rays", "bricks", bricks, torch.int32, (nc, wpb), dev)
+    outs, shared = _k4("vx_trace_brickmap_dense_rays", rows, (meta, bricks), grid_dims=grid_dims, factor=factor,
+                       max_steps=max_steps, coarse_layout=coarse_layout, brick_layout=brick_layout)
     if shared is not None:
         launches += 1
         shared_launches += shared
@@ -126,9 +168,31 @@ def bmtrace_compact(
     build.check("bmtrace_compact", "meta", meta, torch.int32, (nc,), dev)
     build.check("bmtrace_compact", "brick_idx", brick_idx, torch.int32, (nc,), dev)
     build.check("bmtrace_compact", "bricks", bricks, torch.int32, (None, wpb), dev)
-    outs, shared = _k4("vx_trace_brickmap_compact", start, d, active, pad, (meta, brick_idx, bricks),
+    outs, shared = _k4("vx_trace_brickmap_compact", (start, d, active, pad), (meta, brick_idx, bricks),
                        grid_dims=grid_dims, factor=factor, max_steps=max_steps, coarse_layout=coarse_layout,
                        brick_layout=brick_layout)
+    if shared is not None:
+        compact_launches += 1
+        compact_shared_launches += shared
+    return outs
+
+
+def bmtrace_compact_rays(
+    origins, rays, meta: torch.Tensor, brick_idx: torch.Tensor, bricks: torch.Tensor, *,
+    grid_dims, factor: int, max_steps: int, coarse_layout: Layout, brick_layout: Layout,
+):
+    """:func:`bmtrace_compact` from origins and raw directions, as
+    :func:`bmtrace_rays`."""
+    global compact_launches, compact_shared_launches
+    nc = math.prod(grid_dims)
+    wpb = (factor**3 + 31) // 32
+    _check_grid("bmtrace_compact_rays", grid_dims, factor, coarse_layout, bricks.shape[0] * wpb)
+    dev, rows = _origin_rays("bmtrace_compact_rays", origins, rays)
+    build.check("bmtrace_compact_rays", "meta", meta, torch.int32, (nc,), dev)
+    build.check("bmtrace_compact_rays", "brick_idx", brick_idx, torch.int32, (nc,), dev)
+    build.check("bmtrace_compact_rays", "bricks", bricks, torch.int32, (None, wpb), dev)
+    outs, shared = _k4("vx_trace_brickmap_compact_rays", rows, (meta, brick_idx, bricks), grid_dims=grid_dims,
+                       factor=factor, max_steps=max_steps, coarse_layout=coarse_layout, brick_layout=brick_layout)
     if shared is not None:
         compact_launches += 1
         compact_shared_launches += shared

@@ -36,21 +36,26 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 KERNEL_SOURCES = {
     "bigtrace": "bigtrace.cu", "rrtrace": "rrtrace.cu", "gridtrace": "gridtrace.cu", "bmtrace": "bmtrace.cu",
     "terrain": "terrain.cu", "crossings": "crossings.cu", "zslab": "zslab.cu", "camera": "camera.cu",
-    "rays": "rays.cu",
+    "rays": "rays.cu", "shade": "shade.cu",
 }
 # host library name -> source (g++): the kernels' per-ray and per-voxel logic
-HOST_SOURCES = {"dda_host": "dda_host.cpp", "terrain_host": "terrain_host.cpp", "camera_host": "camera_host.cpp"}
+HOST_SOURCES = {"dda_host": "dda_host.cpp", "terrain_host": "terrain_host.cpp", "camera_host": "camera_host.cpp",
+                "shade_host": "shade_host.cpp"}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _RAYS = [_P] * 4  # start, dir, active, pad
 _OUTS = [_P] * 4  # flags (or hit), pos, normal, steps
+_ORIGIN_RAYS = [_P, _I, _P, _I]  # origins, its row stride, raw directions, its row stride
 # C signatures, stream excluded (the host builds take none)
 _LINE_TABLE = [_P] * 4  # region_lines, brick_lines, macro, macro2
 # n, gx, gy, gz, rx, ry, rz, factor, wpb, max_steps, brick_layout, iter_limit, use_macro
 _LINE_TABLE_INTS = [_I] * 13
+_SHADE = [_P] * 5 + [_I, _P, _I] + [_P] * 14 + [_I] * 4 + [_F] * 3 + [_I]
 SIGNATURES = {
     # ... outputs, diag (null, or int32[11, n])
     "vx_bigtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
+    # the same from origins and raw directions; hit (uint8) in place of flags
+    "vx_bigtrace_rays": _ORIGIN_RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
     # ... max_rows, rows, nrows, outputs (the record instantiation of K1's loop)
     "vx_trace_crossings": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P, _P] + _OUTS,
     # ... refill, counter (int32 scratch), stats (null, or uint64[2]), outputs
@@ -65,6 +70,9 @@ SIGNATURES = {
     "vx_trace_brickmap_dense": _RAYS + [_P] * 2 + [_I] * 11 + [_P] + _OUTS,
     # ... meta, brick_idx, bricks; then as vx_trace_brickmap_dense
     "vx_trace_brickmap_compact": _RAYS + [_P] * 3 + [_I] * 11 + [_P] + _OUTS,
+    # both from origins and raw directions; hit (uint8) in place of flags
+    "vx_trace_brickmap_dense_rays": _ORIGIN_RAYS + [_P] * 2 + [_I] * 11 + [_P] + _OUTS,
+    "vx_trace_brickmap_compact_rays": _ORIGIN_RAYS + [_P] * 3 + [_I] * 11 + [_P] + _OUTS,
     # rays (round 0) or null, rows_in (later rounds) or null, meta, bricks;
     # m, gx, gy, gz, z0, slab_gz, factor, wpb, max_steps, brick_layout,
     # iter_limit; counter (int32 scratch), rows_out, status, outputs (K4-slab)
@@ -84,6 +92,14 @@ SIGNATURES = {
     # euler, origin, window, px, py_r; n, W, H, checkerboard, even_frame,
     # ortho; a, b; basis, rows, py
     "vx_rays_pixels": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_P] * 3,
+    # hit, pos, nrm, steps, origins, its row stride, dirs, its row stride,
+    # px, py, py_r, cam, light_dir, light_color, ambient, shadow_hit,
+    # shadow_steps, refl_hit, refl_pos, refl_nrm, refl_dir, ao (each null
+    # where not traced); width, height, view, crosshair; reflectivity,
+    # pos_mod, mod_m; n; color, write
+    "vx_shade": _SHADE + [_P] * 2,
+    # ...; the framebuffer
+    "vx_shade_composite": _SHADE + [_P],
 }
 # host-build entry -> its C signature: the kernel launcher's it mirrors,
 # except K4's two, which have no instantiation flag and no work counter; and the
@@ -96,6 +112,9 @@ HOST_ENTRIES = {
     "vx_trace_grid_limbs_full_host": SIGNATURES["vx_trace_grid_limbs"],
     "vx_trace_brickmap_dense_host": _RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
     "vx_trace_brickmap_compact_host": _RAYS + [_P] * 3 + [_I] * 10 + _OUTS,
+    "vx_bigtrace_rays_host": SIGNATURES["vx_bigtrace_rays"],
+    "vx_trace_brickmap_dense_rays_host": _ORIGIN_RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
+    "vx_trace_brickmap_compact_rays_host": _ORIGIN_RAYS + [_P] * 3 + [_I] * 10 + _OUTS,
     "vx_trace_grid_host": _RAYS + [_P] + [_I] * 6 + _OUTS,
     "vx_trace_grid_limbs_host": _RAYS + [_P, _L] + [_I] * 6 + _OUTS,
     # limbs, plane, words16, out: K3's staging alone
@@ -106,6 +125,8 @@ HOST_ENTRIES = {
     "vx_camera_basis_host": SIGNATURES["vx_camera_basis"],
     "vx_rays_frame_host": SIGNATURES["vx_rays_frame"],
     "vx_rays_pixels_host": SIGNATURES["vx_rays_pixels"],
+    "vx_shade_host": SIGNATURES["vx_shade"],
+    "vx_shade_composite_host": SIGNATURES["vx_shade_composite"],
     # x, n, sin, cos: glibc_sincosf alone
     "vx_sincosf_host": [_P, _I, _P, _P],
 }

@@ -464,8 +464,9 @@ def trace_brickmap_lt(
 
 
 def _kernel_rays(bm: BrickMap, origins, rays):
-    """Ray setup of the line-table kernels: ``(start_c, d, active, pad,
-    start_normal)``, contiguous, on the rays' device."""
+    """Ray setup of the prepared-ray kernels (K5, the record kernel, K1's
+    ``bigtrace`` entry): ``(start_c, d, active, pad, start_normal)``,
+    contiguous, on the rays' device."""
     gdims = _dims(bm.grid_dims, I32, origins.device)
     d, start_c, start_normal, active0 = _ray_setup(bm.grid_dims, bm.factor, origins, rays)
     pad = _edge_pad(start_c.to(I32), gdims, d)
@@ -480,17 +481,23 @@ def _kernel_tables(bm: BrickMap, lt: LineTable, max_steps: int, use_macro: bool)
     return (lt.region_lines, brick_lines, lt.macro, lt.macro2), kw
 
 
+def _is_cuda(t: torch.Tensor) -> bool:
+    """Whether rays on ``t``'s device go to K1 (one place, so a test can
+    route a CPU call as a card call)."""
+    return t.is_cuda
+
+
 def trace_brickmap_k1(bm: BrickMap, lt: LineTable, origins: torch.Tensor, rays: torch.Tensor, max_steps: int,
                       use_macro: bool, diag: bool = False):
-    """One K1 launch (ray setup, kernel, ``hit_imm`` fix-up) whatever the
-    rays' device: :func:`trace_brickmap_hbm`'s card branch.  Returns the
-    :class:`TraceOut`, with ``diag`` also the ``int32[11, N]`` counters."""
+    """One K1 launch whatever the rays' device: :func:`trace_brickmap_hbm`'s
+    card branch, K1's rays entry (the ray setup, the walk and the
+    ``hit_imm`` fix-up in the launch).  Returns the :class:`TraceOut`, with
+    ``diag`` also the ``int32[11, N]`` counters."""
     from voxelengine_tpu_torch.kernels import bigtrace as k1
 
-    start_c, d, active, pad, start_normal = _kernel_rays(bm, origins, rays)
     tables, kw = _kernel_tables(bm, lt, max_steps, use_macro)
-    outs = k1.bigtrace(start_c, d, active, pad, *tables, diag=diag, **kw)
-    res = kernel_result(*outs[:4], start_c, start_normal, bm.factor)
+    outs = k1.bigtrace_rays(origins.to(F32), rays.to(F32), *tables, diag=diag, **kw)
+    res = TraceOut(*outs[:4])
     return (res, outs[4]) if diag else res
 
 
@@ -522,7 +529,7 @@ def trace_brickmap_hbm(
     ``(res, phases)`` or ``(res, iters, phases)``.
     """
     diag = return_iters or return_phases
-    if not origins.is_cuda:
+    if not _is_cuda(origins):
         if use_macro or diag or bm.bricks is None:
             res = trace_brickmap_lt(bm, lt, origins, rays, max_steps, use_macro, diag)
         else:

@@ -21,9 +21,9 @@ import torch
 
 from voxelengine_tpu_torch.config import MAX_STEPS
 from voxelengine_tpu_torch.core.brickmap import BrickMap
-from voxelengine_tpu_torch.ops.trace import TraceOut, _dims, _edge_pad, _ray_setup, kernel_result, trace_brickmap
+from voxelengine_tpu_torch.ops.trace import TraceOut, trace_brickmap
 
-I32 = torch.int32
+F32 = torch.float32
 
 
 def trace_brickmap_mxu(bm: BrickMap, origins: torch.Tensor, rays: torch.Tensor, max_steps: int = MAX_STEPS) -> TraceOut:
@@ -56,19 +56,14 @@ def trace_brickmap_no_table(bm: BrickMap, origins: torch.Tensor, rays: torch.Ten
 
 
 def _trace_brickmap_kernel(bm: BrickMap, origins, rays, max_steps: int) -> TraceOut:
-    """Ray setup, K4 in the instantiation of ``bm``'s form (dense slots, or
-    compact through ``brick_idx``) and the ``hit_imm`` fix-up
-    (``pallas_trace2.py:344-405``)."""
+    """One K4 launch in the instantiation of ``bm``'s form (dense slots, or
+    compact through ``brick_idx``), its rays entry: the ray setup and the
+    ``hit_imm`` fix-up in the launch (``pallas_trace2.py:344-405``)."""
     from voxelengine_tpu_torch.kernels import bmtrace as k4
 
-    f = bm.factor
-    d, start_c, start_normal, active = _ray_setup(bm.grid_dims, f, origins, rays)
-    pad = _edge_pad(start_c.to(I32), _dims(bm.grid_dims, I32, origins.device), d)
-    kw = dict(grid_dims=bm.grid_dims, factor=f, max_steps=max_steps, coarse_layout=bm.coarse_layout,
+    kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=max_steps, coarse_layout=bm.coarse_layout,
               brick_layout=bm.brick_layout)
-    rays_in = (start_c, d, active.to(I32), pad)
+    o, d = origins.to(F32), rays.to(F32)
     if bm.dense_slots:
-        outs = k4.bmtrace(*rays_in, bm.meta, bm.bricks, **kw)
-    else:
-        outs = k4.bmtrace_compact(*rays_in, bm.meta, bm.brick_idx, bm.bricks, **kw)
-    return kernel_result(*outs, start_c, start_normal, f)
+        return TraceOut(*k4.bmtrace_rays(o, d, bm.meta, bm.bricks, **kw))
+    return TraceOut(*k4.bmtrace_compact_rays(o, d, bm.meta, bm.brick_idx, bm.bricks, **kw))

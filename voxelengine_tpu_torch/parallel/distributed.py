@@ -196,7 +196,7 @@ def render_frame_zsharded(
     single-device frame up to its documented steps delta, which only the
     STEPS view shows, and the per-slab budget of budget-cut secondary
     rays."""
-    from voxelengine_tpu_torch.render.frame import composite_frame, primary_rays, shade_traced
+    from voxelengine_tpu_torch.render.frame import primary_rays, shade_and_composite
 
     if zw is not None:
         def trace(o, d, ms):
@@ -208,9 +208,8 @@ def render_frame_zsharded(
     origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number)
     out = trace(origins, dirs, cfg.max_steps)
     needs_secondary = cfg.shadow_rays or cfg.ao_samples > 0 or cfg.reflections
-    color, write = shade_traced(None, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg,
-                                secondary=trace if needs_secondary else None)
-    return composite_frame(framebuffer, color, write, cfg, frame_number)
+    return shade_and_composite(framebuffer, None, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg,
+                               secondary=trace if needs_secondary else None)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,14 @@ ignores those three flags, as the JAX dense path does.
 
 The primary rays of a CUDA frame are one launch of the ray-setup kernel
 (:func:`primary_rays`, ``kernels/rays.py``), the camera basis included;
-the CPU builds them in torch ops (:func:`primary_rays_plain`).
+the CPU builds them in torch ops (:func:`primary_rays_plain`).  Its
+shading is one launch of the shading kernel (``kernels/shade.py``): its
+composite entry writes the framebuffer (:func:`shade_and_composite`), its
+other entry gives ``(color, write)`` (:func:`shade_traced`); the CPU runs
+:func:`shade_traced_plain` and :func:`composite_frame`.  The shadow,
+reflection and AO traces, and the rays they trace, stay eager
+(:func:`_secondary_inputs`).  A primary-only frame with a line table is
+three CUDA kernels: the ray kernel, K1's rays entry and the shading kernel.
 
 Where the rays go: with a line table, through
 :func:`~voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_hbm` (K1 for CUDA
@@ -43,6 +50,7 @@ from voxelengine_tpu_torch.core.bitgrid import BitGrid
 from voxelengine_tpu_torch.core.brickmap import BrickMap
 from voxelengine_tpu_torch.core.exact import dot3, fdiv, sqrt_rn
 from voxelengine_tpu_torch.kernels import rays as rays_kernel
+from voxelengine_tpu_torch.kernels import shade as shade_kernel
 from voxelengine_tpu_torch.ops.bigtrace import LineTable, trace_brickmap_hbm, trace_brickmap_hbm_staged
 from voxelengine_tpu_torch.ops.gridtrace import trace_grid_vpu
 from voxelengine_tpu_torch.ops.noise import random_float
@@ -282,6 +290,37 @@ def _ambient_occlusion(trace, position, normal, px, py, frame_number: int, cfg: 
     return fdiv(occ, float(cfg.ao_samples))
 
 
+def _secondary_inputs(bm: Optional[BrickMap], lt: Optional[LineTable], out: TraceOut, dirs, px, py,
+                      env: Environment, frame_number: int, cfg: RenderConfig, secondary=None):
+    """The shading's secondary traces, in eager torch on either device:
+    ``(shadow, reflection, ao)``, ``shadow = (hit, steps)`` of the shadow
+    rays, ``reflection = (hit, position, normal, direction)`` of the mirror
+    bounce, ``ao`` the AO factor (``f32[N]``), each None where the frame
+    traces none (see :func:`shade_traced`)."""
+    shaded = cfg.debug_view is DebugView.SHADED
+    wanted = cfg.shadow_rays or (shaded and (cfg.reflections or cfg.ao_samples > 0))
+    if not wanted or (bm is None and secondary is None):
+        return None, None, None  # no launch: a primary frame's shading reads the trace alone
+
+    def trace(o, d, max_steps):
+        return secondary(o, d, max_steps) if secondary is not None else _secondary_trace(bm, lt, cfg, o, d, max_steps)
+
+    normal = -out.normal  # Renderer.cu:212
+    shadow = reflection = ao = None
+    if cfg.shadow_rays:
+        L = env.light_direction
+        sres = trace(out.position + L * 0.01, L.expand_as(normal), cfg.max_steps)
+        shadow = (sres.hit, sres.steps)
+    if shaded:
+        if cfg.reflections:
+            rdir = reflect(dirs, normal)
+            rres = trace(out.position + normal * 0.01, rdir, cfg.max_steps)
+            reflection = (rres.hit, rres.position, rres.normal, rdir)
+        if cfg.ao_samples > 0:
+            ao = _ambient_occlusion(trace, out.position, normal, px, py, frame_number, cfg)
+    return shadow, reflection, ao
+
+
 def shade_traced(
     bm: Optional[BrickMap], out: TraceOut, origins, dirs, px, py, py_r, origin, env: Environment,
     frame_number: int, cfg: RenderConfig, lt: Optional[LineTable] = None, secondary=None,
@@ -291,22 +330,33 @@ def shade_traced(
     reflection and AO rays trace; ``secondary`` optionally replaces their
     trace with a ``(origins, dirs, max_steps) -> TraceOut`` of the caller's
     (a distributed world's tracer).  With neither (the dense path) the
-    three flags are ignored, as in JAX."""
+    three flags are ignored, as in JAX.  On the card, after the eager
+    secondary traces, one launch of the shading kernel; on the CPU
+    :func:`shade_traced_plain`."""
+    if not _is_cuda(out.position):
+        return shade_traced_plain(bm, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt,
+                                  secondary)
+    shadow, reflection, ao = _secondary_inputs(bm, lt, out, dirs, px, py, env, frame_number, cfg, secondary)
+    return shade_kernel.shade(out, origins, dirs, px, py, py_r, origin.to(F32), env, cfg, shadow=shadow,
+                              reflection=reflection, ao=ao)
+
+
+def shade_traced_plain(
+    bm: Optional[BrickMap], out: TraceOut, origins, dirs, px, py, py_r, origin, env: Environment,
+    frame_number: int, cfg: RenderConfig, lt: Optional[LineTable] = None, secondary=None,
+):
+    """:func:`shade_traced` in eager torch ops: the shading kernel's plain
+    version, which the CPU runs."""
+    shadow, reflection, ao = _secondary_inputs(bm, lt, out, dirs, px, py, env, frame_number, cfg, secondary)
     W, H = cfg.width, cfg.height
     view = cfg.debug_view
     normal = -out.normal  # Renderer.cu:212
     steps = out.steps
-    can_trace = bm is not None or secondary is not None
-
-    def trace(o, d, max_steps):
-        return secondary(o, d, max_steps) if secondary is not None else _secondary_trace(bm, lt, cfg, o, d, max_steps)
 
     shadow_hit = None
-    if cfg.shadow_rays and can_trace:
-        L = env.light_direction
-        sres = trace(out.position + L * 0.01, L.expand_as(normal), cfg.max_steps)
-        shadow_hit = sres.hit & out.hit
-        steps = steps + torch.where(out.hit, sres.steps, 0)
+    if shadow is not None:
+        shadow_hit = shadow[0] & out.hit
+        steps = steps + torch.where(out.hit, shadow[1], 0)
 
     zero = torch.zeros_like(out.steps, dtype=F32)
     if view in (DebugView.DEBUG, DebugView.DEPTH):
@@ -316,18 +366,16 @@ def shade_traced(
     write = torch.ones_like(out.hit)
     if view is DebugView.SHADED:
         color = calculate_color(origin.to(F32), normal, out.position, env, shadow_hit)
-        if cfg.reflections and can_trace:
+        if reflection is not None:
             # one mirror bounce shaded like a primary hit (its miss: the raw
             # reflected direction), lerped in by reflectivity
-            rdir = reflect(dirs, normal)
+            rhit, rpos, rnrm, rdir = reflection
             ro = out.position + normal * 0.01
-            rres = trace(ro, rdir, cfg.max_steps)
-            rcol = calculate_color(ro, -rres.normal, rres.position, env, None)
-            rcol = torch.where(rres.hit[:, None], rcol, rdir)
+            rcol = calculate_color(ro, -rnrm, rpos, env, None)
+            rcol = torch.where(rhit[:, None], rcol, rdir)
             color = color + (rcol - color) * cfg.reflectivity
-        if cfg.ao_samples > 0 and can_trace:
+        if ao is not None:
             l_dot = torch.clamp_min(dot3(normal, env.light_direction), 0.0)
-            ao = _ambient_occlusion(trace, out.position, normal, px, py, frame_number, cfg)
             color = torch.where((l_dot == 0.0)[:, None], color * ao[:, None], color)
         color = tonemap(color)
     elif view is DebugView.DEBUG:
@@ -359,6 +407,25 @@ def shade_traced(
     return torch.clamp(color, 0.0, 1.0), write  # setPixelColor clamp (Renderer.cu:79-81)
 
 
+def shade_and_composite(
+    framebuffer: torch.Tensor, bm: Optional[BrickMap], out: TraceOut, origins, dirs, px, py, py_r, origin,
+    env: Environment, frame_number: int, cfg: RenderConfig, lt: Optional[LineTable] = None, secondary=None,
+    block_perm=None,
+) -> torch.Tensor:
+    """:func:`shade_traced` then :func:`composite_frame`, in place; returns
+    the framebuffer.  On the card, after the eager secondary traces, one
+    launch of the shading kernel's composite entry, which writes each
+    written ray's pixel at ``(px, py)`` (the rays' pixels already hold the
+    tile order and ``block_perm``); on the CPU the plain versions."""
+    if not _is_cuda(out.position):
+        color, write = shade_traced_plain(bm, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt,
+                                          secondary)
+        return composite_frame(framebuffer, color, write, cfg, frame_number, block_perm)
+    shadow, reflection, ao = _secondary_inputs(bm, lt, out, dirs, px, py, env, frame_number, cfg, secondary)
+    return shade_kernel.shade_composite(framebuffer, out, origins, dirs, px, py, py_r, origin.to(F32), env, cfg,
+                                        shadow=shadow, reflection=reflection, ao=ao)
+
+
 def _mod(a: torch.Tensor, m: float) -> torch.Tensor:
     """``jnp.mod(a, m)`` for ``m > 0``: the truncated remainder, moved into
     ``[0, m)`` when negative, as XLA computes it (``torch.remainder``
@@ -378,24 +445,28 @@ def probe_use_macro(bm: BrickMap, lt: LineTable, origins, dirs, cfg: RenderConfi
     return int(ph["mskip"].sum()) != 0
 
 
+def trace_primary(bm: BrickMap, origins, dirs, cfg: RenderConfig, lt: Optional[LineTable] = None) -> TraceOut:
+    """The frame's primary trace: with ``lt`` through the line-table
+    traversal (K1 for CUDA tensors; with ``cfg.trace_stage_steps``, the
+    staged trace), with the macro skip levels when ``cfg.trace_use_macro``;
+    otherwise through ``trace_brickmap_no_table`` (K4 for CUDA rays)."""
+    if lt is not None and cfg.trace_stage_steps:
+        return trace_brickmap_hbm_staged(
+            bm, lt, origins, dirs, cfg.max_steps, stage_steps=cfg.trace_stage_steps,
+            tail_frac=cfg.trace_tail_frac, use_macro=cfg.trace_use_macro,
+        )
+    if lt is not None:
+        return trace_brickmap_hbm(bm, lt, origins, dirs, cfg.max_steps, use_macro=cfg.trace_use_macro)
+    return trace_brickmap_no_table(bm, origins, dirs, cfg.max_steps)
+
+
 def shade_pixels(
     bm: BrickMap, origins, dirs, px, py, py_r, origin, env: Environment, frame_number: int, cfg: RenderConfig,
     lt: Optional[LineTable] = None,
 ):
-    """Trace + shade a flat pixel batch; returns ``(color [N,3], write [N])``.
-    With ``lt`` the rays go through the line-table traversal (K1 for CUDA
-    tensors; with ``cfg.trace_stage_steps``, the staged trace), with the
-    macro skip levels when ``cfg.trace_use_macro``; otherwise through
-    ``trace_brickmap_no_table`` (K4 for CUDA rays)."""
-    if lt is not None and cfg.trace_stage_steps:
-        out = trace_brickmap_hbm_staged(
-            bm, lt, origins, dirs, cfg.max_steps, stage_steps=cfg.trace_stage_steps,
-            tail_frac=cfg.trace_tail_frac, use_macro=cfg.trace_use_macro,
-        )
-    elif lt is not None:
-        out = trace_brickmap_hbm(bm, lt, origins, dirs, cfg.max_steps, use_macro=cfg.trace_use_macro)
-    else:
-        out = trace_brickmap_no_table(bm, origins, dirs, cfg.max_steps)
+    """Trace (:func:`trace_primary`) + shade (:func:`shade_traced`) a flat
+    pixel batch; returns ``(color [N,3], write [N])``."""
+    out = trace_primary(bm, origins, dirs, cfg, lt)
     return shade_traced(bm, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt)
 
 
@@ -413,12 +484,13 @@ def render_frame(
 ) -> torch.Tensor:
     """Render one frame into the persistent framebuffer (RGB f32 in [0,1]),
     updating it in place; returns it.  ``lt`` selects the line-table
-    traversal (see :func:`shade_pixels`); ``block_perm`` reorders the pixel
+    traversal (see :func:`trace_primary`); ``block_perm`` reorders the pixel
     blocks (:func:`block_permutation_from_steps`), which changes no pixel;
     ``ortho_size`` is the orthographic window as a tensor."""
     origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number, block_perm, ortho_size)
-    color, write = shade_pixels(bm, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt)
-    return composite_frame(framebuffer, color, write, cfg, frame_number, block_perm)
+    out = trace_primary(bm, origins, dirs, cfg, lt)
+    return shade_and_composite(framebuffer, bm, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt,
+                               block_perm=block_perm)
 
 
 def render_frame_dense(
@@ -439,8 +511,7 @@ def render_frame_dense(
     path (``voxelengine_tpu/render/frame.py:541-542``)."""
     origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number, ortho_size=ortho_size)
     out = trace_grid_vpu(grid, origins, dirs, cfg.max_steps)
-    color, write = shade_traced(None, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg)
-    return composite_frame(framebuffer, color, write, cfg, frame_number)
+    return shade_and_composite(framebuffer, None, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg)
 
 
 def to_bgra8(fb: torch.Tensor) -> torch.Tensor:
