@@ -71,9 +71,13 @@ Phases, one stdout line each (plus the kernels' build logs):
    (``build_brickmap_terrain``), its ``compact_brickmap`` against
    ``build_brickmap_terrain_compact``; ``VoxelRaytracer3D(line_table=True)``
    and ``Graphics(1280, 720, tile_order, shadows, AO 4, reflections)``: a
-   warm-up plus 8 ``render_screen`` frames (K1 7 times a frame); on the next
-   frame each trace batch (primary, shadow, reflection, 4 AO) through K1
-   against its plain version on all rays and on the primary hits, the frame
+   warm-up plus 8 ``render_screen`` frames (K1 4 times a frame: its rays
+   entry and its secondary entry once a kind); on the next frame each
+   trace batch (primary, shadow, reflection, 4 AO, the secondary rays built
+   eagerly) through K1's rays entry against its plain version on all rays
+   and on the primary hits, each secondary entry against its plain version
+   (those batches' rays and plain walks), the launch gate (a frame exactly
+   6 CUDA kernels), the frame
    against the same frame through plain traces, each debug view, a block
    permutation, a 1280x719 frame and an orthographic zoom; 64 edits through
    ``edit_voxels`` (a crosshair break and place, 62 random) against
@@ -173,7 +177,14 @@ Phases, one stdout line each (plus the kernels' build logs):
    phase 5; the dense frame (and its launch gate, 3 CUDA kernels) in phase
    8; the app frame with shadows, AO 4 and reflections in phase 11; K4's
    and K4-compact's rays entries against their prepared entries on the
-   random rays in phase 9.
+   random rays in phase 9;
+19. the shaded bench frame (shadows, AO 4, reflections; phase 5's cache)
+   through the secondary entries of K1 (the line table), K4-compact (no
+   line table) and K4 (the world with dense slots): a warm-up plus 8
+   chained frames each, the launch gate (a frame exactly 6 CUDA kernels:
+   the ray kernel, the rays entry, three secondary entries, the shading
+   kernel), each entry against its plain version on every ray of the next
+   frame's plain primary trace (0 word diffs), its time and bound.
 
 Each kernel's path (the bench world's frames for K1, the ray kernel and
 the shading kernel,
@@ -187,7 +198,8 @@ batch, its TILED_LINEAR world's ``raytrace`` and frame for K4; the 2D demo for
 K1 on a 2D world, one ``trace_grid_2d`` call for K2 on it, one
 ``trace_ray_crossings`` for the record kernel; in phase 13 each sharded
 entry for K1 and the migration traces for K4-slab, counted in every rank;
-the harness's ``xla`` run on the bench world for K4-compact)
+the harness's ``xla`` run on the bench world for K4-compact; phase 19's
+shaded bench frames for each secondary entry)
 runs
 with the launch counts set to 0 just before it and read just after;
 launches made to compare or time a kernel are not counted.  Then the run's
@@ -1163,28 +1175,75 @@ def rays_entry_gate(what, got, want, got_diag=None, want_diag=None):
 
 
 def launch_gate(what, fn, kernels):
-    """Exactly one launch of each of ``kernels`` (name fragments) a call of
-    ``fn`` and nothing else, by ``torch.profiler`` over :data:`FRAMES`
-    calls.  The profiler can drop events, so a profile with too few of
-    them is taken again, up to 3 times; another kernel fails at once.
-    Returns the kernel names of one call and its device ms."""
+    """Exactly one launch of each of ``kernels`` (name fragments; a fragment
+    given k times: k launches) a call of ``fn`` and nothing else, by
+    ``torch.profiler`` over :data:`FRAMES` calls.  The profiler can drop
+    events, so a profile with too few of them is taken again, up to 3
+    times; another kernel fails at once.  Returns the kernel names of one
+    call and its device ms."""
     from voxelengine_tpu_torch.utils.profiling import kernel_profile
 
+    wanted = {k: kernels.count(k) for k in kernels}
     attempts = []
     for _ in range(3):
         names, ms = kernel_profile(fn, FRAMES)
         names, ms = names or [], ms or []
-        others = sorted({n for n in names if not any(k in n for k in kernels)})
-        counts = [sum(k in n for n in names) for k in kernels]
+        others = sorted({n for n in names if not any(k in n for k in wanted)})
+        counts = [sum(k in n for n in names) for k in wanted]
         attempts.append(counts)
         if others:
             raise SystemExit(f"{what}: other CUDA kernels than {kernels} ran: {others}")
-        if counts == [FRAMES] * len(kernels):
+        if counts == [FRAMES * c for c in wanted.values()]:
             per = [n for n in names[:len(kernels)]]
             say(f"{what}: {len(names) / FRAMES} CUDA kernels a call ({', '.join(kernels)}: {counts} in {FRAMES} "
                 f"calls), {sum(ms) / FRAMES:.5f} ms of device time a call (torch.profiler); attempts {attempts}")
             return per, [sum(ms) / FRAMES]
-    raise SystemExit(f"{what}: not exactly one launch each of {kernels} a call: {attempts} in {FRAMES} calls")
+    raise SystemExit(f"{what}: not exactly {list(wanted.values())} launches of {list(wanted)} a call: {attempts} in "
+                     f"{FRAMES} calls")
+
+
+# a shaded frame's kernels (shadows, AO, reflections): the ray kernel, K1's or
+# K4's rays entry, the three secondary entries, the shading kernel
+SHADED_FRAME_KERNELS = ("rays_kernel", "OriginRays", "SecondaryRays", "SecondaryRays", "SecondaryRays",
+                        "shade_kernel")
+
+
+def secondary_bytes(kind, dirs) -> float:
+    """Bytes a secondary entry must move a ray besides its walks' tables
+    (``csrc/secondary.cuh``): the primary position (12 B), the normal (12
+    B) where the kind reads it, the reflection's direction (12 B a ray, or
+    one shared row), AO's pixel (``px``, ``py``: 16 B); out the shadow's
+    hit and steps (5 B), the reflection's hit, position and normal (25 B),
+    the AO factor (4 B).  The light's 12 B, read once, are left out."""
+    if kind == "shadow":
+        return 12 + 5
+    if kind == "reflection":
+        return 24 + data_bytes(dirs) / dirs.shape[0] + 25
+    return 24 + 16 + 4
+
+
+def recording(walk, log):
+    """``walk(o, d, max_steps)`` that also appends each result to ``log``."""
+    def run(o, d, ms):
+        res = walk(o, d, ms)
+        log.append(res)
+        return res
+    return run
+
+
+def walk_work(results, world_dims, layout, factor, wpb):
+    """``(steps, table bytes)`` of a kind's walks (``results``, its
+    TraceOuts): the sum of their steps and of :func:`hit_table_bytes`."""
+    return (sum(int(r.steps.sum()) for r in results),
+            sum(hit_table_bytes(r, world_dims, layout, factor, wpb) for r in results))
+
+
+def secondary_diffs(got, want) -> dict:
+    """Word diffs of a secondary entry's results against its plain
+    version's (``(hit, steps)``, ``(hit, position, normal)`` or the AO
+    factor)."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    return {f"out{k}": word_diffs(g, w) for k, (g, w) in enumerate(zip(got, want))}
 
 
 def demo_shade_gates(bm, lt, cfg, origin, euler, env):
@@ -1811,10 +1870,13 @@ def phase_app_frame(dev):
     from voxelengine_tpu_torch.engine import raytracer
     from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, terrain
     from voxelengine_tpu_torch.ops.bigtrace import brick_lines_view, make_line_table, trace_brickmap_hbm, trace_brickmap_lt
-    from voxelengine_tpu_torch.utils.profiling import kernel_profile
     from voxelengine_tpu_torch.ops.trace import TraceOut, trace_brickmap
     from voxelengine_tpu_torch.render.camera import get_directions_np
-    from voxelengine_tpu_torch.render.frame import block_permutation_from_steps, make_framebuffer, render_frame
+    from voxelengine_tpu_torch.ops.bigtrace import trace_secondary_hbm
+    from voxelengine_tpu_torch.ops.secondary import frame_kinds, secondary_plain
+    from voxelengine_tpu_torch.render.frame import (
+        block_permutation_from_steps, make_framebuffer, primary_rays, render_frame,
+    )
     from voxelengine_tpu_torch.render.graphics import Graphics
 
     card = card_line()
@@ -1852,7 +1914,8 @@ def phase_app_frame(dev):
     env = g.environment
     origin = np.array([dims[0] / 2, APP_CAMERA_Y, dims[2] / 2], np.float32)  # the main path's camera
     euler = np.array([-0.25, 0.75, 0.0], np.float32)
-    per_frame = 3 + cfg.ao_samples  # primary, shadow, reflection, AO
+    per_frame = 1 + len(frame_kinds(cfg))  # the primary, then one secondary launch a kind
+    batches_per_frame = 3 + cfg.ao_samples  # the walks: primary, shadow, reflection, AO's samples
 
     bigtrace.launches = 0  # the app frames' launches only
     g.render_screen(rt, origin, euler)  # warm-up, frame 0
@@ -1888,10 +1951,15 @@ def phase_app_frame(dev):
     primary_hit = batches[0][4].hit
     k1_total = {"rays": 0, "steps": 0, "events": 0, "table": 0, "ms": 0.0, "plain_ms": 0.0, "ray_bytes": 0.0}
     plain_primary = None
+    plain_batches = []  # the secondary batches' plain walks, in order
     for kind, o, d, ms, res in batches:
         want, p_ms = events_ms(lambda: plain(bm, o, d, ms))
         if kind == "primary":
             plain_primary = want
+            primary_ms = cuda_ms(k1_rays_call(bm, lt, o, d, ms, cfg.trace_use_macro), repeats=10)
+            primary_bytes = o.shape[0] * grid_ray_bytes(o, d)
+        else:
+            plain_batches.append(want)
         every, hits = full_diffs(res, want), full_diffs(res, want, primary_hit)
         k_ms = cuda_ms(k1_rays_call(bm, lt, o, d, ms, cfg.trace_use_macro), repeats=10)
         _, ph = trace_brickmap_hbm(bm, lt, o, d, ms, use_macro=cfg.trace_use_macro, return_phases=True)
@@ -1910,13 +1978,39 @@ def phase_app_frame(dev):
         if any(every):
             raise SystemExit(f"app frame: K1 disagrees with its plain version on the {kind} batch")
 
+    # each secondary entry (K1, macro as the frame) against its plain
+    # version: the eager rays of the batches above and their plain walks,
+    # replayed in order (the rays checked equal to the batches')
+    o, d, px, py, _ = primary_rays(cfg, origin_t, euler_t, fn)
+    out = batches[0][4]
+    walks = iter(batches[1:])
+    plain_walks = iter(plain_batches)
+
+    def replay(o_, d_, ms_):
+        _, bo, bd, bms, _ = next(walks)
+        if bms != ms_ or word_diffs(o_, bo) or word_diffs(d_, bd.expand_as(d_)):
+            raise SystemExit("app frame: the plain secondary rays differ from the frame's batches")
+        return next(plain_walks)
+
+    entry_ms, entry_bytes = {}, 0.0
+    for kind in frame_kinds(cfg):
+        got = trace_secondary_hbm(bm, lt, kind, out, d, px, py, env, fn, cfg)
+        want = secondary_plain(kind, replay, out, d, px, py, env, fn, cfg)
+        diffs = secondary_diffs(got, want)
+        entry_ms[kind] = cuda_ms(lambda k=kind: trace_secondary_hbm(bm, lt, k, out, d, px, py, env, fn, cfg),
+                                 repeats=10)
+        entry_bytes += o.shape[0] * secondary_bytes(kind, d)
+        say(f"app frame: K1's secondary entry, {kind} ({o.shape[0]} rays), vs its plain version (the eager rays, "
+            f"the plain macro walk; tolerance: equal words): diffs {json.dumps(diffs)}; {entry_ms[kind]:.4f} ms "
+            f"(CUDA events over 10 calls), on {card}")
+        if any(diffs.values()):
+            raise SystemExit(f"app frame: K1's secondary entry disagrees with its plain version ({kind})")
+
     n_next = [FRAMES + 1]  # the frame number g renders next
     primary_cache = {fn % 2: plain_primary}  # plain primaries of the gate camera, by frame parity
 
     def cached_primary(f):
         if f % 2 not in primary_cache:
-            from voxelengine_tpu_torch.render.frame import primary_rays
-
             po, pd, _, _, _ = primary_rays(cfg, origin_t, euler_t, f)
             primary_cache[f % 2] = plain(bm, po, pd, cfg.max_steps)
         return primary_cache[f % 2]
@@ -1998,10 +2092,8 @@ def phase_app_frame(dev):
         raise SystemExit("app frame: the edited world or its line table differs from a rebuild")
     del ref, before
     gfx_gate("frame after the edits through K1", reuse_primary=False)
-    frame_kernels, frame_dev = kernel_profile(lambda: g.render_screen(rt, origin, e_gate))
-    if frame_kernels:
-        say(f"app frame: one render_screen frame launches {len(frame_kernels)} CUDA kernels, "
-            f"{sum(frame_dev):.3f} ms of device time (torch.profiler), on {card}")
+    frame_kernels, frame_dev = launch_gate("app frame: one render_screen frame (shadows, AO, reflections)",
+                                           lambda: g.render_screen(rt, origin, e_gate), SHADED_FRAME_KERNELS)
 
     def edit_ms(pts_, vals):  # the same edits again: the world does not change
         args = tuple(torch.from_numpy(pts_[:, i].copy()).to(dev) for i in range(3)) + (torch.from_numpy(vals).to(dev),)
@@ -2074,12 +2166,15 @@ def phase_app_frame(dev):
         int(k4_out.steps.sum()), ray_bytes=grid_ray_bytes(o2, d2), raytrace_ms=call2_ms,
     )
 
+    # K1 a frame: its rays entry and its secondary entries (the walks'
+    # work as the batches count it; the bytes the entries move)
     k1_frame = kernel_entry(
         "bigtrace_app_frame", "bigtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1348", frame_launches, 0.0,
-        k1_total["ms"], k1_total["plain_ms"], k1_total["rays"], k1_total["table"], k1_total["steps"],
-        k1_total["events"] if cfg.trace_use_macro else None, ray_bytes=k1_total["ray_bytes"] / k1_total["rays"],
-        batches_per_frame=per_frame, frame_ms=frame_ms,
-        kernels_per_frame=frame_kernels and len(frame_kernels), frame_device_ms=frame_dev and sum(frame_dev),
+        primary_ms + sum(entry_ms.values()), k1_total["plain_ms"], k1_total["rays"], k1_total["table"],
+        k1_total["steps"], k1_total["events"] if cfg.trace_use_macro else None,
+        ray_bytes=(primary_bytes + entry_bytes) / k1_total["rays"], launches_per_frame=per_frame,
+        batches_per_frame=batches_per_frame, frame_ms=frame_ms, entry_ms=entry_ms, primary_ms=primary_ms,
+        rays_entry_batch_ms=k1_total["ms"], kernels_per_frame=len(frame_kernels), frame_device_ms=frame_dev[0],
         edit_ms_k1=e1_ms, edit_ms_k64=e64_ms,
     )
     return [k1_frame, k1_raytrace, k4_raytrace]
@@ -3246,6 +3341,26 @@ def ray_setup_record(dev, launches, compared, err):
 SHADE_OPS, SHADE_MISS_OPS = 80, 6
 
 
+def framebuffer_sector_bytes(cfg, px, py, write) -> int:
+    """Bytes the card's memory moves to write a frame's pixels into the
+    framebuffer (``f32[H, W, 3]``): each 32-byte sector the written pixels
+    touch is written, and one they fill only in part is read first, since
+    the memory takes whole sectors.  A checkerboard frame writes every
+    other pixel of a row, so nearly every sector is read and written."""
+    import torch
+
+    keep = write & (py < cfg.height)
+    off = 12 * (py[keep] * cfg.width + px[keep])
+    first = off // 32
+    in_first = torch.clamp(32 - off % 32, max=12)
+    sectors = torch.cat([first, first[in_first < 12] + 1])
+    filled = torch.cat([in_first, 12 - in_first[in_first < 12]])
+    per = torch.zeros(int(sectors.max()) + 1 if sectors.numel() else 1, dtype=torch.int64, device=px.device)
+    per.index_add_(0, sectors, filled)
+    touched, full = int((per > 0).sum()), int((per == 32).sum())
+    return 32 * (2 * (touched - full) + full)
+
+
 def shade_bytes(cfg, out, o, d, px, py, write, shadow=False):
     """Bytes the shading and composite of a primary frame must move, for
     its bound: each ray's hit (1 B) and pixel (``px``, ``py``: 8 B each);
@@ -3254,7 +3369,10 @@ def shade_bytes(cfg, out, o, d, px, py, write, shadow=False):
     STEPS or DEBUG view or a shadow trace reads them; the hits' origins in
     the DEBUG and DEPTH views (one row where broadcast); the pre-remap row
     (8 B) of the rays in the crosshair's column; the camera position and
-    the environment's three vectors (48 B); 12 B a written pixel."""
+    the environment's three vectors (48 B); the framebuffer's sectors that
+    the written pixels touch (:func:`framebuffer_sector_bytes`; 12 B a
+    written pixel until PR 15's run showed the partly written sectors'
+    reads)."""
     from voxelengine_tpu_torch.config import DebugView
 
     n, hits = out.hit.shape[0], int(out.hit.sum())
@@ -3266,7 +3384,7 @@ def shade_bytes(cfg, out, o, d, px, py, write, shadow=False):
         b += 12 if o.stride(0) == 0 else 12 * hits
     if cfg.crosshair:
         b += 8 * int((px == cfg.width // 2).sum())
-    return b + 12 * int((write & (py < cfg.height)).sum())
+    return b + framebuffer_sector_bytes(cfg, px, py, write)
 
 
 def phase_frame_kernels(dev, cache, launches):
@@ -3284,7 +3402,8 @@ def phase_frame_kernels(dev, cache, launches):
     from voxelengine_tpu_torch.parallel import sharded
     from voxelengine_tpu_torch.parallel.mesh import Mesh
     from voxelengine_tpu_torch.render.frame import (
-        composite_frame, make_framebuffer, primary_rays, render_frame, shade_and_composite, shade_traced_plain,
+        composite_frame, make_framebuffer, primary_rays, render_frame, shade_and_composite, shade_traced,
+        shade_traced_plain,
     )
 
     card = card_line()
@@ -3338,6 +3457,10 @@ def phase_frame_kernels(dev, cache, launches):
     args = (bm, out, o, d, px, py, py_r, origin, env, 1, cfg, lt)
     _, dev_ms = launch_gate("frame kernels: the shading of the bench frame (shade_and_composite)",
                             lambda: shade_and_composite(fb, *args), ("shade_kernel",))
+    # its shade entry (color and write, contiguous) on the same rays: the
+    # composite's scattered pixel writes are what it leaves out
+    _, entry_dev = launch_gate("frame kernels: the shading of the bench frame, shade entry (shade_traced)",
+                               lambda: shade_traced(*args), ("shade_kernel",))
     k_ms = cuda_ms(lambda: shade_and_composite(fb, *args), repeats=100)
     p_ms = cuda_ms(lambda: composite_frame(fb, *shade_traced_plain(*args), cfg, 1), repeats=10)
     _, write = shade_traced_plain(*args)
@@ -3347,10 +3470,14 @@ def phase_frame_kernels(dev, cache, launches):
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     hits = int(out.hit.sum())
     ops_ms = (hits * SHADE_OPS + (n - hits) * SHADE_MISS_OPS) / issue_rates()["issue"] * 1e3
+    pixel_bytes = 12 * written  # the pixels alone, the bound's count until PR 15
     say(f"frame kernels: shading kernel on the bench frame ({n} rays, {written} pixels written): composite entry "
-        f"{k_ms:.5f} ms a call (CUDA events over 100 calls), {dev_ms[0]:.5f} ms of device time (torch.profiler); "
+        f"{k_ms:.5f} ms a call (CUDA events over 100 calls), {dev_ms[0]:.5f} ms of device time (torch.profiler; "
+        f"the shade entry {entry_dev[0]:.5f}); "
         f"plain shade_traced_plain + composite_frame {p_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.5f} ms (bytes "
-        f"{bytes_ms:.5f}: {bytes_ / n:.1f} B a ray; operations {ops_ms:.5f}); the primary frame {frame_dev[0]:.5f} "
+        f"{bytes_ms:.5f}: {bytes_ / n:.1f} B a ray, of which the framebuffer's sectors "
+        f"{framebuffer_sector_bytes(cfg, px, py, write)} B, its pixels alone {pixel_bytes} B; operations "
+        f"{ops_ms:.5f}); the primary frame {frame_dev[0]:.5f} "
         f"ms of device time; gates: {SHADE_GATES['frames']} frames, {SHADE_GATES['rays']} rays, 0 diffs; main-path "
         f"launches {launches}, on {card}")
     return {
@@ -3360,10 +3487,143 @@ def phase_frame_kernels(dev, cache, launches):
         "launches": launches, "max_abs_err": SHADE_GATES["err"], "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,  # no PyTorch call shades a frame
-        "device_ms": dev_ms[0], "rays": n, "hits": hits, "pixels_written": written, "bytes": bytes_,
+        "device_ms": dev_ms[0], "shade_entry_device_ms": entry_dev[0], "rays": n, "hits": hits,
+        "pixels_written": written, "bytes": bytes_, "framebuffer_sector_bytes": framebuffer_sector_bytes(cfg, px, py, write),
         "frame_device_ms": frame_dev[0],
         "gate_frames": SHADE_GATES["frames"], "gate_rays": SHADE_GATES["rays"],
     }
+
+
+def dense_slot_form(bm):
+    """``bm`` (compact) with dense slots: each chunk's brick at its own
+    index, empty chunks' words 0 (``build_brickmap``'s form), on its
+    device."""
+    import dataclasses
+
+    import torch
+
+    nc, dev = bm.num_chunks, bm.meta.device
+    slots = bm.brick_idx.long()
+    occ = slots >= 0
+    bricks = torch.zeros((nc, bm.words_per_brick), dtype=torch.int32, device=dev)
+    bricks[occ] = bm.bricks[slots[occ]]
+    return dataclasses.replace(bm, brick_idx=torch.arange(nc, dtype=torch.int32, device=dev), bricks=bricks,
+                               dense_slots=True)
+
+
+def phase_secondary(dev, cache):
+    """Phase 19, the shaded bench frame (shadows, AO 4, reflections; phase
+    5's cache) through the secondary entries (``csrc/secondary.cuh``): K1's
+    (line table, the probe's macro decision), K4-compact's (the world
+    without its line table) and K4's dense-slot form's (the same world with
+    dense slots).  For each: a warm-up plus 8 chained frames with the
+    secondary counts set to 0 just before and read just after (each kind
+    once a frame), the launch gate (the frame exactly 6 CUDA kernels),
+    each entry against its plain version (``secondary_plain`` over the
+    plain walk) on every ray of the next frame's plain primary trace (0
+    word diffs), and its time (CUDA events over 10 calls).  Returns the
+    nine entries' records."""
+    import dataclasses
+
+    import torch
+
+    from voxelengine_tpu_torch.experiments.scene import bench_scene
+    from voxelengine_tpu_torch.kernels import bigtrace, bmtrace
+    from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_lt, trace_secondary_hbm
+    from voxelengine_tpu_torch.ops.secondary import frame_kinds, secondary_plain
+    from voxelengine_tpu_torch.ops.trace import trace_brickmap
+    from voxelengine_tpu_torch.ops.trace2 import trace_secondary_no_table
+    from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, render_frame
+
+    card = card_line()
+    bm, lt, cfg, origin, euler, env, _ = bench_scene("full", dev, cache)
+    cfg = dataclasses.replace(cfg, shadow_rays=True, ao_samples=APP_AO, reflections=True)
+    kinds = frame_kinds(cfg)
+    ms = cfg.max_steps
+    fn = FRAMES + 1
+    e_gate = euler + 1e-5 * fn
+    o, d, px, py, _ = primary_rays(cfg, origin, e_gate, fn)
+    n = o.shape[0]
+    out = trace_brickmap(bm, o, d, ms)  # the plain primary trace every route's entries take
+
+    # the plain versions: secondary_plain over the chunk walk (K4's, and
+    # K1's with the macro levels off) or the macro walk (K1's with them on)
+    plain = {}
+
+    def plain_of(walk_name):
+        if walk_name not in plain:
+            walk = ((lambda a, b, m: trace_brickmap_lt(bm, lt, a, b, m, True)) if walk_name == "macro"
+                    else (lambda a, b, m: trace_brickmap(bm, a, b, m)))
+            plain[walk_name] = {}
+            for kind in kinds:
+                log = []
+                want, p_ms = events_ms(lambda: secondary_plain(kind, recording(walk, log), out, d, px, py, env, fn,
+                                                               cfg))
+                plain[walk_name][kind] = (want, p_ms, log)
+        return plain[walk_name]
+
+    dense = dense_slot_form(bm)
+    k1_walk = "macro" if cfg.trace_use_macro else "chunk"
+    routes = (
+        ("bigtrace", bm, lt, k1_walk, bigtrace.secondary_launches, "bigtrace.cu",
+         "voxelengine_tpu/ops/pallas_bigtrace.py:1348 (and the rays' XLA ops, voxelengine_tpu/render/"
+         "frame.py:245-293, 378-420)"),
+        ("bmtrace_compact", bm, None, "chunk", bmtrace.compact_secondary_launches, "bmtrace.cu",
+         "none: voxelengine_tpu/ops/trace.py:411,435 and the rays' XLA ops (voxelengine_tpu/render/"
+         "frame.py:245-293, 378-420), no pallas_call"),
+        ("bmtrace", dense, None, "chunk", bmtrace.secondary_launches, "bmtrace.cu",
+         "voxelengine_tpu/ops/pallas_trace2.py:39 (and the rays' XLA ops, voxelengine_tpu/render/"
+         "frame.py:245-293, 378-420)"),
+    )
+    records = []
+    for route, world, table, walk_name, counts, source, replaces in routes:
+        def entry(kind, w=world, t=table):
+            if t is not None:
+                return trace_secondary_hbm(w, t, kind, out, d, px, py, env, fn, cfg)
+            return trace_secondary_no_table(w, kind, out, d, px, py, env, fn, cfg)
+
+        # the main path: chained shaded frames, counts from 0
+        fb = make_framebuffer(cfg, dev)
+        for k in counts:
+            counts[k] = 0
+        render_frame(world, fb, origin, euler, env, 0, cfg, lt=table)  # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(1, FRAMES + 1):
+            render_frame(world, fb, origin, euler + 1e-5 * i, env, i, cfg, lt=table)
+        end.record()
+        torch.cuda.synchronize()
+        launched = dict(counts)
+        frame_ms = start.elapsed_time(end) / FRAMES
+        if any(launched[k] != FRAMES + 1 for k in kinds):
+            raise SystemExit(f"secondary: {route}'s secondary entry was not launched once a kind a frame: {launched}")
+        if not bool(torch.isfinite(fb).all()) or float(fb.min()) < 0 or float(fb.max()) > 1:
+            raise SystemExit(f"secondary: {route}'s shaded frames hold values outside [0, 1]")
+        names, frame_dev = launch_gate(f"secondary: the shaded bench frame through {route}",
+                                       lambda: render_frame(world, fb, origin, e_gate, env, fn, cfg, lt=table),
+                                       SHADED_FRAME_KERNELS)
+        say(f"secondary: {route}, {cfg.width}x{cfg.height} shaded bench frames (shadows, AO {cfg.ao_samples}, "
+            f"reflections, use_macro={cfg.trace_use_macro}): {frame_ms:.3f} ms/frame ({FRAMES} chained, CUDA "
+            f"events), {len(names)} CUDA kernels and {frame_dev[0]:.4f} device ms a frame; secondary launches "
+            f"{json.dumps(launched)}, framebuffer checksum {float(fb.double().sum()):.6f}, on {card}")
+        for kind in kinds:
+            want, p_ms, log = plain_of(walk_name)[kind]
+            diffs = secondary_diffs(entry(kind), want)
+            k_ms = cuda_ms(lambda k=kind: entry(k), repeats=10)
+            steps, table_bytes = walk_work(log, world.world_dims, world.brick_layout, world.factor,
+                                           world.words_per_brick)
+            rec = kernel_entry(f"{route}_{kind}", source, replaces, launched[kind], 0.0, k_ms, p_ms, n,
+                               table_bytes, steps, ray_bytes=secondary_bytes(kind, d), walks_per_ray=len(log),
+                               frame_ms=frame_ms, kernels_per_frame=len(names), frame_device_ms=frame_dev[0])
+            records.append(rec)
+            say(f"secondary: {route}'s {kind} entry vs plain ({n} rays, {len(log)} walks a ray; tolerance: equal "
+                f"words) diffs {json.dumps(diffs)}; {k_ms:.4f} ms (CUDA events over 10 calls), plain {p_ms:.1f} ms; "
+                f"bound {rec['bound_ms']:.5f} ms by {rec['bound_by']} ({rec['ray_bytes']:.1f} B a ray, "
+                f"{table_bytes} table bytes, {steps} steps); {launched[kind]} launches, on {card}")
+            if any(diffs.values()):
+                raise SystemExit(f"secondary: {route}'s {kind} entry disagrees with its plain version")
+    del dense
+    return records
 
 
 # phases 16-17, the measurement scripts (voxelengine_tpu_torch/experiments/)
@@ -3482,6 +3742,7 @@ def main(argv=None):
         timed("experiments", phase_experiments, dev, cache)
         timed("cyclic 1080p", phase_cyclic_1080p, dev)
         kernels.append(timed("frame kernels", phase_frame_kernels, dev, cache, bench["shade_launches"]))
+        kernels += timed("secondary", phase_secondary, dev, cache)
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     idle = [k["name"] for k in kernels if k["launches"] < 1]

@@ -29,8 +29,13 @@ call, K1 alone (``bigtrace``, prepared rays) and as the whole
 ``trace_brickmap_hbm`` call (the tree's ray setup, walk and ``hit_imm``
 fix-up: eager ops around ``vx_bigtrace``, or one launch of K1's rays
 entry), the frame's shading and composite (the shading kernel's composite
-entry, or the eager ``shade_traced`` and ``composite_frame``) and 8 chained
-``render_frame`` frames; K4-compact also on K4's random rays over the 128^3
+entry, or the eager ``shade_traced`` and ``composite_frame``), the shading
+alone (the ``shade`` entry: color and write, no composite) and 8 chained
+``render_frame`` frames, primary and shaded (shadows, AO 4, reflections);
+each kind of the shaded frame's secondary traces (the tree's
+``_secondary_inputs``: one launch of K1's or K4-compact's secondary entry,
+or the eager rays around the rays entry's walks) and, through K1, the same
+kind's eager rays (made once) through the rays entry alone; K4-compact also on K4's random rays over the 128^3
 terrain made compact; K4-slab
 (``bmtrace_slab``) on the 1024^3 world with dense slots at 4 slabs: round
 0 on the slab that owns the 1280x720 frame's rays, round 1 on the rows it
@@ -207,10 +212,14 @@ def ray_args(bm, o, d, max_steps):
 
 
 # the cases on the bench frame (bench_frame_cases); --only picks among them by these names
+SECONDARY_KINDS = ("shadow", "reflection", "ao")
 BENCH_FRAME_CASES = (
     "K4-compact bench frame", "K4-compact bench frame, trace_brickmap_no_table call", "K1 bench frame, alone",
     "K1 bench frame, trace_brickmap_hbm call", "bench frame shading (shade + composite)",
-    "bench frames (8 chained render_frame, ms a frame)",
+    "bench frames (8 chained render_frame, ms a frame)", "bench frame shading, shade entry (color, write)",
+    "bench frames shaded (8 chained render_frame, ms a frame)",
+    *(f"{k} bench frame {kind}, secondary stage" for kind in SECONDARY_KINDS for k in ("K1", "K4-compact")),
+    *(f"K1 bench frame {kind}, its walks through the rays entry" for kind in SECONDARY_KINDS),
 )
 
 
@@ -247,6 +256,16 @@ def bench_frame_cases(cases, dev):
     frame_kw = dict(width=W, height=H)
     cases[next(names)] = ("shade_stage", (bm, lt, origin, euler), frame_kw)
     cases[next(names)] = ("bench_frames", (bm, lt, origin, euler), frame_kw)
+    cases[next(names)] = ("shade_entry", (bm, lt, origin, euler), frame_kw)
+    cases[next(names)] = ("bench_frames", (bm, lt, origin, euler), dict(frame_kw, shaded=True))
+    # the shaded frame's secondary traces, a kind at a time: the tree's
+    # _secondary_inputs (the secondary entries, or the eager rays around K1's
+    # or K4's rays entry), and the same eager rays' walks alone
+    for kind in SECONDARY_KINDS:
+        for table in (lt, None):
+            cases[next(names)] = ("secondary_stage", (bm, table, origin, euler), dict(frame_kw, kind=kind))
+    for kind in SECONDARY_KINDS:
+        cases[next(names)] = ("secondary_walks", (bm, lt, origin, euler), dict(frame_kw, kind=kind))
 
 
 def slab_cases(cases, dev):
@@ -376,8 +395,60 @@ def tree_functions(torch):
         return (lambda: trace_brickmap_no_table(bm, o, d, kw["max_steps"])), (lambda out: out)
 
     def bench_cfg(kw):
+        shading = {}
+        if kw.get("shaded"):
+            shading = dict(shadow_rays=True, ao_samples=4, reflections=True)
+        elif "kind" in kw:
+            shading = {"shadow": dict(shadow_rays=True), "reflection": dict(reflections=True),
+                       "ao": dict(ao_samples=4)}[kw["kind"]]
         return RenderConfig(width=kw["width"], height=kw["height"], checkerboard=True, tile_order=True,
-                            trace_use_macro=False)
+                            trace_use_macro=False, **shading)
+
+    def primary(args, cfg):
+        """The frame's rays and their primary trace (K1, or K4 without a
+        line table), made once."""
+        bm, lt, origin, euler = args
+        o, d, px, py, py_r = primary_rays(cfg, origin, euler, 1)
+        out = (trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=False) if lt is not None
+               else trace_brickmap_no_table(bm, o, d, cfg.max_steps))
+        return o, d, px, py, py_r, out
+
+    def secondary_digest(res):  # shadow (hit, steps), reflection (hit, position, normal), or the AO factor
+        shadow, reflection, ao = res
+        return tuple(shadow or ()) + tuple((reflection or ())[:3]) + ((ao,) if ao is not None else ())
+
+    def secondary_stage(args, kw):
+        """One kind of the shaded frame's secondary traces: the tree's
+        ``_secondary_inputs`` (one secondary launch, or the eager rays
+        around the rays entry's walks)."""
+        bm, lt = args[:2]
+        cfg = bench_cfg(kw)
+        env = Environment.default(args[2].device)
+        o, d, px, py, _, out = primary(args, cfg)
+        return (lambda: render._secondary_inputs(bm, lt, out, d, px, py, env, 1, cfg)), secondary_digest
+
+    def secondary_walks(args, kw):
+        """The same kind's eager rays (made once) through K1's rays entry:
+        the walks alone."""
+        bm, lt = args[:2]
+        cfg = bench_cfg(kw)
+        env = Environment.default(args[2].device)
+        o, d, px, py, _, out = primary(args, cfg)
+        walks = []
+        render._secondary_inputs(bm, lt, out, d, px, py, env, 1, cfg,
+                                 secondary=lambda a, b, ms: walks.append((a.contiguous(), b.contiguous(), ms))
+                                 or trace_brickmap_hbm(bm, lt, a, b, ms, use_macro=False))
+        return (lambda: [trace_brickmap_hbm(bm, lt, a, b, ms, use_macro=False) for a, b, ms in walks]), (
+            lambda out_: tuple(t for r in out_ for t in r))
+
+    def shade_entry(args, kw):
+        """The frame's shading alone, the shading kernel's ``shade`` entry
+        (color and write, no composite)."""
+        bm, lt, origin, euler = args
+        cfg = bench_cfg(kw)
+        env = Environment.default(origin.device)
+        o, d, px, py, py_r, out = primary(args, cfg)
+        return (lambda: render.shade_traced(bm, out, o, d, px, py, py_r, origin, env, 1, cfg, lt)), (lambda r: r)
 
     def shade_stage(args, kw):
         """The frame's shading and composite after its primary trace: the
@@ -421,7 +492,8 @@ def tree_functions(torch):
         "grid_limbs": alone(gridtrace.gridtrace_limbs, lambda g: ops_grid.words_to_limb_rows(g.words)),
         "grid_call": call(ops_grid.trace_grid_vpu), "grid_limbs_call": call(ops_grid.trace_grid_mxu),
         "dense_frames": frames, "ray_setup": ray_setup, "k1_call": k1_call, "k4_call": k4_call,
-        "shade_stage": shade_stage, "bench_frames": bench_frames,
+        "shade_stage": shade_stage, "bench_frames": bench_frames, "shade_entry": shade_entry,
+        "secondary_stage": secondary_stage, "secondary_walks": secondary_walks,
     }
 
 

@@ -50,9 +50,10 @@ def test_scene_is_the_bench_harness_scene(scene):
 
 @pytest.mark.parametrize("shading", sorted(b1.SHADINGS))
 def test_frame_breakdown_stages(scene, shading):
-    """Each stage has its batches' spread; trace and shade + composite are
-    the differences of the medians; S1 returns the frame's trace and S2
-    the frame's framebuffer."""
+    """Each stage has its batches' spread; trace, the secondary traces and
+    shade + composite are the differences of the medians; S1 returns the
+    frame's trace, S1s its secondary results (none for a primary frame) and
+    S2 the frame's framebuffer."""
     res = b1.measure(scene, shading, batches=2, frames=1)
     for st in b1.STAGES:
         r = res[st]
@@ -60,11 +61,17 @@ def test_frame_breakdown_stages(scene, shading):
         assert "kernels_per_frame" not in r  # the profiler's counts are the card's
     assert res["trace_ms"] == res["S1"]["median"] - res["S0"]["median"]
     assert res["shade_composite_ms"] == res["S2"]["median"] - res["S1"]["median"]
+    assert res["secondary_ms"] == res["S1s"]["median"] - res["S1"]["median"]
+    assert res["shade_ms"] == res["S2"]["median"] - res["S1s"]["median"]
     fns = b1.stages(scene, dataclasses.replace(scene.cfg, **b1.SHADINGS[shading]))
     out = fns["S1"](0)
     assert out.hit.shape == (64 * 48 // 2,) and 0 < int(out.hit.sum())
+    shadow, reflection, ao = fns["S1s"](0)
+    assert (shadow is None) == (shading == "primary") and (ao is None) == (shading == "primary")
+    if shading == "shaded":
+        assert shadow[0].shape == out.hit.shape and reflection[1].shape == out.position.shape
     assert fns["S2"](0).shape == (48, 64, 3)
-    assert len(b1.report(shading, res, "cpu")) == 4
+    assert len(b1.report(shading, res, "cpu")) == len(b1.STAGES) + 1
 
 
 @pytest.mark.parametrize("layout, n", [("rows", 2), ("rows", 4), ("cyclic", 2)])  # 64x48: 2 pixel blocks

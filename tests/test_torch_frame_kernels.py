@@ -55,7 +55,11 @@ BASE = dict(width=64, height=48, checkerboard=True, tile_order=True, max_steps=M
 # JAX's frames: name -> (RenderConfig fields over BASE, frame numbers); enum fields by name
 JAX_FRAMES = {
     "primary": (dict(), (1, 2)),
+    "shadow": (dict(shadow_rays=True), (1,)),
+    "ao": (dict(ao_samples=2), (1,)),
     "all_three": (dict(shadow_rays=True, ao_samples=2, reflections=True), (1,)),
+    "DEBUG_cb": (dict(debug_view="DEBUG", shadow_rays=True), (1, 2)),
+    "STEPS": (dict(debug_view="STEPS", shadow_rays=True), (2,)),
     "odd_height": (dict(height=47), (1, 2)),
 }
 # the shading cases against the plain version: name -> (fields over BASE, frame numbers)
@@ -169,9 +173,13 @@ class _HostKernels:
         dda, cam, sh = build.load_dda_host(), build.load_host("camera_host"), build.load_host("shade_host")
         self.vx_rays_frame, self.vx_rays_pixels = cam.vx_rays_frame_host, cam.vx_rays_pixels_host
         self.vx_bigtrace_rays = dda.vx_bigtrace_rays_host
+        self.vx_bigtrace_secondary = dda.vx_bigtrace_secondary_host
         dense, compact = dda.vx_trace_brickmap_dense_rays_host, dda.vx_trace_brickmap_compact_rays_host
         self.vx_trace_brickmap_dense_rays = lambda *a: dense(*a[:16], *a[18:])
         self.vx_trace_brickmap_compact_rays = lambda *a: compact(*a[:17], *a[19:])
+        sd, sc = dda.vx_trace_brickmap_dense_secondary_host, dda.vx_trace_brickmap_compact_secondary_host
+        self.vx_trace_brickmap_dense_secondary = lambda *a: sd(*a[:23], *a[25:])
+        self.vx_trace_brickmap_compact_secondary = lambda *a: sc(*a[:24], *a[26:])
         self.vx_shade, self.vx_shade_composite = sh.vx_shade_host, sh.vx_shade_composite_host
 
 
@@ -391,39 +399,77 @@ def test_primary_frame_is_three_launches(world, host_route):
         assert host_route == ["rays_frame", "shade_composite"]  # K2 on the CPU: its route is ops/gridtrace.py's
 
 
+def test_shaded_frame_is_six_launches(world, host_route):
+    """A frame with shadows, AO and reflections launches the ray kernel,
+    K1's rays entry, K1's secondary entry once a kind (shadow, reflection,
+    AO) and the shading kernel's composite entry, and nothing of the plain
+    bodies runs (the secondary rays' eager version included); without a
+    line table K4's rays and secondary entries (compact world) take K1's
+    place."""
+    def plain(*a, **k):
+        raise AssertionError("the card route ran a plain body")
+
+    _, bm, lt = world
+    cfg, _ = _case_cfg("all_three")
+    env = Environment.default(device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name in ((frame, "primary_rays_plain"), (frame, "shade_traced_plain"), (frame, "composite_frame"),
+                          (frame, "secondary_plain"), (ops_bigtrace, "secondary_plain"), (trace2, "secondary_plain"),
+                          (ops_bigtrace, "trace_brickmap_lt"), (ops_bigtrace, "trace_brickmap"),
+                          (trace2, "trace_brickmap")):
+            mp.setattr(mod, name, plain)
+        fb = frame.make_framebuffer(cfg, device="cpu")
+        launched = dict(bigtrace.secondary_launches)
+        frame.render_frame(bm, fb, _t(ORIGIN), _t(EULER), env, 1, cfg, lt=lt)
+        assert host_route == ["rays_frame", "bigtrace_rays"] + ["bigtrace_secondary"] * 3 + ["shade_composite"]
+        assert all(bigtrace.secondary_launches[k] == launched[k] + 1 for k in launched)
+        host_route.clear()
+        launched = dict(bmtrace.compact_secondary_launches)
+        frame.render_frame(compact_brickmap(bm), fb, _t(ORIGIN), _t(EULER), env, 2, cfg)
+        assert host_route == ["rays_frame"] + ["bmtrace"] * 4 + ["shade_composite"]
+        assert all(bmtrace.compact_secondary_launches[k] == launched[k] + 1 for k in launched)
+
+
 def test_card_route_reaches_each_wrapper(world, host_route, monkeypatch):
     """A card call of each entry point reaches its wrapper: spies on the
-    wrappers see the frame's calls, shadow, reflection and AO traces
-    included (K1 for each), and the shading once."""
+    wrappers see the frame's calls, the primary trace and one secondary
+    launch a kind (K1's, or K4's for a world without a line table), and the
+    shading once."""
     calls = []
 
     def spy(mod, name):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, **k: calls.append(name) or real(*a, **k))
 
-    for mod, name in ((bigtrace, "bigtrace_rays"), (bmtrace, "bmtrace_rays"), (bmtrace, "bmtrace_compact_rays"),
-                      (shade_kernel, "shade"), (shade_kernel, "shade_composite"), (rays_kernel, "frame_rays")):
+    for mod, name in ((bigtrace, "bigtrace_rays"), (bigtrace, "bigtrace_secondary"), (bmtrace, "bmtrace_rays"),
+                      (bmtrace, "bmtrace_compact_rays"), (bmtrace, "bmtrace_secondary"),
+                      (bmtrace, "bmtrace_compact_secondary"), (shade_kernel, "shade"),
+                      (shade_kernel, "shade_composite"), (rays_kernel, "frame_rays")):
         spy(mod, name)
     _, bm, lt = world
     cfg, _ = _case_cfg("all_three")
     env = Environment.default(device="cpu")
     fb = frame.make_framebuffer(cfg, device="cpu")
     frame.render_frame(bm, fb, _t(ORIGIN), _t(EULER), env, 1, cfg, lt=lt)
-    assert calls == ["frame_rays"] + ["bigtrace_rays"] * 5 + ["shade_composite"]
+    assert calls == ["frame_rays", "bigtrace_rays"] + ["bigtrace_secondary"] * 3 + ["shade_composite"]
     calls.clear()
     frame.render_frame(bm, fb, _t(ORIGIN), _t(EULER), env, 2, dataclasses.replace(cfg, shadow_rays=False,
                                                                                      reflections=False, ao_samples=0))
+    frame.render_frame(bm, fb, _t(ORIGIN), _t(EULER), env, 1, dataclasses.replace(cfg, reflections=False))
     frame.render_frame(compact_brickmap(bm), fb, _t(ORIGIN), _t(EULER), env, 2, dataclasses.replace(cfg, ao_samples=0))
     assert calls == ["frame_rays", "bmtrace_rays", "shade_composite",
-                     "frame_rays", "bmtrace_compact_rays", "bmtrace_compact_rays", "bmtrace_compact_rays",
+                     "frame_rays", "bmtrace_rays", "bmtrace_secondary", "bmtrace_secondary", "shade_composite",
+                     "frame_rays", "bmtrace_compact_rays", "bmtrace_compact_secondary", "bmtrace_compact_secondary",
                      "shade_composite"]
 
 
 @pytest.mark.parametrize("name", sorted(JAX_FRAMES))
 def test_frames_through_twins_equal_jax(ref, world, host_route, name):
     """Chained ``render_frame`` frames through the host twins (rays, K1's
-    rays entry with the macro levels off, the composite entry), and through
-    K4's rays entry without a line table, equal JAX's frames."""
+    rays and secondary entries with the macro levels off, the composite
+    entry), and through K4's rays and secondary entries without a line
+    table, equal JAX's frames: the shadow, AO, all-three, DEBUG and STEPS
+    frames' secondary rays go through the secondary entries."""
     _, bm, lt = world
     change, frames = JAX_FRAMES[name]
     cfg = dataclasses.replace(RenderConfig(**_fields(change, (DebugView, Projection))), trace_use_macro=False)
@@ -448,12 +494,13 @@ def test_dense_frames_through_twins_equal_jax(ref, world, host_route):
 def test_launcher_signatures_are_the_host_entries():
     """Each launcher takes its host entry's arguments (and the stream,
     added at load); K4's also its instantiation flag and work counter."""
-    for fn in ("vx_bigtrace_rays", "vx_shade", "vx_shade_composite"):
+    for fn in ("vx_bigtrace_rays", "vx_bigtrace_secondary", "vx_shade", "vx_shade_composite"):
         assert build.SIGNATURES[fn] == build.HOST_ENTRIES[f"{fn}_host"]
-    for fn in ("vx_trace_brickmap_dense_rays", "vx_trace_brickmap_compact_rays"):
+    for fn, outs in (("vx_trace_brickmap_dense_rays", 4), ("vx_trace_brickmap_compact_rays", 4),
+                     ("vx_trace_brickmap_dense_secondary", 5), ("vx_trace_brickmap_compact_secondary", 5)):
         kernel, host = build.SIGNATURES[fn], build.HOST_ENTRIES[f"{fn}_host"]
-        k = len(host) - 4
-        assert kernel[:k] == host[:k] and kernel[-4:] == host[-4:] and kernel[k:k + 2] == [build._I, build._P]
+        k = len(host) - outs
+        assert kernel[:k] == host[:k] and kernel[-outs:] == host[-outs:] and kernel[k:k + 2] == [build._I, build._P]
     assert build.KERNEL_SOURCES["shade"] == "shade.cu" and build.HOST_SOURCES["shade_host"] == "shade_host.cpp"
 
 
@@ -527,6 +574,69 @@ def test_shade_twin_signed_zeros_and_nans(host_route, view):
     stale = torch.zeros((cfg.height, cfg.width, 3))
     _equal_nan((frame.shade_and_composite(stale.clone(), *args),),
                (frame.composite_frame(stale.clone(), *want, cfg, 1),), (view, "composite"))
+
+
+# the secondary entries' routes: name -> (line table?, macro levels, world form)
+SECONDARY_ROUTES = {"k1": (True, False, "dense"), "k1_macro": (True, True, "dense"),
+                    "k4_dense": (False, False, "dense"), "k4_compact": (False, False, "compact")}
+SECONDARY_CFG = dict(shadow_rays=True, ao_samples=3, reflections=True)
+
+
+def _secondary_case(world, route, inputs, dev):
+    """``(run(kind) -> the route's results, plain(kind) -> the plain
+    version's)`` for :data:`SECONDARY_ROUTES`' ``route`` on ``inputs``: the
+    frame's rays and their plain primary trace (``"frame"``), or
+    :func:`_special_inputs`' trace with signed zeros and NaN (``"special"``).
+    The plain version is ``secondary_plain`` over the route's plain walk."""
+    from voxelengine_tpu_torch.ops.secondary import secondary_plain
+
+    _, bm, lt = world
+    table, use_macro, form = SECONDARY_ROUTES[route]
+    bm = compact_brickmap(bm) if form == "compact" else bm
+    cfg = RenderConfig(**dict(BASE, trace_use_macro=use_macro, **SECONDARY_CFG))
+    if inputs == "special":
+        (_, out, _, d, px, py, _, _, env, fn, _, _), _ = _special_inputs("SHADED", dev)
+    else:
+        env, fn = Environment.default(device=dev), 3
+        _, d, px, py, _ = frame.primary_rays_plain(cfg, _t(ORIGIN).to(dev), _t(EULER).to(dev), fn)
+        o = _t(ORIGIN).to(dev).expand_as(d)
+        out = trace_brickmap(bm, o, d, MAX_STEPS)
+
+    def walk(o_, d_, ms):
+        if table:
+            return ops_bigtrace.trace_brickmap_lt(bm, lt, o_, d_, ms, use_macro)
+        return trace_brickmap(bm, o_, d_, ms)
+
+    def run(kind):
+        if table:
+            return ops_bigtrace.trace_secondary_hbm(bm, lt, kind, out, d, px, py, env, fn, cfg)
+        return trace2.trace_secondary_no_table(bm, kind, out, d, px, py, env, fn, cfg)
+
+    return run, lambda kind: secondary_plain(kind, walk, out, d, px, py, env, fn, cfg)
+
+
+def _tuple(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+@pytest.mark.parametrize("inputs", ["frame", "special"])
+@pytest.mark.parametrize("route", sorted(SECONDARY_ROUTES))
+@pytest.mark.parametrize("kind", ["shadow", "reflection", "ao"])
+def test_secondary_twin_equals_plain(world, host_route, kind, route, inputs):
+    """K1's (macro levels on and off) and K4's (dense slots and compact)
+    secondary entries through their card routes, one launch a kind, against
+    the plain version over the same walk, bit for bit: on the frame's rays,
+    and on a trace of signed zeros, NaN and far positions (missed
+    primaries' sentinels), where NaN equals NaN whatever its payload."""
+    run, plain = _secondary_case(world, route, inputs, "cpu")
+    got, want = _tuple(run(kind)), _tuple(plain(kind))
+    assert host_route[-1:] == ["bigtrace_secondary" if route.startswith("k1") else "bmtrace"]
+    assert "bigtrace_rays" not in host_route and host_route.count(host_route[-1]) == 1
+    (_equal_nan if inputs == "special" else _equal)(got, want, (kind, route, inputs))
+    if kind != "ao":
+        assert bool(want[0].any()) and not bool(want[0].all())
+    elif inputs == "frame":
+        assert bool((want[0] < 1.0).any()) and bool((want[0] == 1.0).any())
 
 
 # ---------------------------------------------------------------------------
@@ -607,6 +717,54 @@ def test_shade_kernel_signed_zeros_and_nans_on_card(cuda_device, view):
     stale = torch.zeros((cfg.height, cfg.width, 3), device=cuda_device)
     _equal_nan((frame.shade_and_composite(stale.clone(), *args),),
                (frame.composite_frame(stale.clone(), *want, cfg, 1),), (view, "composite"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["frame", "special"])
+@pytest.mark.parametrize("route", sorted(SECONDARY_ROUTES))
+def test_secondary_entries_equal_plain_on_card(cuda_device, route, inputs):
+    """Each secondary entry on the card against its plain version on the
+    same inputs (the cases of :func:`test_secondary_twin_equals_plain`)."""
+    grid = BitGrid.from_dense(torch.from_numpy(_world()).to(cuda_device))
+    bm = build_brickmap(grid, 8, coarse_layout=Layout.LINEAR)
+    run, plain = _secondary_case((grid, bm, ops_bigtrace.make_line_table(bm)), route, inputs, cuda_device)
+    for kind in ("shadow", "reflection", "ao"):
+        got, want = _tuple(run(kind)), _tuple(plain(kind))
+        (_equal_nan if inputs == "special" else _equal)([t.cpu() for t in got], [t.cpu() for t in want],
+                                                         (kind, route, inputs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(SECONDARY_ROUTES))
+def test_shaded_frames_equal_plain_on_card(cuda_device, route):
+    """Shaded frames (shadows, AO 3, reflections; both parities) through the
+    kernels against the plain path (every trace the plain walk, the plain
+    secondary rays, shading and composite): 0 word diffs; six launches a
+    frame (ray kernel, K1 or K4, three secondary entries, shading)."""
+    grid = BitGrid.from_dense(torch.from_numpy(_world()).to(cuda_device))
+    bm = build_brickmap(grid, 8, coarse_layout=Layout.LINEAR)
+    lt = ops_bigtrace.make_line_table(bm)
+    table, use_macro, form = SECONDARY_ROUTES[route]
+    bm = compact_brickmap(bm) if form == "compact" else bm
+    cfg = RenderConfig(**dict(BASE, trace_use_macro=use_macro, **SECONDARY_CFG))
+    env = Environment.default(cuda_device)
+    origin, euler = _t(ORIGIN).to(cuda_device), _t(EULER).to(cuda_device)
+
+    def walk(o, d, ms):
+        return ops_bigtrace.trace_brickmap_lt(bm, lt, o, d, ms, use_macro) if table else trace_brickmap(bm, o, d, ms)
+
+    got_fb, want_fb = frame.make_framebuffer(cfg, cuda_device), frame.make_framebuffer(cfg, cuda_device)
+    for fn in (1, 2):
+        counts = (rays_kernel.launches, bigtrace.launches + bmtrace.launches + bmtrace.compact_launches,
+                  shade_kernel.launches)
+        frame.render_frame(bm, got_fb, origin, euler, env, fn, cfg, lt=lt if table else None)
+        assert (rays_kernel.launches, bigtrace.launches + bmtrace.launches + bmtrace.compact_launches,
+                shade_kernel.launches) == (counts[0] + 1, counts[1] + 4, counts[2] + 1)
+        o, d, px, py, py_r = frame.primary_rays(cfg, origin, euler, fn)
+        out = walk(o, d, cfg.max_steps)
+        color, write = frame.shade_traced_plain(bm, out, o, d, px, py, py_r, origin, env, fn, cfg, secondary=walk)
+        frame.composite_frame(want_fb, color, write, cfg, fn)
+        _equal((got_fb.cpu(),), (want_fb.cpu(),), (route, fn))
 
 
 if __name__ == "__main__":

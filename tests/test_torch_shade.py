@@ -30,6 +30,7 @@ from voxelengine_tpu_torch.config import DebugView, Environment, Projection, Ren
 from voxelengine_tpu_torch.io.interop import brickmap_from_numpy
 from voxelengine_tpu_torch.ops import trace2
 from voxelengine_tpu_torch.ops.bigtrace import make_line_table
+from voxelengine_tpu_torch.ops.trace import TraceOut
 from voxelengine_tpu_torch.render import frame
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -268,15 +269,19 @@ def test_compact_world_without_line_table_refused_on_card_route(ref, monkeypatch
         frame.render_frame(bm, frame.make_framebuffer(cfg, device="cpu"), _t(ORIGIN), _t(EULER),
                            Environment.default(device="cpu"), 1, cfg)
     o = torch.zeros(4, 3)
+    out = TraceOut(torch.ones(4, dtype=torch.bool), o + 1.0, o, torch.zeros(4, dtype=torch.int32))
+    px = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError, match="make_line_table"):
-        frame._secondary_trace(bm, None, cfg, o, o + 1.0, 8)
+        trace2.trace_secondary_no_table(bm, "shadow", out, o + 1.0, px, px, Environment.default(device="cpu"), 1,
+                                        cfg)
 
 
 def test_compact_world_without_line_table_routes_to_k4_compact(ref, monkeypatch):
-    """A compact world without a line table goes to K4's compact entry on a
-    card call, every trace of the frame (the entry is replaced by a spy that
-    runs its g++ build, ``vx_trace_brickmap_compact_rays_host``), and the frames
-    are JAX's on the same compact world, bit for bit."""
+    """A compact world without a line table goes to K4's compact entries on
+    a card call, every trace of the frame (the rays and secondary entries
+    are replaced by spies that run their g++ builds,
+    ``vx_trace_brickmap_compact_rays_host`` and ``_secondary_host``), and
+    the frames are JAX's on the same compact world, bit for bit."""
     from voxelengine_tpu_torch.core.brickmap import compact_brickmap
     from voxelengine_tpu_torch.kernels import bmtrace, build
 
@@ -302,7 +307,10 @@ def test_compact_world_without_line_table_routes_to_k4_compact(ref, monkeypatch)
 
     monkeypatch.setattr(trace2, "_is_cuda", lambda t: True)
     monkeypatch.setattr(bmtrace, "bmtrace_compact_rays", spy)
+    monkeypatch.setattr(bmtrace, "bmtrace_compact_secondary",
+                        _secondary_spy(monkeypatch, host.vx_trace_brickmap_compact_secondary_host, seen))
     monkeypatch.setattr(bmtrace, "bmtrace_rays", dense)
+    monkeypatch.setattr(bmtrace, "bmtrace_secondary", dense)
     change, frames = FRAMES["all_three"]
     cfg = RenderConfig(**_fields(change, (DebugView, Projection)))
     fb = frame.make_framebuffer(cfg, device="cpu")
@@ -310,25 +318,51 @@ def test_compact_world_without_line_table_routes_to_k4_compact(ref, monkeypatch)
     for fn in frames:
         frame.render_frame(bm, fb, _t(ORIGIN), _t(EULER), env, fn, cfg)
         np.testing.assert_array_equal(fb.numpy(), ref[f"compact/all_three/{fn}"], err_msg=f"compact frame {fn}")
-    # a frame: the primary, shadow and reflection traces, then 2 AO traces
-    assert seen == [MAX_STEPS, MAX_STEPS, MAX_STEPS, 8, 8] * 2
+    # a frame: the primary trace, then one secondary launch a kind (shadow,
+    # reflection, AO's 2 samples at 8 steps)
+    assert seen == [MAX_STEPS, MAX_STEPS, MAX_STEPS, 8] * 2
+
+
+def _secondary_spy(monkeypatch, host_entry, seen):
+    """A stand-in for K4's secondary wrappers that runs the entry's g++
+    build (``host_entry``) on CPU tensors, recording each launch's step
+    budget."""
+    from voxelengine_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "require_cuda", lambda kernel, dev: None)
+
+    def spy(kind, position, normal, *tables, grid_dims, factor, max_steps, coarse_layout, brick_layout, **inputs):
+        seen.append(max_steps)
+        _, n, head, outs, res = build.secondary_args("spy", kind, position, normal, **inputs)
+        assert host_entry(*build.pointers(head), *(t.data_ptr() for t in tables), n, *grid_dims, factor,
+                          tables[-1].shape[1], max_steps, coarse_layout.value, brick_layout.value,
+                          3 * max_steps + 64, *build.pointers(outs)) == 0
+        return res
+
+    return spy
 
 
 def test_dense_slot_world_without_line_table_routes_to_k4(ref, monkeypatch):
-    """A dense-slot world without a line table goes to K4's entry on a card
-    call (the entry is replaced by a spy that runs the plain trace)."""
+    """A dense-slot world without a line table goes to K4's entries on a
+    card call (the rays entry is replaced by a spy that runs the plain
+    trace, the secondary entry by one that runs its g++ build)."""
     seen = []
 
     def spy(bm, o, d, max_steps):
         seen.append(max_steps)
         return trace2.trace_brickmap(bm, o, d, max_steps)
 
+    from voxelengine_tpu_torch.kernels import bmtrace, build
+
     monkeypatch.setattr(trace2, "_is_cuda", lambda t: True)
     monkeypatch.setattr(trace2, "_trace_brickmap_kernel", spy)
+    monkeypatch.setattr(bmtrace, "bmtrace_secondary",
+                        _secondary_spy(monkeypatch, build.load_dda_host().vx_trace_brickmap_dense_secondary_host,
+                                       seen))
     for fn, fb in _render(ref, "all_three"):
         np.testing.assert_array_equal(fb.numpy(), ref[f"all_three/{fn}"])
-    # a frame: the primary, shadow and reflection traces, then 2 AO traces
-    assert seen == [MAX_STEPS, MAX_STEPS, MAX_STEPS, 8, 8] * 2
+    # a frame: the primary trace, then one secondary launch a kind
+    assert seen == [MAX_STEPS, MAX_STEPS, MAX_STEPS, 8] * 2
 
 
 # ---------------------------------------------------------------------------

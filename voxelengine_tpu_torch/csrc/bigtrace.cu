@@ -22,7 +22,13 @@
 // frame on an H100 (PERF.md).  vx_bigtrace takes the prepared rays of that
 // setup (start, direction, active, pad) and leaves the fix-up to its
 // caller: the walk alone, which kernel_ab.py times.  Each has the four
-// (macro, diag) instantiations.
+// (macro, diag) instantiations.  A third, vx_bigtrace_secondary, takes the
+// primary trace's results and builds, walks and reduces the shading's
+// shadow, reflection or AO rays (secondary.cuh; macro on and off, three
+// kinds): a shaded frame's secondary traces are three launches where the
+// eager rays and AO's sample loop took ~540 kernels (PERF.md).  Its AO
+// kind walks all of a ray's samples in one thread and keeps the sum in a
+// register.
 //
 // Design: one thread per ray, in the order the caller gives (render_frame's
 // tile_order: 32x32-pixel blocks, so neighbouring threads walk neighbouring
@@ -55,13 +61,15 @@
 #include <cuda_runtime.h>
 
 #include "ray_setup.cuh"
+#include "secondary.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 8;  // 8 x 128 threads an SM: at most 64 registers a thread
 
-// Rays: vx::PreparedRays or vx::OriginRays.
+// Rays: vx::PreparedRays, vx::OriginRays, or vx::SecondaryRays (DIAG off;
+// it stores its own outputs).
 template <bool MACRO, bool DIAG, class Rays>
 __global__ void __launch_bounds__(THREADS, DIAG ? 1 : MIN_BLOCKS)
 bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, Rays R, float* __restrict__ pos,
@@ -72,9 +80,13 @@ bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, Rays R, float* _
   }
   int dg[vx::D_COUNT] = {};
   if (i < n) {
-    const vx::TraceResult r = R.template trace<MACRO, DIAG>(P, F, i, dg);
-    R.store_flags(i, r.flags);
-    vx::store_ray(r, i, pos, normal, steps);
+    if constexpr (Rays::SECONDARY) {
+      R.template run<MACRO>(P, F, i);
+    } else {
+      const vx::TraceResult r = R.template trace<MACRO, DIAG>(P, F, i, dg);
+      R.store_flags(i, r.flags);
+      vx::store_ray(r, i, pos, normal, steps);
+    }
   }
   if constexpr (DIAG) {
     // every lane of the warp is here (no early return in this build)
@@ -139,4 +151,25 @@ extern "C" int vx_bigtrace_rays(const float* origins, int os, const float* rays,
   const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
   const vx::OriginRays R = {origins, os, rays, rs, hit};
   return launch_any(P, F, n, R, use_macro, pos, normal, steps, diag, stream);
+}
+
+// The secondary entry: the shadow, reflection or AO rays (`kind`,
+// secondary.cuh) of n primary rays, built from the primary trace's position
+// and normal (and the rays' directions, pixels, light), walked and reduced
+// in the launch; max_steps is the kind's (8 for AO), iter_limit its cap.
+// Writes what shading reads: shadow (hit, steps), reflection (hit,
+// position, normal), AO the factor; the other outputs may be null.
+// Otherwise as vx_bigtrace_rays, without the diag build.
+extern "C" int vx_bigtrace_secondary(VX_SECONDARY_PARAMS, const int* region_lines, const int* brick_lines,
+                                     const int* macro, const int* macro2, int n, int gx, int gy, int gz, int rx,
+                                     int ry, int rz, int factor, int wpb, int max_steps, int brick_layout,
+                                     int iter_limit, int use_macro, VX_SECONDARY_OUTS, void* stream) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  return vx::with_secondary_kind(kind, VX_SECONDARY_ARGS, [&](const auto& R) {
+    if (n == 0) return 0;
+    const auto s = static_cast<cudaStream_t>(stream);
+    return use_macro ? launch<true, false>(P, F, n, R, nullptr, nullptr, nullptr, nullptr, s)
+                     : launch<false, false>(P, F, n, R, nullptr, nullptr, nullptr, nullptr, s);
+  });
 }

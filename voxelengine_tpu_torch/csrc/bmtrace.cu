@@ -44,7 +44,12 @@
 // and the hit_imm fix-up in the kernel, ray_setup.cuh::trace_ray_full), the
 // frame path's K4: one launch a trace where the eager setup and fix-up
 // (ops/trace2.py; pallas_trace2.py:344-356,395-405 in XLA) took ~69 more
-// kernels.  The prepared-ray entries stay for the walk alone.
+// kernels.  The prepared-ray entries stay for the walk alone.  And a
+// secondary form (vx_trace_brickmap_{dense,compact}_secondary): the
+// shading's shadow, reflection or AO rays built from the primary trace,
+// walked and reduced in the launch (secondary.cuh), as K1's.  The grid's
+// size is asked of the runtime once a process for each instantiation and
+// shared-memory size (grid_cache.cuh), not on every launch.
 //
 // For each table form (dense slots, compact), two instantiations of one
 // template, chosen by the wrapper from the meta table's size alone
@@ -61,7 +66,9 @@
 
 #include <cuda_runtime.h>
 
+#include "grid_cache.cuh"
 #include "ray_setup.cuh"
+#include "secondary.cuh"
 
 // Largest meta table (bytes) the SHARED_META instantiation takes; the
 // wrapper's kernels/bmtrace.py::SMEM_META_LIMIT is the same number.
@@ -72,7 +79,8 @@ namespace {
 constexpr int THREADS = 1024;  // 1024 x 64 registers: one block fills an SM's register file
 
 // Fetch: DenseSlotFetch or CompactFetch, with meta in shared memory when
-// Fetch::SHARED; Rays: vx::PreparedRays or vx::OriginRays.
+// Fetch::SHARED; Rays: vx::PreparedRays, vx::OriginRays or
+// vx::SecondaryRays (which stores its own outputs).
 template <class Fetch, class Rays>
 __global__ void __launch_bounds__(THREADS, 1)
 bmtrace_kernel(vx::TraceParams P, Fetch F, int n, int num_chunks, int* __restrict__ counter, Rays R,
@@ -99,9 +107,13 @@ bmtrace_kernel(vx::TraceParams P, Fetch F, int n, int num_chunks, int* __restric
     if (base >= n) return;  // the same for every lane of the warp
     const int i = base + lane;
     if (i < n) {
-      const vx::TraceResult r = R.template trace<false, false>(P, Fl, i, nullptr);
-      R.store_flags(i, r.flags);
-      vx::store_ray(r, i, pos, normal, steps);
+      if constexpr (Rays::SECONDARY) {
+        R.template run<false>(P, Fl, i);
+      } else {
+        const vx::TraceResult r = R.template trace<false, false>(P, Fl, i, nullptr);
+        R.store_flags(i, r.flags);
+        vx::store_ray(r, i, pos, normal, steps);
+      }
     }
   }
 }
@@ -111,17 +123,10 @@ int launch(const vx::TraceParams& P, const Fetch& F, int n, int num_chunks, int*
            float* pos, float* normal, int* steps, cudaStream_t stream) {
   const size_t smem = Fetch::SHARED ? (size_t)num_chunks * sizeof(int) : 0;
   if (smem > VX_SMEM_META_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(bmtrace_kernel<Fetch, Rays>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bmtrace_kernel<Fetch, Rays>,
-                                                      THREADS, smem);
+  static vx::GridCache cache;  // one for each instantiation
+  int sms = 0, per_sm = 0;
+  cudaError_t e = vx::resident_blocks(cache, bmtrace_kernel<Fetch, Rays>, THREADS, smem, &sms, &per_sm);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   // as many blocks as the card holds at once, and no more warps than batches of 32
   const long long warps = ((long long)n + 31) / 32;
   const long long wanted = (warps + THREADS / 32 - 1) / (THREADS / 32);
@@ -222,4 +227,31 @@ extern "C" int vx_trace_brickmap_compact_rays(const float* origins, int os, cons
   const vx::OriginRays R = {origins, os, rays, rs, hit};
   return compact(P, meta, brick_idx, bricks, coarse_layout, wpb, n, shared_meta, counter, R, pos, normal,
                  steps, stream);
+}
+
+// The secondary entries: the shadow, reflection or AO rays (`kind`,
+// secondary.cuh) of n primary rays built, walked and reduced in the
+// launch, as bigtrace.cu::vx_bigtrace_secondary; max_steps is the kind's
+// (8 for AO).  Tables, instantiation and counter as the entries above.
+extern "C" int vx_trace_brickmap_dense_secondary(VX_SECONDARY_PARAMS, const int* meta, const int* bricks, int n,
+                                                 int gx, int gy, int gz, int factor, int wpb, int max_steps,
+                                                 int coarse_layout, int brick_layout, int iter_limit,
+                                                 int shared_meta, int* counter, VX_SECONDARY_OUTS, void* stream) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  return vx::with_secondary_kind(kind, VX_SECONDARY_ARGS, [&](const auto& R) {
+    return dense(P, meta, bricks, coarse_layout, wpb, n, shared_meta, counter, R, nullptr, nullptr, nullptr,
+                 stream);
+  });
+}
+
+extern "C" int vx_trace_brickmap_compact_secondary(VX_SECONDARY_PARAMS, const int* meta, const int* brick_idx,
+                                                   const int* bricks, int n, int gx, int gy, int gz, int factor,
+                                                   int wpb, int max_steps, int coarse_layout, int brick_layout,
+                                                   int iter_limit, int shared_meta, int* counter,
+                                                   VX_SECONDARY_OUTS, void* stream) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  return vx::with_secondary_kind(kind, VX_SECONDARY_ARGS, [&](const auto& R) {
+    return compact(P, meta, brick_idx, bricks, coarse_layout, wpb, n, shared_meta, counter, R, nullptr, nullptr,
+                   nullptr, stream);
+  });
 }

@@ -7,13 +7,15 @@
 // for one warp.  vx_trace_grid_host and vx_trace_grid_limbs_host run the
 // grid walk alone on prepared rays (start, direction, active, pad).  The
 // *_rays_host entries are K1's and K4's rays entries: origins and raw
-// directions, the setup and the hit_imm fix-up included.
+// directions, the setup and the hit_imm fix-up included; the
+// *_secondary_host entries their secondary entries (secondary.cuh).
 #include <cstring>
 #include <vector>
 
 #include "crossings.cuh"
 #include "dda.cuh"
 #include "grid_dda.cuh"
+#include "secondary.cuh"
 #include "zslab.cuh"
 
 namespace {
@@ -402,4 +404,51 @@ extern "C" int vx_trace_brickmap_compact_rays_host(const float* origins, int os,
   const vx::CompactFetch<> F = {{meta, bricks, gx, gy, coarse_layout, wpb}, brick_idx};
   return each_ray<false, false>(P, F, n, vx::OriginRays{origins, os, rays, rs, hit}, pos, normal, steps,
                                 nullptr);
+}
+
+namespace {
+
+// A secondary launch's rays one by one, as the kernels' threads take them.
+template <bool MACRO, class Fetch, class Rays>
+int each_secondary(const vx::TraceParams& P, const Fetch& F, int n, const Rays& R) {
+  for (int i = 0; i < n; ++i) R.template run<MACRO>(P, F, i);
+  return 0;
+}
+
+}  // namespace
+
+// K1's secondary entry (bigtrace.cu::vx_bigtrace_secondary), its arguments
+// minus the stream.
+extern "C" int vx_bigtrace_secondary_host(VX_SECONDARY_PARAMS, const int* region_lines, const int* brick_lines,
+                                          const int* macro, const int* macro2, int n, int gx, int gy, int gz,
+                                          int rx, int ry, int rz, int factor, int wpb, int max_steps,
+                                          int brick_layout, int iter_limit, int use_macro, VX_SECONDARY_OUTS) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  return vx::with_secondary_kind(kind, VX_SECONDARY_ARGS, [&](const auto& R) {
+    return use_macro ? each_secondary<true>(P, F, n, R) : each_secondary<false>(P, F, n, R);
+  });
+}
+
+// K4's secondary entries (bmtrace.cu::vx_trace_brickmap_dense_secondary and
+// _compact_secondary), as their rays entries' host twins: no instantiation
+// flag and no work counter.
+extern "C" int vx_trace_brickmap_dense_secondary_host(VX_SECONDARY_PARAMS, const int* meta, const int* bricks,
+                                                      int n, int gx, int gy, int gz, int factor, int wpb,
+                                                      int max_steps, int coarse_layout, int brick_layout,
+                                                      int iter_limit, VX_SECONDARY_OUTS) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::DenseSlotFetch<> F = {meta, bricks, gx, gy, coarse_layout, wpb};
+  return vx::with_secondary_kind(kind, VX_SECONDARY_ARGS,
+                                 [&](const auto& R) { return each_secondary<false>(P, F, n, R); });
+}
+
+extern "C" int vx_trace_brickmap_compact_secondary_host(VX_SECONDARY_PARAMS, const int* meta, const int* brick_idx,
+                                                        const int* bricks, int n, int gx, int gy, int gz,
+                                                        int factor, int wpb, int max_steps, int coarse_layout,
+                                                        int brick_layout, int iter_limit, VX_SECONDARY_OUTS) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::CompactFetch<> F = {{meta, bricks, gx, gy, coarse_layout, wpb}, brick_idx};
+  return vx::with_secondary_kind(kind, VX_SECONDARY_ARGS,
+                                 [&](const auto& R) { return each_secondary<false>(P, F, n, R); });
 }

@@ -90,25 +90,43 @@ VX_HD float ldgf(const float* p) {
 // brickmap's factor (ops/trace.py::_ray_setup and _edge_pad), the walk,
 // and ops/trace.py::kernel_result's hit_imm fix-up: a hit at the ray's start
 // reports the clipped start in voxels (start_c * factor, one rounding) and
-// the world-entry normal.  The fix-up computes the setup again instead of
-// keeping it live across the walk, whose loop runs at the production
-// builds' 64-register cap; a hit_imm ray is rare.
-template <bool MACRO = false, bool DIAG = false, class Fetch>
-VX_HD TraceResult trace_ray_full(const TraceParams& P, const Fetch& F, float ox, float oy, float oz,
-                                 float vx, float vy, float vz, int* diag = nullptr) {
+// the world-entry normal.  `ray(o, v)` writes the ray's origin (voxels) and
+// raw direction; the fix-up asks for them again and computes the setup
+// again instead of keeping either live across the walk, whose loop runs at
+// the production builds' 64-register cap; a hit_imm ray is rare.  A ray
+// that is cheap to rebuild (secondary.cuh's) keeps nothing of it live.
+template <bool MACRO = false, bool DIAG = false, class Fetch, class Ray>
+VX_HD TraceResult trace_ray_of(const TraceParams& P, const Fetch& F, const Ray& ray, int* diag = nullptr) {
   TraceResult r;
   {
-    const RaySetup s = ray_setup(ox, oy, oz, vx, vy, vz, P.factor, P.gx, P.gy, P.gz);
+    float o[3], v[3];
+    ray(o, v);
+    const RaySetup s = ray_setup(o[0], o[1], o[2], v[0], v[1], v[2], P.factor, P.gx, P.gy, P.gz);
     r = trace_ray<MACRO, DIAG>(P, F, s.sx, s.sy, s.sz, s.dx, s.dy, s.dz, s.active, s.padx, s.pady,
                                s.padz, diag);
   }
   if (r.flags & 2) {
-    const RaySetup s = ray_setup(ox, oy, oz, vx, vy, vz, P.factor, P.gx, P.gy, P.gz);
+    float o[3], v[3];
+    ray(o, v);
+    const RaySetup s = ray_setup(o[0], o[1], o[2], v[0], v[1], v[2], P.factor, P.gx, P.gy, P.gz);
     const float ff = (float)P.factor;
     r.px = s.sx * ff; r.py = s.sy * ff; r.pz = s.sz * ff;
     r.nx = s.snx; r.ny = s.sny; r.nz = s.snz;
   }
   return r;
+}
+
+// trace_ray_of for a ray given by its values.
+template <bool MACRO = false, bool DIAG = false, class Fetch>
+VX_HD TraceResult trace_ray_full(const TraceParams& P, const Fetch& F, float ox, float oy, float oz,
+                                 float vx, float vy, float vz, int* diag = nullptr) {
+  return trace_ray_of<MACRO, DIAG>(
+      P, F,
+      [&](float* o, float* v) {
+        o[0] = ox; o[1] = oy; o[2] = oz;
+        v[0] = vx; v[1] = vy; v[2] = vz;
+      },
+      diag);
 }
 
 // The rays of a K1 or K4 launch, in one of two forms, and how a ray's flags
@@ -121,7 +139,10 @@ VX_HD TraceResult trace_ray_full(const TraceParams& P, const Fetch& F, float ox,
 //     broadcasts the origin, or an orthographic frame's direction);
 //     trace_ray_full does the setup and the fix-up; hit is one byte, 0 or 1,
 //     the bool tensor the wrapper returns (the *_rays entries).
+// (secondary.cuh's SecondaryRays is the third form: SECONDARY true, it
+// builds its rays and stores its own outputs.)
 struct PreparedRays {
+  static constexpr bool SECONDARY = false;
   const float* start;
   const float* dir;
   const int* active;
@@ -139,6 +160,7 @@ struct PreparedRays {
 };
 
 struct OriginRays {
+  static constexpr bool SECONDARY = false;
   const float* origins;
   int os;  // row stride: 3, or 0
   const float* rays;

@@ -12,7 +12,14 @@
 // What bounds it: bytes.  A ray reads its trace (hit, position, normal,
 // steps: 29 B), its direction (12 B unless one row is shared), its pixel
 // (24 B of int64) and writes 13 B (color, write) or its pixel's 12 B; the
-// shading is ~100 float ops, far below that.
+// shading is ~100 float ops, far below that.  A checkerboard frame writes
+// every other pixel of a row, so the composite fills each 32-byte sector
+// of the framebuffer in part: the memory reads every sector it writes, the
+// whole framebuffer in and out (the composite entry takes ~0.010 ms more
+// than the shade entry on the bench frame on an H100, PERF.md).  That is
+// the framebuffer's layout, not the kernel's; rows staged through shared
+// memory a block at a time (coalesced loads of position, normal and
+// direction) measured 55% slower and were not kept (PERF.md).
 //
 // Two entries over one kernel:
 //   vx_shade writes color (f32[n, 3]) and write (one byte): the sharded
@@ -26,8 +33,10 @@
 //     a ray's pixel needs no unblocking and no block_perm inverse.
 // The environment vectors and the camera position are read on the card
 // (one host read a frame would synchronise the stream).  The shadow,
-// reflection and AO results are optional inputs (null: not traced), so an
-// app frame's shading after its secondary traces is one launch too.
+// reflection and AO results are optional inputs (null: not traced; a
+// reflection's miss shows its direction, reflected here again from the
+// ray's), so a shaded frame's shading after its secondary entries is one
+// launch too.
 //
 // Build: kernels/build.py (nvcc sm_90a, -O3, --fmad=false, no fast-math).
 #include <cuda_runtime.h>

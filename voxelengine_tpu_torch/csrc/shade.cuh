@@ -19,14 +19,16 @@
 //     fix, the depth |position - origin| * 0.01, the heat steps / 256;
 //   - the sky (the raw direction), the crosshair on the pre-remap row, the
 //     DEBUG bottom-left overlay and the final clamp.
-// torch.clamp and torch.clamp_min pass NaN on.  Their other cases are
-// written as each build's torch computes them (clamp_t, clamp_min_t), so
-// that a signed zero comes out as the plain version's on the same device.
-// These two functions are the one place where the g++ build and the card's
-// build compile different code: the CPU tests hold the host branch to
-// torch's CPU clamps; the __CUDA_ARCH__ branch is held to torch's CUDA
-// clamps only on the card (tests/test_torch_frame_kernels.py's cuda lane,
-// signed zeros and NaN included, and chip_smoke.py's shading gates).
+// torch.clamp, torch.clamp_min and torch.clamp_max pass NaN on.  Their
+// other cases are written as each build's torch computes them (clamp_t,
+// clamp_min_t, clamp_max_t), so that a signed zero comes out as the plain
+// version's on the same device.  These three functions are the one place
+// where the g++ build and the card's build compile different code: the CPU
+// tests hold the host branch to torch's CPU clamps; the __CUDA_ARCH__
+// branch is held to torch's CUDA clamps only on the card
+// (tests/test_torch_frame_kernels.py's cuda lane, signed zeros and NaN
+// included, and chip_smoke.py's shading gates).  secondary.cuh's AO
+// falloff uses them too.
 #pragma once
 
 #include <math.h>
@@ -51,6 +53,14 @@ VX_HD float clamp_min_t(float x, float lo) {
 #endif
 }
 
+VX_HD float clamp_max_t(float x, float hi) {
+#ifdef __CUDA_ARCH__
+  return x != x ? x : fminf(x, hi);
+#else
+  return hi < x ? hi : x;
+#endif
+}
+
 VX_HD float clamp_t(float x, float lo, float hi) {
 #ifdef __CUDA_ARCH__
   return x != x ? x : fminf(fmaxf(x, lo), hi);
@@ -61,6 +71,12 @@ VX_HD float clamp_t(float x, float lo, float hi) {
 }
 
 VX_HD float dot3f(const float* a, const float* b) { return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]; }
+
+// render/shading.py::reflect: out = i - (2 n) (n . i).
+VX_HD void reflect3(const float* i, const float* n, float* out) {
+  const float d = dot3f(n, i);
+  for (int k = 0; k < 3; ++k) out[k] = i[k] - 2.0f * n[k] * d;
+}
 
 // Where a frame's shading reads its inputs (device memory on the card).
 // Optional inputs are null where their trace did not run.
@@ -88,11 +104,11 @@ struct ShadeArgs {
   // the shadow trace: hit, steps
   const unsigned char* shadow_hit;
   const int* shadow_steps;
-  // the reflection trace: hit, position, normal, and its direction
+  // the reflection trace: hit, position, normal (its direction, which a
+  // miss shows, is computed again from dirs)
   const unsigned char* refl_hit;
   const float* refl_pos;
   const float* refl_nrm;
-  const float* refl_dir;
   // the AO factor, f32[n]
   const float* ao;
   int width, height, view, crosshair;
@@ -148,14 +164,13 @@ VX_HD void shade_ray(const ShadeArgs& A, int i, float* color, bool* write_out) {
   if (A.view == VIEW_SHADED) {
     calculate_color(A, A.cam, n, pos, shadow, c);
     if (A.refl_hit) {
-      const float* rdir = A.refl_dir + 3 * i;
       float ro[3], rn[3], rc[3];
-      for (int k = 0; k < 3; ++k) ro[k] = pos[k] + n[k] * 0.01f;
-      for (int k = 0; k < 3; ++k) rn[k] = -A.refl_nrm[3 * i + k];
       if (A.refl_hit[i]) {
+        for (int k = 0; k < 3; ++k) ro[k] = pos[k] + n[k] * 0.01f;
+        for (int k = 0; k < 3; ++k) rn[k] = -A.refl_nrm[3 * i + k];
         calculate_color(A, ro, rn, A.refl_pos + 3 * i, false, rc);
       } else {
-        for (int k = 0; k < 3; ++k) rc[k] = rdir[k];
+        reflect3(dir, n, rc);  // the miss: the reflected direction
       }
       for (int k = 0; k < 3; ++k) c[k] = c[k] + (rc[k] - c[k]) * A.reflectivity;
     }
@@ -208,11 +223,11 @@ VX_HD void shade_ray(const ShadeArgs& A, int i, float* color, bool* write_out) {
       int os, const float *dirs, int ds, const int64_t *px, const int64_t *py, const int64_t *py_r,     \
       const float *cam, const float *light_dir, const float *light_color, const float *ambient,         \
       const unsigned char *shadow_hit, const int *shadow_steps, const unsigned char *refl_hit,          \
-      const float *refl_pos, const float *refl_nrm, const float *refl_dir, const float *ao, int width,  \
-      int height, int view, int crosshair, float reflectivity, float pos_mod, float mod_m, int n
+      const float *refl_pos, const float *refl_nrm, const float *ao, int width, int height, int view,   \
+      int crosshair, float reflectivity, float pos_mod, float mod_m, int n
 #define VX_SHADE_ARGS                                                                                     \
   vx::ShadeArgs {                                                                                         \
     hit, pos, nrm, steps, origins, os, dirs, ds, px, py, py_r, cam, light_dir, light_color, ambient,      \
-        shadow_hit, shadow_steps, refl_hit, refl_pos, refl_nrm, refl_dir, ao, width, height, view,        \
+        shadow_hit, shadow_steps, refl_hit, refl_pos, refl_nrm, ao, width, height, view,                  \
         crosshair, reflectivity, pos_mod, mod_m                                                           \
   }

@@ -34,6 +34,7 @@
 
 #include <cuda_runtime.h>
 
+#include "grid_cache.cuh"
 #include "zslab.cuh"
 
 namespace {
@@ -135,15 +136,10 @@ extern "C" int vx_zslab(const float* start, const float* dir, const int* active,
   const vx::SlabFetch F = {meta, bricks, gx, gy, z0, slab_gz, wpb};
   const auto s = static_cast<cudaStream_t>(stream);
   const size_t smem = ROW_BYTES;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(zslab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, zslab_kernel, THREADS, smem);
+  static vx::GridCache cache;  // the runtime asked once a process (grid_cache.cuh)
+  int sms = 0, per_sm = 0;
+  cudaError_t e = vx::resident_blocks(cache, zslab_kernel, THREADS, smem, &sms, &per_sm);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   // as many blocks as the card holds at once, and no more than the rays'
   // batches of 32 need; a round of few batches takes a block for each, up
   // to one an SM, so that its warps spread over the SMs instead of sharing

@@ -4,11 +4,15 @@ Counterpart of ``experiments/bench_frame_breakdown.py``.  Three nested
 pipelines on one world, with the same rays and configuration, over chained
 frames with the bench drift (``euler + 1e-5 * i``, frame number ``i``):
 
-  S0  ``render/frame.py::primary_rays`` alone
-  S1  S0, then ``ops/bigtrace.py::trace_brickmap_hbm`` (K1)
-  S2  ``render/frame.py::render_frame`` (S1, shading, composite)
+  S0   ``render/frame.py::primary_rays`` alone
+  S1   S0, then ``ops/bigtrace.py::trace_brickmap_hbm`` (K1)
+  S1s  S1, then the shading's secondary traces (``render/frame.py::
+       _secondary_inputs``: shadow, reflection and AO rays; nothing for a
+       primary frame)
+  S2   ``render/frame.py::render_frame`` (S1s, shading, composite)
 
-so trace = S1 - S0 and shade + composite = S2 - S1.  For each stage: ms a
+so trace = S1 - S0, secondary = S1s - S1, shade + composite = S2 - S1s
+(and S2 - S1 the whole shading stage).  For each stage: ms a
 frame by CUDA events, as the median, least and largest of ``--batches``
 batches of ``--frames`` frames, and the host's enqueue time a frame (the
 host clock until the batch's last call returns); the CUDA kernels a frame and their device
@@ -33,10 +37,10 @@ import torch
 
 from voxelengine_tpu_torch.experiments.scene import Scene, bench_scene, ms_timer, spread
 from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm
-from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, render_frame
+from voxelengine_tpu_torch.render.frame import _secondary_inputs, make_framebuffer, primary_rays, render_frame
 
 SHADINGS = {"primary": {}, "shaded": dict(shadow_rays=True, ao_samples=4, reflections=True)}
-STAGES = ("S0", "S1", "S2")
+STAGES = ("S0", "S1", "S1s", "S2")
 WARM = 3  # untimed frames before each stage's batches
 
 
@@ -53,15 +57,21 @@ def stages(scene: Scene, cfg) -> dict:
         o, d = primary_rays(cfg, origin, euler + drift * i, i)[:2]
         return trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=cfg.trace_use_macro)
 
+    def s1s(i):
+        o, d, px, py, _ = primary_rays(cfg, origin, euler + drift * i, i)
+        out = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=cfg.trace_use_macro)
+        return _secondary_inputs(bm, lt, out, d, px, py, env, i, cfg)
+
     def s2(i):
         return render_frame(bm, fb, origin, euler + drift * i, env, i, cfg, lt)
 
-    return {"S0": s0, "S1": s1, "S2": s2}
+    return {"S0": s0, "S1": s1, "S1s": s1s, "S2": s2}
 
 
 def measure(scene: Scene, shading: str, batches: int = 5, frames: int = 8) -> dict:
-    """One shading's three stages: ``{stage: {...}, "trace_ms",
-    "shade_composite_ms"}`` (differences of the medians)."""
+    """One shading's stages: ``{stage: {...}, "trace_ms", "secondary_ms",
+    "shade_ms", "shade_composite_ms"}`` (differences of the medians;
+    ``shade_composite_ms`` is S2 - S1, the secondary traces included)."""
     from voxelengine_tpu_torch.utils.profiling import kernel_profile
 
     cfg = dataclasses.replace(scene.cfg, **SHADINGS[shading])
@@ -87,6 +97,8 @@ def measure(scene: Scene, shading: str, batches: int = 5, frames: int = 8) -> di
                 rec["busy_share"] = rec["device_ms_per_frame"] / rec["median"]
         out[name] = rec
     out["trace_ms"] = out["S1"]["median"] - out["S0"]["median"]
+    out["secondary_ms"] = out["S1s"]["median"] - out["S1"]["median"]
+    out["shade_ms"] = out["S2"]["median"] - out["S1s"]["median"]
     out["shade_composite_ms"] = out["S2"]["median"] - out["S1"]["median"]
     return out
 
@@ -103,7 +115,8 @@ def report(shading: str, res: dict, card: str) -> list:
         lines.append(f"{shading} {st}: {r['median']} ms/frame (median of {r['n']} batches, {r['min']} - "
                      f"{r['max']}; the host enqueues a frame in {r['host_ms']} ms){extra}, on {card}")
     lines.append(f"{shading}: ray setup (S0) {res['S0']['median']} ms, trace (S1 - S0) {res['trace_ms']} ms, "
-                 f"shade + composite (S2 - S1) {res['shade_composite_ms']} ms, on {card}")
+                 f"secondary traces (S1s - S1) {res['secondary_ms']} ms, shade + composite (S2 - S1s) "
+                 f"{res['shade_ms']} ms; S2 - S1 {res['shade_composite_ms']} ms, on {card}")
     return lines
 
 

@@ -5,13 +5,17 @@ It replaces ``voxelengine_tpu/ops/pallas_bigtrace.py::_bigtrace_kernel``.
 directions in, the ray setup and the ``hit_imm`` fix-up inside the launch
 (``trace_brickmap_hbm``'s card branch whole); :func:`bigtrace` takes the
 prepared rays of that setup and leaves the fix-up to its caller (the walk
-alone).  Its plain versions, which
+alone); :func:`bigtrace_secondary` builds, walks and reduces a kind of
+the shading's secondary rays from the primary trace's results.  Its plain
+versions, which
 :func:`voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_hbm` runs for rays
 on the CPU, are :func:`voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_lt`
 (the macro walk, and the diag counters) and, with the macro levels off,
-:func:`voxelengine_tpu_torch.ops.trace.trace_brickmap`.  ``launches``
-counts the kernel launches made through both entries, so a run can show
-that its main path reached the kernel.
+:func:`voxelengine_tpu_torch.ops.trace.trace_brickmap` (the secondary
+entry's: :func:`voxelengine_tpu_torch.ops.secondary.secondary_plain` over
+them).  ``launches`` counts the kernel launches made through every entry,
+so a run can show that its main path reached the kernel;
+``secondary_launches`` those of the secondary entry by kind.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from voxelengine_tpu_torch.core.layout import Layout
 from voxelengine_tpu_torch.kernels import build
 
 launches = 0
+# launches of the secondary entry by kind (each counted in ``launches`` too)
+secondary_launches = dict.fromkeys(build.SECONDARY_KINDS, 0)
 DIAG_ROWS = 11  # 10 phase counters (ops/bigtrace.py::PHASES), then iterations
 
 
@@ -161,3 +167,56 @@ def bigtrace_rays(
     )
     launches += 1
     return outs
+
+
+def bigtrace_secondary(
+    kind: str,
+    position: torch.Tensor,
+    normal: torch.Tensor,
+    region_lines: torch.Tensor,
+    brick_lines: torch.Tensor,
+    macro: Optional[torch.Tensor] = None,
+    macro2: Optional[torch.Tensor] = None,
+    *,
+    light=None,
+    dirs=None,
+    px=None,
+    py=None,
+    width: int = 0,
+    frame_number: int = 0,
+    ao_samples: int = 0,
+    grid_dims,
+    region_dims,
+    factor: int,
+    wpb: int,
+    max_steps: int,
+    brick_layout: Layout,
+    use_macro: bool = False,
+):
+    """One kind of the shading's secondary rays for N primary rays on the
+    card in one launch (``csrc/secondary.cuh``): each thread builds its
+    ray's shadow, reflection or AO rays from the primary trace's
+    ``position`` and ``normal``, walks them as :func:`bigtrace_rays` does
+    and keeps what shading reads.  Inputs and results as
+    ``build.secondary_args``; ``max_steps`` is the kind's walk budget (8
+    for AO).  Tables as for :func:`bigtrace`.  Launches on the current
+    stream without synchronising and raises if the launch is refused."""
+    global launches
+    dev, n, head, outs, res = build.secondary_args(
+        "bigtrace_secondary", kind, position, normal, light=light, dirs=dirs, px=px, py=py, width=width,
+        frame_number=frame_number, ao_samples=ao_samples)
+    mptrs = check_line_table("bigtrace_secondary", dev, region_lines, brick_lines, macro, macro2, region_dims,
+                             factor, use_macro)
+    if n == 0:
+        return res
+    gx, gy, gz = grid_dims
+    build.launch(
+        "bigtrace_secondary", build.load_kernel("bigtrace").vx_bigtrace_secondary,
+        *build.pointers(head), region_lines.data_ptr(), brick_lines.data_ptr(), *mptrs,
+        n, gx, gy, gz, *region_dims, factor, wpb, max_steps, brick_layout.value,
+        3 * max_steps + 64,  # iteration cap (pallas_bigtrace.py:1488)
+        int(use_macro), *build.pointers(outs), dev=dev,
+    )
+    launches += 1
+    secondary_launches[kind] += 1
+    return res

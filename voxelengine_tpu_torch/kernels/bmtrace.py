@@ -19,6 +19,13 @@ memory).
 without a line table, with the same plain version; it has no TPU kernel
 (the JAX package walks such a world in XLA, ``voxelengine_tpu/ops/
 trace.py:411,435``).  :func:`bmtrace_compact_rays` is its rays form.
+
+:func:`bmtrace_secondary` and :func:`bmtrace_compact_secondary` build,
+walk and reduce a kind of the shading's secondary rays from the primary
+trace's results in one launch (the plain version:
+:func:`voxelengine_tpu_torch.ops.secondary.secondary_plain` over
+``trace_brickmap``); ``secondary_launches`` and
+``compact_secondary_launches`` count them by kind.
 ``compact_launches`` counts the launches of both
 (``compact_shared_launches`` those with ``meta`` in shared memory).
 
@@ -50,28 +57,31 @@ def meta_in_shared(num_chunks: int) -> bool:
 
 
 def _k4(entry: str, rays, tables, *, grid_dims, factor: int, max_steps: int, coarse_layout: Layout,
-        brick_layout: Layout):
+        brick_layout: Layout, outs=None, n=None):
     """Launch one of K4's entries: ``entry`` is its launcher, ``rays`` its
-    ray arguments (tensors and ints: the prepared rays, or origins and
-    directions with their row strides; an ``*_rays`` entry writes ``hit``
-    as bool), ``tables`` its table tensors (all checked by the caller).
-    Returns the outputs and whether ``meta`` went to shared memory, or None
-    where no ray means no launch."""
+    arguments before the tables (tensors, ints and None: the prepared rays,
+    origins and directions with their row strides, or a secondary entry's
+    inputs; an ``*_rays`` entry writes ``hit`` as bool), ``tables`` its
+    table tensors (all checked by the caller), ``outs`` its outputs (a
+    secondary entry's, with their ray count ``n``; by default the trace's,
+    made here).  Returns the outputs and whether ``meta`` went to shared
+    memory, or None where no ray means no launch."""
     gx, gy, gz = grid_dims
     nc = gx * gy * gz
-    dev = rays[0].device
-    n = rays[0].shape[0]
-    outs = build.ray_outputs(n, dev, torch.bool if entry.endswith("_rays") else torch.int32)
+    dev = tables[0].device
+    if outs is None:
+        n = rays[0].shape[0]
+        outs = build.ray_outputs(n, dev, torch.bool if entry.endswith("_rays") else torch.int32)
     if n == 0:
         return outs, None
     shared = meta_in_shared(nc)
     counter = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launcher on the stream
     build.launch(
         "bmtrace", getattr(build.load_kernel("bmtrace"), entry),
-        *(r.data_ptr() if isinstance(r, torch.Tensor) else r for r in rays), *(t.data_ptr() for t in tables),
+        *build.pointers(rays), *(t.data_ptr() for t in tables),
         n, gx, gy, gz, factor, (factor**3 + 31) // 32, max_steps, coarse_layout.value, brick_layout.value,
         3 * max_steps + 64,  # iteration cap, as K1's: never reached (ops/trace.py)
-        int(shared), counter.data_ptr(), *(o.data_ptr() for o in outs), dev=dev,
+        int(shared), counter.data_ptr(), *build.pointers(outs), dev=dev,
     )
     return outs, shared
 
@@ -197,6 +207,75 @@ def bmtrace_compact_rays(
         compact_launches += 1
         compact_shared_launches += shared
     return outs
+
+
+# launches of the secondary entries by kind (each counted in ``launches`` or
+# ``compact_launches`` too)
+secondary_launches = dict.fromkeys(build.SECONDARY_KINDS, 0)
+compact_secondary_launches = dict.fromkeys(build.SECONDARY_KINDS, 0)
+
+
+def _secondary(kernel: str, entry: str, kind: str, position, normal, tables, inputs: dict, *, grid_dims,
+               factor: int, max_steps: int, coarse_layout: Layout, brick_layout: Layout):
+    """Check and launch one of K4's secondary entries; returns the kind's
+    results and whether ``meta`` went to shared memory (None: no launch)."""
+    dev, n, head, outs, res = build.secondary_args(kernel, kind, position, normal, **inputs)
+    for t in tables:
+        if t.device != dev:
+            raise ValueError(f"{kernel}: the tables must be on {dev}, got {t.device}")
+    _, shared = _k4(entry, head, tables, grid_dims=grid_dims, factor=factor, max_steps=max_steps,
+                    coarse_layout=coarse_layout, brick_layout=brick_layout, outs=outs, n=n)
+    return res, shared
+
+
+def bmtrace_secondary(
+    kind: str, position, normal, meta: torch.Tensor, bricks: torch.Tensor, *, grid_dims, factor: int,
+    max_steps: int, coarse_layout: Layout, brick_layout: Layout, **inputs,
+):
+    """One kind of the shading's secondary rays for N primary rays through
+    a dense-slot brickmap on the card in one launch (``csrc/secondary.cuh``,
+    as :func:`voxelengine_tpu_torch.kernels.bigtrace.bigtrace_secondary`):
+    ``inputs`` are the kind's (``light``; ``dirs``; ``px``, ``py``,
+    ``width``, ``frame_number``, ``ao_samples``: ``build.secondary_args``),
+    ``max_steps`` its walk budget (8 for AO); tables as for
+    :func:`bmtrace`."""
+    global launches, shared_launches
+    nc = math.prod(grid_dims)
+    wpb = (factor**3 + 31) // 32
+    _check_grid("bmtrace_secondary", grid_dims, factor, coarse_layout, nc * wpb)
+    build.check("bmtrace_secondary", "meta", meta, torch.int32, (nc,), meta.device)
+    build.check("bmtrace_secondary", "bricks", bricks, torch.int32, (nc, wpb), meta.device)
+    res, shared = _secondary("bmtrace_secondary", "vx_trace_brickmap_dense_secondary", kind, position, normal,
+                             (meta, bricks), inputs, grid_dims=grid_dims, factor=factor, max_steps=max_steps,
+                             coarse_layout=coarse_layout, brick_layout=brick_layout)
+    if shared is not None:
+        launches += 1
+        shared_launches += shared
+        secondary_launches[kind] += 1
+    return res
+
+
+def bmtrace_compact_secondary(
+    kind: str, position, normal, meta: torch.Tensor, brick_idx: torch.Tensor, bricks: torch.Tensor, *, grid_dims,
+    factor: int, max_steps: int, coarse_layout: Layout, brick_layout: Layout, **inputs,
+):
+    """:func:`bmtrace_secondary` over a compact brickmap (tables as for
+    :func:`bmtrace_compact`)."""
+    global compact_launches, compact_shared_launches
+    nc = math.prod(grid_dims)
+    wpb = (factor**3 + 31) // 32
+    _check_grid("bmtrace_compact_secondary", grid_dims, factor, coarse_layout, bricks.shape[0] * wpb)
+    build.check("bmtrace_compact_secondary", "meta", meta, torch.int32, (nc,), meta.device)
+    build.check("bmtrace_compact_secondary", "brick_idx", brick_idx, torch.int32, (nc,), meta.device)
+    build.check("bmtrace_compact_secondary", "bricks", bricks, torch.int32, (None, wpb), meta.device)
+    res, shared = _secondary("bmtrace_compact_secondary", "vx_trace_brickmap_compact_secondary", kind, position,
+                             normal, (meta, brick_idx, bricks), inputs, grid_dims=grid_dims, factor=factor,
+                             max_steps=max_steps, coarse_layout=coarse_layout, brick_layout=brick_layout)
+    if shared is not None:
+        compact_launches += 1
+        compact_shared_launches += shared
+        compact_secondary_launches[kind] += 1
+    return res
 
 
 slab_launches = 0

@@ -50,12 +50,20 @@ _ORIGIN_RAYS = [_P, _I, _P, _I]  # origins, its row stride, raw directions, its 
 _LINE_TABLE = [_P] * 4  # region_lines, brick_lines, macro, macro2
 # n, gx, gy, gz, rx, ry, rz, factor, wpb, max_steps, brick_layout, iter_limit, use_macro
 _LINE_TABLE_INTS = [_I] * 13
-_SHADE = [_P] * 5 + [_I, _P, _I] + [_P] * 14 + [_I] * 4 + [_F] * 3 + [_I]
+_SHADE = [_P] * 5 + [_I, _P, _I] + [_P] * 13 + [_I] * 4 + [_F] * 3 + [_I]
+# kind; pos, nrm, dirs, its row stride; px, py, light; width, seed_frame,
+# ao_samples (csrc/secondary.cuh::VX_SECONDARY_PARAMS)
+_SECONDARY = [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I]
+_SECONDARY_OUTS = [_P] * 5  # hit, position, normal, steps, ao (null where the kind writes none)
+# the secondary entries' kinds, by their `kind` argument (secondary.cuh::SecondaryKind)
+SECONDARY_KINDS = ("shadow", "reflection", "ao")
 SIGNATURES = {
     # ... outputs, diag (null, or int32[11, n])
     "vx_bigtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
     # the same from origins and raw directions; hit (uint8) in place of flags
     "vx_bigtrace_rays": _ORIGIN_RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
+    # a kind of secondary rays built from the primary trace; the kind's outputs
+    "vx_bigtrace_secondary": _SECONDARY + _LINE_TABLE + _LINE_TABLE_INTS + _SECONDARY_OUTS,
     # ... max_rows, rows, nrows, outputs (the record instantiation of K1's loop)
     "vx_trace_crossings": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P, _P] + _OUTS,
     # ... refill, counter (int32 scratch), stats (null, or uint64[2]), outputs
@@ -73,6 +81,9 @@ SIGNATURES = {
     # both from origins and raw directions; hit (uint8) in place of flags
     "vx_trace_brickmap_dense_rays": _ORIGIN_RAYS + [_P] * 2 + [_I] * 11 + [_P] + _OUTS,
     "vx_trace_brickmap_compact_rays": _ORIGIN_RAYS + [_P] * 3 + [_I] * 11 + [_P] + _OUTS,
+    # both from the primary trace, as vx_bigtrace_secondary
+    "vx_trace_brickmap_dense_secondary": _SECONDARY + [_P] * 2 + [_I] * 11 + [_P] + _SECONDARY_OUTS,
+    "vx_trace_brickmap_compact_secondary": _SECONDARY + [_P] * 3 + [_I] * 11 + [_P] + _SECONDARY_OUTS,
     # rays (round 0) or null, rows_in (later rounds) or null, meta, bricks;
     # m, gx, gy, gz, z0, slab_gz, factor, wpb, max_steps, brick_layout,
     # iter_limit; counter (int32 scratch), rows_out, status, outputs (K4-slab)
@@ -94,8 +105,8 @@ SIGNATURES = {
     "vx_rays_pixels": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_P] * 3,
     # hit, pos, nrm, steps, origins, its row stride, dirs, its row stride,
     # px, py, py_r, cam, light_dir, light_color, ambient, shadow_hit,
-    # shadow_steps, refl_hit, refl_pos, refl_nrm, refl_dir, ao (each null
-    # where not traced); width, height, view, crosshair; reflectivity,
+    # shadow_steps, refl_hit, refl_pos, refl_nrm, ao (each null where not
+    # traced); width, height, view, crosshair; reflectivity,
     # pos_mod, mod_m; n; color, write
     "vx_shade": _SHADE + [_P] * 2,
     # ...; the framebuffer
@@ -115,6 +126,9 @@ HOST_ENTRIES = {
     "vx_bigtrace_rays_host": SIGNATURES["vx_bigtrace_rays"],
     "vx_trace_brickmap_dense_rays_host": _ORIGIN_RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
     "vx_trace_brickmap_compact_rays_host": _ORIGIN_RAYS + [_P] * 3 + [_I] * 10 + _OUTS,
+    "vx_bigtrace_secondary_host": SIGNATURES["vx_bigtrace_secondary"],
+    "vx_trace_brickmap_dense_secondary_host": _SECONDARY + [_P] * 2 + [_I] * 10 + _SECONDARY_OUTS,
+    "vx_trace_brickmap_compact_secondary_host": _SECONDARY + [_P] * 3 + [_I] * 10 + _SECONDARY_OUTS,
     "vx_trace_grid_host": _RAYS + [_P] + [_I] * 6 + _OUTS,
     "vx_trace_grid_limbs_host": _RAYS + [_P, _L] + [_I] * 6 + _OUTS,
     # limbs, plane, words16, out: K3's staging alone
@@ -258,6 +272,60 @@ def ray_outputs(n: int, dev, hit_dtype=torch.int32):
         torch.empty((n, 3), dtype=torch.float32, device=dev),
         torch.empty((n,), dtype=torch.int32, device=dev),
     )
+
+
+def pointers(args) -> list:
+    """A launcher's arguments with each tensor as its data pointer."""
+    return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def secondary_args(kernel: str, kind: str, position, normal, *, light=None, dirs=None, px=None, py=None,
+                   width: int = 0, frame_number: int = 0, ao_samples: int = 0):
+    """Check a secondary entry's inputs (``csrc/secondary.cuh``) and make its
+    outputs.  ``kind`` is one of :data:`SECONDARY_KINDS`; ``position`` and
+    ``normal`` are the primary trace's (``f32[N, 3]``, contiguous, on one
+    CUDA device); the shadow kind reads ``light`` (``f32[3]``), the
+    reflection kind ``dirs`` (the rays' raw directions, ``f32[N, 3]`` rows
+    or one broadcast row), the AO kind ``px``, ``py`` (``int64[N]``),
+    ``width``, ``frame_number`` and ``ao_samples`` (>= 1).  Returns
+    ``(device, N, the launcher's arguments before the tables (tensors
+    among them), its five outputs (tensors, None where the kind writes
+    none), the kind's results)``: shadow ``(hit bool[N], steps i32[N])``,
+    reflection ``(hit, position f32[N, 3], normal f32[N, 3])``, AO the
+    factor ``f32[N]``."""
+    if kind not in SECONDARY_KINDS:
+        raise ValueError(f"{kernel}: kind must be one of {SECONDARY_KINDS}, got {kind!r}")
+    dev = position.device
+    require_cuda(kernel, dev)
+    n = position.shape[0]
+    check(kernel, "position", position, torch.float32, (n, 3), dev)
+    check(kernel, "normal", normal, torch.float32, (n, 3), dev)
+    d, ds = None, 0
+    if kind == "shadow":
+        check(kernel, "light", light, torch.float32, (3,), dev)
+    elif kind == "reflection":
+        d, ds = ray_rows(kernel, "dirs", dirs, n, dev)
+    else:
+        check(kernel, "px", px, torch.int64, (n,), dev)
+        check(kernel, "py", py, torch.int64, (n,), dev)
+        if ao_samples < 1:
+            raise ValueError(f"{kernel}: the AO kind needs ao_samples >= 1, got {ao_samples}")
+    seed_frame = ((frame_number + 1) * 7919) & 0xFFFFFFFF  # wraps as the plain version's int32 seed
+    head = (SECONDARY_KINDS.index(kind), position, normal, d, ds, px if kind == "ao" else None,
+            py if kind == "ao" else None, light if kind == "shadow" else None, width,
+            seed_frame - (1 << 32) if seed_frame >= 1 << 31 else seed_frame, ao_samples)
+    hit = torch.empty((n,), dtype=torch.bool, device=dev) if kind != "ao" else None
+    if kind == "shadow":
+        outs = [hit, None, None, torch.empty((n,), dtype=torch.int32, device=dev), None]
+        res = (hit, outs[3])
+    elif kind == "reflection":
+        outs = [hit, torch.empty((n, 3), dtype=torch.float32, device=dev),
+                torch.empty((n, 3), dtype=torch.float32, device=dev), None, None]
+        res = (hit, outs[1], outs[2])
+    else:
+        outs = [None] * 4 + [torch.empty((n,), dtype=torch.float32, device=dev)]
+        res = outs[4]
+    return dev, n, head, outs, res
 
 
 def launch(kernel: str, fn, *args, dev) -> None:

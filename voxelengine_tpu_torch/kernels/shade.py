@@ -35,8 +35,9 @@ def _args(kernel: str, out, origins, dirs, px, py, py_r, origin, env: Environmen
     i32); ``origins`` and ``dirs`` the rays (``f32[N, 3]``,
     rows of 3 floats or one broadcast row); ``px``, ``py``, ``py_r`` the
     pixels (``int64[N]``); ``origin`` the camera position (``f32[3]``);
-    ``shadow`` ``(hit, steps)``, ``reflection`` ``(hit, position, normal,
-    direction)`` and ``ao`` (``f32[N]``) the secondary results, or None."""
+    ``shadow`` ``(hit, steps)``, ``reflection`` ``(hit, position,
+    normal)`` (the kernel reflects ``dirs`` again for a miss's sky) and
+    ``ao`` (``f32[N]``) the secondary results, or None."""
     dev = out.position.device
     build.require_cuda(kernel, dev)
     n = out.position.shape[0]
@@ -51,19 +52,19 @@ def _args(kernel: str, out, origins, dirs, px, py, py_r, origin, env: Environmen
     vecs = (origin, env.light_direction, env.light_color, env.ambient_color)
     for name, t in zip(("origin", "light_direction", "light_color", "ambient_color"), vecs):
         build.check(kernel, name, t, F32, (3,), dev)
-    opt = [None] * 7
+    opt = [None] * 6
     if shadow is not None:
         build.check(kernel, "shadow hit", shadow[0], U8, (n,), dev)
         build.check(kernel, "shadow steps", shadow[1], torch.int32, (n,), dev)
         opt[0:2] = shadow
     if reflection is not None:
         build.check(kernel, "reflection hit", reflection[0], U8, (n,), dev)
-        for name, t in zip(("reflection position", "reflection normal", "reflection direction"), reflection[1:]):
+        for name, t in zip(("reflection position", "reflection normal"), reflection[1:]):
             build.check(kernel, name, t, F32, (n, 3), dev)
-        opt[2:6] = reflection
+        opt[2:5] = reflection
     if ao is not None:
         build.check(kernel, "ao", ao, F32, (n,), dev)
-        opt[6] = ao
+        opt[5] = ao
     args = (
         *(t.data_ptr() for t in out), o.data_ptr(), os, d.data_ptr(), ds, px.data_ptr(), py.data_ptr(),
         py_r.data_ptr(), *(t.data_ptr() for t in vecs), *(None if t is None else t.data_ptr() for t in opt),

@@ -15,7 +15,9 @@ the CPU:
 * :func:`trace_brickmap_hbm_rr`: K5 (:mod:`voxelengine_tpu_torch.kernels.
   rrtrace`), the same function with a persistent grid and a work queue;
 * :func:`trace_brickmap_hbm_staged`: two K1 launches, a short-budget pass
-  and a full-budget retrace of the 128-ray rows that still have survivors.
+  and a full-budget retrace of the 128-ray rows that still have survivors;
+* :func:`trace_secondary_hbm`: K1's secondary entry, a kind of the
+  shading's secondary rays built, walked and reduced in one launch.
 
 The plain versions are :func:`trace_brickmap_lt`, a torch state machine over
 the line table that takes the macro skips with the TPU kernel's expressions
@@ -41,6 +43,7 @@ from voxelengine_tpu_torch.core.brickmap import BrickMap, _edit_coords, _edit_xy
 from voxelengine_tpu_torch.core.exact import fdiv
 from voxelengine_tpu_torch.core.layout import Layout, sample_index
 from voxelengine_tpu_torch.ops.aabb import ray_aabb
+from voxelengine_tpu_torch.ops.secondary import secondary_plain, walk_steps
 from voxelengine_tpu_torch.ops.trace import (
     _RESULT_KEYS,
     INF,
@@ -544,6 +547,31 @@ def trace_brickmap_hbm(
     if return_phases:
         return (res, phases["iters"], phases) if return_iters else (res, phases)
     return res, phases["iters"]
+
+
+def trace_secondary_hbm(bm: BrickMap, lt: LineTable, kind: str, out: TraceOut, dirs, px, py, env, frame_number: int,
+                        cfg) -> object:
+    """One kind of the shading's secondary rays (``ops/secondary.py``) of
+    the primary trace ``out`` through the line table, with the macro levels
+    as ``cfg.trace_use_macro``: for CUDA tensors one launch of K1's
+    secondary entry (the rays built, walked and reduced in the launch), for
+    CPU tensors the plain :func:`~voxelengine_tpu_torch.ops.secondary.
+    secondary_plain` over :func:`trace_brickmap_hbm`.  ``dirs``, ``px``,
+    ``py`` are the primary rays' raw directions and pixels, ``env`` the
+    frame's :class:`~voxelengine_tpu_torch.config.Environment`.  Returns
+    the kind's results (``secondary_plain``'s)."""
+    use_macro = cfg.trace_use_macro
+    if not _is_cuda(out.position):
+        def trace(o, d, max_steps):
+            return trace_brickmap_hbm(bm, lt, o, d, max_steps, use_macro=use_macro)
+
+        return secondary_plain(kind, trace, out, dirs, px, py, env, frame_number, cfg)
+    from voxelengine_tpu_torch.kernels import bigtrace as k1
+
+    tables, kw = _kernel_tables(bm, lt, walk_steps(kind, cfg), use_macro)
+    return k1.bigtrace_secondary(kind, out.position, out.normal, *tables, light=env.light_direction,
+                                 dirs=dirs.to(F32), px=px, py=py, width=cfg.width, frame_number=frame_number,
+                                 ao_samples=cfg.ao_samples, **kw)
 
 
 def trace_brickmap_hbm_rr(
