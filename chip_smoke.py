@@ -6,7 +6,8 @@
 Phases, one stdout line each (plus the kernels' build logs):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile every CUDA kernel (K1-K5, W1, K4-slab, the record, camera, ray-setup and shading kernels) from
+2. build: compile every CUDA kernel (K1-K5, W1, K4-slab, the record,
+   camera, ray-setup, shading and secondary kernels) from
    ``voxelengine_tpu_torch/csrc``, one nvcc per source, all started
    together; ptxas registers and spills of each instantiation;
 3. noise: worldgen noise on the card against ``native/golden_noise.json``,
@@ -62,10 +63,12 @@ Phases, one stdout line each (plus the kernels' build logs):
 10. sparse world: the 16384x512x16384 world at factor 32 of
    ``tests/test_pallas_bigtrace.py:500-531`` (512x16x512 chunks, 8192
    regions, L2 and L3 real), 262,144 near, horizon and sky rays: K1 macro
-   off, K1 macro on and K5 (``trace_brickmap_hbm_rr``) each against its
-   plain version and K1 against K5 (0 diffs), the phase counters (``mskip``
-   must be > 0) against the plain walk's; times, K5 at each refill, and
-   K5's lanes-active share beside K1's;
+   off, K1 macro on and K5 (``trace_brickmap_hbm_rr``: one launch of its
+   rays entry, the ray setup and ``hit_imm`` fix-up in it) each against its
+   plain version, K1 against K5 and K5's rays entry against its prepared
+   entry after the eager setup (0 diffs), the phase counters (``mskip``
+   must be > 0) against the plain walk's; times, K5 at each refill, its
+   rays entry, and K5's lanes-active share beside K1's;
 11. the app's frame (``apps/voxel_app.py`` at its default size): the 1024^3
    world at factor 32 with dense slots built through W1
    (``build_brickmap_terrain``), its ``compact_brickmap`` against
@@ -110,12 +113,26 @@ Phases, one stdout line each (plus the kernels' build logs):
    ``render_frame`` at both parities; ``raytrace_sharded`` on 1,048,576
    random rays and its mean against single-device K1; each rank's
    ``make_zsharded_hbm`` row and ``trace_brickmap_hbm_zsharded`` (K1's
-   replicated walk) on a frame's rays against single-device K1; on the
-   1024^3 app world with dense slots, ``trace_brickmap_zsharded`` (ray
-   migration through K4-slab) on a 1280x720 frame's rays and 4,096
-   axis-aligned rays against single-device K4, K4-slab against its plain
-   slab walk on each rank's round-0 rays, each K4-slab launch of the two
-   traces run again alone (ranks in turns) beside its bound, and
+   replicated walk) on a frame's rays against single-device K1; the
+   pixel-sharded frames composite in the shading kernel's composite
+   entry, each rank's part its destination (its launches counted on the
+   path, ``checkerboard_pair_select`` never called), which is held on each
+   rank's rays to its plain version (``shade_traced_plain`` and the
+   layout's pair select, 0 word diffs);
+   ``render_frame_zsharded`` at 1920x1080 on the bench world through K1's
+   replicated walk with shadows, AO 4 and reflections: 4 tracer calls (AO's
+   samples one batch), the secondary kernels' build launches and AO's
+   reduce launch (``csrc/secondary.cu``), no ``secondary_plain`` call, 0 word diffs
+   against the same frame with ``secondary_plain`` over the same tracer,
+   its peak memory, and each secondary kernel against its plain version;
+   on the 1024^3 app world with dense slots, ``trace_brickmap_zsharded``
+   (ray migration through K4-slab's batch form: round 0 over the whole
+   batch, setup, ownership and fix-up in the launch) on a 1280x720 frame's
+   rays and 4,096 axis-aligned rays against single-device K4, K4-slab's
+   prepared form and its batch form against their plain slab walks on each
+   rank's round 0, each batch-form launch of the two traces run again
+   alone (ranks in turns) beside its bound, the migration's shaded frame
+   against its ``secondary_plain`` frame as above, and
    ``render_frame_zsharded``
    with shadows, AO 4 and reflections through K4-slab and through K1
    (and primary-only through K1) against single-device frames; then the
@@ -171,7 +188,9 @@ Phases, one stdout line each (plus the kernels' build logs):
    kernel); the shading kernel (``csrc/shade.cu``) against
    ``shade_traced_plain`` and ``composite_frame`` at both parities and its
    ``shade`` entry on 4 ranks' band and cyclic pixels, 0 word diffs in
-   color, write and framebuffer; its times and bound.  Its other gates
+   color, write and framebuffer; its times and bound, and the device time
+   of its composite entry on rank 0's band (the sharded frames'
+   composite, gated in phase 13).  Its other gates
    run where their worlds are: the demo frame, each debug view, the
    crosshair without checkerboard, 1280x719 and a block permutation in
    phase 5; the dense frame (and its launch gate, 3 CUDA kernels) in phase
@@ -197,7 +216,12 @@ phase-11 frames for K1 with secondary rays, its ``raytrace`` for K1 on a
 batch, its TILED_LINEAR world's ``raytrace`` and frame for K4; the 2D demo for
 K1 on a 2D world, one ``trace_grid_2d`` call for K2 on it, one
 ``trace_ray_crossings`` for the record kernel; in phase 13 each sharded
-entry for K1 and the migration traces for K4-slab, counted in every rank;
+entry for K1, the pixel-sharded frames for the shading kernel's
+composite entry on a rank's part, the shaded z-sharded frames for the
+secondary kernels and the migration traces for K4-slab (its batch form;
+the prepared form, on no path, is gated and timed apart), counted in every
+rank; the phase-10 ``trace_brickmap_hbm_rr`` call for K5's rays entry (its
+prepared entry, on no path, is gated and timed apart);
 the harness's ``xla`` run on the bench world for K4-compact; phase 19's
 shaded bench frames for each secondary entry)
 runs
@@ -222,6 +246,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -259,7 +284,7 @@ EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
 # threads a block of each library's kernels (csrc/*.cu)
 BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256, "crossings": 32,
-                 "zslab": 1024, "camera": 128, "rays": 256, "shade": 256}
+                 "zslab": 1024, "camera": 128, "rays": 256, "shade": 256, "secondary": 256}
 # the app's frame (apps/voxel_app.py:64-68,178-188): the 1024^3 world at
 # factor 32, 1280x720, shadows, AO 4, reflections; the facade's batch size
 APP_WORLD = (1024, 1024, 1024)
@@ -1717,8 +1742,11 @@ def warp_max(x):
 
 
 def phase_sparse(dev):
-    """Phase 10: K1 (macro off and on) and K5 on the sparse 16k world;
-    returns K5's record."""
+    """Phase 10: K1 (macro off and on) and K5 on the sparse 16k world
+    (``trace_brickmap_hbm_rr``: one launch of K5's rays entry, the ray
+    setup and the ``hit_imm`` fix-up in it, against the prepared entry
+    after the eager setup and fix-up); returns K5's record: the rays entry
+    (the path's), with the prepared entry's time at the default refill."""
     import torch
 
     from voxelengine_tpu_torch.config import MAX_STEPS
@@ -1754,13 +1782,17 @@ def phase_sparse(dev):
     check_diffs("sparse world: K1 macro off vs plain trace_brickmap", compare(k1_off, plain_off), n, hits)
     k1_on = trace_brickmap_hbm(bm, lt, o, d, ms)
     check_diffs("sparse world: K1 macro on vs plain macro walk", compare(k1_on, plain_on), n, hits)
-    rrtrace.launches = 0  # K5's path: trace_brickmap_hbm_rr on this batch
+    rrtrace.launches = rrtrace.rays_launches = 0  # K5's path: trace_brickmap_hbm_rr on this batch
     k5 = trace_brickmap_hbm_rr(bm, lt, o, d, ms)
     torch.cuda.synchronize()
-    k5_launches = rrtrace.launches
-    if k5_launches != 1:
-        raise SystemExit(f"trace_brickmap_hbm_rr launched K5 {k5_launches} times, not once")
+    k5_launches, rays_launches = rrtrace.launches, rrtrace.rays_launches
+    if (k5_launches, rays_launches) != (0, 1):
+        raise SystemExit(f"trace_brickmap_hbm_rr launched K5's rays entry {rays_launches} times and its prepared "
+                         f"entry {k5_launches} times, not the rays entry once")
     k5_diffs = compare(k5, plain_on)
+    k5_args, k5_kw = line_kernel_args(bm, lt, o, d, ms)
+    rays_entry_gate("sparse world: K5's rays entry (trace_brickmap_hbm_rr) vs vx_rrtrace after the eager setup",
+                    k5, prepared_result(rrtrace.rrtrace(*k5_args, use_macro=True, **k5_kw), bm, o, d))
     check_diffs("sparse world: K5 vs plain macro walk", k5_diffs, n, hits)
     check_diffs("sparse world: K1 macro on vs K5", compare(k1_on, k5), n, hits)
     chunk = compare(k1_on, plain_off)
@@ -1786,26 +1818,54 @@ def phase_sparse(dev):
     say(f"times: sparse world, {n} rays: K1 macro off {t_off:.3f} ms, K1 macro on {t_on:.3f} ms, K5 {k5_times(t_k5)}, "
         f"plain trace_brickmap {p_off:.3f} ms, plain macro walk {p_on:.3f} ms, sum(steps) {steps_sum}, "
         f"executed events {events} (macro off: sum(steps) {int(plain_off.steps.sum())}), on {card_line()}")
-    return kernel_entry(
-        "rrtrace", "rrtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1694", k5_launches, k5_diffs[4],
-        t_k5[rrtrace.REFILL],
-        p_on, n, hit_table_bytes(plain_on, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick),
-        steps_sum, events, refill=rrtrace.REFILL, lanes_active=k5_share[rrtrace.REFILL], k1_lanes_active=k1_share,
-    )
+    t_rays = cuda_ms(lambda: trace_brickmap_hbm_rr(bm, lt, o, d, ms), repeats=10)
+    say(f"times: sparse world: K5's rays entry (trace_brickmap_hbm_rr, one launch) {t_rays:.4f} ms at refill "
+        f"{rrtrace.REFILL}, its prepared entry {t_k5[rrtrace.REFILL]:.4f} ms (the eager setup and fix-up not "
+        f"counted), on {card_line()}")
+    table = hit_table_bytes(plain_on, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick)
+    # K5 on its path is the rays entry; the prepared entry (vx_rrtrace), which no path runs, is timed off the
+    # path (prepared_ms, the refill sweep's) and gated above
+    return [kernel_entry(
+        "rrtrace_rays", "rrtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1694 (and the wrapper's XLA setup "
+        "around it, voxelengine_tpu/ops/pallas_bigtrace.py:1947)", rays_launches, k5_diffs[4], t_rays, p_on, n,
+        table, steps_sum, events, ray_bytes=grid_ray_bytes(o, d), refill=rrtrace.REFILL,
+        lanes_active=k5_share[rrtrace.REFILL], k1_lanes_active=k1_share, prepared_ms=t_k5[rrtrace.REFILL],
+        prepared_launches=k5_launches,
+    )]
+
+
+@contextlib.contextmanager
+def eager_secondary():
+    """Within it, a caller's tracer takes ``ops/secondary.py::secondary_plain``
+    (the eager rays, one tracer call a sample for AO) where the frame takes
+    ``secondary_traced`` (the secondary kernels around one call a kind):
+    the same signature and results, so a reference frame or a batch list
+    is the plain version's."""
+    from voxelengine_tpu_torch.ops.secondary import secondary_plain
+    from voxelengine_tpu_torch.render import frame
+
+    real = frame.secondary_traced
+    frame.secondary_traced = secondary_plain
+    try:
+        yield
+    finally:
+        frame.secondary_traced = real
 
 
 def render_plain(bm, fb, origin, euler, env, frame_number, cfg, plain, block_perm=None, ortho_size=None,
                  primary=None):
     """``render_frame`` into ``fb`` with every trace (primary, shadow,
-    reflection, AO) the plain ``plain(bm, origins, dirs, max_steps)`` and
-    the plain shading and composite; ``primary`` reuses a plain primary
-    trace of the same rays."""
+    reflection, AO) the plain ``plain(bm, origins, dirs, max_steps)``, the
+    secondary rays eager (:func:`eager_secondary`) and the plain shading
+    and composite; ``primary`` reuses a plain primary trace of the same
+    rays."""
     from voxelengine_tpu_torch.render.frame import composite_frame, primary_rays, shade_traced_plain
 
     o, d, px, py, py_r = primary_rays(cfg, origin, euler, frame_number, block_perm, ortho_size)
     out = primary if primary is not None else plain(bm, o, d, cfg.max_steps)
-    color, write = shade_traced_plain(bm, out, o, d, px, py, py_r, origin, env, frame_number, cfg,
-                                secondary=lambda a, b, ms: plain(bm, a, b, ms))
+    with eager_secondary():
+        color, write = shade_traced_plain(bm, out, o, d, px, py, py_r, origin, env, frame_number, cfg,
+                                          secondary=lambda a, b, ms: plain(bm, a, b, ms))
     return composite_frame(fb, color, write, cfg, frame_number, block_perm)
 
 
@@ -1846,7 +1906,8 @@ def app_batches(bm, lt, cfg, origin, euler, env, fn):
         batches.append((next(kinds), a.contiguous(), b.contiguous(), ms, res))
         return res
 
-    shade_traced_plain(bm, out, o, d, px, py, py_r, origin, env, fn, cfg, lt, secondary=k1)
+    with eager_secondary():  # the eager rays: a batch a kind, and one an AO sample
+        shade_traced_plain(bm, out, o, d, px, py, py_r, origin, env, fn, cfg, lt, secondary=k1)
     return batches
 
 
@@ -2518,6 +2579,11 @@ MD_AXIS_RAYS = 4096  # axis-aligned rays through every slab of the app world
 # needs none, so the bound counts the paused rays' rows only.
 SLAB_RAY_BYTES = 40 + 4 + 32
 SLAB_ROW_BYTES = 4 * 35
+# K4-slab's batch form (vx_zslab_rays): a done ray's result out at its batch
+# index (hit as int32, position, normal, steps), and a paused ray's row and
+# batch index out; round 0 reads the batch's origins and directions
+SLAB_RESULT_BYTES = 32
+SLAB_PAUSED_BYTES = SLAB_ROW_BYTES + 4
 
 
 def md_label(n: int, backend: str) -> str:
@@ -2572,6 +2638,7 @@ def md_rank(mesh, cache, key, frames):
     from voxelengine_tpu_torch.core.layout import Layout
     from voxelengine_tpu_torch.io.checkpoint import generate_or_load, line_table_or_build
     from voxelengine_tpu_torch.kernels import bigtrace, bmtrace
+    from voxelengine_tpu_torch.kernels import shade as shade_kernel
     from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines, trace_brickmap_hbm
     from voxelengine_tpu_torch.ops.trace import (
         TraceOut, _dims, _edge_pad, _init_state, _ray_setup, kernel_result, run_slab, unpack_slab_state,
@@ -2628,20 +2695,27 @@ def md_rank(mesh, cache, key, frames):
     for kind in ("rows", "cyclic"):
         render = S.render_frame_sharded if kind == "rows" else S.render_frame_cyclic
         fb = S.make_framebuffer_rows(cfg, mesh) if kind == "rows" else S.make_framebuffer_cyclic(cfg, mesh)
-        bigtrace.launches = 0  # the path's launches
-        render(bm, fb, origin, euler, env, 0, cfg, mesh, lt)
-        torch.cuda.synchronize(dev)
-        dist.barrier()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        for i in range(1, frames + 1):
-            render(bm, fb, origin, euler + 1e-5 * i, env, i, cfg, mesh, lt)
-        end.record()
-        torch.cuda.synchronize(dev)
+        bigtrace.launches = shade_kernel.launches = 0  # the path's launches
+        pair_selects = []  # the plain composite's calls on the path: none on the card
+        real_select = S.checkerboard_pair_select
+        S.checkerboard_pair_select = lambda *a: pair_selects.append(1) or real_select(*a)
+        try:
+            render(bm, fb, origin, euler, env, 0, cfg, mesh, lt)
+            torch.cuda.synchronize(dev)
+            dist.barrier()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for i in range(1, frames + 1):
+                render(bm, fb, origin, euler + 1e-5 * i, env, i, cfg, mesh, lt)
+            end.record()
+            torch.cuda.synchronize(dev)
+        finally:
+            S.checkerboard_pair_select = real_select
         out[f"{kind}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / frames
         out[f"{kind}_ms"] = start.elapsed_time(end) / frames
         out[f"{kind}_launches"] = bigtrace.launches
+        out[f"{kind}_composite_launches"], out[f"{kind}_pair_selects"] = shade_kernel.launches, len(pair_selects)
         diffs = []
         for i in (frames, frames + 1):
             if i > frames:
@@ -2657,6 +2731,8 @@ def md_rank(mesh, cache, key, frames):
         px, py_r = S.band_pixels(cfg, mesh, dev) if kind == "rows" else S.cyclic_pixels(cfg, mesh, dev)
         o, d, _ = S._rays_for_pixels(cfg, origin, euler + 1e-5 * frames, frames, px, py_r, cfg.ortho_size)
         out[f"{kind}_k1"] = md_k1_check(bm, lt, o.contiguous(), d, cfg.max_steps, use_macro, mesh, 0)
+        out[f"{kind}_dest"] = md_dest_check(kind, bm, lt, cfg, origin, euler + 1e-5 * frames, env, frames, mesh, px,
+                                            py_r)
     del ref
 
     # 2. raytrace_sharded on random rays through K1, its mean
@@ -2693,6 +2769,9 @@ def md_rank(mesh, cache, key, frames):
                            grid_dims=bm.grid_dims, factor=bm.factor, coarse_layout=Layout.LINEAR,
                            brick_layout=bm.brick_layout, dense_slots=False)
     out["zw_k1"] = md_k1_check(placeholder, zw.line_table(r), po, pd, cfg.max_steps, True, mesh, 0)
+    # the z-sharded shaded frame at full width through the replicated walk
+    zcfg = dataclasses.replace(cfg, shadow_rays=True, ao_samples=APP_AO, reflections=True)
+    out["zframe_bench"] = md_zframe(mesh, None, zw, zcfg, origin, euler, env, 1)
     del zw, bm, lt
     torch.cuda.empty_cache()
 
@@ -2711,24 +2790,28 @@ def md_rank(mesh, cache, key, frames):
                     torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(m, 3)]).contiguous()
     gx, gy, gz = app.grid_dims
     slab_gz = gz // n
-    slab_calls = []  # every K4-slab launch of the two migration traces, timed afterwards
-    real_slab = bmtrace.bmtrace_slab
+    slab_calls = []  # every K4-slab launch of the two migration traces (its batch form), timed afterwards
+    real_slab = bmtrace.bmtrace_slab_rays
 
-    def recording_slab(meta, bricks, *, rays=None, rows=None, **kw):
-        res = real_slab(meta, bricks, rays=rays, rows=rows, **kw)
-        if res[0].shape[0]:  # a launch (the wrapper launches nothing for no rays)
-            slab_calls.append((meta, bricks, rays, rows, kw, res))
+    def recording_slab(meta, bricks, o_, d_, outs, *, rows=None, idx=None, **kw):
+        before = tuple(t.clone() for t in outs)
+        res = real_slab(meta, bricks, o_, d_, outs, rows=rows, idx=idx, **kw)
+        if rows is None or rows.shape[0]:  # a launch (the wrapper launches nothing for no rows)
+            k = int(res[2][1])
+            slab_calls.append((meta, bricks, o_, d_, rows, idx, kw, before, tuple(t.clone() for t in outs),
+                               res[0][:k].clone()))
         return res
 
     for name, (o, d) in (("frame", (fo.contiguous(), fd)), ("axis", (xo, xd))):
         stats = []
-        bmtrace.slab_launches = 0
-        bmtrace.bmtrace_slab = recording_slab
+        bmtrace.slab_launches = bmtrace.slab_rays_launches = 0
+        bmtrace.bmtrace_slab_rays = recording_slab
         try:
             zres, ms = sync_wall(lambda: D.trace_brickmap_zsharded(app, o, d, mesh, acfg.max_steps, stats))
         finally:
-            bmtrace.bmtrace_slab = real_slab
+            bmtrace.bmtrace_slab_rays = real_slab
         out[f"mig_{name}_ms"], out[f"mig_{name}_launches"] = ms, bmtrace.slab_launches
+        out[f"mig_{name}_rays_launches"] = bmtrace.slab_rays_launches
         out[f"mig_{name}_rounds"] = stats
         if r == 0:
             out[f"mig_{name}_diffs"] = list(full_diffs(zres, trace_brickmap_mxu(app, o, d, acfg.max_steps)))
@@ -2748,6 +2831,7 @@ def md_rank(mesh, cache, key, frames):
                   max_steps=acfg.max_steps, brick_layout=app.brick_layout)
         k_ms = md_in_turns(mesh, lambda: own.numel() and cuda_ms(
             lambda: bmtrace.bmtrace_slab(meta_s[r], bricks_s[r], rays=setup, **kw), repeats=10))
+        out[f"slab_rays_{name}"] = md_slab_rays_check(app, meta_s[r], bricks_s[r], o, d, kw, mesh)
         if own.numel() == 0:
             continue
         rows, status, *kres = bmtrace.bmtrace_slab(meta_s[r], bricks_s[r], rays=setup, **kw)
@@ -2788,43 +2872,332 @@ def md_rank(mesh, cache, key, frames):
     primary = dataclasses.replace(acfg, shadow_rays=False, ao_samples=0, reflections=False)
     for name, c, use_zw in (("migration", acfg, False), ("zw", acfg, True), ("zw_primary", primary, True)):
         fb = make_framebuffer(c, dev)
-        bigtrace.launches = bmtrace.slab_launches = 0
+        bigtrace.launches = bmtrace.slab_rays_launches = 0
         _, ms = sync_wall(lambda: D.render_frame_zsharded(app, fb, aorigin, euler, env, 1, c, mesh,
                                                            zw=zw_app if use_zw else None))
-        out[f"zframe_{name}"] = {"ms": ms, "k1": bigtrace.launches, "k4slab": bmtrace.slab_launches}
+        out[f"zframe_{name}"] = {"ms": ms, "k1": bigtrace.launches, "k4slab": bmtrace.slab_rays_launches}
         if r == 0:
             want = render_frame(app, make_framebuffer(c, dev), aorigin, euler, env, 1, c, lt=lt_app if use_zw else None)
             diff = (fb - want).abs()
             out[f"zframe_{name}"].update(max_diff=float(diff.max()), pixels=int((diff > 0).any(-1).sum()))
-    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    out["zframe_app_migration"] = md_zframe(mesh, app, None, acfg, aorigin, euler, env, 1)
+    out["max_memory_allocated"] = max(torch.cuda.max_memory_allocated(dev), out["zframe_bench"]["peak_bytes"],
+                                      out["zframe_app_migration"]["peak_bytes"])
     out["staged_bytes"] = mesh.staged_bytes
     return out
 
 
-def slab_launch_time(app, meta, bricks, rays, rows, kw, res):
-    """One recorded K4-slab launch of a migration trace, run again alone:
-    ``{rays, round0, paused, ms, bound_ms}``, its time by CUDA events over 10
-    launches and its bound (:func:`bound`: ray bytes in and out, the paused
-    rays' state rows out, a handed-on row in for each ray of a later round,
-    the table words of its hits; the DDA steps it took)."""
+def dest_part(dest, cfg, px, py, py_r):
+    """Which rays the composite entry writes into the rank's part given as
+    its destination (``kernels/shade.py::shade_composite``'s ``dest``): a
+    pixel of the image's rows, a pre-remap row of the image, the tile a
+    rank's."""
+    tw, th, tiles_x, ranks, rank = dest
+    j = (py // th) * tiles_x + px // tw
+    return (py >= 0) & (py < cfg.height) & (py_r >= 0) & (j % ranks == rank)
+
+
+def md_dest_check(kind, bm, lt, cfg, origin, euler, env, fn, mesh, px, py_r):
+    """The shading kernel's composite entry on this rank's rays of one
+    frame (its band's or its blocks', ``render_frame_sharded`` /
+    ``render_frame_cyclic``) against its plain version
+    (``shade_traced_plain``, then ``composite_band_plain`` or
+    ``composite_cyclic_plain``) over a framebuffer of stale values: word
+    diffs; the kernel's time and the plain version's, ranks in turns; the
+    bytes and operations of its bound."""
+    import torch
+
+    from voxelengine_tpu_torch.kernels import shade as shade_kernel
+    from voxelengine_tpu_torch.parallel import sharded as S
+    from voxelengine_tpu_torch.render.frame import shade_traced_plain, trace_primary
+
+    dev = origin.device
+    o, d, py = S._rays_for_pixels(cfg, origin, euler, fn, px, py_r, cfg.ortho_size)
+    out = trace_primary(bm, o, d, cfg, lt)
+    dest = S.band_dest(cfg, mesh) if kind == "rows" else S.cyclic_dest(cfg, mesh)
+    composite = S.composite_band_plain if kind == "rows" else S.composite_cyclic_plain
+    make = S.make_framebuffer_rows if kind == "rows" else S.make_framebuffer_cyclic
+    gen = torch.Generator(device=dev).manual_seed(fn + 97 * mesh.rank)
+    stale = torch.rand(tuple(make(cfg, mesh).shape), generator=gen, device=dev)
+    args = (bm, out, o, d, px, py, py_r, origin, env, fn, cfg, lt)
+
+    def kernel(fb):
+        return shade_kernel.shade_composite(fb, out, o, d, px, py, py_r, origin, env, cfg, dest=dest)
+
+    def plain(fb):
+        return composite(fb, *shade_traced_plain(*args), py_r, cfg, mesh, fn)
+
+    got, want = kernel(stale.clone()), plain(stale.clone())
+    _, write = shade_traced_plain(*args)
+    fb = stale.clone()
+    n, hits = o.shape[0], int(out.hit.sum())
+    written = write & dest_part(dest, cfg, px, py, py_r)
+    return {
+        "diffs": word_diffs(got, want), "err": float((got - want).abs().max()), "rays": n, "hits": hits,
+        "written": int(written.sum()),
+        "ms": md_in_turns(mesh, lambda: cuda_ms(lambda: kernel(fb), repeats=20)),
+        "plain_ms": md_in_turns(mesh, lambda: cuda_ms(lambda: plain(fb), repeats=3)),
+        "bytes": shade_bytes(cfg, out, o, d, px, py, written),
+        "ops": hits * SHADE_OPS + (n - hits) * SHADE_MISS_OPS,
+    }
+
+
+def md_slab_rays_check(app, meta, bricks, o, d, kw, mesh):
+    """K4-slab's batch form, round 0 on this rank's slab over the whole
+    batch ``o``, ``d``, against its plain version (``_init_state`` over the
+    whole grid, the entry cell's ownership, ``run_slab``, ``kernel_result``):
+    the rays owned, the paused rays (batch indices) and where each paused
+    (coarse cell, tMax, entry time, steps), and the done rays' results at
+    their batch index, word for word; its time and the plain version's,
+    ranks in turns; the bytes and steps of its bound."""
     import torch
 
     from voxelengine_tpu_torch.kernels import bmtrace
+    from voxelengine_tpu_torch.ops.trace import TraceOut, _init_state, kernel_result, run_slab, unpack_slab_state
+    from voxelengine_tpu_torch.parallel import distributed as D
+
+    n_rays, gz = o.shape[0], app.grid_dims[2]
+    z0, slab_gz = kw["z0"], kw["slab_gz"]
+    spec = app.grid_dims + (app.factor, app.coarse_layout, app.brick_layout)
+    dev = o.device
+
+    def outs():
+        return (torch.zeros((n_rays,), dtype=torch.int32, device=dev), torch.zeros((n_rays, 3), device=dev),
+                torch.zeros((n_rays, 3), device=dev), torch.zeros((n_rays,), dtype=torch.int32, device=dev))
+
+    def plain():
+        local = D._slab_bm(spec, meta, bricks, slab_gz)
+        st0 = _init_state(local, o, d, full_gz=gz)
+        own = torch.nonzero(st0["active"] & (torch.clamp(st0["ccell"][:, 2] // slab_gz, 0, mesh.size - 1)
+                                             == mesh.rank)).squeeze(1)
+        rows, status, *res = run_slab(local, {k: v[own] for k, v in st0.items()}, kw["max_steps"], z0, gz)
+        return own, rows, status, kernel_result(*res, st0["start_c"][own], st0["start_normal"][own], app.factor)
+
+    got = outs()
+    rows, idx, counts = bmtrace.bmtrace_slab_rays(meta, bricks, o, d, got, **kw)
+    k, owned = counts[1:].tolist()
+    own, p_rows, status, want = plain()
+    paused = status == 1
+    order = torch.argsort(idx[:k].long())
+    b_rows, b_idx = rows[:k][order], idx[:k][order].long()
+    st = unpack_slab_state(p_rows[paused])
+    done = own[~paused]
+    same = [b_idx.shape == own[paused].shape and bool((b_idx == own[paused]).all())]
+    bad = {"owned": int(owned != own.numel()), "paused rays": int(not same[0])}
+    if same[0]:
+        bad.update({
+            "paused cell": int((b_rows[:, bmtrace.STATE_CELL] != st["ccell"]).any(1).sum()),
+            "paused tmax": int((b_rows[:, bmtrace.STATE_TMAX].view(torch.float32) != st["ctmax"]).any(1).sum()),
+            "paused entry t": int((b_rows[:, bmtrace.STATE_TLAST].view(torch.float32) != st["centry_t"]).sum()),
+            "paused steps": int((b_rows[:, bmtrace.STATE_STEPS] != st["steps"]).sum()),
+        })
+    got_done = TraceOut(got[0][done] == 1, got[1][done], got[2][done], got[3][done])
+    want_done = TraceOut(*(t[~paused] for t in want))
+    bad.update({f"done {f}": word_diffs(getattr(got_done, f), getattr(want_done, f))
+                for f in ("hit", "steps", "normal", "position")})
+    h = want_done.hit
+    err = torch_max((got_done.position[h] - want_done.position[h]).abs(), (got_done.normal[h] - want_done.normal[h]).abs())
+    scratch = outs()
+    steps = int(want_done.steps.sum()) + int(st["steps"].sum())
+    table = hit_table_bytes(want_done, app.world_dims, app.brick_layout, app.factor, app.words_per_brick)
+    return {
+        "bad": bad, "err": err, "rays": n_rays, "owned": owned, "paused": k, "steps": steps, "table": table,
+        "bytes": data_bytes(o) + data_bytes(d) + SLAB_RESULT_BYTES * done.numel() + SLAB_PAUSED_BYTES * k,
+        "ms": md_in_turns(mesh, lambda: cuda_ms(lambda: bmtrace.bmtrace_slab_rays(meta, bricks, o, d, scratch, **kw),
+                                                repeats=10)),
+        "plain_ms": md_in_turns(mesh, lambda: events_ms(plain)[1]),
+    }
+
+
+def md_zframe(mesh, bm, zw, cfg, origin, euler, env, fn):
+    """One shaded ``render_frame_zsharded`` frame (shadows, AO, reflections)
+    through its route (``zw``: K1's replicated walk, else the migration over
+    ``bm``), its counts from 0: the tracer's calls (the primary and one a
+    kind), the secondary kernels' build and reduce launches, the calls of
+    ``secondary_plain`` (none on the card); its host wall time from a
+    barrier, and the peak memory it allocates.  Then the same frame with
+    ``secondary_plain`` over the same tracer (one call a sample for AO) and
+    the same shading kernel: word diffs of the framebuffers, and that
+    frame's time.  The secondary kernels' times and their plain versions'
+    on this frame's inputs, ranks in turns, with the bytes of their bounds
+    (:func:`secondary_kernel_times`)."""
+    import torch
+
+    from voxelengine_tpu_torch.kernels import bigtrace, bmtrace
+    from voxelengine_tpu_torch.kernels import secondary as sk
+    from voxelengine_tpu_torch.kernels import shade as shade_kernel
+    from voxelengine_tpu_torch.ops import bigtrace as ops_bigtrace
+    from voxelengine_tpu_torch.ops import secondary as ops_secondary
+    from voxelengine_tpu_torch.ops import trace2
+    from voxelengine_tpu_torch.ops.secondary import frame_kinds
+    from voxelengine_tpu_torch.parallel import distributed as D
+    from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays
+
+    dev = origin.device
+    calls, plain_calls = [], []
+    real_hbm, real_mig, real_plain = D.trace_brickmap_hbm_zsharded, D.trace_brickmap_zsharded, ops_secondary.secondary_plain
+
+    def counted(real):
+        def run(*a, **k):
+            calls.append(a[1].shape[0])
+            return real(*a, **k)
+        return run
+
+    def plain_counted(*a, **k):
+        plain_calls.append(a[0])
+        return real_plain(*a, **k)
+
+    def trace(o, d, ms):
+        if zw is not None:
+            return real_hbm(zw, o, d, mesh, ms, use_macro=cfg.trace_use_macro)
+        return real_mig(bm, o, d, mesh, ms)
+
+    modules = (ops_secondary, ops_bigtrace, trace2)
+    sk.build_launches = sk.reduce_launches = bigtrace.launches = bmtrace.slab_rays_launches = 0
+    D.trace_brickmap_hbm_zsharded, D.trace_brickmap_zsharded = counted(real_hbm), counted(real_mig)
+    for m in modules:
+        m.secondary_plain = plain_counted
+    fb = make_framebuffer(cfg, dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        _, wall = md_sync_wall(mesh, lambda: D.render_frame_zsharded(bm, fb, origin, euler, env, fn, cfg, mesh, zw=zw))
+    finally:
+        D.trace_brickmap_hbm_zsharded, D.trace_brickmap_zsharded = real_hbm, real_mig
+        for m in modules:
+            m.secondary_plain = real_plain
+    rec = {"ms": wall, "peak_bytes": torch.cuda.max_memory_allocated(dev), "tracer_calls": list(calls),
+           "secondary_plain_calls": len(plain_calls), "build_launches": sk.build_launches,
+           "reduce_launches": sk.reduce_launches, "k1_launches": bigtrace.launches,
+           "slab_rays_launches": bmtrace.slab_rays_launches, "checksum": float(fb.double().sum()),
+           "finite": bool(torch.isfinite(fb).all()), "width": cfg.width, "height": cfg.height}
+
+    def reference():
+        ref = make_framebuffer(cfg, dev)
+        o, d, px, py, py_r = primary_rays(cfg, origin, euler, fn)
+        out = trace(o, d, cfg.max_steps)
+        sec = {k: real_plain(k, trace, out, d, px, py, env, fn, cfg) for k in frame_kinds(cfg)}
+        shade_kernel.shade_composite(ref, out, o, d, px, py, py_r, origin.to(torch.float32), env, cfg,
+                                     shadow=sec.get("shadow"), reflection=sec.get("reflection"), ao=sec.get("ao"))
+        return ref, (o, d, px, py, out)
+
+    (ref, inputs), rec["plain_route_ms"] = md_sync_wall(mesh, reference)
+    rec["word_diffs"] = word_diffs(fb, ref)
+    rec["kernels"] = secondary_kernel_times(mesh, trace, inputs, env, fn, cfg)
+    return rec
+
+
+def md_sync_wall(mesh, fn):
+    """``(fn(), host ms)`` from a barrier to the end of the work on the card."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.synchronize(mesh.device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize(mesh.device)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def secondary_kernel_times(mesh, trace, inputs, env, fn, cfg):
+    """The secondary kernels on one frame's inputs (``(o, d, px, py, out)``,
+    its primary rays and trace): each kind's build (``secondary_build``)
+    and AO's reduce (``secondary_reduce``, of the tracer's results for the
+    built rays) against their plain versions (``secondary_rays_plain``,
+    ``secondary_reduce_plain``), word diffs and the largest absolute
+    errors; the sums of the kinds' times (a frame's launches) and of the
+    plain versions', ranks in turns; the bytes of their bounds: the build
+    reads a primary ray's position, the normal and the direction or pixel
+    its kind reads, and writes each built ray's origin and direction (24
+    B); the reduce reads each AO sample's hit and a hit's position and the
+    primary position, and writes the factor."""
+    import torch
+
+    from voxelengine_tpu_torch.kernels import secondary as sk
+    from voxelengine_tpu_torch.ops.secondary import frame_kinds, secondary_reduce_plain, secondary_rays_plain
+
+    def err(g, w):  # largest |g - w| over the words that differ (equal words, NaN included, count 0)
+        same = g.view(torch.int32) == w.view(torch.int32)
+        return torch_max(torch.where(same, 0.0, (g - w).abs()).nan_to_num(nan=float("inf")))
+
+    o, d, px, py, out = inputs
+    n = out.position.shape[0]
+    S_ = cfg.ao_samples
+    diffs, errs, build_bytes, reduce_bytes, made = {}, {"build": 0.0, "reduce": 0.0}, 0, 0, {}
+    for kind in frame_kinds(cfg):
+        kw = dict(light=env.light_direction, dirs=d, px=px, py=py, width=cfg.width, frame_number=fn, ao_samples=S_)
+        rays = sk.secondary_build(kind, out.position, out.normal, **kw)
+        want = [w.expand(rays[0].shape[0], 3).contiguous()
+                for w in secondary_rays_plain(kind, out, d, px, py, env, fn, cfg)]
+        m = rays[0].shape[0]
+        diffs[f"build {kind}"] = sum(word_diffs(g, w) for g, w in zip(rays, want))
+        errs["build"] = max([errs["build"]] + [err(g, w) for g, w in zip(rays, want)])
+        res = type(out)(*(t.contiguous() for t in trace(*rays, 8 if kind == "ao" else cfg.max_steps)))  # all ranks
+        made[kind] = (kw, res)
+        if kind == "shadow":
+            build_bytes += n * (12 + 24)
+        elif kind == "reflection":
+            build_bytes += n * (24 + 24) + data_bytes(d)
+        else:
+            got = sk.secondary_reduce(out.position, res.hit, res.position, ao_samples=S_)
+            want = secondary_reduce_plain(kind, res, out, cfg)
+            diffs[f"reduce {kind}"] = word_diffs(got, want)
+            errs["reduce"] = max(errs["reduce"], err(got, want))
+            build_bytes += n * (24 + 16) + m * 24
+            reduce_bytes += m + 12 * int(res.hit.sum()) + n * (12 + 4)
+    ao = made.get("ao")
+
+    def builds():
+        return [sk.secondary_build(k, out.position, out.normal, **kw) for k, (kw, _) in made.items()]
+
+    def reduces():
+        return sk.secondary_reduce(out.position, ao[1].hit, ao[1].position, ao_samples=S_)
+
+    def plain_builds():
+        return [secondary_rays_plain(k, out, d, px, py, env, fn, cfg) for k in made]
+
+    def plain_reduces():
+        return secondary_reduce_plain("ao", ao[1], out, cfg)
+
+    if ao is None:
+        raise SystemExit("secondary kernels: the frame traces no AO, so its reduce is not timed")
+    return {
+        "diffs": diffs, "rays": n, "kinds": list(made), "build_bytes": build_bytes, "reduce_bytes": reduce_bytes,
+        "build_err": errs["build"], "reduce_err": errs["reduce"],
+        "build_ms": md_in_turns(mesh, lambda: cuda_ms(builds, repeats=10)),
+        "reduce_ms": md_in_turns(mesh, lambda: cuda_ms(reduces, repeats=10)),
+        "build_plain_ms": md_in_turns(mesh, lambda: cuda_ms(plain_builds, repeats=3)),
+        "reduce_plain_ms": md_in_turns(mesh, lambda: cuda_ms(plain_reduces, repeats=3)),
+    }
+
+
+def slab_launch_time(app, meta, bricks, o, d, rows, idx, kw, before, after, paused_rows):
+    """One recorded launch of K4-slab's batch form in a migration trace, run
+    again alone on a copy of the outputs it found: ``{rays, round0, paused,
+    ms, bound_ms}``, its time by CUDA events over 10 launches and its bound
+    (:func:`bound`: round 0's origins and directions, or a handed-on row and
+    index for each ray of a later round, in; a result out for each ray it
+    ended and a row and index for each ray it paused; the table words of
+    its hits; the DDA steps it took)."""
+    from voxelengine_tpu_torch.kernels import bmtrace
     from voxelengine_tpu_torch.ops.trace import TraceOut
 
-    ms = cuda_ms(lambda: bmtrace.bmtrace_slab(meta, bricks, rays=rays, rows=rows, **kw), repeats=10)
-    rows_out, status, flags, pos, nrm, steps = res
-    m = rows_out.shape[0]
-    paused = int((status == 1).sum())
-    done_hit = ((flags & 1) == 1) & (status == 0)
-    table = hit_table_bytes(TraceOut(done_hit, pos, nrm, steps), app.world_dims, app.brick_layout, app.factor,
+    scratch = tuple(t.clone() for t in before)
+    ms = cuda_ms(lambda: bmtrace.bmtrace_slab_rays(meta, bricks, o, d, scratch, rows=rows, idx=idx, **kw),
+                 repeats=10)
+    ended = (after[3] != before[3]) | (after[0] != before[0])  # a ray that ends with no step and no hit is free
+    hit = (after[0] == 1) & (before[0] == 0)
+    table = hit_table_bytes(TraceOut(hit, after[1], after[2], after[3]), app.world_dims, app.brick_layout, app.factor,
                             app.words_per_brick)
-    taken = torch.where(status == 1, rows_out[:, bmtrace.STATE_STEPS], steps).long()  # a done ray writes no row
+    taken = int((after[3] - before[3]).sum()) + int(paused_rows[:, bmtrace.STATE_STEPS].sum())
     if rows is not None:
-        taken = taken - rows[:, bmtrace.STATE_STEPS].long()
-    per_ray = SLAB_RAY_BYTES if rows is None else SLAB_ROW_BYTES + SLAB_RAY_BYTES - 40
-    bound_ms, _ = bound(m, table + SLAB_ROW_BYTES * paused, int(taken.sum()), per_ray)
-    return {"rays": m, "round0": rows is None, "paused": paused, "ms": ms, "bound_ms": bound_ms}
+        taken -= int(rows[:, bmtrace.STATE_STEPS].sum())
+    m = o.shape[0] if rows is None else rows.shape[0]
+    bytes_in = data_bytes(o) + data_bytes(d) if rows is None else m * SLAB_PAUSED_BYTES
+    out_bytes = SLAB_RESULT_BYTES * int(ended.sum()) + SLAB_PAUSED_BYTES * paused_rows.shape[0]
+    bound_ms, _ = bound(0, bytes_in + out_bytes + table, taken)
+    return {"rays": m, "round0": rows is None, "paused": paused_rows.shape[0], "ms": ms, "bound_ms": bound_ms}
 
 
 def fdiv32(a, b):
@@ -2856,17 +3229,51 @@ def md_gates(label, res, card):
         f"{r0['zw_diffs']}; rays whose steps exceed the single walk's {r0['zw_steps_over']} (must be 0), steps equal "
         f"on {r0['zw_steps_equal']:.4f} of rays; K1 vs plain on rank 0's row {r0['zw_k1']['diffs']}, on {card}")
     fails += ["replicated walk"] * (any(r0["zw_diffs"]) or r0["zw_steps_over"] > 0 or any(r0["zw_k1"]["diffs"]))
+    for kind in ("rows", "cyclic"):
+        dest = [x[f"{kind}_dest"]["diffs"] for x in res]
+        launched = [(x[f"{kind}_composite_launches"], x[f"{kind}_pair_selects"]) for x in res]
+        say(f"multi-device ({label}): render_frame_{'sharded' if kind == 'rows' else 'cyclic'}'s composite: the "
+            f"shading kernel's composite entry on the rank's part vs its plain version (shade_traced_plain, then the "
+            f"pair select) on each rank's rays over stale values (tolerance: equal words): diffs per rank {dest}; on "
+            f"the path (composite launches, checkerboard_pair_select calls) per rank {launched} in "
+            f"{res[0]['frames'] + 1} frames (must be (frames, 0)), on {card}")
+        fails += [f"{kind} composite"] * (any(dest) or any(a != res[0]["frames"] + 1 or b for a, b in launched))
     for name in ("frame", "axis"):
-        say(f"multi-device ({label}): trace_brickmap_zsharded through K4-slab, app world, {name} rays vs single-device "
-            f"K4 (tolerance: bit-equal): diffs (hit, steps, normal, position) {r0[f'mig_{name}_diffs']}, hits "
-            f"{r0[f'mig_{name}_hits']}, on {card}")
-        fails += [f"migration {name}"] * any(r0[f"mig_{name}_diffs"])
+        say(f"multi-device ({label}): trace_brickmap_zsharded through K4-slab's batch form, app world, {name} rays vs "
+            f"single-device K4 (tolerance: bit-equal): diffs (hit, steps, normal, position) "
+            f"{r0[f'mig_{name}_diffs']}, hits {r0[f'mig_{name}_hits']}; batch-form launches "
+            f"{[x[f'mig_{name}_rays_launches'] for x in res]}, prepared-form launches "
+            f"{[x[f'mig_{name}_launches'] for x in res]} (must be 0) per rank, on {card}")
+        fails += [f"migration {name}"] * (any(r0[f"mig_{name}_diffs"]) or any(
+            x[f"mig_{name}_launches"] for x in res) or not sum(x[f"mig_{name}_rays_launches"] for x in res))
+        for x in res:
+            s = x[f"slab_rays_{name}"]
+            say(f"multi-device ({label}): K4-slab's batch form (vx_zslab_rays) vs its plain round 0 (_init_state, "
+                f"ownership, run_slab, kernel_result) on rank {x['rank']}'s slab, the whole {name} batch ({s['rays']} "
+                f"rays, {s['owned']} owned, {s['paused']} paused; tolerance: bit-equal): {json.dumps(s['bad'])}")
+            fails += [f"K4-slab batch form rank {x['rank']}"] * any(s["bad"].values())
         for x in res:
             s = x.get(f"slab_{name}")
             if s:
                 say(f"multi-device ({label}): K4-slab vs its plain slab walk on rank {x['rank']}'s round-0 {name} rays "
                     f"({s['rays']} rays, {s['paused']} paused; tolerance: bit-equal): {json.dumps(s['bad'])}")
                 fails += [f"K4-slab rank {x['rank']}"] * any(s["bad"].values())
+    for name, what in (("zframe_bench", f"K1's replicated walk, bench world {WORLDS['full'][1]}x{WORLDS['full'][2]}"),
+                       ("zframe_app_migration", f"migration, app world {APP_SIZE[0]}x{APP_SIZE[1]}")):
+        z = r0[name]
+        kinds = len(z["kernels"]["kinds"])
+        aos = z["kernels"]["kinds"].count("ao")  # the one kind with a reduce
+        say(f"multi-device ({label}): render_frame_zsharded, shaded (shadows, AO {APP_AO}, reflections), {what}: vs "
+            f"the same frame with secondary_plain over the same tracer and the same shading kernel (tolerance: equal "
+            f"words): {z['word_diffs']} word diffs; tracer calls {len(z['tracer_calls'])} "
+            f"({z['tracer_calls']} rays; must be 1 + {kinds}), secondary_plain calls {z['secondary_plain_calls']} "
+            f"(must be 0), build and reduce launches {z['build_launches']}, {z['reduce_launches']} (must be {kinds} "
+            f"and {aos}); the kernels vs their plain versions on its inputs: {json.dumps(z['kernels']['diffs'])}; "
+            f"checksum {z['checksum']:.6f}, finite {z['finite']}, on {card}")
+        fails += [f"{name}"] * (z["word_diffs"] != 0 or len(z["tracer_calls"]) != 1 + kinds or
+                                z["secondary_plain_calls"] != 0 or z["build_launches"] != kinds or
+                                z["reduce_launches"] != aos or any(z["kernels"]["diffs"].values()) or
+                                not z["finite"])
     for name, tol in (("migration", 1e-6), ("zw", 3e-2), ("zw_primary", 0.0)):
         z = r0[f"zframe_{name}"]
         say(f"multi-device ({label}): render_frame_zsharded ({name}) {APP_SIZE[0]}x{APP_SIZE[1]} vs single-device "
@@ -2892,7 +3299,7 @@ def md_times(label, res, wall_s, card):
     for name in ("frame", "axis"):
         rounds = [[(s["sent_up"], s["sent_down"]) for s in x[f"mig_{name}_rounds"]] for x in res]
         say(f"multi-device ({tag}): migration ({name} rays): {len(res)} rounds, rays sent (up, down) per rank and "
-            f"round {rounds}, K4-slab launches {sum(x[f'mig_{name}_launches'] for x in res)}, trace "
+            f"round {rounds}, K4-slab launches {sum(x[f'mig_{name}_rays_launches'] for x in res)}, trace "
             f"{[round(x[f'mig_{name}_ms'], 2) for x in res]} ms (host wall); K4-slab alone on round 0 "
             f"{ {x['rank']: round(x[f'slab_{name}']['ms'], 4) for x in res if f'slab_{name}' in x} } ms, its plain "
             f"{ {x['rank']: round(x[f'slab_{name}']['plain_ms'], 1) for x in res if f'slab_{name}' in x} } ms; "
@@ -2900,7 +3307,8 @@ def md_times(label, res, wall_s, card):
     launches = [dict(x, rank=r["rank"]) for r in res for x in r["slab_launches"]]
     each = [(x["rank"], x["rays"], 0 if x["round0"] else "later", x["paused"], round(x["ms"], 4),
              round(x["bound_ms"], 5)) for x in launches]
-    say(f"multi-device ({tag}): each K4-slab launch of the two migration traces, run again alone (ranks in turns; "
+    say(f"multi-device ({tag}): each launch of K4-slab's batch form in the two migration traces, run again alone "
+        f"(ranks in turns; "
         f"rank, rays, round 0 or a handed-on round, paused rays, ms, bound ms): {each}"
         f"; {len(launches)} launches, sum(ms) {sum(x['ms'] for x in launches):.4f}, "
         f"launches x (ms - bound) = sum(ms - bound) {sum(x['ms'] - x['bound_ms'] for x in launches):.4f} ms")
@@ -2909,6 +3317,23 @@ def md_times(label, res, wall_s, card):
             f"{[round(x[f'zframe_{name}']['ms'], 1) for x in res]} ms per rank (host wall, one frame), K1 launches "
             f"{sum(x[f'zframe_{name}']['k1'] for x in res)}, K4-slab launches "
             f"{sum(x[f'zframe_{name}']['k4slab'] for x in res)}")
+    for kind in ("rows", "cyclic"):
+        say(f"multi-device ({tag}): {kind} composite, the shading kernel's composite entry on each rank's rays: "
+            f"{[round(x[f'{kind}_dest']['ms'], 5) for x in res]} ms per rank (in turns, CUDA events over 20 calls), "
+            f"its plain version {[round(x[f'{kind}_dest']['plain_ms'], 3) for x in res]} ms")
+    for name in ("frame", "axis"):
+        say(f"multi-device ({tag}): K4-slab's batch form, round 0 over the whole {name} batch on each rank's slab: "
+            f"{[round(x[f'slab_rays_{name}']['ms'], 4) for x in res]} ms per rank (in turns), its plain round 0 "
+            f"{[round(x[f'slab_rays_{name}']['plain_ms'], 1) for x in res]} ms")
+    for name in ("zframe_bench", "zframe_app_migration"):
+        say(f"multi-device ({tag}): {name}: render_frame_zsharded shaded, one frame: "
+            f"{[round(x[name]['ms'], 1) for x in res]} ms per rank (host wall from a barrier); the same frame with "
+            f"secondary_plain {[round(x[name]['plain_route_ms'], 1) for x in res]} ms; peak max_memory_allocated "
+            f"{[x[name]['peak_bytes'] for x in res]} B per rank; secondary build kernels "
+            f"{[round(x[name]['kernels']['build_ms'], 4) for x in res]} ms a frame (plain "
+            f"{[round(x[name]['kernels']['build_plain_ms'], 3) for x in res]}), reduce kernels "
+            f"{[round(x[name]['kernels']['reduce_ms'], 4) for x in res]} ms a frame (plain "
+            f"{[round(x[name]['kernels']['reduce_plain_ms'], 3) for x in res]}), in turns")
     say(f"multi-device ({tag}): bench world load {[round(x['load_ms']) for x in res]} ms, app world build "
         f"{[round(x['app_build_ms']) for x in res]} ms; max_memory_allocated per rank "
         f"{[x['max_memory_allocated'] for x in res]} B; bytes staged through the host per rank "
@@ -2931,17 +3356,59 @@ def md_kernels(res):
             k["plain_ms"], k["rays"], k["table"], k["steps"], ray_bytes=k["ray_bytes"], path=path, ranks=len(res),
             ms_per_rank=[x[f"{key}_k1"]["ms"] for x in res], timed_on="rank 0's rays, ranks in turns",
         ))
+    # the shading kernel's composite entry on the sharded frames' path (the row bands' and the blocks' frames,
+    # each rank's part as its destination); timed on rank 0's band
+    k = r0["rows_dest"]
+    bytes_ms, ops_ms = k["bytes"] / HBM_BYTES_PER_S * 1e3, k["ops"] / issue_rates()["issue"] * 1e3
+    recs.append({
+        "name": "shade_composite_sharded", "route": "cuda", "source": "voxelengine_tpu_torch/csrc/shade.cu",
+        "replaces": "none: voxelengine_tpu/parallel/sharded.py:177-183, 317-319 (the pair select around the "
+                    "shading, XLA ops; no pallas_call)",
+        "path": "render_frame_sharded, render_frame_cyclic",
+        "launches": sum(x["rows_composite_launches"] + x["cyclic_composite_launches"] for x in res),
+        "max_abs_err": max(x[f"{kind}_dest"]["err"] for x in res for kind in ("rows", "cyclic")),
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
+        "rays": k["rays"], "pixels_written": k["written"], "bytes": k["bytes"], "timed_on": "rank 0's band",
+        "cyclic_ms_per_rank": [x["cyclic_dest"]["ms"] for x in res], "ranks": len(res),
+    })
+    # the secondary kernels: the shaded z-sharded frames' (bench world through K1's replicated walk, app world
+    # through the migration); timed on rank 0's inputs of the bench frame
+    z = r0["zframe_bench"]["kernels"]
+    for part in ("build", "reduce"):
+        b = z[f"{part}_bytes"] / HBM_BYTES_PER_S * 1e3
+        recs.append({
+            "name": f"secondary_{part}", "route": "cuda", "source": "voxelengine_tpu_torch/csrc/secondary.cu",
+            "replaces": "none: voxelengine_tpu/render/frame.py:245-293, 378-420 (the secondary rays' XLA ops around "
+                        "the caller's tracer, voxelengine_tpu/parallel/distributed.py:190-243; no pallas_call)",
+            "launches": sum(x[f][f"{part}_launches"] for x in res for f in ("zframe_bench", "zframe_app_migration")),
+            "max_abs_err": max(x[f]["kernels"][f"{part}_err"] for x in res
+                               for f in ("zframe_bench", "zframe_app_migration")),
+            "ms": z[f"{part}_ms"], "plain_ms": z[f"{part}_plain_ms"], "bound_ms": b,
+            "bound_by": "bytes", "library_ms": None, "rays": z["rays"], "bytes": z[f"{part}_bytes"],
+            "kinds": z["kinds"], "timed_on": "rank 0's bench zw frame, its kinds' launches together",
+        })
+    # K4-slab on its path is the batch form: the migration traces' launches; timed on the rank owning the most
+    # frame rays.  The prepared form (vx_zslab), which no path runs, is gated and timed off the path on the rank's
+    # round-0 rays (prepared_*)
+    sr = max(res, key=lambda x: x["slab_rays_frame"]["owned"])["slab_rays_frame"]
+    each = [x for r in res for x in r["slab_launches"]]
     owner = max((x for x in res if "slab_frame" in x), key=lambda x: x["slab_frame"]["rays"])
     s = owner["slab_frame"]
-    launches = sum(x["mig_frame_launches"] + x["mig_axis_launches"] for x in res)
-    each = [x for r in res for x in r["slab_launches"]]
     recs.append(kernel_entry(
-        "bmtrace_slab", "zslab.cu", "voxelengine_tpu/ops/trace.py:221 _run_loop(slab=) (XLA, no pallas_call)",
-        launches, s["err"], s["ms"], s["plain_ms"], s["rays"], s["table"], s["steps"],
-        ray_bytes=SLAB_RAY_BYTES + SLAB_ROW_BYTES * s["paused"] / s["rays"],
-        path="trace_brickmap_zsharded (frame and axis rays)", timed_on=f"rank {owner['rank']}'s round-0 frame rays",
+        "zslab_rays", "zslab.cu", "voxelengine_tpu/ops/trace.py:221 _run_loop(slab=) and voxelengine_tpu/parallel/"
+        "distributed.py:84-172 (XLA, no pallas_call)", sum(x[f"mig_{n}_rays_launches"] for x in res
+                                                          for n in ("frame", "axis")),
+        sr["err"], sr["ms"], sr["plain_ms"], 0, sr["table"] + sr["bytes"], sr["steps"], ray_bytes=0,
+        path="trace_brickmap_zsharded (frame and axis rays)", timed_on="round 0 over the whole frame batch",
+        batch_rays=sr["rays"], owned=sr["owned"], paused=sr["paused"],
         launch_ms=[x["ms"] for x in each], launch_bound_ms=[x["bound_ms"] for x in each],
         launches_x_ms_minus_bound=sum(x["ms"] - x["bound_ms"] for x in each),
+        prepared_launches=sum(x["mig_frame_launches"] + x["mig_axis_launches"] for x in res),
+        prepared_max_abs_err=s["err"], prepared_ms=s["ms"], prepared_plain_ms=s["plain_ms"],
+        prepared_bound_ms=bound(s["rays"], s["table"], s["steps"],
+                                SLAB_RAY_BYTES + SLAB_ROW_BYTES * s["paused"] / s["rays"])[0],
+        prepared_timed_on=f"rank {owner['rank']}'s round-0 frame rays ({s['rays']})",
     ))
     return recs
 
@@ -3297,7 +3764,7 @@ def ray_setup_record(dev, launches, compared, err):
     attempts = []
     for _ in range(3):
         before = rays.launches
-        setup, setup_ms = kernel_profile(lambda: primary_rays(cfg, origin, one, 1), FRAMES)
+        setup, setup_ms = kernel_profile(lambda: primary_rays(cfg, origin, one, 1), FRAMES, tries=1)
         if rays.launches - before != 2 * FRAMES:
             raise SystemExit(f"rays: {2 * FRAMES} ray setups launched the ray kernel {rays.launches - before} times")
         setup, setup_ms = setup or [], setup_ms or []
@@ -3397,7 +3864,7 @@ def phase_frame_kernels(dev, cache, launches):
     ``launches`` from phase 5's frames."""
     from voxelengine_tpu_torch.experiments.scene import bench_scene
     from voxelengine_tpu_torch.kernels import bigtrace, bmtrace
-    from voxelengine_tpu_torch.ops.bigtrace import _kernel_rays, _kernel_tables, trace_brickmap_hbm, trace_brickmap_k1
+    from voxelengine_tpu_torch.ops.bigtrace import _kernel_tables, prepared_rays, trace_brickmap_hbm, trace_brickmap_k1
     from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table
     from voxelengine_tpu_torch.parallel import sharded
     from voxelengine_tpu_torch.parallel.mesh import Mesh
@@ -3414,7 +3881,7 @@ def phase_frame_kernels(dev, cache, launches):
     # K1's rays entry against vx_bigtrace after the eager setup, diag builds too
     for use_macro in (False, True):
         tables, kw = _kernel_tables(bm, lt, ms, use_macro)
-        start_c, dd, active, pad, _ = _kernel_rays(bm, o, d)
+        start_c, dd, active, pad, _ = prepared_rays(bm, o, d)
         for diag in (False, True):
             got = trace_brickmap_k1(bm, lt, o, d, ms, use_macro, diag=diag)
             outs = bigtrace.bigtrace(start_c, dd, active, pad, *tables, diag=diag, **kw)
@@ -3425,7 +3892,7 @@ def phase_frame_kernels(dev, cache, launches):
     # K4-compact's rays entry on the same rays (the bench world is compact)
     kw4 = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=ms, coarse_layout=bm.coarse_layout,
                brick_layout=bm.brick_layout)
-    start_c, dd, active, pad, _ = _kernel_rays(bm, o, d)
+    start_c, dd, active, pad, _ = prepared_rays(bm, o, d)
     want = prepared_result(bmtrace.bmtrace_compact(start_c, dd, active, pad, bm.meta, bm.brick_idx, bm.bricks, **kw4),
                            bm, o, d)
     rays_entry_gate("frame kernels: K4-compact's rays entry vs vx_trace_brickmap_compact, bench frame",
@@ -3451,6 +3918,20 @@ def phase_frame_kernels(dev, cache, launches):
             for fn in (1, 2):
                 shade_gate(f"shade entry on {layout}_pixels, rank {rank} of {MD_RANKS}", bm, lt, cfg, origin,
                            euler + 1e-5 * fn, env, fn, trace, pixels=pix)
+
+    # the composite entry on rank 0's band of 4 (the sharded frames'
+    # composite) alone: its device time (phase 13 times it by events on the
+    # ranks)
+    from voxelengine_tpu_torch.kernels import shade as shade_kernel
+
+    mesh0 = Mesh(None, 0, MD_RANKS, "rows", dev)
+    px0, pyr0 = sharded.band_pixels(cfg, mesh0, dev)
+    o0, d0, py0 = sharded._rays_for_pixels(cfg, origin, euler, 1, px0, pyr0, cfg.ortho_size)
+    out0, fb0 = trace(o0, d0), sharded.make_framebuffer_rows(cfg, mesh0)
+    launch_gate(f"frame kernels: the shading kernel's composite entry on rank 0's band of {MD_RANKS} "
+                f"({o0.shape[0]} rays, shade_composite(..., dest=))",
+                lambda: shade_kernel.shade_composite(fb0, out0, o0, d0, px0, py0, pyr0, origin, env, cfg,
+                                                     dest=sharded.band_dest(cfg, mesh0)), ("shade_kernel",))
 
     # times on the bench frame's rays: the composite entry, its plain versions
     out = trace(o, d)
@@ -3649,7 +4130,7 @@ def phase_experiments(dev, cache):
         for line in b1.report(shading, res, card):
             say(f"frame breakdown: {line}")
         if not all("kernels_per_frame" in res[st] for st in b1.STAGES):
-            raise SystemExit("frame breakdown: the profiler recorded no device activity")
+            raise SystemExit("frame breakdown: the profiler recorded no device activity in 3 profiles of a stage")
     say(json.dumps({"frame_breakdown": breakdown, "device": card}))
     proj = b2.project(scene, (2, 4, 8), repeats=10, frames=FRAMES)
     one = proj["1"]
@@ -3733,7 +4214,7 @@ def main(argv=None):
         err = timed("dense vs plain", phase_dense_vs_plain, dev)
         kernels += timed("dense path", phase_dense_path, dev, err)
         kernels += timed("bmtrace", phase_bmtrace, dev)
-        kernels.append(timed("sparse", phase_sparse, dev))
+        kernels += timed("sparse", phase_sparse, dev)
         kernels += timed("app frame", phase_app_frame, dev)
         kernels += timed("remainder", phase_remainder, dev)
         kernels += timed("multi-device", phase_multi_device, dev, cache, bench_key(WORLDS["full"][0]))

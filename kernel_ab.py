@@ -10,6 +10,7 @@ turns on one NVIDIA GPU.
     python3 kernel_ab.py --only 'K4-compact|K4-slab'  # only the cases whose names match (inputs built for them)
     python3 kernel_ab.py --quick --only 'ray setup' --before _checkout/prev  # the bench frame's primary_rays in two trees
     python3 kernel_ab.py --quick --only 'bench frame' --before _checkout/prev --sass sass_out  # the frame's kernels, in turns
+    python3 kernel_ab.py --zsharded --before _checkout/prev  # the z-sharded shaded bench frame on 4 ranks, in turns
 
 The inputs are made once, in this process, on the card: the demo frame's
 460,800 rays over the 1024^3 terrain (``chip_smoke.py`` phase 5), the
@@ -68,8 +69,16 @@ the paused rays' rows and the done rays' results, since a tree may leave a
 done ray's row unwritten).  Prints each library's ptxas registers and
 spills, one JSON line per worker, and the card's name and power limit;
 with ``--sass``, also whether each kernel function of the first earlier
-tree has the same SASS in this checkout.  Needs one CUDA device.  Imports
-nothing of JAX.
+tree has the same SASS in this checkout.  With ``--zsharded`` it times
+only the z-sharded shaded frame instead (shadows, AO 4, reflections; the
+bench world at 1920x1080 through K1's replicated walk,
+``render_frame_zsharded`` with ``make_zsharded_hbm``), on 4 gloo ranks
+sharing the one card, each tree's ranks in turns (earlier trees, this one,
+then backwards): each rank's host wall time a frame from a barrier, over
+``ZS_FRAMES`` frames after an untimed one, the frames' checksum and
+their peak ``max_memory_allocated`` a rank.  Four
+ranks share one card there: the times are no scale-out figure.  Needs one
+CUDA device.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -90,6 +99,8 @@ REPEATS = 20  # launches (or dense frames) in one timed window
 WINDOWS = 5  # timed windows; the median is reported
 WARM_S = 0.3  # seconds of launches before the first window, so the card's clocks are up
 FRAME_KINDS = ("dense_frames", "bench_frames")  # cases timed as 8 chained frames, reported a frame
+ZS_RANKS = 4  # ranks of the z-sharded frame (--zsharded), sharing the card over gloo
+ZS_FRAMES = 5  # its timed frames a run, after an untimed one
 
 
 def say(*parts):
@@ -160,6 +171,9 @@ def make_inputs(dev, quick: bool, refills, only=None):
     cases["K1 sparse macro off"] = ("bigtrace", args, dict(kw, use_macro=False))
     cases["K1 sparse macro on"] = ("bigtrace", args, dict(kw, use_macro=True))
     k5_cases("sparse macro on", args, dict(kw, use_macro=True))
+    # the tree's whole trace_brickmap_hbm_rr call (eager setup and fix-up
+    # around the prepared entry, or one launch of K5's rays entry)
+    cases["K5 sparse macro on, trace_brickmap_hbm_rr call"] = ("k5_call", (bm, lt, o, d), dict(max_steps=MAX_STEPS))
 
     def k4_args(bm):
         o, d = cs.random_rays(bm.world_dims, 1 << 20, 2.0, 109, dev)
@@ -220,6 +234,10 @@ BENCH_FRAME_CASES = (
     "bench frames shaded (8 chained render_frame, ms a frame)",
     *(f"{k} bench frame {kind}, secondary stage" for kind in SECONDARY_KINDS for k in ("K1", "K4-compact")),
     *(f"K1 bench frame {kind}, its walks through the rays entry" for kind in SECONDARY_KINDS),
+    "bench frame, rank 0's band of 4 (render_frame_sharded)", "bench frame, rank 0's blocks of 4 (render_frame_cyclic)",
+    "bench frame, rank 0's band of 4, its composite alone (composite entry, the band its destination)",
+    "bench frame secondary rays for a caller's tracer, build (3 kinds)",
+    "bench frame secondary rays for a caller's tracer, reduce (AO)",
 )
 
 
@@ -266,6 +284,16 @@ def bench_frame_cases(cases, dev):
             cases[next(names)] = ("secondary_stage", (bm, table, origin, euler), dict(frame_kw, kind=kind))
     for kind in SECONDARY_KINDS:
         cases[next(names)] = ("secondary_walks", (bm, lt, origin, euler), dict(frame_kw, kind=kind))
+    # one rank's frame of the pixel-sharded layouts (no collective in a frame):
+    # its rays, trace and shading, then the pair select (eager) or the shading
+    # kernel's composite entry into the rank's part
+    for layout in ("rows", "cyclic"):
+        cases[next(names)] = ("sharded_frame", (bm, lt, origin, euler), dict(frame_kw, layout=layout, rank=0, ranks=4))
+    # a tree's new kernels alone: the band's composite (its trace made once), and
+    # the shaded frame's secondary rays built and reduced around K1 as a caller's tracer
+    cases[next(names)] = ("dest_composite", (bm, lt, origin, euler), dict(frame_kw, rank=0, ranks=4))
+    for part in ("build", "reduce"):
+        cases[next(names)] = ("secondary_kernels", (bm, lt, origin, euler), dict(frame_kw, part=part, shaded=True))
 
 
 def slab_cases(cases, dev):
@@ -297,6 +325,9 @@ def slab_cases(cases, dev):
     skw = dict(grid_dims=app.grid_dims, slab_gz=slab_gz, factor=app.factor, max_steps=cfg.max_steps,
                brick_layout=app.brick_layout)
     slab = lambda j: (meta_s[j].clone(), bricks_s[j].clone())  # noqa: E731
+    # the batch form's round 0 over the whole frame batch (a tree that has it)
+    cases[f"K4-slab batch form round 0, slab {k} of 4, the whole frame batch ({o.shape[0]} rays)"] = (
+        "slab_rays", slab(k) + (o.contiguous(), d), dict(skw, z0=k * slab_gz))
     rows, status, *_ = bmtrace.bmtrace_slab(*slab(k), rays=own, z0=k * slab_gz, **skw)
     down = (status == 1) & (rows[:, bmtrace.STATE_CELL.start + 2] < k * slab_gz)
     handed = rows[down].contiguous()
@@ -325,6 +356,7 @@ def tree_functions(torch):
     from voxelengine_tpu_torch.core.bitgrid import BitGrid
     from voxelengine_tpu_torch.core.layout import Layout
     from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, gridtrace, rrtrace
+    from voxelengine_tpu_torch.ops import bigtrace as ops_bigtrace
     from voxelengine_tpu_torch.ops import gridtrace as ops_grid
     from voxelengine_tpu_torch.ops import trace as ops_trace
     from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm
@@ -438,8 +470,10 @@ def tree_functions(torch):
         render._secondary_inputs(bm, lt, out, d, px, py, env, 1, cfg,
                                  secondary=lambda a, b, ms: walks.append((a.contiguous(), b.contiguous(), ms))
                                  or trace_brickmap_hbm(bm, lt, a, b, ms, use_macro=False))
+        # the walks' results field by field, so that AO's samples digest the same
+        # as one batch or as one walk a sample
         return (lambda: [trace_brickmap_hbm(bm, lt, a, b, ms, use_macro=False) for a, b, ms in walks]), (
-            lambda out_: tuple(t for r in out_ for t in r))
+            lambda out_: tuple(torch.cat(f) for f in zip(*out_)))
 
     def shade_entry(args, kw):
         """The frame's shading alone, the shading kernel's ``shade`` entry
@@ -477,6 +511,96 @@ def tree_functions(torch):
             return (fb,)
         return run, (lambda out: out)
 
+    def k5_call(args, kw):
+        bm, lt, o, d = args
+        return (lambda: ops_bigtrace.trace_brickmap_hbm_rr(bm, lt, o, d, kw["max_steps"])), (lambda out: out)
+
+    def sharded_frame(args, kw):
+        """Rank ``kw['rank']``'s frame of a pixel-sharded layout on its own
+        (a frame makes no collective call): the tree's render_frame_sharded
+        or render_frame_cyclic."""
+        from voxelengine_tpu_torch.parallel import sharded
+        from voxelengine_tpu_torch.parallel.mesh import Mesh
+
+        bm, lt, origin, euler = args
+        cfg = bench_cfg(kw)
+        env = Environment.default(origin.device)
+        mesh = Mesh(None, kw["rank"], kw["ranks"], "rows", origin.device)
+        rows = kw["layout"] == "rows"
+        fb = (sharded.make_framebuffer_rows if rows else sharded.make_framebuffer_cyclic)(cfg, mesh)
+        render = sharded.render_frame_sharded if rows else sharded.render_frame_cyclic
+        return (lambda: (render(bm, fb, origin, euler, env, 2, cfg, mesh, lt),)), (lambda out: out)
+
+    def dest_composite(args, kw):
+        """The band's shading and composite alone in the shading kernel's
+        composite entry, the band its destination (a tree that has it), its
+        rays and trace made once."""
+        from voxelengine_tpu_torch.kernels import shade as shade_kernel
+        from voxelengine_tpu_torch.parallel import sharded
+        from voxelengine_tpu_torch.parallel.mesh import Mesh
+
+        if not hasattr(sharded, "band_dest"):
+            return None
+        bm, lt, origin, euler = args
+        cfg = bench_cfg(kw)
+        env = Environment.default(origin.device)
+        mesh = Mesh(None, kw["rank"], kw["ranks"], "rows", origin.device)
+        px, py_r = sharded.band_pixels(cfg, mesh, origin.device)
+        o, d, py = sharded._rays_for_pixels(cfg, origin, euler, 2, px, py_r, cfg.ortho_size)
+        out = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=False)
+        fb = sharded.make_framebuffer_rows(cfg, mesh)
+        dest = sharded.band_dest(cfg, mesh)
+        return (lambda: (shade_kernel.shade_composite(fb, out, o, d, px, py, py_r, origin, env, cfg, dest=dest),)), (
+            lambda r: r)
+
+    def secondary_kernels(args, kw):
+        """A shaded frame's secondary rays for a caller's tracer (a tree that
+        has ``kernels/secondary.py``): the three kinds' build launches, or
+        AO's reduce launch on K1's results for its built rays (made once)."""
+        try:
+            from voxelengine_tpu_torch.kernels import secondary as sk
+            from voxelengine_tpu_torch.ops.secondary import frame_kinds, walk_steps
+        except ImportError:
+            return None
+        bm, lt = args[:2]
+        cfg = bench_cfg(kw)
+        env = Environment.default(args[2].device)
+        o, d, px, py, _, out = primary(args, cfg)
+        inputs = dict(light=env.light_direction, dirs=d, px=px, py=py, width=cfg.width, frame_number=1,
+                      ao_samples=cfg.ao_samples)
+        kinds = frame_kinds(cfg)
+
+        def builds():
+            return [sk.secondary_build(k, out.position, out.normal, **inputs) for k in kinds]
+        if kw["part"] == "build":
+            return builds, (lambda r: tuple(t for pair in r for t in pair))
+        rays = sk.secondary_build("ao", out.position, out.normal, **inputs)
+        res = trace_brickmap_hbm(bm, lt, *rays, walk_steps("ao", cfg), use_macro=False)
+        hit, pos = res.hit.contiguous(), res.position.contiguous()
+
+        def reduces():
+            return (sk.secondary_reduce(out.position, hit, pos, ao_samples=cfg.ao_samples),)
+        return reduces, (lambda r: r)
+
+    def slab_rays(args, kw):
+        if not hasattr(bmtrace, "bmtrace_slab_rays"):
+            return None  # a tree without K4-slab's batch form
+        meta, bricks, o, d = args
+        n = o.shape[0]
+        # the batch-wide outputs, written again alike by each launch
+        outs = (torch.zeros((n,), dtype=torch.int32, device=o.device), torch.zeros((n, 3), device=o.device),
+                torch.zeros((n, 3), device=o.device), torch.zeros((n,), dtype=torch.int32, device=o.device))
+
+        def run():
+            return outs, bmtrace.bmtrace_slab_rays(meta, bricks, o, d, outs, **kw)
+
+        def digested(out):  # the results, and the paused rays' rows in batch order
+            outs, (rows, idx, counts) = out
+            k = int(counts[1])
+            order = torch.argsort(idx[:k])
+            return outs + (counts, idx[:k][order], rows[:k][order])
+        return run, digested
+
     def slab(args, kw):
         meta, bricks, rays, rows = args
 
@@ -493,7 +617,9 @@ def tree_functions(torch):
         "grid_call": call(ops_grid.trace_grid_vpu), "grid_limbs_call": call(ops_grid.trace_grid_mxu),
         "dense_frames": frames, "ray_setup": ray_setup, "k1_call": k1_call, "k4_call": k4_call,
         "shade_stage": shade_stage, "bench_frames": bench_frames, "shade_entry": shade_entry,
-        "secondary_stage": secondary_stage, "secondary_walks": secondary_walks,
+        "secondary_stage": secondary_stage, "secondary_walks": secondary_walks, "k5_call": k5_call,
+        "sharded_frame": sharded_frame, "slab_rays": slab_rays, "dest_composite": dest_composite,
+        "secondary_kernels": secondary_kernels,
     }
 
 
@@ -574,6 +700,101 @@ def worker(tree: Path, data: Path, defines: str) -> None:
                       "digest": digest, "kernels": kernels, "dev_ms": dev_ms}), flush=True)
 
 
+def zs_rank(mesh, cache: str, key: str, dims, size, camera, frames: int) -> dict:
+    """One rank of ``--zsharded`` (the tree first on ``sys.path``): the
+    bench world from ``cache``, its ``make_zsharded_hbm`` row, then ``frames
+    + 1`` shaded ``render_frame_zsharded`` frames through K1's replicated
+    walk; the host wall time of each after the first, from a barrier to the
+    end of its work on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from voxelengine_tpu_torch.config import Environment, RenderConfig
+    from voxelengine_tpu_torch.io.checkpoint import generate_or_load
+    from voxelengine_tpu_torch.parallel import distributed as D
+    from voxelengine_tpu_torch.render.frame import make_framebuffer
+
+    def not_cached():
+        raise RuntimeError("the bench world is not in the cache")
+
+    dev = mesh.device
+    zw = D.make_zsharded_hbm(generate_or_load(cache, key, not_cached, device=dev), mesh.size, mesh.rank)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)  # the frames' peak, not the world load's
+    cfg = RenderConfig(width=size[0], height=size[1], checkerboard=True, tile_order=True, shadow_rays=True,
+                       ao_samples=4, reflections=True)
+    origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)
+    euler = torch.tensor(camera, device=dev)
+    env = Environment.default(dev)
+    fb = make_framebuffer(cfg, dev)
+    times = []
+    for i in range(frames + 1):
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        D.render_frame_zsharded(None, fb, origin, euler + 1e-5 * i, env, i, cfg, mesh, zw=zw)
+        torch.cuda.synchronize(dev)
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return {"rank": mesh.rank, "ms": times, "checksum": float(fb.double().sum()),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def zs_worker(tree: Path, cache: str, key: str) -> None:
+    """Time the z-sharded frame with ``tree``'s package on ``ZS_RANKS``
+    ranks; print one JSON line."""
+    sys.path.insert(0, str(tree))
+    import voxelengine_tpu_torch as pkg
+    from voxelengine_tpu_torch.parallel.mesh import run_ranks
+
+    import chip_smoke as cs
+
+    dims, W, H = cs.WORLDS["full"]
+    res = run_ranks(zs_rank, ZS_RANKS, "gloo", "cuda", cache, key, dims, (W, H), cs.CAMERAS[0], ZS_FRAMES,
+                    timeout=900, workdir=str(ROOT / "_checkout"))
+    print(json.dumps({"tree": str(Path(pkg.__file__).resolve().parent.parent), "ranks": res}), flush=True)
+
+
+def zsharded(builds) -> None:
+    """``--zsharded``: the bench world built once into a cache under
+    ``_checkout``, then each tree's ranks in turns (module doc)."""
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+
+    dev = torch.device("cuda", 0)
+    cache = tempfile.mkdtemp(prefix="zs_cache_", dir=ROOT / "_checkout")
+    try:
+        dims = cs.WORLDS["full"][0]
+        bm, lt, _, key = cs.bench_world(dev, dims, cache, {})
+        del bm, lt
+        torch.cuda.empty_cache()
+        trees = [t for t, _ in builds]
+        order = trees + trees[::-1] if len(trees) > 1 else trees
+        runs = []
+        for tree in order:
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--zs-worker", str(tree), cache,
+                                   key], cwd=tree, capture_output=True, text=True, timeout=1200)
+            if proc.returncode != 0:
+                say(f"z-sharded worker for {tree} failed:\n{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+                continue
+            run = json.loads(proc.stdout.strip().splitlines()[-1])
+            runs.append(run)
+            ms = [sorted(r["ms"])[len(r["ms"]) // 2] for r in run["ranks"]]
+            say(f"z-sharded shaded frame ({ZS_RANKS} ranks sharing one card over gloo, not a scale-out figure), "
+                f"{tree}: median ms a frame per rank {[round(x, 1) for x in ms]} (each rank's {ZS_FRAMES} frames: "
+                f"{[[round(x, 1) for x in r['ms']] for r in run['ranks']]}), checksum "
+                f"{run['ranks'][0]['checksum']:.6f}, peak max_memory_allocated per rank "
+                f"{[r['peak_bytes'] for r in run['ranks']]} B")
+        if len({round(r["ranks"][0]["checksum"], 3) for r in runs}) > 1:
+            say("z-sharded shaded frame: the trees' frames DIFFER")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    say(f"card: {cs.card_line()}")
+
+
 def run_worker(tree: Path, defines: str, data: Path) -> dict:
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", str(tree), str(data),
                            f"--defines={defines}"], cwd=tree, capture_output=True, text=True, timeout=900)
@@ -638,11 +859,16 @@ def main(argv=None):
     ap.add_argument("--variant", action="append", default=[],
                     help="extra nvcc flags of one more build of this checkout (--variant='-maxrregcount=72'); "
                          "repeatable")
+    ap.add_argument("--zsharded", action="store_true",
+                    help="time only the z-sharded shaded bench frame on 4 ranks sharing the card, trees in turns")
     ap.add_argument("--worker", nargs=2, help=argparse.SUPPRESS)
+    ap.add_argument("--zs-worker", nargs=3, help=argparse.SUPPRESS)
     ap.add_argument("--defines", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         return worker(Path(args.worker[0]), Path(args.worker[1]), args.defines)
+    if args.zs_worker:
+        return zs_worker(Path(args.zs_worker[0]), args.zs_worker[1], args.zs_worker[2])
 
     import torch
 
@@ -653,10 +879,12 @@ def main(argv=None):
 
     dev = torch.device("cuda", 0)
     say(f"card: {cs.card_line()}")
+    builds = [(b.resolve(), "") for b in args.before] + [(ROOT, "")] + [(ROOT, v) for v in args.variant]
+    if args.zsharded:
+        return zsharded(builds)
     data = ROOT / "_checkout" / "kernel_ab_inputs.pt"
     data.parent.mkdir(exist_ok=True)
     torch.save(make_inputs(dev, args.quick, [int(r) for r in args.refills.split(",")], args.only), data)
-    builds = [(b.resolve(), "") for b in args.before] + [(ROOT, "")] + [(ROOT, v) for v in args.variant]
     order = builds + builds[::-1] if len(builds) > 1 else builds
     runs = [run_worker(t, v, data) for t, v in order]
     order, runs = [b for b, r in zip(order, runs) if r], [r for r in runs if r]

@@ -24,7 +24,7 @@ import torch
 
 from voxelengine_tpu_torch.io.interop import brickmap_from_numpy
 from voxelengine_tpu_torch.ops import crossing_trace as C
-from voxelengine_tpu_torch.ops.bigtrace import _kernel_rays, _kernel_tables, make_line_table, trace_brickmap_hbm
+from voxelengine_tpu_torch.ops.bigtrace import _kernel_tables, make_line_table, prepared_rays, trace_brickmap_hbm
 
 ROOT = Path(__file__).resolve().parent.parent
 BM_KEYS = ("meta", "brick_idx", "bricks", "grid_dims", "factor", "coarse_layout", "brick_layout", "dense_slots")
@@ -169,7 +169,7 @@ def _host_record(bm, lt, o, d, use_macro):
     from voxelengine_tpu_torch.kernels import build
 
     lib = build.load_dda_host()
-    sc, dd, act, pad, _ = _kernel_rays(bm, o, d)
+    sc, dd, act, pad, _ = prepared_rays(bm, o, d)
     tables, _ = _kernel_tables(bm, lt, MAX_STEPS, use_macro)
     n, rmax = o.shape[0], C.iter_limit(MAX_STEPS)
     rows = torch.zeros((n, rmax, C.FIELDS), dtype=torch.int32)

@@ -38,6 +38,7 @@ from voxelengine_tpu_torch.io.interop import brickmap_from_numpy
 from voxelengine_tpu_torch.kernels import bmtrace, build
 from voxelengine_tpu_torch.ops.trace import (
     SLAB_CELL_Z,
+    TraceOut,
     _dims,
     _edge_pad,
     _init_state,
@@ -679,6 +680,205 @@ def test_k4_slab_host_build_follows_an_edit():
     assert not torch.equal(after.hit, before.hit)
 
 
+# ------------------------------------------ K4-slab's batch form, host build
+
+
+def _host_batch_round(lib, meta, bricks, grid, z0, slab_gz, factor, layout, max_steps, o, d, outs, rows=None,
+                      idx=None):
+    """One round of K4-slab's batch form (``vx_zslab_rays``) through its host
+    build: the whole batch ``o``, ``d`` in round 0, else the handed-on
+    ``rows`` and their batch indices ``idx``; writes the done rays' results
+    into the batch-wide ``outs``.  Returns the paused rays' rows and batch
+    indices and the rays round 0 owned."""
+    m = o.shape[0] if rows is None else rows.shape[0]
+    rows_out = torch.zeros((m, bmtrace.STATE_WORDS), dtype=torch.int32)
+    idx_out = torch.zeros((m,), dtype=torch.int32)
+    counts = torch.zeros((3,), dtype=torch.int32)
+    wpb = (factor**3 + 31) // 32
+    rc = lib.vx_zslab_rays_host(o.data_ptr(), 3, d.data_ptr(), 3, *build.pointers((rows, idx)), meta.data_ptr(),
+                                bricks.data_ptr(), m, *grid, z0, slab_gz, factor, wpb, max_steps, layout.value,
+                                3 * max_steps + 64, counts.data_ptr(), rows_out.data_ptr(), idx_out.data_ptr(),
+                                *(t.data_ptr() for t in outs))
+    assert rc == 0
+    k = int(counts[1])
+    return rows_out[:k], idx_out[:k], int(counts[2])
+
+
+def _batch_rounds(bm, o, d, slabs, max_steps):
+    """The migration of rays ``o``, ``d`` over ``bm`` cut into ``slabs``
+    z-slabs through K4-slab's batch form (host build) and, side by side,
+    through ``_init_state`` + the prepared form's host build
+    (``vx_zslab_host``) + ``kernel_result``, hand-offs simulated in one
+    process.  Each round and slab: the rays the batch form owns are the
+    prepared form's, it pauses the same rays (by batch index, in batch
+    order) with the same state rows, and writes the done rays' results,
+    ``hit_imm`` fix-up included, at their batch index and nothing else.
+    Returns the final results (the slabs' result words summed, as the
+    card's ``psum`` of words) and the paused rays of each round."""
+    lib = build.load_dda_host()
+    meta, bricks, slab_gz = distributed.shard_world_z(bm, slabs)
+    spec = bm.grid_dims + (bm.factor, bm.coarse_layout, bm.brick_layout)
+    grid, gz, n = bm.grid_dims, bm.grid_dims[2], o.shape[0]
+    dd, start_c, start_normal, active = _ray_setup(grid, bm.factor, o, d)
+    pad = _edge_pad(start_c.to(torch.int32), _dims(grid, torch.int32, "cpu"), dd)
+    st0 = _init_state(distributed._slab_bm(spec, meta[0], bricks[0], slab_gz), o, d, full_gz=gz)
+    owner = torch.clamp(st0["ccell"][:, 2] // slab_gz, 0, slabs - 1)
+    outs = {k: (torch.zeros(n, dtype=torch.int32), torch.zeros(n, 3), torch.zeros(n, 3),
+                torch.zeros(n, dtype=torch.int32)) for k in range(slabs)}
+    pending = {k: torch.nonzero(active & (owner == k)).squeeze(1) for k in range(slabs)}
+    rows = {k: None for k in range(slabs)}  # the prepared form's handed-on rows
+    batch = {k: (None, None) for k in range(slabs)}  # the batch form's rows and batch indices
+    paused_per_round = []
+    for rnd in range(slabs):
+        moved = {k: ([], [], []) for k in range(slabs)}
+        paused_per_round.append(0)
+        for k in range(slabs):
+            idx = pending[k]
+            args = (meta[k], bricks[k], grid, k * slab_gz, slab_gz, bm.factor, bm.brick_layout, max_steps)
+            before = [t.clone() for t in outs[k]]
+            b_rows, b_idx, owned = _host_batch_round(lib, *args, o, d, outs[k], *batch[k])
+            if rnd == 0:
+                assert owned == idx.numel(), f"slab {k}: owned rays"
+                sel = (start_c[idx].contiguous(), dd[idx].contiguous(), active[idx].to(torch.int32),
+                       pad[idx].contiguous())
+                p_rows, status, p_outs = _host_round(lib, *args, rays=sel)
+            else:
+                p_rows, status, p_outs = _host_round(lib, *args, rows=rows[k])
+            paused = status == 1
+            paused_per_round[-1] += int(paused.sum())
+            assert torch.equal(b_idx.long(), idx[paused]), f"round {rnd} slab {k}: paused rays"
+            assert torch.equal(b_rows, p_rows[paused]), f"round {rnd} slab {k}: paused rows"
+            want = kernel_result(*p_outs, start_c[idx], start_normal[idx], bm.factor)
+            done = idx[~paused]
+            got = (outs[k][0][done] == 1, outs[k][1][done], outs[k][2][done], outs[k][3][done])
+            for f, g, w in zip(FIELDS, got, want):
+                assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                                   w[~paused].view(torch.int32) if w.dtype == torch.float32 else w[~paused]), \
+                    f"round {rnd} slab {k}: {f}"
+            untouched = torch.ones(n, dtype=torch.bool)
+            untouched[done] = False
+            for a, b in zip(outs[k], before):
+                assert torch.equal(a[untouched], b[untouched]), f"round {rnd} slab {k}: a ray not done was written"
+            for j in range(b_idx.numel()):
+                t = int(torch.clamp(b_rows[j, bmtrace.STATE_CELL.start + 2] // slab_gz, 0, slabs - 1))
+                moved[t][0].append(int(b_idx[j]))
+                moved[t][1].append(b_rows[j])
+                moved[t][2].append(p_rows[paused][j])
+        for k in range(slabs):
+            ids, rs, prs = moved[k]
+            pending[k] = torch.tensor(ids, dtype=torch.long)
+            empty = torch.zeros((0, bmtrace.STATE_WORDS), dtype=torch.int32)
+            rows[k] = torch.stack(prs) if prs else empty
+            batch[k] = (torch.stack(rs) if rs else empty, torch.tensor(ids, dtype=torch.int32))
+    assert all(p.numel() == 0 for p in pending.values())
+    words = [sum(outs[k][f].view(torch.int32) if outs[k][f].dtype == torch.float32 else outs[k][f]
+                 for k in range(slabs)) for f in range(4)]
+    return TraceOut(words[0] == 1, words[1].view(torch.float32), words[2].view(torch.float32), words[3]), \
+        paused_per_round
+
+
+def _hit_imm_rays(dense, n=64, seed=9):
+    """Rays that start inside solid voxels of ``dense`` ([z, y, x]): each
+    hits at its start (``hit_imm``)."""
+    rng = np.random.default_rng(seed)
+    solid = np.argwhere(dense)[rng.choice(int(dense.sum()), n, replace=False)][:, ::-1]  # (x, y, z)
+    o = (solid + rng.random((n, 3)) * 0.98 + 0.01).astype(np.float32)
+    return torch.from_numpy(o), torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+
+
+@pytest.mark.parametrize("slabs", [2, 4])
+def test_k4_slab_batch_form_host_build_matches_prepared_form(slabs):
+    """K4-slab's batch form (``vx_zslab_rays``) through its host build on
+    every slab of a 2- and a 4-slab split, round by round, against
+    ``_init_state`` + the prepared form (``vx_zslab_host``) +
+    ``kernel_result``: random and axis rays, far-face rays and rays that
+    hit at their start; the assembled results equal the whole grid's trace,
+    word for word."""
+    bm, o, d = _random_rays_and_axis_rays()
+    inp = _inputs()
+    io, idd = _hit_imm_rays(inp["dense"])
+    o, d = torch.cat([o, io]), torch.cat([d, idd])
+    got, paused = _batch_rounds(bm, o, d, slabs, 2048)
+    assert sum(paused) > 0
+    want = trace_brickmap(bm, o, d, 2048)
+    for f, g, w in zip(FIELDS, got, want):
+        assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                           w.view(torch.int32) if w.dtype == torch.float32 else w), f
+    assert bool((got.hit[-64:] & (got.steps[-64:] == 0)).all())  # the hit_imm rays
+    fbm, fo, fd = _far_face_world()
+    got, _ = _batch_rounds(fbm, fo, fd, slabs, 2048)
+    _assert_whole_grid(got, fbm, fo, fd)
+
+
+def _card_route_on_one_rank(monkeypatch, bm, o, d):
+    """``trace_brickmap_zsharded``'s card branch on one rank holding the
+    whole grid, through the host build of K4-slab's batch form (a plain
+    body fails): ``(result, launches, stats)``."""
+    from voxelengine_tpu_torch.parallel.mesh import Mesh
+
+    lib = build.load_dda_host()
+
+    class Kernels:
+        vx_zslab_rays = lib.vx_zslab_rays_host
+
+    def plain(*a, **k):
+        raise AssertionError("the card route ran a plain body")
+
+    launched = []
+    monkeypatch.setattr(build, "require_cuda", lambda kernel, dev: None)
+    monkeypatch.setattr(build, "load_kernel", lambda name: Kernels)
+    monkeypatch.setattr(build, "launch", lambda kernel, fn, *args, dev: launched.append(kernel) or fn(*args))
+    for name in ("_init_state", "kernel_result", "run_slab"):
+        monkeypatch.setattr(distributed, name, plain)
+    monkeypatch.setattr(distributed, "psum", lambda t, mesh: t.clone())  # one rank: the sum is its own words
+    mesh = Mesh(None, 0, 1, "rows", torch.device("cpu"))
+    spec = bm.grid_dims + (bm.factor, bm.coarse_layout, bm.brick_layout)
+    stats = []
+    got = distributed._trace_zsharded_card(spec, bm.meta, bm.bricks, o, d, mesh, 2048, stats)
+    return got, launched, stats
+
+
+def test_migration_card_route_through_host_builds(monkeypatch):
+    """``trace_brickmap_zsharded``'s card branch (one batch-form launch a
+    round, no ``_init_state``, no ``kernel_result``) on one rank holding
+    the whole grid, through the host build: the whole grid's trace, and
+    one launch (round 0 leaves nothing paused)."""
+    bm, o, d = _random_rays_and_axis_rays()
+    got, launched, stats = _card_route_on_one_rank(monkeypatch, bm, o, d)
+    assert launched == ["bmtrace_slab_rays"] and stats == []
+    _assert_whole_grid(got, bm, o, d)
+
+
+def _words(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def test_migration_routes_keep_signed_zeros(monkeypatch):
+    """Rays in the plane x = -0.0 (origin and direction), some crossing the
+    slabs in z: those that hit at their start report x = -0.0 positions.
+    The migration's CPU route on 2 gloo ranks and its card route (the host
+    build, one rank) both give the single-device walk's words, signed
+    zeros included: each assembles the results by summing their int32
+    words (a float sum turns 0.0 + -0.0 into +0.0)."""
+    inp = _inputs()
+    bm = build_brickmap(BitGrid.from_dense(torch.from_numpy(inp["dense"])), 8, coarse_layout=Layout.LINEAR)
+    rng = np.random.default_rng(5)
+    n = 128
+    zero = np.full(n, -0.0, np.float32)
+    o = np.stack([zero, rng.uniform(1, 60, n), rng.uniform(1, 60, n)], 1).astype(np.float32)
+    d = np.stack([zero, rng.uniform(-1, -0.2, n), rng.uniform(-1, 1, n)], 1).astype(np.float32)
+    want = trace_brickmap(bm, torch.from_numpy(o), torch.from_numpy(d))
+    assert bool((want.hit & (_words(want.position[:, 0]) == -2**31)).any())
+    worlds = {"w1": {k: _field(getattr(bm, k)) for k in BM_KEYS}}
+    case = ("z", "zsharded", dict(world="w1", origins=o, rays=d, max_steps=2048))
+    got = run_ranks(run_cases, 2, "gloo", "cpu", worlds, [case], timeout=300)[0]
+    for f, w in zip(FIELDS, want):
+        assert torch.equal(_words(torch.from_numpy(got[f"z/{f}"])), _words(w)), f"CPU route, {f}"
+    card, _, _ = _card_route_on_one_rank(monkeypatch, bm, torch.from_numpy(o), torch.from_numpy(d))
+    for f, g, w in zip(FIELDS, card, want):
+        assert torch.equal(_words(g), _words(w)), f"card route, {f}"
+
+
 def test_dryrun_multichip_on_two_cpu_ranks():
     """``dryrun_multichip``: every multi-device entry once on 2 ranks, the
     replicated walk's hits equal to the migration's."""
@@ -706,6 +906,21 @@ def test_zslab_launcher_signature_is_the_host_entrys():
     assert build.HOST_ENTRIES["vx_zslab_host"] == build.SIGNATURES["vx_zslab"]
     assert len(build.SIGNATURES["vx_zslab"]) == 25
     assert isinstance(build.load_dda_host().vx_zslab_host, ctypes._CFuncPtr)
+
+
+def test_zslab_rays_launcher_signature_is_the_host_entrys():
+    assert build.HOST_ENTRIES["vx_zslab_rays_host"] == build.SIGNATURES["vx_zslab_rays"]
+    assert len(build.SIGNATURES["vx_zslab_rays"]) == 26
+    assert isinstance(build.load_dda_host().vx_zslab_rays_host, ctypes._CFuncPtr)
+    z = torch.zeros
+    outs = (z(4, dtype=torch.int32), z(4, 3), z(4, 3), z(4, dtype=torch.int32))
+    kw = dict(grid_dims=(4, 4, 8), z0=0, slab_gz=2, factor=8, max_steps=16, brick_layout=Layout.TILED_LINEAR)
+    with pytest.raises(ValueError, match="CUDA"):
+        bmtrace.bmtrace_slab_rays(z(32, dtype=torch.int32), z(32, 16, dtype=torch.int32), z(4, 3), z(4, 3), outs,
+                                  **kw)
+    with pytest.raises(ValueError, match="both"):
+        bmtrace.bmtrace_slab_rays(z(32, dtype=torch.int32), z(32, 16, dtype=torch.int32), z(4, 3), z(4, 3), outs,
+                                  rows=z(1, 35, dtype=torch.int32), **kw)
 
 
 # ------------------------------------------------------------ card lane

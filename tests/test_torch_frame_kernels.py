@@ -181,6 +181,7 @@ class _HostKernels:
         self.vx_trace_brickmap_dense_secondary = lambda *a: sd(*a[:23], *a[25:])
         self.vx_trace_brickmap_compact_secondary = lambda *a: sc(*a[:24], *a[26:])
         self.vx_shade, self.vx_shade_composite = sh.vx_shade_host, sh.vx_shade_composite_host
+        self.vx_rrtrace_rays = dda.vx_rrtrace_rays_host
 
 
 @pytest.fixture
@@ -414,7 +415,7 @@ def test_shaded_frame_is_six_launches(world, host_route):
     env = Environment.default(device="cpu")
     with pytest.MonkeyPatch.context() as mp:
         for mod, name in ((frame, "primary_rays_plain"), (frame, "shade_traced_plain"), (frame, "composite_frame"),
-                          (frame, "secondary_plain"), (ops_bigtrace, "secondary_plain"), (trace2, "secondary_plain"),
+                          (frame, "secondary_traced"), (ops_bigtrace, "secondary_plain"), (trace2, "secondary_plain"),
                           (ops_bigtrace, "trace_brickmap_lt"), (ops_bigtrace, "trace_brickmap"),
                           (trace2, "trace_brickmap")):
             mp.setattr(mod, name, plain)
@@ -639,6 +640,102 @@ def test_secondary_twin_equals_plain(world, host_route, kind, route, inputs):
         assert bool((want[0] < 1.0).any()) and bool((want[0] == 1.0).any())
 
 
+@pytest.mark.parametrize("use_macro", [False, True])
+def test_k5_rays_entry_twin_equals_plain(world, host_route, use_macro):
+    """K5's rays entry (``vx_rrtrace_rays``: the refill sets each ray up,
+    the store does the ``hit_imm`` fix-up) through
+    ``trace_brickmap_hbm_rr``'s card route at refill 1, 8 and 32, one
+    launch a call, against the plain line-table walk, bit for bit."""
+    from voxelengine_tpu_torch.kernels import rrtrace
+
+    _, bm, lt = world
+    before = (rrtrace.launches, rrtrace.rays_launches)
+    calls = 0
+    for case, (o, d) in RAY_CASES.items():
+        ot, dt = _rays(case, o, d)
+        want = ops_bigtrace.trace_brickmap_lt(bm, lt, ot, dt, MAX_STEPS, use_macro)
+        for refill in (1, 8, 32):
+            got = ops_bigtrace.trace_brickmap_hbm_rr(bm, lt, ot, dt, MAX_STEPS, use_macro, refill=refill)
+            calls += 1
+            _equal(got, want, (case, use_macro, refill))
+        if case == "hit_imm":
+            assert bool((want.hit & (want.steps == 0)).any())
+    assert (rrtrace.launches, rrtrace.rays_launches) == (before[0], before[1] + calls)
+    assert set(host_route) == {"rrtrace_rays"}
+
+
+# the composite's destination form: (layout, checkerboard)
+DEST_CASES = [("rows", True), ("rows", False), ("cyclic", True), ("cyclic", False)]
+
+
+@pytest.mark.parametrize("layout,cb", DEST_CASES)
+def test_composite_dest_twin_equals_pair_select(world, host_route, monkeypatch, layout, cb):
+    """``render_frame_sharded`` and ``render_frame_cyclic`` on each rank of
+    a 4-rank layout through the card's route (the primary and secondary
+    traces, then one launch of the shading kernel's destination form, host
+    twins) against their CPU route (the same shading, then
+    ``checkerboard_pair_select`` or the plain copy), over a framebuffer of
+    stale values: even and odd frames, rank 0's halo row included, word
+    for word."""
+    from voxelengine_tpu_torch.parallel import sharded
+    from voxelengine_tpu_torch.parallel.mesh import Mesh
+
+    _, bm, lt = world
+    cfg = RenderConfig(**dict(BASE, width=128, height=96, checkerboard=cb, trace_use_macro=False, shadow_rays=True,
+                              ao_samples=2, reflections=True))
+    env, origin = Environment.default(device="cpu"), _t(ORIGIN)
+    render = sharded.render_frame_sharded if layout == "rows" else sharded.render_frame_cyclic
+    make = sharded.make_framebuffer_rows if layout == "rows" else sharded.make_framebuffer_cyclic
+    rng = np.random.default_rng(7)
+    for rank in range(4):
+        mesh = Mesh(None, rank, 4, "rows", torch.device("cpu"))
+        stale = torch.from_numpy(rng.random(tuple(make(cfg, mesh).shape)).astype(np.float32))
+        for fn in (1, 2):
+            for mod in (sharded, frame):
+                monkeypatch.setattr(mod, "_is_cuda", lambda t: False)
+            want = render(bm, stale.clone(), origin, _t(EULER), env, fn, cfg, mesh, lt)
+            for mod in (sharded, frame):
+                monkeypatch.setattr(mod, "_is_cuda", lambda t: True)
+            host_route.clear()
+            before = shade_kernel.launches
+            got = render(bm, stale.clone(), origin, _t(EULER), env, fn, cfg, mesh, lt)
+            assert host_route[0] == "rays_pixels" and host_route[-1] == "shade_composite"
+            assert host_route.count("shade_composite") == 1 and "shade" not in host_route
+            assert shade_kernel.launches == before + 1
+            _equal((got,), (want,), (layout, cb, rank, fn))
+            assert not torch.equal(got, stale)
+
+
+def test_composite_dest_drops_rank_0_halo(world, host_route, monkeypatch):
+    """On an even frame a band's first row holds only its halo row's rays
+    (row -1's even columns, y = 2 (row0 - 1) + 1 + 1): rank 1's halo writes
+    them, rank 0's halo ray of row -1 writes nothing, so rank 0's first
+    row keeps its stale values."""
+    from voxelengine_tpu_torch.parallel import sharded
+    from voxelengine_tpu_torch.parallel.mesh import Mesh
+
+    _, bm, lt = world
+    cfg = RenderConfig(**dict(BASE, width=128, height=96, trace_use_macro=False))
+    monkeypatch.setattr(sharded, "_is_cuda", lambda t: True)
+    first = []
+    for rank in (0, 1):
+        mesh = Mesh(None, rank, 4, "rows", torch.device("cpu"))
+        stale = torch.full(tuple(sharded.make_framebuffer_rows(cfg, mesh).shape), 0.25)
+        got = sharded.render_frame_sharded(bm, stale, _t(ORIGIN), _t(EULER), Environment.default(device="cpu"), 2,
+                                           cfg, mesh, lt)
+        first.append(got[0])
+    assert bool((first[0] == 0.25).all())
+    assert not bool((first[1][0::2] == 0.25).all(dim=-1).any()) and bool((first[1][1::2] == 0.25).all())
+
+
+def test_new_launcher_signatures_are_the_host_entries():
+    """The rays entry of K5 and the composite entry with its destination
+    take their host entries' arguments (and the stream, added at load)."""
+    for fn in ("vx_rrtrace_rays", "vx_shade_composite"):
+        assert build.SIGNATURES[fn] == build.HOST_ENTRIES[f"{fn}_host"]
+    assert build.SIGNATURES["vx_shade_composite"][:-6] == build.SIGNATURES["vx_shade"][:-2]
+
+
 # ---------------------------------------------------------------------------
 # card lane
 # ---------------------------------------------------------------------------
@@ -765,6 +862,58 @@ def test_shaded_frames_equal_plain_on_card(cuda_device, route):
         color, write = frame.shade_traced_plain(bm, out, o, d, px, py, py_r, origin, env, fn, cfg, secondary=walk)
         frame.composite_frame(want_fb, color, write, cfg, fn)
         _equal((got_fb.cpu(),), (want_fb.cpu(),), (route, fn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_macro", [False, True])
+def test_k5_rays_entry_equals_plain_on_card(cuda_device, use_macro):
+    """K5's rays entry (``trace_brickmap_hbm_rr`` on the card, one launch a
+    call) against the plain line-table walk on every ray case, and against
+    its prepared entry after the eager setup and fix-up."""
+    from voxelengine_tpu_torch.kernels import rrtrace
+
+    grid = BitGrid.from_dense(torch.from_numpy(_world()).to(cuda_device))
+    bm = build_brickmap(grid, 8, coarse_layout=Layout.LINEAR)
+    lt = ops_bigtrace.make_line_table(bm)
+    for case, (o, d) in RAY_CASES.items():
+        ot, dt = (t.to(cuda_device) for t in _rays(case, o, d))
+        before = rrtrace.rays_launches
+        got = ops_bigtrace.trace_brickmap_hbm_rr(bm, lt, ot, dt, MAX_STEPS, use_macro)
+        assert rrtrace.rays_launches == before + 1
+        _equal([t.cpu() for t in got], [t.cpu() for t in ops_bigtrace.trace_brickmap_lt(bm, lt, ot, dt, MAX_STEPS,
+                                                                                          use_macro)], case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,cb", DEST_CASES)
+def test_composite_dest_on_card_equals_pair_select(cuda_device, monkeypatch, layout, cb):
+    """The destination form on the card (4 ranks' bands or blocks, both
+    parities, shadows, AO and reflections) against the same frames'
+    CPU-route composite (``checkerboard_pair_select``) on the card's own
+    shading, word for word."""
+    from voxelengine_tpu_torch.parallel import sharded
+    from voxelengine_tpu_torch.parallel.mesh import Mesh
+
+    grid = BitGrid.from_dense(torch.from_numpy(_world()).to(cuda_device))
+    bm = build_brickmap(grid, 8, coarse_layout=Layout.LINEAR)
+    lt = ops_bigtrace.make_line_table(bm)
+    cfg = RenderConfig(**dict(BASE, width=128, height=96, checkerboard=cb, shadow_rays=True, ao_samples=2,
+                              reflections=True))
+    env, origin, euler = Environment.default(cuda_device), _t(ORIGIN).to(cuda_device), _t(EULER).to(cuda_device)
+    render = sharded.render_frame_sharded if layout == "rows" else sharded.render_frame_cyclic
+    make = sharded.make_framebuffer_rows if layout == "rows" else sharded.make_framebuffer_cyclic
+    for rank in range(4):
+        mesh = Mesh(None, rank, 4, "rows", cuda_device)
+        stale = torch.rand(tuple(make(cfg, mesh).shape), generator=torch.Generator().manual_seed(rank)).to(cuda_device)
+        for fn in (1, 2):
+            before = shade_kernel.launches
+            got = render(bm, stale.clone(), origin, euler, env, fn, cfg, mesh, lt)
+            assert shade_kernel.launches == before + 1
+            for mod in (sharded, frame):
+                monkeypatch.setattr(mod, "_is_cuda", lambda t: False)
+            want = render(bm, stale.clone(), origin, euler, env, fn, cfg, mesh, lt)
+            monkeypatch.undo()
+            _equal((got.cpu(),), (want.cpu(),), (layout, cb, rank, fn))
 
 
 if __name__ == "__main__":

@@ -599,13 +599,13 @@ def test_rrtrace_matches_plain_on_card(cuda_device, n):
     o, d = (torch.from_numpy(a).to(cuda_device) for a in _spread_rays(307, n, (128, 128, 128), 1.5))
     want = trace_brickmap_lt(bm, lt, o, d, 512)
     refills = sorted(set(RR_REFILLS) | {rrtrace.REFILL})
-    before = rrtrace.launches
+    before = rrtrace.rays_launches  # trace_brickmap_hbm_rr's launches: its rays entry's
     for refill in refills:
         for _ in range(2):
             got = trace_brickmap_hbm_rr(bm, lt, o, d, 512, refill=refill)
             assert all(torch.equal(a, b) for a, b in zip(got, want))
     torch.cuda.synchronize()
-    assert rrtrace.launches == before + (2 * len(refills) if n else 0)
+    assert rrtrace.rays_launches == before + (2 * len(refills) if n else 0)
 
 
 @pytest.mark.cuda
@@ -618,13 +618,13 @@ def test_rrtrace_counting_build_on_card(cuda_device, name, refill):
     than the host's one warp, but at refill 32 each takes 32 consecutive
     rays)."""
     from voxelengine_tpu_torch.kernels import rrtrace
-    from voxelengine_tpu_torch.ops.bigtrace import _kernel_rays, _kernel_tables
+    from voxelengine_tpu_torch.ops.bigtrace import _kernel_tables, prepared_rays
 
     max_steps, _ = CASES[name]
     bm, o, d = _port_world(name, cuda_device)
     lt = make_line_table(bm)
     want, dg = trace_brickmap_lt(bm, lt, o, d, max_steps, diag=True)
-    start_c, dd, active, pad, start_normal = _kernel_rays(bm, o, d)
+    start_c, dd, active, pad, start_normal = prepared_rays(bm, o, d)
     tables, kw = _kernel_tables(bm, lt, max_steps, True)
     stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
     outs = rrtrace.rrtrace(start_c, dd, active, pad, *tables, refill=refill, stats=stats, **kw)

@@ -388,10 +388,11 @@ def _card_world(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_macro", [False, True])
 def test_k1_secondary_batches_match_plain_on_card(cuda_device, use_macro):
-    """Each secondary batch a frame traces (shadow, reflection, AO at 8
-    steps, from surface starts and from the miss pixels' positions) through
-    K1 against its plain version on the same rays, bit for bit; and the
-    frame through K1 against the frame through plain traces."""
+    """Each secondary batch a frame traces (shadow, reflection, AO's samples
+    as one batch at 8 steps, from surface starts and from the miss pixels'
+    positions) through K1 against its plain version on the same rays, bit
+    for bit; and the frame through K1 against the frame through plain
+    traces."""
     from voxelengine_tpu_torch.kernels import bigtrace
     from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm, trace_brickmap_lt
     from voxelengine_tpu_torch.ops.trace import trace_brickmap
@@ -416,11 +417,12 @@ def test_k1_secondary_batches_match_plain_on_card(cuda_device, use_macro):
     primary = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=use_macro)
     before = bigtrace.launches
     got = frame.shade_traced(bm, primary, o, d, px, py, py_r, origin, env, 1, cfg, secondary=kernel)
-    assert bigtrace.launches - before == 4
+    assert bigtrace.launches - before == 3
     want = frame.shade_traced_plain(bm, primary, o, d, px, py, py_r, origin, env, 1, cfg, secondary=plain)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert [ms for _, _, ms in batches] == [MAX_STEPS, MAX_STEPS, 8, 8]
+    n = o.shape[0]
+    assert [(bo.shape[0], ms) for bo, _, ms in batches] == [(n, MAX_STEPS), (n, MAX_STEPS), (2 * n, 8)]
     for bo, bd, ms in batches:
         k = trace_brickmap_hbm(bm, lt, bo, bd, ms, use_macro=use_macro)
         for a, b in zip(k, plain(bo, bd, ms)):

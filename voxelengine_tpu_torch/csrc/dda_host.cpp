@@ -8,7 +8,10 @@
 // grid walk alone on prepared rays (start, direction, active, pad).  The
 // *_rays_host entries are K1's and K4's rays entries: origins and raw
 // directions, the setup and the hit_imm fix-up included; the
-// *_secondary_host entries their secondary entries (secondary.cuh).
+// *_secondary_host entries their secondary entries (secondary.cuh);
+// vx_secondary_build_host and vx_secondary_reduce_host secondary.cu's two
+// entries, vx_zslab_rays_host K4-slab's batch form, vx_rrtrace_rays_host
+// K5's rays entry.
 #include <cstring>
 #include <vector>
 
@@ -111,16 +114,26 @@ void store(const vx::TraceResult& r, int i, int* flags, float* pos, float* norma
 // advanced in lockstep, an idle lane refilled from the queue in lane order
 // once at least `refill` lanes are idle (the kernel's lanes leave their own
 // loops at that point, which in lockstep is after the same iteration);
-// stats as the counting instantiation's.
-template <bool MACRO>
+// stats as the counting instantiation's.  RAYS: the rays entry's refill
+// (ray_init_of from origins and raw directions at row strides os, rs) and
+// store (the hit_imm fix-up, hit one byte in `hit`); else the prepared
+// rays and flags.
+template <bool MACRO, bool RAYS>
 void rr_warp(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, int refill,
-             const float* start, const float* dir, const int* active, const int* pad, int* flags,
-             float* pos, float* normal, int* steps, unsigned long long* stats) {
+             const float* start, const float* dir, const int* active, const int* pad, const float* origins,
+             int os, const float* rays, int rs, int* flags, unsigned char* hit, float* pos, float* normal,
+             int* steps, unsigned long long* stats) {
   vx::RayState S[32];
   int ray[32];
   for (int l = 0; l < 32; ++l) ray[l] = -1;
   int next = 0;  // the work counter
   bool spent = false;
+  const auto store_flags = [&](int i, int f) {
+    if (RAYS)
+      hit[i] = (unsigned char)(f & 1);
+    else
+      flags[i] = f;
+  };
   for (;;) {
     int idle = 0;
     for (int l = 0; l < 32; ++l) idle += ray[l] < 0;
@@ -133,13 +146,16 @@ void rr_warp(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, int r
         if (ray[l] >= 0) continue;
         const int i = base + rank++;
         if (i >= n) continue;
-        if (vx::ray_init(S[l], start[3 * i], start[3 * i + 1], start[3 * i + 2], dir[3 * i],
-                         dir[3 * i + 1], dir[3 * i + 2], active[i], pad[3 * i], pad[3 * i + 1],
-                         pad[3 * i + 2]))
+        const bool live = RAYS ? vx::ray_init_of(P, S[l], origins + (long long)os * i, rays + (long long)rs * i)
+                               : vx::ray_init(S[l], start[3 * i], start[3 * i + 1], start[3 * i + 2], dir[3 * i],
+                                              dir[3 * i + 1], dir[3 * i + 2], active[i], pad[3 * i],
+                                              pad[3 * i + 1], pad[3 * i + 2]);
+        if (live) {
           ray[l] = i;
-        else
-          store(vx::TraceResult{0, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0}, i, flags, pos, normal,
-                steps);
+        } else {
+          store_flags(i, 0);
+          vx::store_ray(vx::TraceResult{0, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0}, i, pos, normal, steps);
+        }
       }
       idle = 0;
       for (int l = 0; l < 32; ++l) idle += ray[l] < 0;
@@ -154,7 +170,10 @@ void rr_warp(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, int r
     }
     for (int l = 0; l < 32; ++l) {
       if (ray[l] >= 0 && vx::ray_iterate<MACRO, false>(P, F, S[l])) {
-        store(vx::ray_result(P, S[l]), ray[l], flags, pos, normal, steps);
+        vx::TraceResult r = vx::ray_result(P, S[l]);
+        if (RAYS) vx::fix_hit_imm(P, vx::RayOf{origins, os, rays, rs, ray[l]}, r);
+        store_flags(ray[l], r.flags);
+        vx::store_ray(r, ray[l], pos, normal, steps);
         ray[l] = -1;
       }
     }
@@ -260,9 +279,34 @@ extern "C" int vx_rrtrace_host(const float* start, const float* dir, const int* 
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
   const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
   if (use_macro)
-    rr_warp<true>(P, F, n, refill, start, dir, active, pad, flags, pos, normal, steps, stats);
+    rr_warp<true, false>(P, F, n, refill, start, dir, active, pad, nullptr, 0, nullptr, 0, flags, nullptr, pos,
+                         normal, steps, stats);
   else
-    rr_warp<false>(P, F, n, refill, start, dir, active, pad, flags, pos, normal, steps, stats);
+    rr_warp<false, false>(P, F, n, refill, start, dir, active, pad, nullptr, 0, nullptr, 0, flags, nullptr, pos,
+                          normal, steps, stats);
+  return 0;
+}
+
+// K5's rays entry (rrtrace.cu::vx_rrtrace_rays) as one warp runs it: the
+// refill sets each ray up, the store does the hit_imm fix-up.  `counter` is
+// not used.
+extern "C" int vx_rrtrace_rays_host(const float* origins, int os, const float* rays, int rs,
+                                    const int* region_lines, const int* brick_lines, const int* macro,
+                                    const int* macro2, int n, int gx, int gy, int gz, int rx, int ry, int rz,
+                                    int factor, int wpb, int max_steps, int brick_layout, int iter_limit,
+                                    int use_macro, int refill, int* counter, unsigned char* hit, float* pos,
+                                    float* normal, int* steps) {
+  (void)counter;
+  if (refill < 1 || refill > 32) return 1;
+  if (n == 0) return 0;
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  if (use_macro)
+    rr_warp<true, true>(P, F, n, refill, nullptr, nullptr, nullptr, nullptr, origins, os, rays, rs, nullptr, hit,
+                        pos, normal, steps, nullptr);
+  else
+    rr_warp<false, true>(P, F, n, refill, nullptr, nullptr, nullptr, nullptr, origins, os, rays, rs, nullptr, hit,
+                         pos, normal, steps, nullptr);
   return 0;
 }
 
@@ -380,6 +424,43 @@ extern "C" int vx_zslab_host(const float* start, const float* dir, const int* ac
   return 0;
 }
 
+// K4-slab's batch form (zslab.cu::vx_zslab_rays), ray by ray in batch
+// order: round 0 (rows_in null) over the whole batch, or the handed-on rows
+// with their batch indices.  Paused rays are appended in that order (the
+// kernel's warps append in theirs); counters[1] and [2] as the kernel's,
+// counters[0] unused.
+extern "C" int vx_zslab_rays_host(const float* origins, int os, const float* rays, int rs, const int* rows_in,
+                                  const int* idx_in, const int* meta, const int* bricks, int m, int gx, int gy,
+                                  int gz, int z0, int slab_gz, int factor, int wpb, int max_steps, int brick_layout,
+                                  int iter_limit, int* counters, int* rows_out, int* idx_out, int* hit, float* pos,
+                                  float* normal, int* steps) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::SlabFetch F = {meta, bricks, gx, gy, z0, slab_gz, wpb};
+  counters[0] = counters[1] = counters[2] = 0;
+  std::vector<int> row(vx::STATE_WORDS);
+  for (int i = 0; i < m; ++i) {
+    const int b = rows_in == nullptr ? i : idx_in[i];
+    const vx::RayOf ray = {origins, os, rays, rs, b};
+    vx::TraceResult r;
+    int st;
+    if (rows_in == nullptr) {
+      st = vx::slab_round_rays(P, F, ray, row.data(), r);
+    } else {
+      std::memcpy(row.data(), rows_in + (long long)i * vx::STATE_WORDS, sizeof(int) * vx::STATE_WORDS);
+      st = vx::slab_round(P, F, row.data(), nullptr, nullptr, 0, nullptr, row.data(), r);
+    }
+    counters[2] += rows_in == nullptr && st != vx::SLAB_OTHER;
+    if (st == vx::SLAB_DONE) {
+      hit[b] = r.flags & 1;
+      vx::store_ray(r, b, pos, normal, steps);
+    } else if (st == vx::SLAB_PAUSED) {
+      std::memcpy(rows_out + (long long)counters[1] * vx::STATE_WORDS, row.data(), sizeof(int) * vx::STATE_WORDS);
+      idx_out[counters[1]++] = b;
+    }
+  }
+  return 0;
+}
+
 // K4's rays entries (bmtrace.cu::vx_trace_brickmap_dense_rays and
 // _compact_rays), as their prepared-ray host entries: no instantiation flag
 // and no work counter.
@@ -451,4 +532,20 @@ extern "C" int vx_trace_brickmap_compact_secondary_host(VX_SECONDARY_PARAMS, con
   const vx::CompactFetch<> F = {{meta, bricks, gx, gy, coarse_layout, wpb}, brick_idx};
   return vx::with_secondary_kind(kind, VX_SECONDARY_ARGS,
                                  [&](const auto& R) { return each_secondary<false>(P, F, n, R); });
+}
+
+// secondary.cu's two entries, their arguments minus the stream.
+extern "C" int vx_secondary_build_host(VX_SECONDARY_PARAMS, int n, float* origins, float* out_dirs) {
+  if (kind < vx::SEC_SHADOW || kind > vx::SEC_AO || (kind == vx::SEC_AO && ao_samples < 1)) return 1;
+  const vx::SecondaryArgs A = VX_SECONDARY_IN_ARGS;
+  const long long m = kind == vx::SEC_AO ? (long long)n * ao_samples : n;
+  for (long long j = 0; j < m; ++j) vx::secondary_build_ray(kind, A, n, j, origins + 3 * j, out_dirs + 3 * j);
+  return 0;
+}
+
+extern "C" int vx_secondary_reduce_host(const float* pos, int ao_samples, int n, const unsigned char* t_hit,
+                                        const float* t_pos, float* ao) {
+  if (ao_samples < 1) return 1;
+  for (int i = 0; i < n; ++i) ao[i] = vx::secondary_ao(pos, ao_samples, t_hit, t_pos, n, i);
+  return 0;
 }

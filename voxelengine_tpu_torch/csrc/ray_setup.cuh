@@ -85,6 +85,47 @@ VX_HD float ldgf(const float* p) {
 #endif
 }
 
+// ops/trace.py::kernel_result's hit_imm fix-up of a walk's result r, for a
+// ray given by `ray(o, v)` (its origin in voxels and raw direction): a hit
+// at the ray's start reports the clipped start in voxels (start_c * factor,
+// one rounding) and the world-entry normal.  The setup is computed again
+// from the ray, so nothing of it is live across the walk (a hit_imm ray is
+// rare).
+template <class Ray>
+VX_HD void fix_hit_imm(const TraceParams& P, const Ray& ray, TraceResult& r) {
+  if (r.flags & 2) {
+    float o[3], v[3];
+    ray(o, v);
+    const RaySetup s = ray_setup(o[0], o[1], o[2], v[0], v[1], v[2], P.factor, P.gx, P.gy, P.gz);
+    const float ff = (float)P.factor;
+    r.px = s.sx * ff; r.py = s.sy * ff; r.pz = s.sz * ff;
+    r.nx = s.snx; r.ny = s.sny; r.nz = s.snz;
+  }
+}
+
+// ray_init of the ray whose origin (voxels) and raw direction are o and v,
+// set up over P's grid (ray_setup): the start of a walk that a loop of its
+// own advances (K5's rays entry).  False for an inactive ray.
+VX_HD bool ray_init_of(const TraceParams& P, RayState& S, const float* o, const float* v) {
+  const RaySetup s = ray_setup(ldgf(o), ldgf(o + 1), ldgf(o + 2), ldgf(v), ldgf(v + 1), ldgf(v + 2), P.factor,
+                               P.gx, P.gy, P.gz);
+  return ray_init(S, s.sx, s.sy, s.sz, s.dx, s.dy, s.dz, s.active, s.padx, s.pady, s.padz);
+}
+
+// The ray of row i of origins and raw directions at row strides os and rs
+// (3, or 0 for one row shared by every ray), as a fix_hit_imm `ray`.
+struct RayOf {
+  const float* origins;
+  int os;
+  const float* rays;
+  int rs;
+  long long i;
+  VX_HD void operator()(float* o, float* v) const {
+    for (int k = 0; k < 3; ++k) o[k] = ldgf(origins + os * i + k);
+    for (int k = 0; k < 3; ++k) v[k] = ldgf(rays + rs * i + k);
+  }
+};
+
 // K1's and K4's rays entries for one ray: ops/bigtrace.py::trace_brickmap_k1
 // and ops/trace2.py::_trace_brickmap_kernel whole.  ray_setup at the
 // brickmap's factor (ops/trace.py::_ray_setup and _edge_pad), the walk,
@@ -105,14 +146,7 @@ VX_HD TraceResult trace_ray_of(const TraceParams& P, const Fetch& F, const Ray& 
     r = trace_ray<MACRO, DIAG>(P, F, s.sx, s.sy, s.sz, s.dx, s.dy, s.dz, s.active, s.padx, s.pady,
                                s.padz, diag);
   }
-  if (r.flags & 2) {
-    float o[3], v[3];
-    ray(o, v);
-    const RaySetup s = ray_setup(o[0], o[1], o[2], v[0], v[1], v[2], P.factor, P.gx, P.gy, P.gz);
-    const float ff = (float)P.factor;
-    r.px = s.sx * ff; r.py = s.sy * ff; r.pz = s.sz * ff;
-    r.nx = s.snx; r.ny = s.sny; r.nz = s.snz;
-  }
+  fix_hit_imm(P, ray, r);
   return r;
 }
 

@@ -45,6 +45,14 @@
 // them, so that stats[0] / (32 * stats[1]) is the share of lane-slots doing
 // work; no path runs it.
 //
+// The rays entry (vx_rrtrace_rays, trace_brickmap_hbm_rr's card path)
+// takes origins and raw directions: a lane's refill sets its ray up
+// (ray_setup.cuh::ray_init_of), and the store of a hit at the ray's start
+// does the hit_imm fix-up, the setup computed again from the ray
+// (ray_setup.cuh::fix_hit_imm, as trace_ray_of does); hit is one byte.
+// The prepared entry (vx_rrtrace, the wrapper's setup done) stays for
+// kernel_ab.py's and chip_smoke.py's walk-alone times and gates.
+//
 // Bound: as K1 (bigtrace.cu): each iteration's dependent chain and the
 // warps' divergence, with the same loop (dda.cuh) and register budget; the
 // queue costs one atomic per refill.
@@ -52,7 +60,7 @@
 // Build: kernels/build.py (nvcc sm_90a, -O3, --fmad=false, no fast-math).
 #include <cuda_runtime.h>
 
-#include "dda.cuh"
+#include "ray_setup.cuh"
 
 namespace {
 
@@ -60,23 +68,28 @@ constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 8;  // as K1's production builds: at most 64 registers a thread
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ void store(const vx::TraceResult& r, int i, int* __restrict__ flags,
-                                      float* __restrict__ pos, float* __restrict__ normal,
-                                      int* __restrict__ steps) {
-  flags[i] = r.flags;
-  pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
-  normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
-  steps[i] = r.steps;
-}
+// Where a launch's rays come from and where their results go: the
+// prepared entry's (start, dir, active, pad; flags = hit | hit_imm << 1)
+// or, with RAYS, the rays entry's (origins, rays at row strides os, rs;
+// hit one byte, the hit_imm fix-up done).
+struct RrRays {
+  const float* start;
+  const float* dir;
+  const int* active;
+  const int* pad;
+  const float* origins;
+  int os;
+  const float* rays;
+  int rs;
+  int* flags;
+  unsigned char* hit;
+};
 
-template <bool MACRO, bool COUNT>
+template <bool MACRO, bool COUNT, bool RAYS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 rrtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, int refill,
-               int* __restrict__ counter, unsigned long long* __restrict__ stats,
-               const float* __restrict__ start, const float* __restrict__ dir,
-               const int* __restrict__ active, const int* __restrict__ pad,
-               int* __restrict__ flags, float* __restrict__ pos,
-               float* __restrict__ normal, int* __restrict__ steps) {
+               int* __restrict__ counter, unsigned long long* __restrict__ stats, const RrRays R,
+               float* __restrict__ pos, float* __restrict__ normal, int* __restrict__ steps) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;  // the lanes before this one
   vx::RayState S;
@@ -94,13 +107,20 @@ rrtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, int refill,
       if (ray < 0) {
         const int i = base + __popc(idle & below);
         if (i < n) {
-          if (vx::ray_init(S, start[3 * i], start[3 * i + 1], start[3 * i + 2], dir[3 * i],
-                           dir[3 * i + 1], dir[3 * i + 2], active[i], pad[3 * i], pad[3 * i + 1],
-                           pad[3 * i + 2])) {
+          bool live;
+          if constexpr (RAYS) {
+            live = vx::ray_init_of(P, S, R.origins + (long long)R.os * i, R.rays + (long long)R.rs * i);
+          } else {
+            live = vx::ray_init(S, R.start[3 * i], R.start[3 * i + 1], R.start[3 * i + 2], R.dir[3 * i],
+                                R.dir[3 * i + 1], R.dir[3 * i + 2], R.active[i], R.pad[3 * i], R.pad[3 * i + 1],
+                                R.pad[3 * i + 2]);
+          }
+          if (live) {
             ray = i;
           } else {
             const vx::TraceResult none = {0, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0};
-            store(none, i, flags, pos, normal, steps);
+            if constexpr (RAYS) R.hit[i] = 0; else R.flags[i] = 0;
+            vx::store_ray(none, i, pos, normal, steps);
           }
         }
       }
@@ -125,7 +145,14 @@ rrtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, int refill,
           }
         }
         if (vx::ray_iterate<MACRO, false>(P, F, S)) {
-          store(vx::ray_result(P, S), ray, flags, pos, normal, steps);
+          vx::TraceResult r = vx::ray_result(P, S);
+          if constexpr (RAYS) {
+            vx::fix_hit_imm(P, vx::RayOf{R.origins, R.os, R.rays, R.rs, ray}, r);
+            R.hit[ray] = (unsigned char)(r.flags & 1);
+          } else {
+            R.flags[ray] = r.flags;
+          }
+          vx::store_ray(r, ray, pos, normal, steps);
           ray = -1;
           break;
         }
@@ -145,16 +172,15 @@ rrtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, int refill,
   }
 }
 
-template <bool MACRO, bool COUNT>
+template <bool MACRO, bool COUNT, bool RAYS>
 int launch(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, int refill,
-           int* counter, unsigned long long* stats, const float* start, const float* dir,
-           const int* active, const int* pad, int* flags, float* pos, float* normal, int* steps,
+           int* counter, unsigned long long* stats, const RrRays& R, float* pos, float* normal, int* steps,
            cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rrtrace_kernel<MACRO, COUNT>, THREADS, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rrtrace_kernel<MACRO, COUNT, RAYS>, THREADS, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
   // as many blocks as the card holds at once, and no more warps than 32-ray groups
   const long long groups = ((long long)n + 31) / 32;
@@ -162,8 +188,8 @@ int launch(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, int ref
   const int blocks = (int)(((warps < groups ? warps : groups) + THREADS / 32 - 1) / (THREADS / 32));
   e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  rrtrace_kernel<MACRO, COUNT><<<blocks, THREADS, 0, stream>>>(
-      P, F, n, refill, counter, stats, start, dir, active, pad, flags, pos, normal, steps);
+  rrtrace_kernel<MACRO, COUNT, RAYS><<<blocks, THREADS, 0, stream>>>(P, F, n, refill, counter, stats, R, pos,
+                                                                     normal, steps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -184,12 +210,32 @@ extern "C" int vx_rrtrace(const float* start, const float* dir, const int* activ
                           float* normal, int* steps, void* stream) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
   const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  const RrRays R = {start, dir, active, pad, nullptr, 0, nullptr, 0, flags, nullptr};
   const auto s = static_cast<cudaStream_t>(stream);
   if (n == 0) return 0;
   if (refill < 1 || refill > 32) return static_cast<int>(cudaErrorInvalidValue);
-#define VX_RR_LAUNCH(M, C) \
-  launch<M, C>(P, F, n, refill, counter, stats, start, dir, active, pad, flags, pos, normal, steps, s)
+#define VX_RR_LAUNCH(M, C) launch<M, C, false>(P, F, n, refill, counter, stats, R, pos, normal, steps, s)
   if (stats) return use_macro ? VX_RR_LAUNCH(true, true) : VX_RR_LAUNCH(false, true);
   return use_macro ? VX_RR_LAUNCH(true, false) : VX_RR_LAUNCH(false, false);
 #undef VX_RR_LAUNCH
+}
+
+// The rays entry: origins (voxels) and raw directions at row strides os
+// and rs (3, or 0 for one row shared by every ray) in place of the
+// prepared rays, hit (one byte) in place of flags; no counting
+// instantiation.  Otherwise as vx_rrtrace.
+extern "C" int vx_rrtrace_rays(const float* origins, int os, const float* rays, int rs,
+                               const int* region_lines, const int* brick_lines, const int* macro,
+                               const int* macro2, int n, int gx, int gy, int gz, int rx, int ry, int rz,
+                               int factor, int wpb, int max_steps, int brick_layout, int iter_limit,
+                               int use_macro, int refill, int* counter, unsigned char* hit, float* pos,
+                               float* normal, int* steps, void* stream) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  const RrRays R = {nullptr, nullptr, nullptr, nullptr, origins, os, rays, rs, nullptr, hit};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return 0;
+  if (refill < 1 || refill > 32) return static_cast<int>(cudaErrorInvalidValue);
+  return use_macro ? launch<true, false, true>(P, F, n, refill, counter, nullptr, R, pos, normal, steps, s)
+                   : launch<false, false, true>(P, F, n, refill, counter, nullptr, R, pos, normal, steps, s);
 }

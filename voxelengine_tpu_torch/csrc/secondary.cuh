@@ -26,6 +26,12 @@
 // they keep: the position, normal and pixel are read again where needed (L1
 // holds them), and the AO loop keeps its sum, the sample index and the
 // fix-up's position.
+//
+// The ray builders (shadow_ray, reflection_ray, ao_sample) and the AO
+// falloff (ao_falloff) are also secondary.cu's, which builds a kind's rays
+// for a caller's tracer and reduces AO's samples from what it returns
+// (secondary_build_ray, secondary_ao below): the fused entries and those
+// two share this one source.
 #pragma once
 
 #include <stdint.h>
@@ -58,6 +64,25 @@ struct SecondaryArgs {
   float* ao;           // AO: f32[n]
 };
 
+// The shadow ray of the primary ray whose position is p: origin p + L *
+// 0.01 (L * 0.01 rounded first), direction L.
+VX_HD void shadow_ray(const SecondaryArgs& A, const float* p, float* o, float* v) {
+  for (int k = 0; k < 3; ++k) v[k] = ldgf(A.light + k);
+  for (int k = 0; k < 3; ++k) o[k] = ldgf(p + k) + v[k] * 0.01f;
+}
+
+// The mirror bounce of primary ray i (position p): n = -normal, direction
+// i - (2 n) (n . i) of the ray's raw direction, origin p + n * 0.01.
+VX_HD void reflection_ray(const SecondaryArgs& A, const float* p, int i, float* o, float* v) {
+  const float* m = A.nrm + 3 * (long long)i;
+  const float* dir = A.dirs + (long long)A.ds * i;
+  float n[3], d[3];
+  for (int k = 0; k < 3; ++k) n[k] = -ldgf(m + k);
+  for (int k = 0; k < 3; ++k) d[k] = ldgf(dir + k);
+  reflect3(d, n, v);
+  for (int k = 0; k < 3; ++k) o[k] = ldgf(p + k) + n[k] * 0.01f;
+}
+
 // AO sample s of ray i: its origin o and direction sd (normalized,
 // flipped into the normal's hemisphere).
 VX_HD void ao_sample(const SecondaryArgs& A, int i, int s, float* o, float* sd) {
@@ -80,6 +105,14 @@ VX_HD void ao_sample(const SecondaryArgs& A, int i, int s, float* o, float* sd) 
   for (int k = 0; k < 3; ++k) o[k] = ldgf(p + k) + n[k] * 0.01f;
 }
 
+// What an AO sample that hit at (hx, hy, hz) adds for the primary position
+// p: 1 - min(1 / max(|h - p| * 10, 1e-6), 1) (a miss adds 1).
+VX_HD float ao_falloff(float hx, float hy, float hz, const float* p) {
+  const float v3[3] = {hx - ldgf(p), hy - ldgf(p + 1), hz - ldgf(p + 2)};
+  const float dist = sqrtf(dot3f(v3, v3));
+  return 1.0f - clamp_max_t(1.0f / clamp_min_t(dist * 10.0f, 1e-6f), 1.0f);
+}
+
 // Ray i's kind of secondary rays, walked and stored.  A shadow or
 // reflection ray is built by a function that trace_ray_of calls again for
 // the hit_imm fix-up, so nothing of it stays live across the walk; an AO
@@ -89,22 +122,11 @@ template <int KIND, bool MACRO, class Fetch>
 VX_HD void secondary_ray(const TraceParams& P, const Fetch& F, const SecondaryArgs& A, int i) {
   const float* p = A.pos + 3 * (long long)i;
   if constexpr (KIND == SEC_SHADOW) {
-    const TraceResult r = trace_ray_of<MACRO>(P, F, [&](float* o, float* v) {
-      for (int k = 0; k < 3; ++k) v[k] = ldgf(A.light + k);
-      for (int k = 0; k < 3; ++k) o[k] = ldgf(p + k) + v[k] * 0.01f;
-    });
+    const TraceResult r = trace_ray_of<MACRO>(P, F, [&](float* o, float* v) { shadow_ray(A, p, o, v); });
     A.hit[i] = (unsigned char)(r.flags & 1);
     A.steps[i] = r.steps;
   } else if constexpr (KIND == SEC_REFLECTION) {
-    const TraceResult r = trace_ray_of<MACRO>(P, F, [&](float* o, float* v) {
-      const float* m = A.nrm + 3 * (long long)i;
-      const float* dir = A.dirs + (long long)A.ds * i;
-      float n[3], d[3];
-      for (int k = 0; k < 3; ++k) n[k] = -ldgf(m + k);
-      for (int k = 0; k < 3; ++k) d[k] = ldgf(dir + k);
-      reflect3(d, n, v);
-      for (int k = 0; k < 3; ++k) o[k] = ldgf(p + k) + n[k] * 0.01f;
-    });
+    const TraceResult r = trace_ray_of<MACRO>(P, F, [&](float* o, float* v) { reflection_ray(A, p, i, o, v); });
     A.hit[i] = (unsigned char)(r.flags & 1);
     float* op = A.out_pos + 3 * (long long)i;
     float* on = A.out_nrm + 3 * (long long)i;
@@ -128,15 +150,46 @@ VX_HD void secondary_ray(const TraceParams& P, const Fetch& F, const SecondaryAr
       float add = 1.0f;
       if (r.flags & 1) {
         const bool imm = r.flags & 2;
-        const float v3[3] = {(imm ? hx : r.px) - ldgf(p), (imm ? hy : r.py) - ldgf(p + 1),
-                             (imm ? hz : r.pz) - ldgf(p + 2)};
-        const float dist = sqrtf(dot3f(v3, v3));
-        add = 1.0f - clamp_max_t(1.0f / clamp_min_t(dist * 10.0f, 1e-6f), 1.0f);
+        add = ao_falloff(imm ? hx : r.px, imm ? hy : r.py, imm ? hz : r.pz, p);
       }
       occ = occ + add;
     }
     A.ao[i] = occ / (float)A.ao_samples;
   }
+}
+
+// The rays a kind traces for n primary rays, as secondary.cu builds them
+// for a caller's tracer: ray j of M (M = n for SHADOW and REFLECTION, n *
+// ao_samples for AO) is kind's ray of primary ray j, or for AO sample s = j
+// / n of primary ray j % n (sample-major: the n rays of sample 0, then of
+// sample 1, ...).  Writes its origin o and raw direction v.
+VX_HD void secondary_build_ray(int kind, const SecondaryArgs& A, int n, long long j, float* o, float* v) {
+  if (kind == SEC_AO) {
+    ao_sample(A, (int)(j % n), (int)(j / n), o, v);
+  } else if (kind == SEC_SHADOW) {
+    shadow_ray(A, A.pos + 3 * j, o, v);
+  } else {
+    reflection_ray(A, A.pos + 3 * j, (int)j, o, v);
+  }
+}
+
+// Primary ray i's AO factor (its position: pos + 3 i) from a caller's
+// trace of secondary_build_ray's AO rays (hit one byte, position f32[M,
+// 3]): the falloff of samples 0, 1,
+// ... summed in that order and divided by ao_samples, as the fused entries
+// reduce it.  A shadow or a reflection needs no reduce: what shading reads
+// of it is the trace's own hit, steps, position and normal.
+VX_HD float secondary_ao(const float* pos, int ao_samples, const unsigned char* t_hit, const float* t_pos, int n,
+                         int i) {
+  const float* p = pos + 3 * (long long)i;
+  float occ = 0.0f;
+  for (int s = 0; s < ao_samples; ++s) {
+    const long long j = (long long)s * n + i;
+    float add = 1.0f;
+    if (t_hit[j]) add = ao_falloff(t_pos[3 * j], t_pos[3 * j + 1], t_pos[3 * j + 2], p);
+    occ = occ + add;
+  }
+  return occ / (float)ao_samples;
 }
 
 // The rays of a secondary launch (ray_setup.cuh's PreparedRays and
@@ -177,4 +230,10 @@ inline int with_secondary_kind(int kind, const SecondaryArgs& A, const Body& bod
   vx::SecondaryArgs {                                                                                       \
     pos, nrm, dirs, ds, px, py, light, width, (uint32_t)seed_frame, ao_samples, hit, out_pos, out_nrm,    \
         steps, ao                                                                                           \
+  }
+// SecondaryArgs of VX_SECONDARY_PARAMS alone, no outputs (secondary.cu's build entry).
+#define VX_SECONDARY_IN_ARGS                                                                                \
+  vx::SecondaryArgs {                                                                                       \
+    pos, nrm, dirs, ds, px, py, light, width, (uint32_t)seed_frame, ao_samples, nullptr, nullptr, nullptr, \
+        nullptr, nullptr                                                                                    \
   }

@@ -22,15 +22,20 @@
 // direction) measured 55% slower and were not kept (PERF.md).
 //
 // Two entries over one kernel:
-//   vx_shade writes color (f32[n, 3]) and write (one byte): the sharded
-//     frames' form, whose halo rows pair with the band's
-//     (parallel/sharded.py);
-//   vx_shade_composite scatters each written pixel straight into the
-//     framebuffer at (px, py) and drops py >= H.  The checkerboard's pair
-//     select and its odd-height drop (composite_frame) are exactly that
-//     scatter: y = 2y' + (x even) + (frame even) maps the frame's rays one
-//     to one onto the rows it writes, so no two rays write one pixel, and
-//     a ray's pixel needs no unblocking and no block_perm inverse.
+//   vx_shade writes color (f32[n, 3]) and write (one byte);
+//   vx_shade_composite scatters each written pixel straight into its
+//     place in a framebuffer (shade.cuh::FrameDest): the whole image, or a
+//     rank's part of a sharded frame (a row band or its block-cyclic
+//     blocks, parallel/sharded.py).  It drops rows outside [0, H), pixels
+//     outside the rank's part and the halo ray of row -1.  The
+//     checkerboard's pair select and its odd-height drop (composite_frame,
+//     and the sharded frames' pair select with their halo rows) are
+//     exactly that scatter: y = 2y' + (x even) + (frame even) maps the
+//     frame's rays one to one onto the rows it writes, so no two rays
+//     write one pixel, and a ray's pixel needs no unblocking and no
+//     block_perm inverse.  In the cyclic layout a block's last row's +2
+//     ray and the next block's halo ray are one ray of one pixel; where
+//     one rank holds both blocks both write it, the same bits.
 // The environment vectors and the camera position are read on the card
 // (one host read a frame would synchronise the stream).  The shadow,
 // reflection and AO results are optional inputs (null: not traced; a
@@ -47,33 +52,31 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// COMPOSITE: write the framebuffer (f32[H, W, 3]); otherwise color and write.
+// COMPOSITE: write ray i into fb where D places it (shade.cuh::
+// shade_to_dest); otherwise color and write.
 template <bool COMPOSITE>
 __global__ void __launch_bounds__(kThreads)
-    shade_kernel(vx::ShadeArgs A, int n, float* __restrict__ color, unsigned char* __restrict__ write,
-                 float* __restrict__ fb) {
+    shade_kernel(vx::ShadeArgs A, vx::FrameDest D, int n, float* __restrict__ color,
+                 unsigned char* __restrict__ write, float* __restrict__ fb) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  float c[3];
-  bool w;
-  vx::shade_ray(A, i, c, &w);
   if (COMPOSITE) {
-    const int64_t px = A.px[i], py = A.py[i];
-    if (w && py >= 0 && py < A.height) {
-      float* p = fb + 3 * (py * A.width + px);
-      p[0] = c[0]; p[1] = c[1]; p[2] = c[2];
-    }
+    vx::shade_to_dest(A, D, i, fb);
   } else {
+    float c[3];
+    bool w;
+    vx::shade_ray(A, i, c, &w);
     color[3 * i] = c[0]; color[3 * i + 1] = c[1]; color[3 * i + 2] = c[2];
     write[i] = w;
   }
 }
 
 template <bool COMPOSITE>
-int launch(const vx::ShadeArgs& A, int n, float* color, unsigned char* write, float* fb, void* stream) {
+int launch(const vx::ShadeArgs& A, const vx::FrameDest& D, int n, float* color, unsigned char* write, float* fb,
+           void* stream) {
   if (n == 0) return 0;
   shade_kernel<COMPOSITE><<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, n, color, write, fb);
+      A, D, n, color, write, fb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -82,11 +85,15 @@ int launch(const vx::ShadeArgs& A, int n, float* color, unsigned char* write, fl
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 // color f32[n, 3], write one byte a ray (0 or 1).
 extern "C" int vx_shade(VX_SHADE_PARAMS, float* color, unsigned char* write, void* stream) {
-  return launch<false>(VX_SHADE_ARGS, n, color, write, nullptr, stream);
+  return launch<false>(VX_SHADE_ARGS, vx::FrameDest{}, n, color, write, nullptr, stream);
 }
 
-// The same rays shaded into fb (f32[height, width, 3]) in place: each
-// written pixel at (px, py), py >= height dropped.
-extern "C" int vx_shade_composite(VX_SHADE_PARAMS, float* fb, void* stream) {
-  return launch<true>(VX_SHADE_ARGS, n, nullptr, nullptr, fb, stream);
+// The same rays shaded into fb in place (shade.cuh::FrameDest: tiles tw x
+// th, tiles_x to a row, tile j on rank j % ranks; the whole f32[height,
+// width, 3] framebuffer is width, height, 1, 1, 0): each written pixel at
+// (px, py) where it is the rank's; rows outside [0, height) and rays whose
+// pre-remap row is negative dropped.
+extern "C" int vx_shade_composite(VX_SHADE_PARAMS, int tw, int th, int tiles_x, int ranks, int rank, float* fb,
+                                  void* stream) {
+  return launch<true>(VX_SHADE_ARGS, vx::FrameDest{tw, th, tiles_x, ranks, rank}, n, nullptr, nullptr, fb, stream);
 }

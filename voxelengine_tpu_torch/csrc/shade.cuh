@@ -214,6 +214,49 @@ VX_HD void shade_ray(const ShadeArgs& A, int i, float* color, bool* write_out) {
   *write_out = write;
 }
 
+// A rank's part of a sharded frame's framebuffer (parallel/sharded.py):
+// the image cut into tiles of th rows by tw columns, tiles_x of them to a
+// row of tiles, tile j on rank j % ranks, held at entry j / ranks of the
+// rank's f32[tiles / ranks, th, tw, 3].  A row band (make_framebuffer_rows)
+// is tw = W, th = H / N, tiles_x = 1; the block-cyclic layout
+// (make_framebuffer_cyclic) tw = bw, th = bhf, tiles_x = W / bw; a whole
+// framebuffer tw = W, th = H, tiles_x = ranks = 1.
+struct FrameDest {
+  int tw, th, tiles_x, ranks, rank;
+};
+
+// The float offset of pixel (px, py) in the rank's part, or -1 where the
+// pixel is not the rank's or lies outside the image's rows [0, height).
+VX_HD long long dest_offset(const FrameDest& D, int height, int64_t px, int64_t py) {
+  if (py < 0 || py >= height) return -1;
+  const int x = (int)px, y = (int)py;
+  // one part whose tiles stack as the image's rows (the whole framebuffer,
+  // one rank's band of one): the image's own layout, without the divisions
+  if (D.ranks == 1 && D.tiles_x == 1) return 3 * ((long long)y * D.tw + x);
+  const int j = (y / D.th) * D.tiles_x + x / D.tw;
+  if (j % D.ranks != D.rank) return -1;
+  return 3 * (((long long)(j / D.ranks) * D.th + y % D.th) * D.tw + x % D.tw);
+}
+
+// The composite (shade.cu::vx_shade_composite): ray i shaded, and written
+// where its pixel lies in the rank's part, if it writes and its pre-remap
+// row is a row of the image (a sharded frame's halo ray of row -1 writes
+// nothing; one device's rays have none).  That is composite_frame's and
+// checkerboard_pair_select's pair select on the image, a band or a block:
+// y = 2y' + (x even) + (frame even) sends each ray to one pixel.
+VX_HD void shade_to_dest(const ShadeArgs& A, const FrameDest& D, int i, float* fb) {
+  float c[3];
+  bool w;
+  shade_ray(A, i, c, &w);
+  // py is 2 py_r + (x even) + (frame even), or py_r: a negative pre-remap
+  // row lands at py <= 0, so only py == 0 reads it
+  const int64_t py = A.py[i];
+  if (!w || (py == 0 && A.py_r[i] < 0)) return;
+  const long long off = dest_offset(D, A.height, A.px[i], py);
+  if (off < 0) return;
+  fb[off] = c[0]; fb[off + 1] = c[1]; fb[off + 2] = c[2];
+}
+
 }  // namespace vx
 
 // The arguments of the kernel's entries (shade.cu) and of their host

@@ -17,16 +17,9 @@ extern "C" int vx_shade_host(VX_SHADE_PARAMS, float* color, unsigned char* write
 }
 
 // shade.cu::vx_shade_composite on the host.
-extern "C" int vx_shade_composite_host(VX_SHADE_PARAMS, float* fb) {
+extern "C" int vx_shade_composite_host(VX_SHADE_PARAMS, int tw, int th, int tiles_x, int ranks, int rank, float* fb) {
   const vx::ShadeArgs A = VX_SHADE_ARGS;
-  for (int i = 0; i < n; ++i) {
-    float c[3];
-    bool w;
-    vx::shade_ray(A, i, c, &w);
-    if (w && A.py[i] >= 0 && A.py[i] < height) {
-      float* p = fb + 3 * (A.py[i] * width + A.px[i]);
-      p[0] = c[0]; p[1] = c[1]; p[2] = c[2];
-    }
-  }
+  const vx::FrameDest D = {tw, th, tiles_x, ranks, rank};
+  for (int i = 0; i < n; ++i) vx::shade_to_dest(A, D, i, fb);
   return 0;
 }

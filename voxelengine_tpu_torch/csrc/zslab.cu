@@ -29,6 +29,23 @@
 // leaves its row unwritten.  The pause is asked only where its answer can
 // change (zslab.cuh::slab_walk).
 //
+// Two forms over that design:
+//   vx_zslab, the prepared form: round 0 takes the rays the rank owns,
+//     already set up (start, direction, active, pad), later rounds the
+//     handed-on rows; results, status and paused rows at the launch's own
+//     row (kernel_ab.py times it, chip_smoke.py's slab gates hold it to
+//     run_slab);
+//   vx_zslab_rays, the batch form the migration runs on the card: round 0
+//     takes the whole batch's origins and raw directions and does the ray
+//     setup, the ownership test and the hit_imm fix-up in the launch
+//     (zslab.cuh::slab_round_rays), later rounds the handed-on rows and
+//     their batch indices.  A done ray's result goes to its index in the
+//     batch-wide outputs; a paused ray's row and index are appended to
+//     compact outputs at a slot a warp takes with one atomicAdd (the order
+//     of the slots is the warps' and changes from run to run; no result
+//     depends on it), and the counts the hand-off's shapes need (paused,
+//     owned) are two ints the wrapper reads once.
+//
 // Build: kernels/build.py (nvcc sm_90a, -O3, --fmad=false, no fast-math).
 #include <cstdint>
 
@@ -116,6 +133,80 @@ zslab_kernel(vx::TraceParams P, vx::SlabFetch F, int m, int* __restrict__ counte
   }
 }
 
+// The batch form (vx_zslab_rays).  counters: [0] the work counter, [1] the
+// paused rays appended, [2] the rays round 0 owned.  ROUND0: ray i of m is
+// the batch's ray i; else row i of rows_in, whose batch index is idx_in[i].
+template <bool ROUND0>
+__global__ void __launch_bounds__(THREADS, 1)
+zslab_rays_kernel(vx::TraceParams P, vx::SlabFetch F, int m, int* __restrict__ counters,
+                  const float* __restrict__ origins, int os, const float* __restrict__ rays, int rs,
+                  const int* __restrict__ rows_in, const int* __restrict__ idx_in, int* __restrict__ rows_out,
+                  int* __restrict__ idx_out, int* __restrict__ hit, float* __restrict__ pos,
+                  float* __restrict__ normal, int* __restrict__ steps) {
+  extern __shared__ int4 smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* buf = reinterpret_cast<int*>(smem) + warp * ROW_WORDS;  // this warp's rows
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(counters, 32);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= m) return;  // the same for every lane of the warp
+    const int rows = min(32, m - base);
+    const int i = base + lane;
+    if (!ROUND0) load_rows(rows_in + (long long)base * vx::STATE_WORDS, rows, buf, lane);
+    __syncwarp();
+    int st = vx::SLAB_OTHER, b = 0;
+    if (i < m) {
+      int* row = buf + lane * vx::STATE_WORDS;
+      b = ROUND0 ? i : __ldg(idx_in + i);  // the ray's index in the batch
+      const vx::RayOf ray = {origins, os, rays, rs, b};
+      vx::TraceResult r;
+      st = ROUND0 ? vx::slab_round_rays(P, F, ray, row, r)
+                  : vx::slab_round(P, F, row, nullptr, nullptr, 0, nullptr, row, r);
+      if (st == vx::SLAB_DONE) {
+        hit[b] = r.flags & 1;
+        vx::store_ray(r, b, pos, normal, steps);
+      }
+    }
+    if (ROUND0) {
+      const unsigned owned = __ballot_sync(0xffffffffu, st != vx::SLAB_OTHER);
+      if (lane == 0 && owned) atomicAdd(counters + 2, __popc(owned));
+    }
+    __syncwarp();  // the packed rows visible to the whole warp
+    const unsigned paused = __ballot_sync(0xffffffffu, st == vx::SLAB_PAUSED);
+    if (paused) {
+      int slot = 0;
+      if (lane == 0) slot = atomicAdd(counters + 1, __popc(paused));
+      slot = __shfl_sync(0xffffffffu, slot, 0);
+      if (st == vx::SLAB_PAUSED) idx_out[slot + __popc(paused & ((1u << lane) - 1u))] = b;
+      // the paused rows, one after another, each written by the whole warp
+      for (unsigned p = paused; p; p &= p - 1, ++slot) {
+        const int* src = buf + (__ffs(p) - 1) * vx::STATE_WORDS;
+        int* dst = rows_out + (long long)slot * vx::STATE_WORDS;
+        for (int w = lane; w < vx::STATE_WORDS; w += 32) dst[w] = src[w];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// The persistent grid of `kernel` for m rays (vx_zslab's sizing).
+template <class Kernel>
+cudaError_t slab_grid(vx::GridCache& cache, Kernel kernel, int m, int* blocks) {
+  int sms = 0, per_sm = 0;
+  const cudaError_t e = vx::resident_blocks(cache, kernel, THREADS, ROW_BYTES, &sms, &per_sm);
+  if (e != cudaSuccess) return e;
+  // as many blocks as the card holds at once, and no more than the rays'
+  // batches of 32 need; a round of few batches takes a block for each, up
+  // to one an SM, so that its warps spread over the SMs instead of sharing
+  // one or two (a warp that finds no batch leaves at once)
+  const long long warps = ((long long)m + 31) / 32;
+  const long long full = (warps + WARPS - 1) / WARPS, spread = warps < sms ? warps : sms;
+  const long long wanted = full > spread ? full : spread;
+  *blocks = (int)(wanted < (long long)per_sm * sms ? wanted : (long long)per_sm * sms);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Launches on `stream` without synchronising; returns the first CUDA error.
@@ -135,22 +226,49 @@ extern "C" int vx_zslab(const float* start, const float* dir, const int* active,
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
   const vx::SlabFetch F = {meta, bricks, gx, gy, z0, slab_gz, wpb};
   const auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = ROW_BYTES;
   static vx::GridCache cache;  // the runtime asked once a process (grid_cache.cuh)
-  int sms = 0, per_sm = 0;
-  cudaError_t e = vx::resident_blocks(cache, zslab_kernel, THREADS, smem, &sms, &per_sm);
+  int blocks = 0;
+  cudaError_t e = slab_grid(cache, zslab_kernel, m, &blocks);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // as many blocks as the card holds at once, and no more than the rays'
-  // batches of 32 need; a round of few batches takes a block for each, up
-  // to one an SM, so that its warps spread over the SMs instead of sharing
-  // one or two (a warp that finds no batch leaves at once)
-  const long long warps = ((long long)m + 31) / 32;
-  const long long full = (warps + WARPS - 1) / WARPS, spread = warps < sms ? warps : sms;
-  const long long wanted = full > spread ? full : spread;
-  const int blocks = (int)(wanted < (long long)per_sm * sms ? wanted : (long long)per_sm * sms);
   e = cudaMemsetAsync(counter, 0, sizeof(int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  zslab_kernel<<<blocks, THREADS, smem, s>>>(P, F, m, counter, start, dir, active, pad, rows_in, rows_out, status,
-                                             flags, pos, normal, steps);
+  zslab_kernel<<<blocks, THREADS, ROW_BYTES, s>>>(P, F, m, counter, start, dir, active, pad, rows_in, rows_out,
+                                                  status, flags, pos, normal, steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batch form; launches on `stream` without synchronising and returns
+// the first CUDA error.  origins and rays: the whole batch's (f32[n, 3] at
+// row strides os and rs, 3 or 0).  Round 0: rows_in and idx_in null, m =
+// n; later rounds: rows_in (i32[m, STATE_WORDS]) and idx_in (i32[m], each
+// row's batch index).  counters: three ints of device scratch, zeroed here
+// on `stream`; after the launch [1] holds the paused rays and [2] (round
+// 0) the rays the slab owned.  Appends each paused ray's row to rows_out
+// and its batch index to idx_out (room for m each); writes each done ray's
+// hit (i32, 0 or 1), position, normal and steps at its batch index of the
+// batch-wide outputs, and nothing for the other rays.
+extern "C" int vx_zslab_rays(const float* origins, int os, const float* rays, int rs, const int* rows_in,
+                             const int* idx_in, const int* meta, const int* bricks, int m, int gx, int gy, int gz,
+                             int z0, int slab_gz, int factor, int wpb, int max_steps, int brick_layout,
+                             int iter_limit, int* counters, int* rows_out, int* idx_out, int* hit, float* pos,
+                             float* normal, int* steps, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(counters, 0, 3 * sizeof(int), s);
+  if (e != cudaSuccess || m == 0) return static_cast<int>(e);
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::SlabFetch F = {meta, bricks, gx, gy, z0, slab_gz, wpb};
+  static vx::GridCache cache0, cache1;
+  int blocks = 0;
+  if (rows_in == nullptr) {
+    e = slab_grid(cache0, zslab_rays_kernel<true>, m, &blocks);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    zslab_rays_kernel<true><<<blocks, THREADS, ROW_BYTES, s>>>(P, F, m, counters, origins, os, rays, rs, nullptr,
+                                                               nullptr, rows_out, idx_out, hit, pos, normal, steps);
+  } else {
+    e = slab_grid(cache1, zslab_rays_kernel<false>, m, &blocks);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    zslab_rays_kernel<false><<<blocks, THREADS, ROW_BYTES, s>>>(P, F, m, counters, origins, os, rays, rs, rows_in,
+                                                                idx_in, rows_out, idx_out, hit, pos, normal, steps);
+  }
   return static_cast<int>(cudaGetLastError());
 }

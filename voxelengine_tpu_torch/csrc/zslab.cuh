@@ -29,17 +29,30 @@
 // flags packed): the whole RayState, so the resumed walk is the one the
 // single-device walk would have run.  Its iteration count restarts at each
 // round, as the JAX loop's does.  A ray that is done writes no state row.
+//
+// The batch form (zslab.cu's vx_zslab_rays; ray_setup.cuh): round 0 takes
+// the whole batch's origins and raw directions, sets every ray up over the
+// whole grid and walks only the rays whose entry cell lies in the slab
+// (slab_owns, the ownership of parallel/distributed.py), and a ray that is
+// done gets the hit_imm fix-up (ray_setup.cuh::fix_hit_imm, its setup
+// computed again from the batch's origin and direction); a later round
+// takes the handed-on state rows with each ray's index in the batch (a
+// handed-on ray has taken a step, so it cannot end at its entry cell and
+// needs no fix-up).  A ray that is done is stored at its index in the
+// batch.
 #pragma once
 
 #include <string.h>
 
 #include "dda.cuh"
+#include "ray_setup.cuh"
 
 namespace vx {
 
 // One ray's state on the wire (pack_state below); status codes of a round.
 constexpr int STATE_WORDS = 35;
-enum SlabStatus { SLAB_DONE = 0, SLAB_PAUSED = 1 };
+// SLAB_OTHER: a batch-form ray another slab owns (or none: it misses the grid).
+enum SlabStatus { SLAB_DONE = 0, SLAB_PAUSED = 1, SLAB_OTHER = 2 };
 
 // The rank's slab of a LINEAR dense-slot world: chunks (x, y, z0 .. z0 +
 // slab_gz - 1), meta and bricks indexed by the slab-local chunk index.
@@ -162,6 +175,42 @@ VX_HD int slab_round(const TraceParams& P, const SlabFetch& F, const int* in, co
     pack_state(S, out);
   else
     r = ray_result(P, S);
+  return status;
+}
+
+// Whether this slab owns a ray whose set-up start lies at chunk-unit z
+// `sz`: the slab of its entry cell (int)sz, floor-divided by the slab's
+// depth and clamped into the grid's slabs, as parallel/distributed.py's
+// ownership computes it.
+VX_HD bool slab_owns(const TraceParams& P, const SlabFetch& F, float sz) {
+  const int cz = (int)sz;
+  int q = cz / F.slab_gz;
+  if (cz % F.slab_gz != 0 && cz < 0) --q;
+  return clampi(q, 0, P.gz / F.slab_gz - 1) == F.z0 / F.slab_gz;
+}
+
+// Round 0 of a batch-form ray given by `ray(o, v)` (its origin in voxels
+// and raw direction): the ray setup over the whole grid and, for a ray this
+// slab owns, slab_round's walk; a paused ray's state goes to `out`, a ray
+// that is done gets the hit_imm fix-up in r.  Returns SlabStatus,
+// SLAB_OTHER (nothing written) for a ray the slab does not own.
+template <class Ray>
+VX_HD int slab_round_rays(const TraceParams& P, const SlabFetch& F, const Ray& ray, int* out, TraceResult& r) {
+  RayState S;
+  {
+    float o[3], v[3];
+    ray(o, v);
+    const RaySetup s = ray_setup(o[0], o[1], o[2], v[0], v[1], v[2], P.factor, P.gx, P.gy, P.gz);
+    if (!s.active || !slab_owns(P, F, s.sz)) return SLAB_OTHER;
+    ray_init(S, s.sx, s.sy, s.sz, s.dx, s.dy, s.dz, s.active, s.padx, s.pady, s.padz);
+  }
+  const int status = slab_walk(P, F, S);
+  if (status == SLAB_PAUSED) {
+    pack_state(S, out);
+    return status;
+  }
+  r = ray_result(P, S);
+  fix_hit_imm(P, ray, r);
   return status;
 }
 

@@ -17,7 +17,8 @@ frame by CUDA events, as the median, least and largest of ``--batches``
 batches of ``--frames`` frames, and the host's enqueue time a frame (the
 host clock until the batch's last call returns); the CUDA kernels a frame and their device
 ms a frame, from ``torch.profiler`` (``utils/profiling.py::
-kernel_profile``, two more batches: its warm-up and the recorded one); and the device-busy share, device ms
+kernel_profile``, two more batches: its warm-up and the recorded one, taken again where a profile records no
+device activity); and the device-busy share, device ms
 over the median ms.  Shadings: ``primary`` (the bench frame) and ``shaded``
 (shadows, AO 4, reflections: S2 adds their traces to the shading).
 
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import sys
 
@@ -89,7 +91,7 @@ def measure(scene: Scene, shading: str, batches: int = 5, frames: int = 8) -> di
         rec = spread(ms)
         rec["batches_ms"], rec["host_ms"] = ms, spread(host)["median"]
         if scene.device.type == "cuda":
-            frame_no = iter(range(first, first + 2 * frames))  # kernel_profile's warm-up and recorded calls
+            frame_no = itertools.count(first)  # kernel_profile's warm-up and recorded calls, a profile each try
             names, dev_ms = kernel_profile(lambda: fn(next(frame_no)), frames)
             if names is not None:
                 rec["kernels_per_frame"] = len(names) / frames
@@ -108,7 +110,7 @@ def report(shading: str, res: dict, card: str) -> list:
     lines = []
     for st in STAGES:
         r = res[st]
-        extra = ""
+        extra = ", kernels and device ms a frame: not measured (torch.profiler recorded no device activity)"
         if "kernels_per_frame" in r:
             extra = (f", {r['kernels_per_frame']} CUDA kernels and {r['device_ms_per_frame']} device ms a frame, "
                      f"busy share {r['busy_share']}")

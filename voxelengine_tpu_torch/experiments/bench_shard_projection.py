@@ -38,7 +38,7 @@ import torch
 
 from voxelengine_tpu_torch.experiments.scene import Scene, bench_scene, ms_timer
 from voxelengine_tpu_torch.kernels import bigtrace
-from voxelengine_tpu_torch.ops.bigtrace import _kernel_rays, _kernel_tables
+from voxelengine_tpu_torch.ops.bigtrace import _kernel_tables, prepared_rays
 from voxelengine_tpu_torch.parallel import sharded
 from voxelengine_tpu_torch.parallel.mesh import Mesh
 from voxelengine_tpu_torch.render.frame import block_geometry, make_framebuffer, primary_rays, render_frame
@@ -68,7 +68,7 @@ def k1_ms(scene: Scene, o, d, repeats: int) -> float:
         from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm
 
         return timed(lambda: trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=cfg.trace_use_macro))
-    start_c, dd, active, pad, _ = _kernel_rays(bm, o, d)
+    start_c, dd, active, pad, _ = prepared_rays(bm, o, d)
     tables, kw = _kernel_tables(bm, lt, cfg.max_steps, cfg.trace_use_macro)
 
     def launch():

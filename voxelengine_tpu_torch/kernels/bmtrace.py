@@ -31,8 +31,12 @@ trace's results in one launch (the plain version:
 
 :func:`bmtrace_slab` wraps K4-slab (``csrc/zslab.cu``), K4's loop over one
 z-slab of a larger world for the z-sharded migration
-(:mod:`voxelengine_tpu_torch.parallel.distributed`); ``slab_launches``
-counts its launches.
+(:mod:`voxelengine_tpu_torch.parallel.distributed`), on prepared rays;
+:func:`bmtrace_slab_rays` is its batch form, which the migration runs on
+the card: the whole batch's origins and directions in round 0 (the ray
+setup, the ownership and the ``hit_imm`` fix-up in the launch), results at
+their batch index.  ``slab_launches`` counts the prepared form's
+launches, ``slab_rays_launches`` the batch form's.
 """
 
 from __future__ import annotations
@@ -344,3 +348,67 @@ def bmtrace_slab(
     )
     slab_launches += 1
     return (rows_out, status) + outs
+
+
+slab_rays_launches = 0
+
+
+def bmtrace_slab_rays(
+    meta: torch.Tensor, bricks: torch.Tensor, origins, rays, outs, *, grid_dims, z0: int, slab_gz: int, factor: int,
+    max_steps: int, brick_layout: Layout, rows=None, idx=None,
+):
+    """One round of the z-sharded walk on the card in K4-slab's batch form
+    (``csrc/zslab.cu::vx_zslab_rays``).  Its plain version is the
+    migration's CPU round: ``ops/trace.py::_init_state`` over the whole
+    grid, the ownership of the entry cell, :func:`voxelengine_tpu_torch.
+    ops.trace.run_slab` and ``kernel_result``.
+
+    ``meta`` and ``bricks`` as for :func:`bmtrace_slab`; ``origins`` and
+    ``rays`` are the whole batch (``f32[N, 3]``, voxels and raw
+    directions; rows of 3 floats or one broadcast row); ``outs`` the
+    batch-wide ``(hit i32[N], position f32[N, 3], normal f32[N, 3], steps
+    i32[N])``, contiguous, which the launch writes at the index of each ray
+    that is done (its hit 0 or 1, the ``hit_imm`` fix-up applied) and leaves
+    as they are elsewhere.  Round 0: ``rows`` and ``idx`` None; every ray is
+    set up over the whole grid and the rays whose entry cell lies in the
+    slab are walked.  Later rounds: ``rows`` (``int32[m, STATE_WORDS]``),
+    the handed-on states, and ``idx`` (``int32[m]``) their batch indices.
+    Returns ``(rows, idx, counts)``: room for every ray of the round, of
+    which the first ``counts[1]`` hold the paused rays' states and batch
+    indices (in no set order), and ``counts`` (``int32[3]`` on the card;
+    ``[2]`` the rays round 0 walked), which the caller reads.  Launches on
+    the current stream without synchronising and raises if the launch is
+    refused."""
+    global slab_rays_launches
+    gx, gy, gz = grid_dims
+    per = gx * gy * slab_gz
+    wpb = (factor**3 + 31) // 32
+    if gx * gy * gz * wpb >= 2**31 or not 1 <= factor <= 32 or not 0 <= z0 <= gz - slab_gz or gz % slab_gz:
+        raise ValueError(f"bmtrace_slab_rays: slab z0={z0} +{slab_gz} of grid {grid_dims} at factor {factor} is "
+                         "outside the kernel's int32 indices or the grid")
+    if (rows is None) != (idx is None):
+        raise ValueError("bmtrace_slab_rays: a later round passes both the state rows and their batch indices")
+    dev, ray_args = _origin_rays("bmtrace_slab_rays", origins, rays)
+    n = origins.shape[0]
+    for name, t, shape in zip(("hit", "position", "normal", "steps"), outs, ((n,), (n, 3), (n, 3), (n,))):
+        build.check("bmtrace_slab_rays", name, t, torch.float32 if len(shape) == 2 else torch.int32, shape, dev)
+    m = n
+    if rows is not None:
+        m = rows.shape[0]
+        build.check("bmtrace_slab_rays", "rows", rows, torch.int32, (m, STATE_WORDS), dev)
+        build.check("bmtrace_slab_rays", "idx", idx, torch.int32, (m,), dev)
+    build.check("bmtrace_slab_rays", "meta", meta, torch.int32, (per,), dev)
+    build.check("bmtrace_slab_rays", "bricks", bricks, torch.int32, (per, wpb), dev)
+    rows_out = torch.empty((m, STATE_WORDS), dtype=torch.int32, device=dev)
+    idx_out = torch.empty((m,), dtype=torch.int32, device=dev)
+    counts = torch.zeros((3,), dtype=torch.int32, device=dev)  # zeroed again by the launcher on the stream
+    if m == 0:
+        return rows_out, idx_out, counts
+    build.launch(
+        "bmtrace_slab_rays", build.load_kernel("zslab").vx_zslab_rays, *build.pointers(ray_args),
+        *build.pointers((rows, idx)), meta.data_ptr(), bricks.data_ptr(), m, gx, gy, gz, z0, slab_gz, factor, wpb,
+        max_steps, brick_layout.value, 3 * max_steps + 64,  # iteration cap, as K4's: never reached
+        counts.data_ptr(), rows_out.data_ptr(), idx_out.data_ptr(), *build.pointers(outs), dev=dev,
+    )
+    slab_rays_launches += 1
+    return rows_out, idx_out, counts

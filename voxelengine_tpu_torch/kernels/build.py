@@ -36,7 +36,7 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 KERNEL_SOURCES = {
     "bigtrace": "bigtrace.cu", "rrtrace": "rrtrace.cu", "gridtrace": "gridtrace.cu", "bmtrace": "bmtrace.cu",
     "terrain": "terrain.cu", "crossings": "crossings.cu", "zslab": "zslab.cu", "camera": "camera.cu",
-    "rays": "rays.cu", "shade": "shade.cu",
+    "rays": "rays.cu", "shade": "shade.cu", "secondary": "secondary.cu",
 }
 # host library name -> source (g++): the kernels' per-ray and per-voxel logic
 HOST_SOURCES = {"dda_host": "dda_host.cpp", "terrain_host": "terrain_host.cpp", "camera_host": "camera_host.cpp",
@@ -88,6 +88,19 @@ SIGNATURES = {
     # m, gx, gy, gz, z0, slab_gz, factor, wpb, max_steps, brick_layout,
     # iter_limit; counter (int32 scratch), rows_out, status, outputs (K4-slab)
     "vx_zslab": _RAYS + [_P] * 3 + [_I] * 11 + [_P] * 3 + _OUTS,
+    # K4-slab's batch form: the batch's origins and directions; rows_in,
+    # idx_in (null in round 0), meta, bricks; the ints as vx_zslab's;
+    # counters (int32[3] scratch), rows_out, idx_out, hit (int32), ...
+    "vx_zslab_rays": _ORIGIN_RAYS + [_P] * 4 + [_I] * 11 + [_P] * 3 + _OUTS,
+    # K5 from origins and raw directions; hit (uint8) in place of flags, no stats
+    "vx_rrtrace_rays": _ORIGIN_RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P] + _OUTS,
+    # secondary.cu: a kind's rays for a caller's tracer (origins, dirs out),
+    # and the reduce of its results (the kind, the primary position,
+    # ao_samples, n; the tracer's hit, position, normal, steps; the kind's
+    # outputs)
+    "vx_secondary_build": _SECONDARY + [_I, _P, _P],
+    # pos, ao_samples, n, trace hit, trace position, ao (AO only)
+    "vx_secondary_reduce": [_P, _I, _I, _P, _P, _P],
     # z0, factor, chunks_x, chunks_y, wpb, brick_layout, octaves; occ
     # (uint8), bmin, bmax, words
     "vx_terrain_slab": [_I] * 7 + [_P] * 4,
@@ -109,8 +122,9 @@ SIGNATURES = {
     # traced); width, height, view, crosshair; reflectivity,
     # pos_mod, mod_m; n; color, write
     "vx_shade": _SHADE + [_P] * 2,
-    # ...; the framebuffer
-    "vx_shade_composite": _SHADE + [_P],
+    # ...; where the framebuffer lies in the image (tw, th, tiles_x, ranks,
+    # rank: csrc/shade.cuh::FrameDest); the framebuffer
+    "vx_shade_composite": _SHADE + [_I] * 5 + [_P],
 }
 # host-build entry -> its C signature: the kernel launcher's it mirrors,
 # except K4's two, which have no instantiation flag and no work counter; and the
@@ -134,6 +148,10 @@ HOST_ENTRIES = {
     # limbs, plane, words16, out: K3's staging alone
     "vx_limb_words_host": [_P, _L, _I, _P],
     "vx_zslab_host": SIGNATURES["vx_zslab"],
+    "vx_zslab_rays_host": SIGNATURES["vx_zslab_rays"],
+    "vx_rrtrace_rays_host": SIGNATURES["vx_rrtrace_rays"],
+    "vx_secondary_build_host": SIGNATURES["vx_secondary_build"],
+    "vx_secondary_reduce_host": SIGNATURES["vx_secondary_reduce"],
     "vx_terrain_slab_host": SIGNATURES["vx_terrain_slab"],
     "vx_noise_points_host": SIGNATURES["vx_noise_points"],
     "vx_camera_basis_host": SIGNATURES["vx_camera_basis"],
@@ -279,20 +297,17 @@ def pointers(args) -> list:
     return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
 
 
-def secondary_args(kernel: str, kind: str, position, normal, *, light=None, dirs=None, px=None, py=None,
-                   width: int = 0, frame_number: int = 0, ao_samples: int = 0):
-    """Check a secondary entry's inputs (``csrc/secondary.cuh``) and make its
-    outputs.  ``kind`` is one of :data:`SECONDARY_KINDS`; ``position`` and
+def secondary_inputs(kernel: str, kind: str, position, normal, *, light=None, dirs=None, px=None, py=None,
+                     width: int = 0, frame_number: int = 0, ao_samples: int = 0):
+    """Check a secondary entry's inputs (``csrc/secondary.cuh``):
+    ``kind`` is one of :data:`SECONDARY_KINDS`; ``position`` and
     ``normal`` are the primary trace's (``f32[N, 3]``, contiguous, on one
     CUDA device); the shadow kind reads ``light`` (``f32[3]``), the
     reflection kind ``dirs`` (the rays' raw directions, ``f32[N, 3]`` rows
     or one broadcast row), the AO kind ``px``, ``py`` (``int64[N]``),
     ``width``, ``frame_number`` and ``ao_samples`` (>= 1).  Returns
     ``(device, N, the launcher's arguments before the tables (tensors
-    among them), its five outputs (tensors, None where the kind writes
-    none), the kind's results)``: shadow ``(hit bool[N], steps i32[N])``,
-    reflection ``(hit, position f32[N, 3], normal f32[N, 3])``, AO the
-    factor ``f32[N]``."""
+    among them))``: ``VX_SECONDARY_PARAMS``."""
     if kind not in SECONDARY_KINDS:
         raise ValueError(f"{kernel}: kind must be one of {SECONDARY_KINDS}, got {kind!r}")
     dev = position.device
@@ -314,17 +329,32 @@ def secondary_args(kernel: str, kind: str, position, normal, *, light=None, dirs
     head = (SECONDARY_KINDS.index(kind), position, normal, d, ds, px if kind == "ao" else None,
             py if kind == "ao" else None, light if kind == "shadow" else None, width,
             seed_frame - (1 << 32) if seed_frame >= 1 << 31 else seed_frame, ao_samples)
+    return dev, n, head
+
+
+def secondary_outputs(kind: str, n: int, dev):
+    """A secondary entry's five outputs (``VX_SECONDARY_OUTS``: tensors,
+    None where the kind writes none) and the kind's results they make:
+    shadow ``(hit bool[N], steps i32[N])``, reflection ``(hit, position
+    f32[N, 3], normal f32[N, 3])``, AO the factor ``f32[N]``."""
     hit = torch.empty((n,), dtype=torch.bool, device=dev) if kind != "ao" else None
     if kind == "shadow":
         outs = [hit, None, None, torch.empty((n,), dtype=torch.int32, device=dev), None]
-        res = (hit, outs[3])
-    elif kind == "reflection":
+        return outs, (hit, outs[3])
+    if kind == "reflection":
         outs = [hit, torch.empty((n, 3), dtype=torch.float32, device=dev),
                 torch.empty((n, 3), dtype=torch.float32, device=dev), None, None]
-        res = (hit, outs[1], outs[2])
-    else:
-        outs = [None] * 4 + [torch.empty((n,), dtype=torch.float32, device=dev)]
-        res = outs[4]
+        return outs, (hit, outs[1], outs[2])
+    outs = [None] * 4 + [torch.empty((n,), dtype=torch.float32, device=dev)]
+    return outs, outs[4]
+
+
+def secondary_args(kernel: str, kind: str, position, normal, **inputs):
+    """:func:`secondary_inputs` and :func:`secondary_outputs` together:
+    ``(device, N, the launcher's arguments before the tables, its five
+    outputs, the kind's results)``."""
+    dev, n, head = secondary_inputs(kernel, kind, position, normal, **inputs)
+    outs, res = secondary_outputs(kind, n, dev)
     return dev, n, head, outs, res
 
 

@@ -5,8 +5,13 @@ It replaces ``voxelengine_tpu/ops/pallas_bigtrace.py::_rr_kernel``; its
 plain version is :func:`voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_lt`
 (with the macro levels off, :func:`voxelengine_tpu_torch.ops.trace.
 trace_brickmap`), which :func:`voxelengine_tpu_torch.ops.bigtrace.
-trace_brickmap_hbm_rr` runs for rays on the CPU.  ``launches`` counts the
-launches made through :func:`rrtrace`, the counting instantiation's too.
+trace_brickmap_hbm_rr` runs for rays on the CPU.  :func:`rrtrace_rays` is
+the same kernel from origins and raw directions, the ray setup and the
+``hit_imm`` fix-up in the launch: ``trace_brickmap_hbm_rr``'s card path.
+:func:`rrtrace`, the prepared-ray entry, times the walk alone in
+``kernel_ab.py`` and is the other side of ``chip_smoke.py``'s rays-entry
+gate.  ``launches`` counts the prepared entry's launches (the counting
+instantiation's too), ``rays_launches`` the rays entry's.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from voxelengine_tpu_torch.core.layout import Layout
 from voxelengine_tpu_torch.kernels import build
 from voxelengine_tpu_torch.kernels.bigtrace import check_line_table
 
-launches = 0
+launches = rays_launches = 0
 # idle lanes at which a warp takes new rays (1-32; 32 waits for all of its
 # lanes, as batches of 32 rays did): of 32, 16, 8, 4 and 1, the best on the
 # sparse world's batch and the demo frame together (PERF.md)
@@ -82,4 +87,54 @@ def rrtrace(
         *(o.data_ptr() for o in outs), dev=dev,
     )
     launches += 1
+    return outs
+
+
+def rrtrace_rays(
+    origins: torch.Tensor,
+    rays: torch.Tensor,
+    region_lines: torch.Tensor,
+    brick_lines: torch.Tensor,
+    macro: Optional[torch.Tensor] = None,
+    macro2: Optional[torch.Tensor] = None,
+    *,
+    grid_dims,
+    region_dims,
+    factor: int,
+    wpb: int,
+    max_steps: int,
+    brick_layout: Layout,
+    use_macro: bool = False,
+    refill: int = REFILL,
+):
+    """:func:`rrtrace` from ``origins`` (voxels) and raw directions ``rays``
+    (``f32[N, 3]``, rows of 3 contiguous floats or one broadcast row): a
+    lane's refill sets its ray up and the store of a hit at the ray's start
+    does the ``hit_imm`` fix-up, in the launch.  Returns ``(hit bool[N],
+    position, normal, steps)``, the ``TraceOut`` fields.  Launches on the
+    current stream without synchronising and raises if the launch is
+    refused."""
+    global rays_launches
+    if not 1 <= refill <= 32:
+        raise ValueError(f"rrtrace_rays: refill {refill} is not in 1-32")
+    dev = origins.device
+    build.require_cuda("rrtrace_rays", dev)
+    n = origins.shape[0]
+    ray_args = (*build.ray_rows("rrtrace_rays", "origins", origins, n, dev),
+                *build.ray_rows("rrtrace_rays", "rays", rays, n, dev))
+    mptrs = check_line_table("rrtrace_rays", dev, region_lines, brick_lines, macro, macro2, region_dims, factor,
+                             use_macro)
+    outs = build.ray_outputs(n, dev, torch.bool)
+    if n == 0:
+        return outs
+    counter = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launcher on the stream
+    gx, gy, gz = grid_dims
+    build.launch(
+        "rrtrace_rays", build.load_kernel("rrtrace").vx_rrtrace_rays, *build.pointers(ray_args),
+        region_lines.data_ptr(), brick_lines.data_ptr(), *mptrs,
+        n, gx, gy, gz, *region_dims, factor, wpb, max_steps, brick_layout.value,
+        3 * max_steps + 64,  # iteration cap (pallas_bigtrace.py:1919-1921)
+        int(use_macro), refill, counter.data_ptr(), *(o.data_ptr() for o in outs), dev=dev,
+    )
+    rays_launches += 1
     return outs

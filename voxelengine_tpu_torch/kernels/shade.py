@@ -3,13 +3,16 @@
 :func:`shade` computes ``render/frame.py::shade_traced`` after its traces
 in one launch, one thread a ray: ``(color, write)``.
 :func:`shade_composite` shades the same rays straight into the
-framebuffer, ``composite_frame`` included.  It has no TPU counterpart: the
-JAX package shades and composites with XLA ops of its jitted frame
-(``voxelengine_tpu/render/frame.py:350-470, 114-169``).  Its plain versions
-are ``render/frame.py::shade_traced_plain`` and ``composite_frame``, which
-the CPU runs.  The camera position and the environment stay on the card:
-no call reads them on the host.  ``launches`` counts the launches of both
-entries.
+framebuffer, ``composite_frame`` included; with ``dest`` it writes a
+rank's part of a sharded frame's framebuffer (a row band or its
+block-cyclic blocks), the sharded frames' pair select included.  It has no
+TPU counterpart: the JAX package shades and composites with XLA ops of its
+jitted frame (``voxelengine_tpu/render/frame.py:350-470, 114-169``).  Its
+plain versions are ``render/frame.py::shade_traced_plain`` and
+``composite_frame`` (``parallel/sharded.py``'s plain composites for a
+rank's part), which the CPU runs.  The camera position and the
+environment stay on the card: no call reads them on the host.
+``launches`` counts the launches of both.
 """
 
 from __future__ import annotations
@@ -92,17 +95,36 @@ def shade(out, origins, dirs, px, py, py_r, origin, env: Environment, cfg: Rende
 
 
 def shade_composite(framebuffer: torch.Tensor, out, origins, dirs, px, py, py_r, origin, env: Environment,
-                    cfg: RenderConfig, *, shadow=None, reflection=None, ao=None) -> torch.Tensor:
-    """:func:`shade` written straight into ``framebuffer`` (``f32[H, W, 3]``,
-    contiguous) at each written ray's ``(px, py)``, rows ``py >= H`` dropped:
-    ``composite_frame`` of the shaded frame, in place.  Returns
-    ``framebuffer``."""
+                    cfg: RenderConfig, *, shadow=None, reflection=None, ao=None, dest=None) -> torch.Tensor:
+    """:func:`shade` written straight into ``framebuffer`` at each written
+    ray's pixel, in place.  ``dest = (tw, th, tiles_x, ranks, rank)``
+    (``csrc/shade.cuh::FrameDest``) says where ``framebuffer`` lies in the
+    ``W x H`` image: tiles of ``th`` rows by ``tw`` columns, ``tiles_x`` to
+    a row of tiles, tile ``j`` on rank ``j % ranks`` at entry ``j //
+    ranks`` (a contiguous tensor of ``tiles / ranks * th * tw * 3``
+    floats).  A ray writes only where its pixel is the rank's, its row
+    ``py`` lies in ``[0, H)`` and its pre-remap row is not negative (rank
+    0's halo row).  The default, ``(W, H, 1, 1, 0)``, is the whole
+    ``f32[H, W, 3]`` framebuffer: ``composite_frame`` of the shaded frame.
+    A sharded frame passes its rank's band or blocks
+    (``parallel/sharded.py``).  Returns ``framebuffer``."""
     global launches
-    dev, n, args, _rows = _args("shade_composite", out, origins, dirs, px, py, py_r, origin, env, cfg, shadow,
-                                reflection, ao)
-    build.check("shade_composite", "framebuffer", framebuffer, F32, (cfg.height, cfg.width, 3), dev)
+    kernel = "shade_composite"
+    dev, n, args, _rows = _args(kernel, out, origins, dirs, px, py, py_r, origin, env, cfg, shadow, reflection, ao)
+    if dest is None:
+        dest = (cfg.width, cfg.height, 1, 1, 0)
+        build.check(kernel, "framebuffer", framebuffer, F32, (cfg.height, cfg.width, 3), dev)
+    else:
+        tw, th, tiles_x, ranks, rank = dest
+        tiles = -(-cfg.height // th) * tiles_x
+        if tiles_x * tw != cfg.width or tiles % ranks or not 0 <= rank < ranks:
+            raise ValueError(f"{kernel}: tiles {dest} do not cut a {cfg.width}x{cfg.height} image among its ranks")
+        build.check(kernel, "framebuffer", framebuffer, F32, tuple(framebuffer.shape), dev)
+        if framebuffer.numel() != tiles // ranks * th * tw * 3:
+            raise ValueError(f"{kernel}: a rank's {tiles // ranks} tiles of {th}x{tw} pixels need "
+                             f"{tiles // ranks * th * tw * 3} floats, the framebuffer has {framebuffer.numel()}")
     if n:
-        build.launch("shade_composite", build.load_kernel("shade").vx_shade_composite, *args,
-                     framebuffer.data_ptr(), dev=dev)
+        build.launch(kernel, build.load_kernel("shade").vx_shade_composite, *args, *dest, framebuffer.data_ptr(),
+                     dev=dev)
         launches += 1
     return framebuffer

@@ -56,7 +56,6 @@ from voxelengine_tpu_torch.ops.trace import (
     _init_tmax,
     _ray_setup,
     _run_loop,
-    kernel_result,
     trace_brickmap,
 )
 
@@ -466,10 +465,10 @@ def trace_brickmap_lt(
     return (out, res["diag"].t().contiguous()) if diag else out
 
 
-def _kernel_rays(bm: BrickMap, origins, rays):
-    """Ray setup of the prepared-ray kernels (K5, the record kernel, K1's
-    ``bigtrace`` entry): ``(start_c, d, active, pad, start_normal)``,
-    contiguous, on the rays' device."""
+def prepared_rays(bm: BrickMap, origins, rays):
+    """Ray setup of the prepared-ray entries (the record kernel, K1's
+    ``bigtrace``, K5's ``rrtrace``): ``(start_c, d, active, pad,
+    start_normal)``, contiguous, on the rays' device."""
     gdims = _dims(bm.grid_dims, I32, origins.device)
     d, start_c, start_normal, active0 = _ray_setup(bm.grid_dims, bm.factor, origins, rays)
     pad = _edge_pad(start_c.to(I32), gdims, d)
@@ -588,18 +587,19 @@ def trace_brickmap_hbm_rr(
     ``trace_brickmap_hbm_rr``): a grid sized to the card whose warps refill
     a lane with a new ray as soon as ``refill`` (1-32; ``None``: the
     kernel's measured default, ``kernels/rrtrace.py::REFILL``) of their
-    lanes are idle.  Rays on the CPU run the same plain versions as
-    :func:`trace_brickmap_hbm`."""
-    if not origins.is_cuda:
+    lanes are idle.  On the card one launch of K5's rays entry (the ray
+    setup and the ``hit_imm`` fix-up in the launch); rays on the CPU run
+    the same plain versions as :func:`trace_brickmap_hbm`."""
+    if not _is_cuda(origins):
         if use_macro:
             return trace_brickmap_lt(bm, lt, origins, rays, max_steps, use_macro)
         return trace_brickmap(bm, origins, rays, max_steps)
     from voxelengine_tpu_torch.kernels import rrtrace as k5
 
-    start_c, d, active, pad, start_normal = _kernel_rays(bm, origins, rays)
     tables, kw = _kernel_tables(bm, lt, max_steps, use_macro)
-    outs = k5.rrtrace(start_c, d, active, pad, *tables, refill=k5.REFILL if refill is None else refill, **kw)
-    return kernel_result(*outs, start_c, start_normal, bm.factor)
+    outs = k5.rrtrace_rays(origins.to(F32), rays.to(F32), *tables, refill=k5.REFILL if refill is None else refill,
+                           **kw)
+    return TraceOut(*outs)
 
 
 def trace_brickmap_hbm_staged(

@@ -58,10 +58,10 @@ from voxelengine_tpu_torch.core.layout import sample_index
 from voxelengine_tpu_torch.ops.bigtrace import (
     PHASES,
     LineTable,
-    _kernel_rays,
     _kernel_tables,
     _lt_step,
     brick_lines_view,
+    prepared_rays,
 )
 from voxelengine_tpu_torch.ops.trace import _axis_pick3, _init_state
 
@@ -100,7 +100,7 @@ def record_crossings(bm: BrickMap, lt: LineTable, origins: torch.Tensor, rays: t
         return _record_plain(bm, lt, origins, rays, max_steps, use_macro)
     from voxelengine_tpu_torch.kernels import crossings as kc
 
-    start_c, d, active, pad, _ = _kernel_rays(bm, origins, rays)
+    start_c, d, active, pad, _ = prepared_rays(bm, origins, rays)
     tables, kw = _kernel_tables(bm, lt, max_steps, use_macro)
     return kc.crossings(start_c, d, active, pad, *tables, max_rows=iter_limit(max_steps), **kw)
 

@@ -11,9 +11,14 @@ AO factor.
 On the card each kind is one launch of K1's or K4's secondary entry
 (``csrc/secondary.cuh``; ``ops/bigtrace.py::trace_secondary_hbm``,
 ``ops/trace2.py::trace_secondary_no_table``), which builds the rays, walks
-them and keeps what shading reads.  :func:`secondary_plain` is their plain
-version, in eager torch over any tracer: the CPU runs it, and so does a
-caller with a tracer of its own (the z-sharded frame's).
+them and keeps what shading reads.  A caller with a tracer of its own (the
+z-sharded frame's) takes :func:`secondary_traced`: on the card one launch
+builds the kind's rays (``kernels/secondary.py``), the tracer traces them
+in one call (AO's samples as one batch) and for AO one launch reduces its
+results.  :func:`secondary_plain` is the plain version of both, in eager
+torch over any tracer: :func:`secondary_rays_plain`, the tracer (once a
+sample for AO, as the JAX frame traces them) and
+:func:`secondary_reduce_plain`; the CPU runs these.
 """
 
 from __future__ import annotations
@@ -52,29 +57,67 @@ def norm3(v: torch.Tensor) -> torch.Tensor:
     return sqrt_rn(dot3(v, v))
 
 
-def ambient_occlusion(trace, position, normal, px, py, frame_number: int, cfg: RenderConfig) -> torch.Tensor:
-    """Hemisphere-sampled AO (the reference's disabled scaffolding made to
-    work, ``Renderer.cu:120-165``): ``cfg.ao_samples`` 8-step occlusion
-    rays through ``trace(origins, dirs, max_steps)`` with distance falloff,
-    seeded per pixel and frame through the noise hash.  ``normal`` is the
-    shading's (the trace's negated)."""
-    # int32 seeds wrap as in JAX: int64 here, of which random_float's hash
-    # reads the low 32 bits
-    seed = py.to(torch.int64) * cfg.width + px.to(torch.int64)
-    occ = torch.zeros(position.shape[0], dtype=F32, device=position.device)
-    for i in range(cfg.ao_samples):
-        si = seed + i * 1000 + (frame_number + 1) * 7919
-        sd = torch.stack(
-            [random_float(si) * 2.0 - 1.0, random_float(si * 10) * 2.0 - 1.0, random_float(si * 100) * 2.0 - 1.0],
-            dim=-1,
-        )
-        sd = sd / norm3(sd)[:, None]
-        below = dot3(sd, normal) < 0.0
-        sd = torch.where(below[:, None], reflect(sd, normal), sd)
-        res = trace(position + normal * 0.01, sd, AO_STEPS)
-        dist = norm3(res.position - position)
+def _ao_direction(seed, s: int, normal, frame_number: int) -> torch.Tensor:
+    """AO sample ``s``'s directions (the reference's disabled scaffolding
+    made to work, ``Renderer.cu:120-165``): the noise hash of the pixel
+    seed, sample and frame, normalized, flipped into the hemisphere of the
+    shading ``normal`` (the trace's negated)."""
+    si = seed + s * 1000 + (frame_number + 1) * 7919
+    sd = torch.stack(
+        [random_float(si) * 2.0 - 1.0, random_float(si * 10) * 2.0 - 1.0, random_float(si * 100) * 2.0 - 1.0],
+        dim=-1,
+    )
+    sd = sd / norm3(sd)[:, None]
+    below = dot3(sd, normal) < 0.0
+    return torch.where(below[:, None], reflect(sd, normal), sd)
+
+
+def secondary_rays_plain(kind: str, out: TraceOut, dirs, px, py, env: Environment, frame_number: int,
+                         cfg: RenderConfig):
+    """A kind's rays of the primary trace ``out`` in eager torch: ``(origins,
+    dirs)``, ``f32[M, 3]`` each, the plain version of
+    ``kernels/secondary.py::secondary_build``.  Shadow: from position + L *
+    0.01 toward the light L (one broadcast row); reflection: the mirror
+    bounce of the raw direction ``dirs`` from position + n * 0.01 (``n``
+    the shading normal); AO: ``cfg.ao_samples`` hemisphere directions a
+    pixel (seeded by ``px``, ``py`` and the frame), sample-major (ray ``s *
+    N + i`` is sample ``s`` of primary ray ``i``), from position + n *
+    0.01."""
+    normal = -out.normal  # Renderer.cu:212
+    if kind == "shadow":
+        L = env.light_direction
+        return out.position + L * 0.01, L.expand_as(normal)
+    if kind == "reflection":
+        return out.position + normal * 0.01, reflect(dirs, normal)
+    if kind == "ao":
+        # int32 seeds wrap as in JAX: int64 here, of which random_float's
+        # hash reads the low 32 bits
+        seed = py.to(torch.int64) * cfg.width + px.to(torch.int64)
+        sd = [_ao_direction(seed, s, normal, frame_number) for s in range(cfg.ao_samples)]
+        return (out.position + normal * 0.01).repeat(cfg.ao_samples, 1), torch.cat(sd)
+    raise ValueError(f"secondary kind must be one of {KINDS}, got {kind!r}")
+
+
+def secondary_reduce_plain(kind: str, res: TraceOut, out: TraceOut, cfg: RenderConfig):
+    """What shading reads of a kind, from the trace ``res`` of
+    :func:`secondary_rays_plain`'s rays, in eager torch.  Shadow ``(hit,
+    steps)``, reflection ``(hit, position, normal)``: the trace's own; AO
+    the factor ``f32[N]``: each sample's distance falloff on a hit (1 on a
+    miss), summed in sample order, over ``cfg.ao_samples``, the plain
+    version of ``kernels/secondary.py::secondary_reduce``."""
+    if kind == "shadow":
+        return res.hit, res.steps
+    if kind == "reflection":
+        return res.hit, res.position, res.normal
+    if kind != "ao":
+        raise ValueError(f"secondary kind must be one of {KINDS}, got {kind!r}")
+    n = out.position.shape[0]
+    occ = torch.zeros(n, dtype=F32, device=out.position.device)
+    for s in range(cfg.ao_samples):
+        hit, pos = res.hit[s * n:(s + 1) * n], res.position[s * n:(s + 1) * n]
+        dist = norm3(pos - out.position)
         falloff = 1.0 - torch.clamp_max(fdiv(1.0, torch.clamp_min(dist * 10.0, 1e-6)), 1.0)
-        occ = occ + torch.where(res.hit, falloff, 1.0)
+        occ = occ + torch.where(hit, falloff, 1.0)
     return fdiv(occ, float(cfg.ao_samples))
 
 
@@ -82,18 +125,47 @@ def secondary_plain(kind: str, trace, out: TraceOut, dirs, px, py, env: Environm
                     cfg: RenderConfig):
     """One kind of secondary rays of the primary trace ``out`` in eager
     torch, every trace through ``trace(origins, dirs, max_steps) ->
-    TraceOut``: the plain version of the secondary entries.  Returns the
-    kind's results, what shading reads: shadow ``(hit, steps)``, reflection
-    ``(hit, position, normal)``, AO the factor ``f32[N]``.  ``dirs`` are
-    the primary rays' raw directions, ``px``, ``py`` their final pixels."""
-    normal = -out.normal  # Renderer.cu:212
-    if kind == "shadow":
-        L = env.light_direction
-        res = trace(out.position + L * 0.01, L.expand_as(normal), cfg.max_steps)
-        return res.hit, res.steps
-    if kind == "reflection":
-        res = trace(out.position + normal * 0.01, reflect(dirs, normal), cfg.max_steps)
-        return res.hit, res.position, res.normal
-    if kind == "ao":
-        return ambient_occlusion(trace, out.position, normal, px, py, frame_number, cfg)
-    raise ValueError(f"secondary kind must be one of {KINDS}, got {kind!r}")
+    TraceOut``: the plain version of the secondary entries and of
+    :func:`secondary_traced`.  :func:`secondary_rays_plain`, the trace
+    (one call a sample for AO), :func:`secondary_reduce_plain`.  Returns
+    the kind's results, what shading reads: shadow ``(hit, steps)``,
+    reflection ``(hit, position, normal)``, AO the factor ``f32[N]``.
+    ``dirs`` are the primary rays' raw directions, ``px``, ``py`` their
+    final pixels."""
+    origins, rays = secondary_rays_plain(kind, out, dirs, px, py, env, frame_number, cfg)
+    steps = walk_steps(kind, cfg)
+    if kind != "ao":
+        return secondary_reduce_plain(kind, trace(origins, rays, steps), out, cfg)
+    n = out.position.shape[0]
+    parts = [trace(origins[s * n:(s + 1) * n], rays[s * n:(s + 1) * n], steps) for s in range(cfg.ao_samples)]
+    return secondary_reduce_plain(kind, TraceOut(*(torch.cat(f) for f in zip(*parts))), out, cfg)
+
+
+def _is_cuda(t: torch.Tensor) -> bool:
+    """Whether a primary trace on ``t``'s device takes the secondary kernels
+    (one place, so a test can route a CPU call as a card call)."""
+    return t.is_cuda
+
+
+def secondary_traced(kind: str, trace, out: TraceOut, dirs, px, py, env: Environment, frame_number: int,
+                     cfg: RenderConfig):
+    """One kind of secondary rays of the primary trace ``out`` through a
+    caller's ``trace(origins, dirs, max_steps) -> TraceOut``.  On the card:
+    one launch of ``kernels/secondary.py::secondary_build``, one call of
+    the tracer (AO's ``cfg.ao_samples`` samples as one batch, at
+    :func:`walk_steps`) and for AO one launch of ``secondary_reduce``; a
+    shadow's or a reflection's results are the tracer's own.  On the CPU:
+    :func:`secondary_plain`.  The tracer must treat each ray alone (every
+    tracer of the package does: a ray's result does not depend on the
+    batch it comes in), so both give :func:`secondary_plain`'s results."""
+    if not _is_cuda(out.position):
+        return secondary_plain(kind, trace, out, dirs, px, py, env, frame_number, cfg)
+    from voxelengine_tpu_torch.kernels import secondary as sk
+
+    origins, rays = sk.secondary_build(kind, out.position, out.normal, light=env.light_direction, dirs=dirs.to(F32),
+                                       px=px, py=py, width=cfg.width, frame_number=frame_number,
+                                       ao_samples=cfg.ao_samples)
+    res = TraceOut(*(t.contiguous() for t in trace(origins, rays, walk_steps(kind, cfg))))
+    if kind != "ao":
+        return secondary_reduce_plain(kind, res, out, cfg)  # the trace's own fields
+    return sk.secondary_reduce(out.position, res.hit, res.position, ao_samples=cfg.ao_samples)

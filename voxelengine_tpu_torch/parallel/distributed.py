@@ -12,17 +12,20 @@ same arguments (SPMD).
    entry cell on;
 2. each round, a rank advances the rays it owns against its slab until
    each hits, leaves the grid, spends its budget or pauses at the slab's
-   boundary with its state intact (K4-slab for CUDA tensors,
-   :mod:`voxelengine_tpu_torch.kernels.bmtrace`; the plain
-   :func:`~voxelengine_tpu_torch.ops.trace.run_slab` for CPU tensors);
+   boundary with its state intact (for CUDA tensors one launch of K4-slab's
+   batch form a round, :func:`~voxelengine_tpu_torch.kernels.bmtrace.
+   bmtrace_slab_rays`, round 0's ray setup, ownership and ``hit_imm``
+   fix-up included; for CPU tensors the plain ``_init_state``,
+   :func:`~voxelengine_tpu_torch.ops.trace.run_slab` and
+   ``kernel_result``);
 3. the paused rays go to rank +-1 with their state: a count, then their
    indices and state rows, point to point
    (:func:`~voxelengine_tpu_torch.parallel.mesh.ppermute_neighbours`);
    the JAX package ppermutes every ray's whole state each round instead,
    which gives the same results;
 4. after N rounds (a ray's z moves one way, so it enters each slab at
-   most once), a masked ``psum`` assembles each result from the ray's
-   last owner.
+   most once), a ``psum`` of the results' int32 words assembles each
+   result from the ray's last owner, signed zeros included.
 
 The results are the single-device walk's, steps included.  Unlike the JAX
 package, a ray whose coarse cell is the grid's edge pad cell (``z ==
@@ -107,10 +110,10 @@ def _hand_off(mesh: Mesh, idx: torch.Tensor, rows: torch.Tensor, up: torch.Tenso
 
 def _trace_zsharded(spec, meta, bricks, origins, rays, mesh: Mesh, max_steps: int, stats: Optional[list]):
     """The migration loop over this rank's slab tables ``meta``, ``bricks``
-    (module doc).  Rays on a CUDA device run K4-slab, rays on the CPU its
-    plain version; both hand on the same ``(rows, status, ...)``."""
-    from voxelengine_tpu_torch.kernels import bmtrace
-
+    (module doc).  Rays on a CUDA device run K4-slab's batch form
+    (:func:`_trace_zsharded_card`), rays on the CPU the plain slab walk."""
+    if origins.is_cuda:
+        return _trace_zsharded_card(spec, meta, bricks, origins, rays, mesh, max_steps, stats)
     gx, gy, gz, factor, _, brick_layout = spec
     n, my = mesh.size, mesh.rank
     slab_gz = gz // n
@@ -122,23 +125,13 @@ def _trace_zsharded(spec, meta, bricks, origins, rays, mesh: Mesh, max_steps: in
     st0 = _init_state(bm_local, origins, rays, full_gz=gz)
     # exclusive, total ownership from the slab of the entry cell
     idx = torch.nonzero(st0["active"] & (torch.clamp(st0["ccell"][:, 2] // slab_gz, 0, n - 1) == my)).squeeze(1)
-    kernel = origins.is_cuda
-    if kernel:
-        setup = (st0["start_c"], st0["d"], st0["active"].to(I32), st0["cpad"])
-        kw = dict(grid_dims=(gx, gy, gz), z0=z0, slab_gz=slab_gz, factor=factor, max_steps=max_steps,
-                  brick_layout=brick_layout)
-    cz_col = bmtrace.STATE_CELL.start + 2 if kernel else SLAB_CELL_Z
     flags = torch.zeros((n_rays,), dtype=I32, device=dev)
     steps = torch.zeros((n_rays,), dtype=I32, device=dev)
     pos = torch.zeros((n_rays, 3), dtype=F32, device=dev)
     nrm = torch.zeros((n_rays, 3), dtype=F32, device=dev)
     rows = None
     for rnd in range(n):
-        if kernel:
-            src = dict(rays=tuple(t[idx].contiguous() for t in setup)) if rnd == 0 else dict(rows=rows)
-            out = bmtrace.bmtrace_slab(meta, bricks, **src, **kw)
-        else:
-            out = run_slab(bm_local, {k: v[idx] for k, v in st0.items()} if rnd == 0 else rows, max_steps, z0, gz)
+        out = run_slab(bm_local, {k: v[idx] for k, v in st0.items()} if rnd == 0 else rows, max_steps, z0, gz)
         rows, status, r_flags, r_pos, r_nrm, r_steps = out
         paused = status == 1
         done = ~paused
@@ -150,15 +143,60 @@ def _trace_zsharded(spec, meta, bricks, origins, rays, mesh: Mesh, max_steps: in
             if bool(paused.any()):
                 raise RuntimeError(f"rank {my}: {int(paused.sum())} rays still paused after {n} rounds")
             break
-        cz = rows[:, cz_col]
+        cz = rows[:, SLAB_CELL_Z]
         up, down = paused & (cz >= z0 + slab_gz), paused & (cz < z0)
         idx, rows, sent = _hand_off(mesh, idx, rows, up, down)
         if stats is not None:
             stats.append({"round": rnd, "traced": int(paused.numel()), "sent_up": sent[0], "sent_down": sent[1],
                           "received": int(idx.numel()), "row_bytes": 4 * (rows.shape[1] + 1)})
-    # final assembly: each result from the ray's last owner
-    flags, steps, pos, nrm = (psum(t, mesh) for t in (flags, steps, pos, nrm))
-    return kernel_result(flags, pos, nrm, steps, st0["start_c"], st0["start_normal"], factor)
+    # final assembly: each result's words from the ray's last owner (the sum of its words and zeros is its
+    # words, signed zeros included, as on the card)
+    flags, steps, pos, nrm = (psum(t.view(I32), mesh) for t in (flags, steps, pos, nrm))
+    return kernel_result(flags, pos.view(F32), nrm.view(F32), steps, st0["start_c"], st0["start_normal"], factor)
+
+
+def _trace_zsharded_card(spec, meta, bricks, origins, rays, mesh: Mesh, max_steps: int, stats: Optional[list]):
+    """:func:`_trace_zsharded` on the card: one launch of K4-slab's batch
+    form a round (``kernels/bmtrace.py::bmtrace_slab_rays``; round 0 takes
+    the whole batch and does the ray setup, the ownership and the
+    ``hit_imm`` fix-up; a done ray's result lands at its batch index), one
+    host read a round (the paused and owned counts: the hand-off's shapes),
+    the hand-off of the paused rays' rows with their batch indices, and the
+    final ``psum`` of the results' words (one owner a ray: the sum of its
+    words and zeros is its words, signed zeros included)."""
+    from voxelengine_tpu_torch.kernels import bmtrace
+
+    gx, gy, gz, factor, _, brick_layout = spec
+    n, my = mesh.size, mesh.rank
+    slab_gz = gz // n
+    z0 = my * slab_gz
+    dev = origins.device
+    n_rays = origins.shape[0]
+    outs = (torch.zeros((n_rays,), dtype=I32, device=dev), torch.zeros((n_rays, 3), dtype=F32, device=dev),
+            torch.zeros((n_rays, 3), dtype=F32, device=dev), torch.zeros((n_rays,), dtype=I32, device=dev))
+    kw = dict(grid_dims=(gx, gy, gz), z0=z0, slab_gz=slab_gz, factor=factor, max_steps=max_steps,
+              brick_layout=brick_layout)
+    o, d = origins.to(F32), rays.to(F32)
+    rows = idx = None
+    cz_col = bmtrace.STATE_CELL.start + 2
+    for rnd in range(n):
+        p_rows, p_idx, counts = bmtrace.bmtrace_slab_rays(meta, bricks, o, d, outs, rows=rows, idx=idx, **kw)
+        k, owned = counts[1:].tolist()  # the round's host read: the hand-off's shapes
+        traced = owned if rnd == 0 else rows.shape[0]
+        if rnd == n - 1:
+            if k:
+                raise RuntimeError(f"rank {my}: {k} rays still paused after {n} rounds")
+            break
+        p_rows, p_idx = p_rows[:k], p_idx[:k]
+        cz = p_rows[:, cz_col]
+        idx, rows, sent = _hand_off(mesh, p_idx, p_rows, cz >= z0 + slab_gz, cz < z0)
+        idx = idx.to(I32)
+        if stats is not None:
+            stats.append({"round": rnd, "traced": traced, "sent_up": sent[0], "sent_down": sent[1],
+                          "received": int(idx.numel()), "row_bytes": 4 * (rows.shape[1] + 1)})
+    # final assembly: each result's words from the ray's owner
+    hit, pos, nrm, steps = (psum(t.view(I32), mesh) for t in outs)
+    return TraceOut(hit=hit == 1, position=pos.view(F32), normal=nrm.view(F32), steps=steps)
 
 
 def trace_brickmap_zsharded(bm: BrickMap, origins: torch.Tensor, rays: torch.Tensor, mesh: Mesh,
@@ -188,8 +226,10 @@ def render_frame_zsharded(
     zw: Optional["ZShardedHBM"] = None,
 ) -> torch.Tensor:
     """``render_frame`` over a z-slab-sharded world, shadow, AO and
-    reflection rays included (each is one more sharded trace), into the
-    whole ``framebuffer`` on every rank, in place.  Rays trace by
+    reflection rays included (each kind one more sharded trace, AO's
+    samples as one batch: ``ops/secondary.py::secondary_traced``, whose
+    build and reduce are kernels on the card), into the whole
+    ``framebuffer`` on every rank, in place.  Rays trace by
     migration (:func:`trace_brickmap_zsharded`, ``bm``), or with ``zw``
     through K1's replicated walk (:func:`trace_brickmap_hbm_zsharded`;
     ``bm`` is then not read).  The replicated walk matches the

@@ -18,6 +18,14 @@ by every rank with the same arguments (SPMD) and returns the rank's share.
 Both recompute, for the checkerboard's even-frame ``+2`` remap, the
 predecessor pre-remap row of their first framebuffer row pair (a band's,
 or each block's) as one halo ray row, instead of asking a neighbour for it.
+Each frame's body is :func:`~voxelengine_tpu_torch.render.frame.
+shade_and_composite` over the rank's part of the image: on the card one
+launch of the shading kernel's composite entry shades the rays and writes
+each to its pixel in the rank's part (:func:`band_dest`,
+:func:`cyclic_dest`), which is the pair select; on the CPU the plain
+composites (:func:`composite_band_plain`, :func:`composite_cyclic_plain`,
+over :func:`~voxelengine_tpu_torch.render.frame.checkerboard_pair_select`)
+do it.
 :func:`gather_rows` assembles the ranks' shares on every rank, for tests
 and presenting; it is not part of a frame.
 """
@@ -40,7 +48,8 @@ from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table
 from voxelengine_tpu_torch.parallel.mesh import Mesh, all_gather, make_mesh, psum  # noqa: F401  (make_mesh re-exported)
 from voxelengine_tpu_torch.render import camera as cam
 from voxelengine_tpu_torch.render.frame import (
-    _block_side, _is_cuda, _kernel_rays, _projection_args, block_geometry, checkerboard_pair_select, shade_pixels,
+    _block_side, _is_cuda, _kernel_rays, _projection_args, block_geometry, checkerboard_pair_select,
+    shade_and_composite, trace_primary,
 )
 
 F32 = torch.float32
@@ -162,19 +171,43 @@ def render_frame_sharded(
     updated in place and returned; the world is whole on every rank.  The
     rank renders its pre-remap rows with the single-device machinery: tile
     order within the band, :func:`~voxelengine_tpu_torch.render.frame.
-    shade_pixels` (K1 with ``lt``, K4 for a dense-slot or compact world
-    without one, the plain walk for CPU tensors) and the pair-select
-    composite.  The checkerboard remap ``y = 2y' + (x even) + (frame
+    trace_primary` (K1 with ``lt``, K4 for a dense-slot or compact world
+    without one, the plain walk for CPU tensors) and :func:`~voxelengine_
+    tpu_torch.render.frame.shade_and_composite` into the band (on the card
+    the pair select is the shading kernel's launch).  The checkerboard remap ``y = 2y' + (x even) + (frame
     even)`` commutes with row bands except for the even-frame ``+2`` seam,
     covered by one halo ray row: the row before the band, recomputed
     here."""
+    osz = cfg.ortho_size if ortho_size is None else ortho_size
+    px, py_r = band_pixels(cfg, mesh, origin.device)
+    origins, dirs, py = _rays_for_pixels(cfg, origin, euler, frame_number, px, py_r, osz)
+    out = trace_primary(bm, origins, dirs, cfg, lt)
+    return shade_and_composite(
+        framebuffer, bm, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt,
+        dest=band_dest(cfg, mesh),
+        composite_plain=lambda fb, c, w: composite_band_plain(fb, c, w, py_r, cfg, mesh, frame_number),
+    )
+
+
+def band_dest(cfg: RenderConfig, mesh: Mesh) -> tuple:
+    """The rank's band as the shading kernel's destination
+    (``kernels/shade.py::shade_composite``'s ``dest``): one tile of ``H /
+    N`` rows a rank."""
+    return (cfg.width, cfg.height // mesh.size, 1, mesh.size, mesh.rank)
+
+
+def composite_band_plain(framebuffer, color, write, py_r, cfg: RenderConfig, mesh: Mesh, frame_number: int):
+    """A band frame's shaded rays (``band_pixels``' order: the band in tile
+    order, then the halo row) written into the rank's band in eager torch:
+    unblocked, then the plain copy or the pair select, the halo row
+    standing in for the predecessor of the band's first row (rank 0's row
+    -1 writes nothing).  The plain version of the shading kernel's
+    composite on a band; updates ``framebuffer`` in place and
+    returns it."""
     W = cfg.width
-    cb = cfg.checkerboard
     rows_local = _rows_local(cfg, mesh)
     bw, bh = _block_side(W), _block_side(rows_local)
     blocked = cfg.tile_order and bw * bh > 1
-    osz = cfg.ortho_size if ortho_size is None else ortho_size
-    dev = origin.device
 
     def unblock(a):
         rest = a.shape[1:]
@@ -182,16 +215,12 @@ def render_frame_sharded(
             a = a.reshape(rows_local // bh, W // bw, bh, bw, *rest).permute(0, 2, 1, 3, *range(4, 4 + len(rest)))
         return a.reshape(rows_local, W, *rest)
 
-    px, py_r = band_pixels(cfg, mesh, dev)
-    origins, dirs, py = _rays_for_pixels(cfg, origin, euler, frame_number, px, py_r, osz)
-    color, write = shade_pixels(bm, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt)
-    if not cb:
+    if not cfg.checkerboard:
         framebuffer.copy_(torch.where(unblock(write)[..., None], unblock(color), framebuffer))
         return framebuffer
     n_main = rows_local * W
     h_main, w_main = unblock(color[:n_main]), unblock(write[:n_main])
     halo_ok = py_r[n_main:] >= 0  # rank 0 has no row -1
-    # the halo row stands in for the predecessor of the band's first row
     h_prev = torch.cat([color[n_main:][None], h_main[:-1]], dim=0)
     w_prev = torch.cat([(write[n_main:] & halo_ok)[None], w_main[:-1]], dim=0)
     return checkerboard_pair_select(framebuffer, h_main, w_main, h_prev, w_prev, frame_number)
@@ -268,20 +297,39 @@ def render_frame_cyclic(
     Each rank still traces whole blocks, so neighbouring threads share
     table lines as on one device; the checkerboard's ``+2`` remap needs
     each block's predecessor pre-remap row, one halo ray row a block."""
-    cb = cfg.checkerboard
+    osz = cfg.ortho_size if ortho_size is None else ortho_size
+    px, py_r = cyclic_pixels(cfg, mesh, origin.device)
+    origins, dirs, py = _rays_for_pixels(cfg, origin, euler, frame_number, px, py_r, osz)
+    out = trace_primary(bm, origins, dirs, cfg, lt)
+    return shade_and_composite(
+        framebuffer, bm, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt,
+        dest=cyclic_dest(cfg, mesh),
+        composite_plain=lambda fb, c, w: composite_cyclic_plain(fb, c, w, py_r, cfg, mesh, frame_number),
+    )
+
+
+def cyclic_dest(cfg: RenderConfig, mesh: Mesh) -> tuple:
+    """The rank's blocks as the shading kernel's destination: tiles of
+    ``bhf`` rows by ``bw`` columns, ``W / bw`` to a row, tile ``j`` on rank
+    ``j % N``."""
+    bw, bh, _ = block_geometry(cfg)
+    return (bw, 2 * bh if cfg.checkerboard else bh, cfg.width // bw, mesh.size, mesh.rank)
+
+
+def composite_cyclic_plain(framebuffer, color, write, py_r, cfg: RenderConfig, mesh: Mesh, frame_number: int):
+    """A block-cyclic frame's shaded rays (``cyclic_pixels``' order: the
+    blocks, then a halo row a block) written into the rank's blocks in
+    eager torch: the plain copy or each block's pair select, its halo row
+    standing in for the predecessor of its first row.  The plain version
+    of the shading kernel's composite on the blocks; updates
+    ``framebuffer`` in place and returns it."""
     bw, bh, nb = block_geometry(cfg)
     nb_local = nb // mesh.size
-    osz = cfg.ortho_size if ortho_size is None else ortho_size
-    dev = origin.device
-
     fb_block = framebuffer[0]
-    px, py_r = cyclic_pixels(cfg, mesh, dev)
-    origins, dirs, py = _rays_for_pixels(cfg, origin, euler, frame_number, px, py_r, osz)
-    color, write = shade_pixels(bm, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt)
     n_main = nb_local * bh * bw
     h = color[:n_main].reshape(nb_local, bh, bw, 3)
     w = write[:n_main].reshape(nb_local, bh, bw)
-    if not cb:
+    if not cfg.checkerboard:
         fb_block.copy_(torch.where(w[..., None], h, fb_block))
         return framebuffer
     halo_ok = (py_r[n_main:] >= 0).reshape(nb_local, bw)

@@ -24,7 +24,9 @@ The primary rays of a CUDA frame are one launch of the ray-setup kernel
 the CPU builds them in torch ops (:func:`primary_rays_plain`).  Its
 shadow, reflection and AO rays are one launch a kind of K1's or K4's
 secondary entry, which builds, walks and reduces them
-(:func:`_secondary_inputs`, ``ops/secondary.py``).  Its shading is one
+(:func:`_secondary_inputs`, ``ops/secondary.py``); over a caller's tracer
+(the z-sharded frame's) a build and a reduce launch around one call of
+it.  Its shading is one
 launch of the shading kernel (``kernels/shade.py``): its composite entry
 writes the framebuffer (:func:`shade_and_composite`), its other entry
 gives ``(color, write)`` (:func:`shade_traced`); the CPU runs
@@ -57,7 +59,7 @@ from voxelengine_tpu_torch.ops.bigtrace import (
     LineTable, trace_brickmap_hbm, trace_brickmap_hbm_staged, trace_secondary_hbm,
 )
 from voxelengine_tpu_torch.ops.gridtrace import trace_grid_vpu
-from voxelengine_tpu_torch.ops.secondary import frame_kinds, norm3, secondary_plain
+from voxelengine_tpu_torch.ops.secondary import frame_kinds, norm3, secondary_traced
 from voxelengine_tpu_torch.ops.trace import TraceOut
 from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table, trace_secondary_no_table
 from voxelengine_tpu_torch.render import camera as cam
@@ -261,14 +263,15 @@ def _secondary_inputs(bm: Optional[BrickMap], lt: Optional[LineTable], out: Trac
     the AO factor (``f32[N]``), each None where the frame traces none (see
     :func:`shade_traced`).  Each kind is one launch of K1's secondary entry
     through the line table, or of K4's without one, for CUDA tensors, and
-    its plain version on the CPU; a caller's ``secondary`` tracer runs the
-    plain version over that tracer on either device."""
+    its plain version on the CPU; a caller's ``secondary`` tracer takes
+    ``secondary_traced``: on the card a build launch, one call of the
+    tracer and a reduce launch a kind."""
     kinds = frame_kinds(cfg)
     if not kinds or (bm is None and secondary is None):
         return None, None, None  # no launch: a primary frame's shading reads the trace alone
     args = (out, dirs, px, py, env, frame_number, cfg)
     if secondary is not None:
-        res = {k: secondary_plain(k, secondary, *args) for k in kinds}
+        res = {k: secondary_traced(k, secondary, *args) for k in kinds}
     elif lt is not None:
         res = {k: trace_secondary_hbm(bm, lt, k, *args) for k in kinds}
     else:
@@ -366,20 +369,26 @@ def shade_traced_plain(
 def shade_and_composite(
     framebuffer: torch.Tensor, bm: Optional[BrickMap], out: TraceOut, origins, dirs, px, py, py_r, origin,
     env: Environment, frame_number: int, cfg: RenderConfig, lt: Optional[LineTable] = None, secondary=None,
-    block_perm=None,
+    block_perm=None, dest=None, composite_plain=None,
 ) -> torch.Tensor:
     """:func:`shade_traced` then :func:`composite_frame`, in place; returns
     the framebuffer.  On the card, after the secondary entries, one
     launch of the shading kernel's composite entry, which writes each
     written ray's pixel at ``(px, py)`` (the rays' pixels already hold the
-    tile order and ``block_perm``); on the CPU the plain versions."""
+    tile order and ``block_perm``); on the CPU the plain versions.  A
+    sharded frame's ``framebuffer`` is its rank's part of the image: it
+    passes ``dest``, where that part lies (``kernels/shade.py::
+    shade_composite``), and ``composite_plain(framebuffer, color,
+    write)``, its plain composite, in place of :func:`composite_frame`."""
     if not _is_cuda(out.position):
         color, write = shade_traced_plain(bm, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt,
                                           secondary)
+        if composite_plain is not None:
+            return composite_plain(framebuffer, color, write)
         return composite_frame(framebuffer, color, write, cfg, frame_number, block_perm)
     shadow, reflection, ao = _secondary_inputs(bm, lt, out, dirs, px, py, env, frame_number, cfg, secondary)
     return shade_kernel.shade_composite(framebuffer, out, origins, dirs, px, py, py_r, origin.to(F32), env, cfg,
-                                        shadow=shadow, reflection=reflection, ao=ao)
+                                        shadow=shadow, reflection=reflection, ao=ao, dest=dest)
 
 
 def _mod(a: torch.Tensor, m: float) -> torch.Tensor:

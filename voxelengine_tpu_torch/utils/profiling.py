@@ -68,34 +68,39 @@ def _markers() -> None:
         torch.cuda._sleep(0)
 
 
-def kernel_profile(fn, calls: int = 1):
+def kernel_profile(fn, calls: int = 1, tries: int = 3):
     """``(names, ms)``: the CUDA kernels ``calls`` runs of ``fn()`` launch
     (memory copies and sets excluded) and the device time of each, by
     ``torch.profiler``; ``(None, None)`` where the profiler records no
-    device activity.  A short kernel's own time: CUDA events around a
-    host-bound call also time the card's idle gaps.  ``fn`` runs
-    ``2 * calls`` times: the first ``calls`` in the profiler's warm-up
-    step, whose events are dropped, the rest recorded.  The profiler can
-    lose the first kernels of the recorded step (3-5 of them once other
-    processes have used the card), so :data:`MARKER_KERNELS` marker
-    kernels (``spin_kernel``) are launched before the recorded calls and
-    after them, and left out of the result."""
+    device activity in ``tries`` profiles.  A short kernel's own time:
+    CUDA events around a host-bound call also time the card's idle gaps.
+    ``fn`` runs ``2 * calls`` times a profile: the first ``calls`` in the
+    profiler's warm-up step, whose events are dropped, the rest recorded.
+    The profiler can lose the first kernels of the recorded step (3-5 of
+    them once other processes have used the card), so
+    :data:`MARKER_KERNELS` marker kernels (``spin_kernel``) are launched
+    before the recorded calls and after them, and left out of the result.
+    It can also record no device activity at all in a profile between two
+    that record it, so a profile with none is taken again."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-        prof.step()
-        _markers()
-        for _ in range(calls):
-            fn()
-        _markers()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            _markers()
+            for _ in range(calls):
+                fn()
+            _markers()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+    else:
         return None, None
     # not copies, sets, the warm-up schedule's step annotation or the markers
     kernels = [e for e in device
