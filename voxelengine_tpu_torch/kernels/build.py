@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from voxelengine_tpu_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
@@ -360,8 +362,10 @@ def secondary_args(kernel: str, kind: str, position, normal, **inputs):
 
 def launch(kernel: str, fn, *args, dev) -> None:
     """Call the launcher ``fn(*args, stream)`` on ``dev``'s current stream;
-    raise if the launch was refused (its ``cudaGetLastError``)."""
-    with torch.cuda.device(dev):
+    raise if the launch was refused (its ``cudaGetLastError``).  Under
+    ``torch.profiler`` each call is a ``launch`` span naming ``fn``'s entry
+    (``utils/profiling.py::span``)."""
+    with span("launch", detail=fn.__name__), torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed with cudaError {err}")

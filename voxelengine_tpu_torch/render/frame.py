@@ -64,6 +64,7 @@ from voxelengine_tpu_torch.ops.trace import TraceOut
 from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table, trace_secondary_no_table
 from voxelengine_tpu_torch.render import camera as cam
 from voxelengine_tpu_torch.render.shading import calculate_color, reflect, tonemap
+from voxelengine_tpu_torch.utils.profiling import span
 
 F32 = torch.float32
 
@@ -270,12 +271,15 @@ def _secondary_inputs(bm: Optional[BrickMap], lt: Optional[LineTable], out: Trac
     if not kinds or (bm is None and secondary is None):
         return None, None, None  # no launch: a primary frame's shading reads the trace alone
     args = (out, dirs, px, py, env, frame_number, cfg)
-    if secondary is not None:
-        res = {k: secondary_traced(k, secondary, *args) for k in kinds}
-    elif lt is not None:
-        res = {k: trace_secondary_hbm(bm, lt, k, *args) for k in kinds}
-    else:
-        res = {k: trace_secondary_no_table(bm, k, *args) for k in kinds}
+    res = {}
+    for k in kinds:
+        with span("frame.secondary", detail=k):
+            if secondary is not None:
+                res[k] = secondary_traced(k, secondary, *args)
+            elif lt is not None:
+                res[k] = trace_secondary_hbm(bm, lt, k, *args)
+            else:
+                res[k] = trace_secondary_no_table(bm, k, *args)
     return res.get("shadow"), res.get("reflection"), res.get("ao")
 
 
@@ -381,14 +385,16 @@ def shade_and_composite(
     shade_composite``), and ``composite_plain(framebuffer, color,
     write)``, its plain composite, in place of :func:`composite_frame`."""
     if not _is_cuda(out.position):
-        color, write = shade_traced_plain(bm, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt,
-                                          secondary)
-        if composite_plain is not None:
-            return composite_plain(framebuffer, color, write)
-        return composite_frame(framebuffer, color, write, cfg, frame_number, block_perm)
+        with span("frame.shade"):
+            color, write = shade_traced_plain(bm, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg,
+                                              lt, secondary)
+            if composite_plain is not None:
+                return composite_plain(framebuffer, color, write)
+            return composite_frame(framebuffer, color, write, cfg, frame_number, block_perm)
     shadow, reflection, ao = _secondary_inputs(bm, lt, out, dirs, px, py, env, frame_number, cfg, secondary)
-    return shade_kernel.shade_composite(framebuffer, out, origins, dirs, px, py, py_r, origin.to(F32), env, cfg,
-                                        shadow=shadow, reflection=reflection, ao=ao, dest=dest)
+    with span("frame.shade"):
+        return shade_kernel.shade_composite(framebuffer, out, origins, dirs, px, py, py_r, origin.to(F32), env,
+                                            cfg, shadow=shadow, reflection=reflection, ao=ao, dest=dest)
 
 
 def _mod(a: torch.Tensor, m: float) -> torch.Tensor:
@@ -451,11 +457,17 @@ def render_frame(
     updating it in place; returns it.  ``lt`` selects the line-table
     traversal (see :func:`trace_primary`); ``block_perm`` reorders the pixel
     blocks (:func:`block_permutation_from_steps`), which changes no pixel;
-    ``ortho_size`` is the orthographic window as a tensor."""
-    origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number, block_perm, ortho_size)
-    out = trace_primary(bm, origins, dirs, cfg, lt)
-    return shade_and_composite(framebuffer, bm, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg, lt,
-                               block_perm=block_perm)
+    ``ortho_size`` is the orthographic window as a tensor.  Under
+    ``torch.profiler`` a ``frame`` span (``utils/profiling.py::span``) with
+    ``frame.rays``, ``frame.trace``, ``frame.secondary`` (a kind each) and
+    ``frame.shade`` inside it."""
+    with span("frame"):
+        with span("frame.rays"):
+            origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number, block_perm, ortho_size)
+        with span("frame.trace"):
+            out = trace_primary(bm, origins, dirs, cfg, lt)
+        return shade_and_composite(framebuffer, bm, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg,
+                                   lt, block_perm=block_perm)
 
 
 def render_frame_dense(
@@ -473,14 +485,21 @@ def render_frame_dense(
     for CUDA tensors, the plain ``trace_grid`` on the CPU), shading and
     composite, in place.  No secondary rays are traced: ``shadow_rays``,
     ``ao_samples`` and ``reflections`` are ignored, as on the JAX dense
-    path (``voxelengine_tpu/render/frame.py:541-542``)."""
-    origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number, ortho_size=ortho_size)
-    out = trace_grid_vpu(grid, origins, dirs, cfg.max_steps)
-    return shade_and_composite(framebuffer, None, out, origins, dirs, px, py, py_r, origin, env, frame_number, cfg)
+    path (``voxelengine_tpu/render/frame.py:541-542``).  Spans as
+    :func:`render_frame`'s."""
+    with span("frame"):
+        with span("frame.rays"):
+            origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number, ortho_size=ortho_size)
+        with span("frame.trace"):
+            out = trace_grid_vpu(grid, origins, dirs, cfg.max_steps)
+        return shade_and_composite(framebuffer, None, out, origins, dirs, px, py, py_r, origin, env, frame_number,
+                                   cfg)
 
 
 def to_bgra8(fb: torch.Tensor) -> torch.Tensor:
-    """RGB f32 [0,1] -> BGRA8888 bytes (``Renderer.cuh:29-31``)."""
-    u8 = (torch.clamp(fb, 0.0, 1.0) * 255.0).to(torch.uint8)
-    a = torch.full(fb.shape[:-1] + (1,), 255, dtype=torch.uint8, device=fb.device)
-    return torch.cat([u8[..., 2:3], u8[..., 1:2], u8[..., 0:1], a], dim=-1)
+    """RGB f32 [0,1] -> BGRA8888 bytes (``Renderer.cuh:29-31``); a
+    ``bgra8`` span under ``torch.profiler``."""
+    with span("bgra8"):
+        u8 = (torch.clamp(fb, 0.0, 1.0) * 255.0).to(torch.uint8)
+        a = torch.full(fb.shape[:-1] + (1,), 255, dtype=torch.uint8, device=fb.device)
+        return torch.cat([u8[..., 2:3], u8[..., 1:2], u8[..., 0:1], a], dim=-1)

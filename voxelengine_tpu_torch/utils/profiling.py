@@ -7,16 +7,28 @@ kernel timing printout ``VolumeRaytracer.cu:587-595``, the EMA frame-time
 ``jax.effects_barrier``/``block_until_ready``, :func:`timed` synchronises
 the CUDA device it is given; with no device, or a CPU one, it reads the
 host clock at once.
+
+The program's own spans (:func:`span`) mark its layers: a frame and its
+stages, the app's screen and its BGRA conversion, a ray-API call and its
+parts, and every hand-written kernel's launch.  A span is live only while a
+``torch.profiler`` session runs: it then opens a ``vx.<name>`` range in the
+profile, on the profiler's clock beside the kernels, and appends a
+:class:`SpanRecord` to a bounded ring in memory (:func:`span_records`,
+:func:`clear_spans`).  Otherwise it is one flag read and a shared
+do-nothing context.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -154,3 +166,82 @@ class TraceStats:
     @property
     def avg_steps(self) -> float:
         return self.total_steps / self.rays if self.rays else 0.0
+
+
+# -- the program's spans --------------------------------------------------
+
+# records kept, the newest (the oldest dropped): ~5x the most that 3 s of
+# the app frame under the profiler leaves (~25,000 spans)
+SPAN_RING = 1 << 17
+
+
+class SpanRecord(NamedTuple):
+    """One closed span: ``start_ns`` and ``end_ns`` on
+    ``time.perf_counter_ns``, inside its own profiler range; ``parent`` the
+    enclosing span's ``index`` (-1 for a root); ``step`` its root's
+    ``index``, shared by every span of one frame or call; ``detail`` the
+    launch's kernel entry or the secondary ray kind (None elsewhere)."""
+
+    index: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    step: int
+    detail: Optional[str]
+
+
+_ring: deque = deque(maxlen=SPAN_RING)
+_open: list = []  # the live spans now open, innermost last
+_index = itertools.count()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "detail", "index", "parent", "step", "range", "t0")
+
+    def __init__(self, name: str, detail):
+        self.name, self.detail = name, detail
+
+    def __enter__(self):
+        up = _open[-1] if _open else None
+        self.index = next(_index)
+        self.parent, self.step = (up.index, up.step) if up is not None else (-1, self.index)
+        _open.append(self)
+        # a function-scope range: a user annotation (record_function) would
+        # also be drawn on the device's timeline over the kernels under it
+        self.range = torch._C._profiler._RecordFunctionFast("vx." + self.name)
+        self.range.__enter__()
+        self.t0 = time.perf_counter_ns()  # the range's own opening and closing stay outside the span
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        self.range.__exit__(*exc)
+        _open.pop()
+        # a plain tuple of atomic values: the cyclic collector stops tracking
+        # it at its first pass, so a full ring does not lengthen collections
+        _ring.append((self.index, self.name, self.t0, t1, self.parent, self.step, self.detail))
+        return False
+
+
+def span(name: str, detail: Optional[str] = None):
+    """A context marking one of the program's layers.  While a
+    ``torch.profiler`` session runs it opens a ``vx.<name>`` range in the
+    profile and, on exit, appends a :class:`SpanRecord` to the ring;
+    ``detail`` names the launched kernel or the ray kind.  Otherwise it
+    returns a shared context that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, detail)
+
+
+def span_records() -> list:
+    """The ring's :class:`SpanRecord` s, in the order they closed (at most
+    :data:`SPAN_RING`, the newest)."""
+    return [SpanRecord._make(r) for r in _ring]
+
+
+def clear_spans() -> None:
+    """Empty the ring."""
+    _ring.clear()
