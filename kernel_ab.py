@@ -11,6 +11,7 @@ turns on one NVIDIA GPU.
     python3 kernel_ab.py --quick --only 'ray setup' --before _checkout/prev  # the bench frame's primary_rays in two trees
     python3 kernel_ab.py --quick --only 'bench frame' --before _checkout/prev --sass sass_out  # the frame's kernels, in turns
     python3 kernel_ab.py --zsharded --before _checkout/prev  # the z-sharded shaded bench frame on 4 ranks, in turns
+    python3 kernel_ab.py --quick --only 'app query' --before _checkout/prev  # raytrace of a query batch in two trees
 
 The inputs are made once, in this process, on the card: the demo frame's
 460,800 rays over the 1024^3 terrain (``chip_smoke.py`` phase 5), the
@@ -44,7 +45,10 @@ hands down (made once by this checkout's K4-slab), and the whole world as
 one slab (one rank's whole walk), beside K4 on the same rays.  The bench
 frame's ray setup: one ``primary_rays`` call at 1920x1080 (the ray-setup
 kernel, ``csrc/rays.cu``, in a tree that has it; an earlier tree's eager
-ops).  K2 and K3 are timed alone (the
+ops).  The ray API's call: ``VoxelRaytracer3D.raytrace`` of 1,048,576
+rays around the app's camera over its 1024^3 world with the line table,
+as the benchmark's query cell calls it (K1's record entry, or an earlier
+tree's rays entry and eager record).  K2 and K3 are timed alone (the
 kernel's launch; a tree whose kernel takes prepared rays gets them from
 its own ray setup, made once) and as the whole ``trace_grid_vpu`` /
 ``trace_grid_mxu`` call; the dense frame as 8 chained ``render_frame_dense``
@@ -207,6 +211,8 @@ def make_inputs(dev, quick: bool, refills, only=None):
     cases[name] = ("bmtrace_compact", rays + (cbm.meta, cbm.brick_idx, cbm.bricks), kw)
     if any(wanted(n) for n in BENCH_FRAME_CASES):
         bench_frame_cases(cases, dev)
+    if wanted(QUERY_CASE):
+        query_case(cases, dev)
     if wanted("K4-slab"):
         slab_cases(cases, dev)
     return {k: v for k, v in cases.items() if wanted(k)}
@@ -239,6 +245,31 @@ BENCH_FRAME_CASES = (
     "bench frame secondary rays for a caller's tracer, build (3 kinds)",
     "bench frame secondary rays for a caller's tracer, reduce (AO)",
 )
+
+
+QUERY_CASE = "app query batch, raytrace call"
+
+
+def query_case(cases, dev):
+    """``VoxelRaytracer3D.raytrace`` of a query batch over the app's world,
+    as the benchmark's ``app1k_720p.query`` cell calls it: the 1024^3
+    terrain at factor 32 with dense slots and its line table, 1,048,576
+    rays with origins uniform in a 64-voxel cube around (136, 330, 936) and
+    directions uniform on the sphere (the tree's card path: K1's rays entry
+    and the eager record, or K1's record entry)."""
+    import torch
+
+    from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain
+    from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines
+
+    bm = build_brickmap_terrain((1024, 1024, 1024), 32, octaves=32, device=dev)
+    lt = materialize_brick_lines(bm, make_line_table(bm))
+    gen = torch.Generator(device=dev).manual_seed(311)
+    n = 1 << 20
+    box = (torch.rand((n, 3), generator=gen, device=dev) - 0.5) * 64
+    o = torch.tensor([136.0, 330.0, 936.0], device=dev) + box
+    d = torch.randn((n, 3), generator=gen, device=dev)
+    cases[QUERY_CASE] = ("raytrace", (bm, lt, o, d / d.norm(dim=-1, keepdim=True)), dict(max_steps=2048))
 
 
 def bench_frame_cases(cases, dev):
@@ -421,6 +452,15 @@ def tree_functions(torch):
     def k1_call(args, kw):
         bm, lt, o, d = args
         return (lambda: trace_brickmap_hbm(bm, lt, o, d, kw["max_steps"], use_macro=kw["use_macro"])), (lambda out: out)
+
+    def raytrace(args, kw):
+        from voxelengine_tpu_torch.engine.raytracer import VoxelRaytracer3D
+
+        bm, lt, o, d = args
+        rt = VoxelRaytracer3D()
+        rt.upload_world_lines(bm, lt)
+        fields = ("valid", "hit_point", "normal", "distance", "voxel_index", "steps")
+        return (lambda: rt.raytrace(o, d, kw["max_steps"])), (lambda out: [getattr(out, k) for k in fields])
 
     def k4_call(args, kw):
         bm, o, d = args
@@ -615,7 +655,7 @@ def tree_functions(torch):
         "grid": alone(gridtrace.gridtrace, lambda g: g.words),
         "grid_limbs": alone(gridtrace.gridtrace_limbs, lambda g: ops_grid.words_to_limb_rows(g.words)),
         "grid_call": call(ops_grid.trace_grid_vpu), "grid_limbs_call": call(ops_grid.trace_grid_mxu),
-        "dense_frames": frames, "ray_setup": ray_setup, "k1_call": k1_call, "k4_call": k4_call,
+        "dense_frames": frames, "ray_setup": ray_setup, "k1_call": k1_call, "k4_call": k4_call, "raytrace": raytrace,
         "shade_stage": shade_stage, "bench_frames": bench_frames, "shade_entry": shade_entry,
         "secondary_stage": secondary_stage, "secondary_walks": secondary_walks, "k5_call": k5_call,
         "sharded_frame": sharded_frame, "slab_rays": slab_rays, "dest_composite": dest_composite,
@@ -923,7 +963,7 @@ def main(argv=None):
         say(f"device time (torch.profiler), {name}: "
             + " | ".join(f"{r['dev_ms'][name]:.4f} ms" if r.get("dev_ms", {}).get(name) else "-" for r in runs))
     for name in dict.fromkeys(k for r in runs for k in r.get("kernels", {})):
-        if name.startswith(("K1 bench", "K2", "K3", "K4 random", "K4-compact bench", "dense", "bench")):
+        if name.startswith(("K1 bench", "K2", "K3", "K4 random", "K4-compact bench", "dense", "bench", "app query")):
             say(f"CUDA kernels launched, {name}: "
                 + " | ".join(str(r.get("kernels", {}).get(name, "-")) for r in runs))
     say(f"card: {cs.card_line()}")

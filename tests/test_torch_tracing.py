@@ -274,7 +274,7 @@ def test_card_frames_and_calls_count_their_launches(card_rt):
     assert len(shaded) == 6, shaded
     assert sorted(shaded).count("vx_bigtrace_secondary") == 3
     assert _launches_under(recs, primary[0]) == ["vx_rays_frame", "vx_bigtrace_rays", "vx_shade_composite"]
-    assert _launches_under(recs, _root(recs, "raytrace")) == ["vx_bigtrace_rays"]
+    assert _launches_under(recs, _root(recs, "raytrace")) == ["vx_bigtrace_record"]
     on_device = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA and e.name.startswith("vx.")]
     assert on_device == []

@@ -28,7 +28,10 @@
 // kinds): a shaded frame's secondary traces are three launches where the
 // eager rays and AO's sample loop took ~540 kernels (PERF.md).  Its AO
 // kind walks all of a ray's samples in one thread and keeps the sum in a
-// register.
+// register.  A fourth, vx_bigtrace_record, is vx_bigtrace_rays (macro off)
+// storing the ray API's result record instead of the trace's fields
+// (ray_setup.cuh::OriginRaysRecord): VoxelRaytracer3D.raytrace's card path,
+// one launch a call.
 //
 // Design: one thread per ray, in the order the caller gives (render_frame's
 // tile_order: 32x32-pixel blocks, so neighbouring threads walk neighbouring
@@ -68,8 +71,9 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 8;  // 8 x 128 threads an SM: at most 64 registers a thread
 
-// Rays: vx::PreparedRays, vx::OriginRays, or vx::SecondaryRays (DIAG off;
-// it stores its own outputs).
+// Rays: vx::PreparedRays, vx::OriginRays, vx::OriginRaysRecord (pos, normal
+// and steps: the record's hit_point, normal and steps), or
+// vx::SecondaryRays (DIAG off; it stores its own outputs).
 template <bool MACRO, bool DIAG, class Rays>
 __global__ void __launch_bounds__(THREADS, DIAG ? 1 : MIN_BLOCKS)
 bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, Rays R, float* __restrict__ pos,
@@ -84,8 +88,7 @@ bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, Rays R, float* _
       R.template run<MACRO>(P, F, i);
     } else {
       const vx::TraceResult r = R.template trace<MACRO, DIAG>(P, F, i, dg);
-      R.store_flags(i, r.flags);
-      vx::store_ray(r, i, pos, normal, steps);
+      R.store(r, i, pos, normal, steps);
     }
   }
   if constexpr (DIAG) {
@@ -151,6 +154,26 @@ extern "C" int vx_bigtrace_rays(const float* origins, int os, const float* rays,
   const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
   const vx::OriginRays R = {origins, os, rays, rs, hit};
   return launch_any(P, F, n, R, use_macro, pos, normal, steps, diag, stream);
+}
+
+// The record entry: vx_bigtrace_rays with the macro levels off and no diag
+// build, storing the ray API's result record in the launch
+// (ray_setup.cuh::OriginRaysRecord, engine/raytracer.py::RayTraceResults):
+// valid (one byte a ray, 0 or 1), hit_point, normal, distance, voxel_index
+// and steps.  VoxelRaytracer3D.raytrace's card path through a line table,
+// one launch a call where the plain record after vx_bigtrace_rays took 24
+// more kernels (PERF.md).  macro and macro2 are not read.
+extern "C" int vx_bigtrace_record(const float* origins, int os, const float* rays, int rs,
+                                  const int* region_lines, const int* brick_lines, const int* macro,
+                                  const int* macro2, int n, int gx, int gy, int gz, int rx, int ry, int rz,
+                                  int factor, int wpb, int max_steps, int brick_layout, int iter_limit,
+                                  unsigned char* valid, float* hit_point, float* normal, float* distance,
+                                  int* voxel_index, int* steps, void* stream) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  const vx::OriginRaysRecord R = {{origins, os, rays, rs, valid}, distance, voxel_index, gx * factor, gy * factor};
+  if (n == 0) return 0;
+  return launch<false, false>(P, F, n, R, hit_point, normal, steps, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // The secondary entry: the shadow, reflection or AO rays (`kind`,

@@ -47,7 +47,11 @@
 // kernels.  The prepared-ray entries stay for the walk alone.  And a
 // secondary form (vx_trace_brickmap_{dense,compact}_secondary): the
 // shading's shadow, reflection or AO rays built from the primary trace,
-// walked and reduced in the launch (secondary.cuh), as K1's.  The grid's
+// walked and reduced in the launch (secondary.cuh), as K1's.  And a record
+// form (vx_trace_brickmap_{dense,compact}_record): the rays form storing
+// the ray API's result record (ray_setup.cuh::OriginRaysRecord), as K1's
+// vx_bigtrace_record: VoxelRaytracer3D.raytrace's card path without a
+// line table, one launch a call.  The grid's
 // size is asked of the runtime once a process for each instantiation and
 // shared-memory size (grid_cache.cuh), not on every launch.
 //
@@ -79,8 +83,9 @@ namespace {
 constexpr int THREADS = 1024;  // 1024 x 64 registers: one block fills an SM's register file
 
 // Fetch: DenseSlotFetch or CompactFetch, with meta in shared memory when
-// Fetch::SHARED; Rays: vx::PreparedRays, vx::OriginRays or
-// vx::SecondaryRays (which stores its own outputs).
+// Fetch::SHARED; Rays: vx::PreparedRays, vx::OriginRays,
+// vx::OriginRaysRecord (pos, normal and steps: the record's hit_point,
+// normal and steps) or vx::SecondaryRays (which stores its own outputs).
 template <class Fetch, class Rays>
 __global__ void __launch_bounds__(THREADS, 1)
 bmtrace_kernel(vx::TraceParams P, Fetch F, int n, int num_chunks, int* __restrict__ counter, Rays R,
@@ -111,8 +116,7 @@ bmtrace_kernel(vx::TraceParams P, Fetch F, int n, int num_chunks, int* __restric
         R.template run<false>(P, Fl, i);
       } else {
         const vx::TraceResult r = R.template trace<false, false>(P, Fl, i, nullptr);
-        R.store_flags(i, r.flags);
-        vx::store_ray(r, i, pos, normal, steps);
+        R.store(r, i, pos, normal, steps);
       }
     }
   }
@@ -226,6 +230,33 @@ extern "C" int vx_trace_brickmap_compact_rays(const float* origins, int os, cons
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
   const vx::OriginRays R = {origins, os, rays, rs, hit};
   return compact(P, meta, brick_idx, bricks, coarse_layout, wpb, n, shared_meta, counter, R, pos, normal,
+                 steps, stream);
+}
+
+// The record forms: as the rays forms, storing the ray API's result record
+// (ray_setup.cuh::OriginRaysRecord): valid (one byte a ray, 0 or 1),
+// hit_point, normal, distance, voxel_index and steps.
+extern "C" int vx_trace_brickmap_dense_record(const float* origins, int os, const float* rays, int rs,
+                                              const int* meta, const int* bricks, int n, int gx, int gy, int gz,
+                                              int factor, int wpb, int max_steps, int coarse_layout,
+                                              int brick_layout, int iter_limit, int shared_meta, int* counter,
+                                              unsigned char* valid, float* hit_point, float* normal,
+                                              float* distance, int* voxel_index, int* steps, void* stream) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::OriginRaysRecord R = {{origins, os, rays, rs, valid}, distance, voxel_index, gx * factor, gy * factor};
+  return dense(P, meta, bricks, coarse_layout, wpb, n, shared_meta, counter, R, hit_point, normal, steps, stream);
+}
+
+extern "C" int vx_trace_brickmap_compact_record(const float* origins, int os, const float* rays, int rs,
+                                                const int* meta, const int* brick_idx, const int* bricks, int n,
+                                                int gx, int gy, int gz, int factor, int wpb, int max_steps,
+                                                int coarse_layout, int brick_layout, int iter_limit,
+                                                int shared_meta, int* counter, unsigned char* valid,
+                                                float* hit_point, float* normal, float* distance,
+                                                int* voxel_index, int* steps, void* stream) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::OriginRaysRecord R = {{origins, os, rays, rs, valid}, distance, voxel_index, gx * factor, gy * factor};
+  return compact(P, meta, brick_idx, bricks, coarse_layout, wpb, n, shared_meta, counter, R, hit_point, normal,
                  steps, stream);
 }
 

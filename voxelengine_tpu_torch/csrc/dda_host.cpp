@@ -8,7 +8,9 @@
 // grid walk alone on prepared rays (start, direction, active, pad).  The
 // *_rays_host entries are K1's and K4's rays entries: origins and raw
 // directions, the setup and the hit_imm fix-up included; the
-// *_secondary_host entries their secondary entries (secondary.cuh);
+// *_record_host entries their record entries (the ray API's result record
+// stored in the ray's store); the *_secondary_host entries their secondary
+// entries (secondary.cuh);
 // vx_secondary_build_host and vx_secondary_reduce_host secondary.cu's two
 // entries, vx_zslab_rays_host K4-slab's batch form, vx_rrtrace_rays_host
 // K5's rays entry.
@@ -86,8 +88,8 @@ int grid_full_rays(const vx::GridParams& P, const Fetch& F, int layout, int n,
 }
 
 // A launch's rays one by one, as the kernels' threads take them (Rays:
-// vx::PreparedRays or vx::OriginRays); with DIAG each ray's counters, its
-// own iteration count last (there is no warp here).
+// vx::PreparedRays, vx::OriginRays or vx::OriginRaysRecord); with DIAG each
+// ray's counters, its own iteration count last (there is no warp here).
 template <bool MACRO, bool DIAG, class Fetch, class Rays>
 int each_ray(const vx::TraceParams& P, const Fetch& F, int n, const Rays& R, float* pos, float* normal,
              int* steps, int* diag) {
@@ -95,8 +97,7 @@ int each_ray(const vx::TraceParams& P, const Fetch& F, int n, const Rays& R, flo
     int dg[vx::D_COUNT];
     std::memset(dg, 0, sizeof dg);
     const vx::TraceResult r = R.template trace<MACRO, DIAG>(P, F, i, dg);
-    R.store_flags(i, r.flags);
-    vx::store_ray(r, i, pos, normal, steps);
+    R.store(r, i, pos, normal, steps);
     if (DIAG)
       for (int k = 0; k < vx::D_COUNT; ++k) diag[(long long)k * n + i] = dg[k];
   }
@@ -233,6 +234,20 @@ extern "C" int vx_bigtrace_rays_host(const float* origins, int os, const float* 
                 : each_ray<true, false>(P, F, n, R, pos, normal, steps, diag);
   return diag ? each_ray<false, true>(P, F, n, R, pos, normal, steps, diag)
               : each_ray<false, false>(P, F, n, R, pos, normal, steps, diag);
+}
+
+// K1's record entry (bigtrace.cu::vx_bigtrace_record), its arguments minus
+// the stream.
+extern "C" int vx_bigtrace_record_host(const float* origins, int os, const float* rays, int rs,
+                                       const int* region_lines, const int* brick_lines, const int* macro,
+                                       const int* macro2, int n, int gx, int gy, int gz, int rx, int ry, int rz,
+                                       int factor, int wpb, int max_steps, int brick_layout, int iter_limit,
+                                       unsigned char* valid, float* hit_point, float* normal, float* distance,
+                                       int* voxel_index, int* steps) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
+  const vx::OriginRaysRecord R = {{origins, os, rays, rs, valid}, distance, voxel_index, gx * factor, gy * factor};
+  return each_ray<false, false>(P, F, n, R, hit_point, normal, steps, nullptr);
 }
 
 // The record instantiation (crossings.cu::vx_trace_crossings), ray by ray.
@@ -485,6 +500,33 @@ extern "C" int vx_trace_brickmap_compact_rays_host(const float* origins, int os,
   const vx::CompactFetch<> F = {{meta, bricks, gx, gy, coarse_layout, wpb}, brick_idx};
   return each_ray<false, false>(P, F, n, vx::OriginRays{origins, os, rays, rs, hit}, pos, normal, steps,
                                 nullptr);
+}
+
+// K4's record entries (bmtrace.cu::vx_trace_brickmap_dense_record and
+// _compact_record), as their rays host entries.
+extern "C" int vx_trace_brickmap_dense_record_host(const float* origins, int os, const float* rays, int rs,
+                                                   const int* meta, const int* bricks, int n, int gx, int gy,
+                                                   int gz, int factor, int wpb, int max_steps, int coarse_layout,
+                                                   int brick_layout, int iter_limit, unsigned char* valid,
+                                                   float* hit_point, float* normal, float* distance,
+                                                   int* voxel_index, int* steps) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::DenseSlotFetch<> F = {meta, bricks, gx, gy, coarse_layout, wpb};
+  const vx::OriginRaysRecord R = {{origins, os, rays, rs, valid}, distance, voxel_index, gx * factor, gy * factor};
+  return each_ray<false, false>(P, F, n, R, hit_point, normal, steps, nullptr);
+}
+
+extern "C" int vx_trace_brickmap_compact_record_host(const float* origins, int os, const float* rays, int rs,
+                                                     const int* meta, const int* brick_idx, const int* bricks,
+                                                     int n, int gx, int gy, int gz, int factor, int wpb,
+                                                     int max_steps, int coarse_layout, int brick_layout,
+                                                     int iter_limit, unsigned char* valid, float* hit_point,
+                                                     float* normal, float* distance, int* voxel_index,
+                                                     int* steps) {
+  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
+  const vx::CompactFetch<> F = {{meta, bricks, gx, gy, coarse_layout, wpb}, brick_idx};
+  const vx::OriginRaysRecord R = {{origins, os, rays, rs, valid}, distance, voxel_index, gx * factor, gy * factor};
+  return each_ray<false, false>(P, F, n, R, hit_point, normal, steps, nullptr);
 }
 
 namespace {

@@ -12,7 +12,7 @@
 // the slab test.
 //
 // __host__ __device__ like dda.cuh: gridtrace.cu runs it inside K2 and K3,
-// bigtrace.cu and bmtrace.cu inside K1's and K4's rays entries
+// bigtrace.cu and bmtrace.cu inside K1's and K4's rays and record entries
 // (trace_ray_full below), dda_host.cpp on the CPU for the tests.
 #pragma once
 
@@ -163,17 +163,29 @@ VX_HD TraceResult trace_ray_full(const TraceParams& P, const Fetch& F, float ox,
       diag);
 }
 
-// The rays of a K1 or K4 launch, in one of two forms, and how a ray's flags
-// are stored (position, normal and steps are stored alike, store_ray):
+// Ray i's position, normal and steps, as every brickmap kernel stores them.
+VX_HD void store_ray(const TraceResult& r, int i, float* pos, float* normal, int* steps) {
+  pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
+  normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
+  steps[i] = r.steps;
+}
+
+// The rays of a K1 or K4 launch, in one of three forms, and how a ray's
+// result is stored (store(r, i, pos, normal, steps)):
 //   PreparedRays: the wrapper's ray setup done (start in chunk units,
 //     normalized direction, active, edge pad); flags = hit | hit_imm << 1,
-//     the fix-up left to the wrapper (vx_bigtrace, vx_trace_brickmap_*);
+//     the fix-up left to the wrapper, position, normal and steps as
+//     store_ray (vx_bigtrace, vx_trace_brickmap_*);
 //   OriginRays: origins (voxels) and raw directions, f32[n, 3] at a row
 //     stride of 3, or 0 for one row shared by every ray (primary_rays
 //     broadcasts the origin, or an orthographic frame's direction);
 //     trace_ray_full does the setup and the fix-up; hit is one byte, 0 or 1,
-//     the bool tensor the wrapper returns (the *_rays entries).
-// (secondary.cuh's SecondaryRays is the third form: SECONDARY true, it
+//     the bool tensor the wrapper returns, the rest as store_ray (the
+//     *_rays entries: ops/trace.py::TraceOut's fields);
+//   OriginRaysRecord: OriginRays whose store writes the ray API's result
+//     record (the *_record entries: engine/raytracer.py::RayTraceResults's
+//     fields, below).
+// (secondary.cuh's SecondaryRays is the fourth form: SECONDARY true, it
 // builds its rays and stores its own outputs.)
 struct PreparedRays {
   static constexpr bool SECONDARY = false;
@@ -190,7 +202,10 @@ struct PreparedRays {
                                   ldgf(dir + 3 * i + 2), ldg(active + i), ldg(pad + 3 * i),
                                   ldg(pad + 3 * i + 1), ldg(pad + 3 * i + 2), diag);
   }
-  VX_HD void store_flags(int i, int f) const { flags[i] = f; }
+  VX_HD void store(const TraceResult& r, int i, float* pos, float* normal, int* steps) const {
+    flags[i] = r.flags;
+    store_ray(r, i, pos, normal, steps);
+  }
 };
 
 struct OriginRays {
@@ -208,14 +223,52 @@ struct OriginRays {
     return trace_ray_full<MACRO, DIAG>(P, F, ldgf(o), ldgf(o + 1), ldgf(o + 2), ldgf(v), ldgf(v + 1),
                                        ldgf(v + 2), diag);
   }
-  VX_HD void store_flags(int i, int f) const { hit[i] = (unsigned char)(f & 1); }
+  VX_HD void store(const TraceResult& r, int i, float* pos, float* normal, int* steps) const {
+    hit[i] = (unsigned char)(r.flags & 1);
+    store_ray(r, i, pos, normal, steps);
+  }
 };
 
-// Ray i's position, normal and steps, as every brickmap kernel stores them.
-VX_HD void store_ray(const TraceResult& r, int i, float* pos, float* normal, int* steps) {
-  pos[3 * i] = r.px; pos[3 * i + 1] = r.py; pos[3 * i + 2] = r.pz;
-  normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
-  steps[i] = r.steps;
-}
+// engine/raytracer.py::results_from_trace in the thread that walked the
+// ray, on the walk's result r, with its arithmetic (each product and sum
+// separately rounded, --fmad=false / -ffp-contract=off): `hit` (OriginRays')
+// is `valid`, one byte; pos takes hit_point, the hit position or (inf, inf,
+// inf) on a miss; normal and steps as store_ray; distance the IEEE square
+// root of (o - p) . (o - p) summed x + y + z (core/exact.py's sqrt_rn of
+// dot3: a float64 root rounded to float32 is the float32 root), 0 on a
+// miss; voxel_index floor(p + 0.5 n) as int32, then z (X Y) + y X + x in
+// uint32 arithmetic read as int32 (the wrap the plain version makes
+// through int64 and a mask), 0 on a miss.  X and Y are the world's size in
+// voxels.  The origin is read again here, after the walk, as the setup
+// read it, so nothing of it is live across the walk's loop.
+struct OriginRaysRecord : OriginRays {
+  float* distance;
+  int* voxel_index;
+  int wx, wy;
+
+  VX_HD void store(const TraceResult& r, int i, float* hit_point, float* normal, int* steps) const {
+    const bool h = (r.flags & 1) != 0;
+    hit[i] = (unsigned char)h;
+    hit_point[3 * i] = h ? r.px : INFINITY;
+    hit_point[3 * i + 1] = h ? r.py : INFINITY;
+    hit_point[3 * i + 2] = h ? r.pz : INFINITY;
+    normal[3 * i] = r.nx; normal[3 * i + 1] = r.ny; normal[3 * i + 2] = r.nz;
+    steps[i] = r.steps;
+    float dist = 0.0f;
+    int index = 0;
+    if (h) {
+      const float* o = origins + (long long)os * i;
+      const float dx = ldgf(o) - r.px, dy = ldgf(o + 1) - r.py, dz = ldgf(o + 2) - r.pz;
+      dist = sqrtf(dx * dx + dy * dy + dz * dz);
+      const unsigned cx = (unsigned)(int)floorf(r.px + 0.5f * r.nx);
+      const unsigned cy = (unsigned)(int)floorf(r.py + 0.5f * r.ny);
+      const unsigned cz = (unsigned)(int)floorf(r.pz + 0.5f * r.nz);
+      const unsigned X = (unsigned)wx;
+      index = (int)(cz * (X * (unsigned)wy) + cy * X + cx);
+    }
+    distance[i] = dist;
+    voxel_index[i] = index;
+  }
+};
 
 }  // namespace vx

@@ -11,7 +11,9 @@ Where the rays go on the card: with a line table (built by
 :meth:`~VoxelRaytracer3D.upload_world` for LINEAR worlds, as in JAX), K1 with
 the macro levels off, which computes ``trace_brickmap``'s function, the one
 the JAX facade traces; without one, K4 (its dense-slot or compact
-instantiation by the world's form).  On the CPU the plain walk.  Edits go through
+instantiation by the world's form).  Either is one launch of the kernel's
+record entry, which stores the result record as each ray's walk ends.  On
+the CPU the plain walk, then :func:`results_from_trace`.  Edits go through
 :func:`~voxelengine_tpu_torch.ops.bigtrace.apply_edits_hbm` where there is a
 line table, else :func:`~voxelengine_tpu_torch.core.brickmap.apply_edits`.
 
@@ -38,10 +40,11 @@ from voxelengine_tpu_torch.ops.bigtrace import (
     apply_edits_hbm,
     make_line_table,
     materialize_brick_lines,
+    record_brickmap_k1,
     trace_brickmap_hbm,
 )
 from voxelengine_tpu_torch.ops.trace import TraceOut
-from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table
+from voxelengine_tpu_torch.ops.trace2 import record_brickmap_k4, trace_brickmap_no_table
 from voxelengine_tpu_torch.utils.profiling import span
 
 F32 = torch.float32
@@ -59,10 +62,23 @@ class RayTraceResults:
     steps: torch.Tensor  # i32[N]
 
 
+def _is_cuda(t: torch.Tensor) -> bool:
+    """Whether rays on ``t``'s device take the card's path (one place, so
+    a test can route a CPU call as a card call)."""
+    return t.is_cuda
+
+
 def _batch_trace(bm: BrickMap, origins, rays, max_steps: int, lt: Optional[LineTable] = None) -> RayTraceResults:
-    """Trace (K1 with the macro levels off through ``lt``, else
-    ``trace_brickmap_no_table``) and derive the result record: the
-    ``raytrace.trace`` and ``raytrace.record`` spans under ``torch.profiler``."""
+    """The result record of the rays.  On the card one launch that traces
+    and stores the record (K1's record entry, macro levels off, through
+    ``lt``; else K4's in ``bm``'s form), the ``raytrace.trace`` span under
+    ``torch.profiler``.  On the CPU the plain trace (``raytrace.trace``),
+    then :func:`results_from_trace` (``raytrace.record``)."""
+    if _is_cuda(origins):
+        with span("raytrace.trace"):
+            if lt is not None:
+                return RayTraceResults(*record_brickmap_k1(bm, lt, origins, rays, max_steps))
+            return RayTraceResults(*record_brickmap_k4(bm, origins, rays, max_steps))
     with span("raytrace.trace"):
         if lt is not None:
             out = trace_brickmap_hbm(bm, lt, origins, rays, max_steps, use_macro=False)
@@ -73,7 +89,8 @@ def _batch_trace(bm: BrickMap, origins, rays, max_steps: int, lt: Optional[LineT
 
 
 def results_from_trace(bm: BrickMap, origins: torch.Tensor, out: TraceOut) -> RayTraceResults:
-    """The result record of a trace of ``origins``.  ``voxel_index`` is the
+    """The result record of a trace of ``origins`` (the CPU's, and the plain
+    version of the card's record entries).  ``voxel_index`` is the
     JAX package's deliberate fix of the reference's post-pass
     (``VolumeRaytracer.cu:611-612``, ``PARITY.md``): the hit point lies on
     the entry face and the normal points into the hit voxel, so a
@@ -164,8 +181,9 @@ class VoxelRaytracer3D:
         device).  The results are ready in stream order; the call does not
         synchronise the device unless ``verbose_timing``, which prints
         :attr:`last_kernel_ms` at once.  Under ``torch.profiler`` a
-        ``raytrace`` span with ``raytrace.trace``, ``raytrace.record`` and,
-        where it prints, ``raytrace.sync`` inside it."""
+        ``raytrace`` span with ``raytrace.trace`` (on the CPU also
+        ``raytrace.record``) and, where it prints, ``raytrace.sync`` inside
+        it."""
         bm = self.world
         dev = bm.meta.device
         with span("raytrace"):

@@ -5,7 +5,9 @@ It replaces ``voxelengine_tpu/ops/pallas_bigtrace.py::_bigtrace_kernel``.
 directions in, the ray setup and the ``hit_imm`` fix-up inside the launch
 (``trace_brickmap_hbm``'s card branch whole); :func:`bigtrace` takes the
 prepared rays of that setup and leaves the fix-up to its caller (the walk
-alone); :func:`bigtrace_secondary` builds, walks and reduces a kind of
+alone); :func:`bigtrace_record` is :func:`bigtrace_rays` storing the ray
+API's result record in the launch (``VoxelRaytracer3D.raytrace``'s card
+path); :func:`bigtrace_secondary` builds, walks and reduces a kind of
 the shading's secondary rays from the primary trace's results.  Its plain
 versions, which
 :func:`voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_hbm` runs for rays
@@ -15,7 +17,10 @@ on the CPU, are :func:`voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_lt`
 entry's: :func:`voxelengine_tpu_torch.ops.secondary.secondary_plain` over
 them).  ``launches`` counts the kernel launches made through every entry,
 so a run can show that its main path reached the kernel;
-``secondary_launches`` those of the secondary entry by kind.
+``record_launches`` those of the record entry, ``secondary_launches``
+those of the secondary entry by kind.  The record entry's plain version
+is :func:`voxelengine_tpu_torch.engine.raytracer.results_from_trace` over
+``trace_brickmap``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from voxelengine_tpu_torch.core.layout import Layout
 from voxelengine_tpu_torch.kernels import build
 
 launches = 0
+# launches of the record entry (each counted in ``launches`` too)
+record_launches = 0
 # launches of the secondary entry by kind (each counted in ``launches`` too)
 secondary_launches = dict.fromkeys(build.SECONDARY_KINDS, 0)
 DIAG_ROWS = 11  # 10 phase counters (ops/bigtrace.py::PHASES), then iterations
@@ -166,6 +173,56 @@ def bigtrace_rays(
         dev=dev,
     )
     launches += 1
+    return outs
+
+
+def bigtrace_record(
+    origins: torch.Tensor,
+    rays: torch.Tensor,
+    region_lines: torch.Tensor,
+    brick_lines: torch.Tensor,
+    macro: Optional[torch.Tensor] = None,
+    macro2: Optional[torch.Tensor] = None,
+    *,
+    grid_dims,
+    region_dims,
+    factor: int,
+    wpb: int,
+    max_steps: int,
+    brick_layout: Layout,
+):
+    """The ray API's result record of N rays on the card in one launch:
+    :func:`bigtrace_rays`'s setup, walk (macro levels off) and fix-up, then
+    ``engine/raytracer.py::results_from_trace`` in the thread that walked
+    the ray (``csrc/ray_setup.cuh::OriginRaysRecord``).
+
+    Rays and tables as for :func:`bigtrace_rays` (``macro`` and ``macro2``
+    are not read).  Returns ``(valid bool[N], hit_point f32[N, 3], normal
+    f32[N, 3], distance f32[N], voxel_index i32[N], steps i32[N])``, the
+    fields of ``RayTraceResults``.  Launches on the current stream without
+    synchronising and raises if the launch is refused.
+    """
+    global launches, record_launches
+    dev = origins.device
+    build.require_cuda("bigtrace_record", dev)
+    n = origins.shape[0]
+    rows = (*build.ray_rows("bigtrace_record", "origins", origins, n, dev),
+            *build.ray_rows("bigtrace_record", "rays", rays, n, dev))
+    mptrs = check_line_table("bigtrace_record", dev, region_lines, brick_lines, macro, macro2, region_dims, factor,
+                             False)
+    outs = build.record_outputs(n, dev)
+    if n == 0:
+        return outs
+    gx, gy, gz = grid_dims
+    build.launch(
+        "bigtrace_record", build.load_kernel("bigtrace").vx_bigtrace_record,
+        *build.pointers(rows), region_lines.data_ptr(), brick_lines.data_ptr(), *mptrs,
+        n, gx, gy, gz, *region_dims, factor, wpb, max_steps, brick_layout.value,
+        3 * max_steps + 64,  # iteration cap (pallas_bigtrace.py:1488)
+        *build.pointers(outs), dev=dev,
+    )
+    launches += 1
+    record_launches += 1
     return outs
 
 

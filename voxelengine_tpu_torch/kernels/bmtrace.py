@@ -20,6 +20,13 @@ without a line table, with the same plain version; it has no TPU kernel
 (the JAX package walks such a world in XLA, ``voxelengine_tpu/ops/
 trace.py:411,435``).  :func:`bmtrace_compact_rays` is its rays form.
 
+:func:`bmtrace_record` and :func:`bmtrace_compact_record` are the rays
+forms storing the ray API's result record in the launch
+(``VoxelRaytracer3D.raytrace``'s card path without a line table; plain
+version ``engine/raytracer.py::results_from_trace`` over
+``trace_brickmap``), counted in ``launches`` (``compact_launches``) and
+in ``record_launches`` (``compact_record_launches``).
+
 :func:`bmtrace_secondary` and :func:`bmtrace_compact_secondary` build,
 walk and reduce a kind of the shading's secondary rays from the primary
 trace's results in one launch (the plain version:
@@ -67,8 +74,8 @@ def _k4(entry: str, rays, tables, *, grid_dims, factor: int, max_steps: int, coa
     origins and directions with their row strides, or a secondary entry's
     inputs; an ``*_rays`` entry writes ``hit`` as bool), ``tables`` its
     table tensors (all checked by the caller), ``outs`` its outputs (a
-    secondary entry's, with their ray count ``n``; by default the trace's,
-    made here).  Returns the outputs and whether ``meta`` went to shared
+    secondary or record entry's, with their ray count ``n``; by default the
+    trace's, made here).  Returns the outputs and whether ``meta`` went to shared
     memory, or None where no ray means no launch."""
     gx, gy, gz = grid_dims
     nc = gx * gy * gz
@@ -163,6 +170,34 @@ def bmtrace_rays(
     return outs
 
 
+record_launches = compact_record_launches = 0
+
+
+def bmtrace_record(
+    origins, rays, meta: torch.Tensor, bricks: torch.Tensor, *,
+    grid_dims, factor: int, max_steps: int, coarse_layout: Layout, brick_layout: Layout,
+):
+    """:func:`bmtrace_rays` storing the ray API's result record in the
+    launch, as :func:`voxelengine_tpu_torch.kernels.bigtrace.
+    bigtrace_record`: returns ``(valid bool[N], hit_point f32[N, 3], normal
+    f32[N, 3], distance f32[N], voxel_index i32[N], steps i32[N])``."""
+    global launches, shared_launches, record_launches
+    nc = math.prod(grid_dims)
+    wpb = (factor**3 + 31) // 32
+    _check_grid("bmtrace_record", grid_dims, factor, coarse_layout, nc * wpb)
+    dev, rows = _origin_rays("bmtrace_record", origins, rays)
+    build.check("bmtrace_record", "meta", meta, torch.int32, (nc,), dev)
+    build.check("bmtrace_record", "bricks", bricks, torch.int32, (nc, wpb), dev)
+    outs, shared = _k4("vx_trace_brickmap_dense_record", rows, (meta, bricks), grid_dims=grid_dims, factor=factor,
+                       max_steps=max_steps, coarse_layout=coarse_layout, brick_layout=brick_layout,
+                       outs=build.record_outputs(origins.shape[0], dev), n=origins.shape[0])
+    if shared is not None:
+        launches += 1
+        shared_launches += shared
+        record_launches += 1
+    return outs
+
+
 compact_launches = compact_shared_launches = 0
 
 
@@ -210,6 +245,30 @@ def bmtrace_compact_rays(
     if shared is not None:
         compact_launches += 1
         compact_shared_launches += shared
+    return outs
+
+
+def bmtrace_compact_record(
+    origins, rays, meta: torch.Tensor, brick_idx: torch.Tensor, bricks: torch.Tensor, *,
+    grid_dims, factor: int, max_steps: int, coarse_layout: Layout, brick_layout: Layout,
+):
+    """:func:`bmtrace_record` over a compact brickmap (tables as for
+    :func:`bmtrace_compact`)."""
+    global compact_launches, compact_shared_launches, compact_record_launches
+    nc = math.prod(grid_dims)
+    wpb = (factor**3 + 31) // 32
+    _check_grid("bmtrace_compact_record", grid_dims, factor, coarse_layout, bricks.shape[0] * wpb)
+    dev, rows = _origin_rays("bmtrace_compact_record", origins, rays)
+    build.check("bmtrace_compact_record", "meta", meta, torch.int32, (nc,), dev)
+    build.check("bmtrace_compact_record", "brick_idx", brick_idx, torch.int32, (nc,), dev)
+    build.check("bmtrace_compact_record", "bricks", bricks, torch.int32, (None, wpb), dev)
+    outs, shared = _k4("vx_trace_brickmap_compact_record", rows, (meta, brick_idx, bricks), grid_dims=grid_dims,
+                       factor=factor, max_steps=max_steps, coarse_layout=coarse_layout, brick_layout=brick_layout,
+                       outs=build.record_outputs(origins.shape[0], dev), n=origins.shape[0])
+    if shared is not None:
+        compact_launches += 1
+        compact_shared_launches += shared
+        compact_record_launches += 1
     return outs
 
 

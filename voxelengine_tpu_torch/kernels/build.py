@@ -48,6 +48,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _RAYS = [_P] * 4  # start, dir, active, pad
 _OUTS = [_P] * 4  # flags (or hit), pos, normal, steps
 _ORIGIN_RAYS = [_P, _I, _P, _I]  # origins, its row stride, raw directions, its row stride
+_RECORD_OUTS = [_P] * 6  # valid (uint8), hit_point, normal, distance, voxel_index, steps
 # C signatures, stream excluded (the host builds take none)
 _LINE_TABLE = [_P] * 4  # region_lines, brick_lines, macro, macro2
 # n, gx, gy, gz, rx, ry, rz, factor, wpb, max_steps, brick_layout, iter_limit, use_macro
@@ -64,6 +65,8 @@ SIGNATURES = {
     "vx_bigtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
     # the same from origins and raw directions; hit (uint8) in place of flags
     "vx_bigtrace_rays": _ORIGIN_RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
+    # the same, macro off, no diag: the ray API's result record
+    "vx_bigtrace_record": _ORIGIN_RAYS + _LINE_TABLE + _LINE_TABLE_INTS[:-1] + _RECORD_OUTS,
     # a kind of secondary rays built from the primary trace; the kind's outputs
     "vx_bigtrace_secondary": _SECONDARY + _LINE_TABLE + _LINE_TABLE_INTS + _SECONDARY_OUTS,
     # ... max_rows, rows, nrows, outputs (the record instantiation of K1's loop)
@@ -83,6 +86,9 @@ SIGNATURES = {
     # both from origins and raw directions; hit (uint8) in place of flags
     "vx_trace_brickmap_dense_rays": _ORIGIN_RAYS + [_P] * 2 + [_I] * 11 + [_P] + _OUTS,
     "vx_trace_brickmap_compact_rays": _ORIGIN_RAYS + [_P] * 3 + [_I] * 11 + [_P] + _OUTS,
+    # both storing the ray API's result record, as vx_bigtrace_record
+    "vx_trace_brickmap_dense_record": _ORIGIN_RAYS + [_P] * 2 + [_I] * 11 + [_P] + _RECORD_OUTS,
+    "vx_trace_brickmap_compact_record": _ORIGIN_RAYS + [_P] * 3 + [_I] * 11 + [_P] + _RECORD_OUTS,
     # both from the primary trace, as vx_bigtrace_secondary
     "vx_trace_brickmap_dense_secondary": _SECONDARY + [_P] * 2 + [_I] * 11 + [_P] + _SECONDARY_OUTS,
     "vx_trace_brickmap_compact_secondary": _SECONDARY + [_P] * 3 + [_I] * 11 + [_P] + _SECONDARY_OUTS,
@@ -142,6 +148,9 @@ HOST_ENTRIES = {
     "vx_bigtrace_rays_host": SIGNATURES["vx_bigtrace_rays"],
     "vx_trace_brickmap_dense_rays_host": _ORIGIN_RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
     "vx_trace_brickmap_compact_rays_host": _ORIGIN_RAYS + [_P] * 3 + [_I] * 10 + _OUTS,
+    "vx_bigtrace_record_host": SIGNATURES["vx_bigtrace_record"],
+    "vx_trace_brickmap_dense_record_host": _ORIGIN_RAYS + [_P] * 2 + [_I] * 10 + _RECORD_OUTS,
+    "vx_trace_brickmap_compact_record_host": _ORIGIN_RAYS + [_P] * 3 + [_I] * 10 + _RECORD_OUTS,
     "vx_bigtrace_secondary_host": SIGNATURES["vx_bigtrace_secondary"],
     "vx_trace_brickmap_dense_secondary_host": _SECONDARY + [_P] * 2 + [_I] * 10 + _SECONDARY_OUTS,
     "vx_trace_brickmap_compact_secondary_host": _SECONDARY + [_P] * 3 + [_I] * 10 + _SECONDARY_OUTS,
@@ -290,6 +299,21 @@ def ray_outputs(n: int, dev, hit_dtype=torch.int32):
         torch.empty((n,), dtype=hit_dtype, device=dev),
         torch.empty((n, 3), dtype=torch.float32, device=dev),
         torch.empty((n, 3), dtype=torch.float32, device=dev),
+        torch.empty((n,), dtype=torch.int32, device=dev),
+    )
+
+
+def record_outputs(n: int, dev):
+    """Empty ``(valid bool[N], hit_point f32[N, 3], normal f32[N, 3],
+    distance f32[N], voxel_index i32[N], steps i32[N])``: the ray API's
+    result record (``engine/raytracer.py::RayTraceResults``), as the record
+    entries write it."""
+    return (
+        torch.empty((n,), dtype=torch.bool, device=dev),
+        torch.empty((n, 3), dtype=torch.float32, device=dev),
+        torch.empty((n, 3), dtype=torch.float32, device=dev),
+        torch.empty((n,), dtype=torch.float32, device=dev),
+        torch.empty((n,), dtype=torch.int32, device=dev),
         torch.empty((n,), dtype=torch.int32, device=dev),
     )
 

@@ -18,6 +18,9 @@ the CPU:
   and a full-budget retrace of the 128-ray rows that still have survivors;
 * :func:`trace_secondary_hbm`: K1's secondary entry, a kind of the
   shading's secondary rays built, walked and reduced in one launch.
+* :func:`record_brickmap_k1`: K1's record entry, the engine facade's
+  result record stored in the launch (card only; its plain version is
+  ``engine/raytracer.py::results_from_trace`` over ``trace_brickmap``).
 
 The plain versions are :func:`trace_brickmap_lt`, a torch state machine over
 the line table that takes the macro skips with the TPU kernel's expressions
@@ -501,6 +504,18 @@ def trace_brickmap_k1(bm: BrickMap, lt: LineTable, origins: torch.Tensor, rays: 
     outs = k1.bigtrace_rays(origins.to(F32), rays.to(F32), *tables, diag=diag, **kw)
     res = TraceOut(*outs[:4])
     return (res, outs[4]) if diag else res
+
+
+def record_brickmap_k1(bm: BrickMap, lt: LineTable, origins: torch.Tensor, rays: torch.Tensor, max_steps: int):
+    """The ray API's result record (``engine/raytracer.py::RayTraceResults``'s
+    fields) of rays on the card in one K1 launch, its record entry: the
+    macro levels off (``trace_brickmap``'s function, as the facade traces
+    it), the record stored by the thread that walked the ray."""
+    from voxelengine_tpu_torch.kernels import bigtrace as k1
+
+    tables, kw = _kernel_tables(bm, lt, max_steps, False)
+    del kw["use_macro"]
+    return k1.bigtrace_record(origins.to(F32), rays.to(F32), *tables, **kw)
 
 
 def trace_brickmap_hbm(

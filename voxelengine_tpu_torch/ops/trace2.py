@@ -13,7 +13,9 @@ facade take where a world has no line table: K4 for CUDA rays, in its
 dense-slot or its compact instantiation by the world's form (the compact
 one is the counterpart of the JAX package's XLA walk of a compact world,
 ``voxelengine_tpu/ops/trace.py:411,435``).  :func:`trace_secondary_no_table`
-is the frame's secondary rays there: K4's secondary entries.
+is the frame's secondary rays there: K4's secondary entries;
+:func:`record_brickmap_k4` the engine facade's card path there: K4's
+record entries, the result record stored in the launch.
 """
 
 from __future__ import annotations
@@ -99,3 +101,18 @@ def _trace_brickmap_kernel(bm: BrickMap, origins, rays, max_steps: int) -> Trace
     if bm.dense_slots:
         return TraceOut(*k4.bmtrace_rays(o, d, bm.meta, bm.bricks, **kw))
     return TraceOut(*k4.bmtrace_compact_rays(o, d, bm.meta, bm.brick_idx, bm.bricks, **kw))
+
+
+def record_brickmap_k4(bm: BrickMap, origins, rays, max_steps: int):
+    """The ray API's result record (``engine/raytracer.py::RayTraceResults``'s
+    fields) of rays on the card without a line table in one K4 launch, the
+    record entry of ``bm``'s form (dense slots, or compact)."""
+    from voxelengine_tpu_torch.kernels import bmtrace as k4
+
+    _need_bricks(bm)
+    kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=max_steps, coarse_layout=bm.coarse_layout,
+              brick_layout=bm.brick_layout)
+    o, d = origins.to(F32), rays.to(F32)
+    if bm.dense_slots:
+        return k4.bmtrace_record(o, d, bm.meta, bm.bricks, **kw)
+    return k4.bmtrace_compact_record(o, d, bm.meta, bm.brick_idx, bm.bricks, **kw)
