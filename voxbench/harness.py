@@ -26,8 +26,9 @@ check (``voxbench/check.py``) and prints, last, one JSON line.
 ``--control 1`` (not a driver's option) also computes the control, the
 reference in bfloat16 in the program's place, on the same samples, and
 prints both readings.  Exit codes: 0 with a result (``correct`` true or
-false), 1 without a card, 2 for a bad argument, 3 where the process holds
-JAX or the JAX package after the window.
+false), 1 without a card, 2 for a bad argument or a world the port cannot
+trace (``drivers.world_route``), 3 where the process holds JAX or the JAX
+package after the window.
 """
 
 from __future__ import annotations
@@ -148,7 +149,7 @@ def run_cell(name: str, config: dict, traffic: dict, seed: int, seconds: float, 
     setup_s = time.perf_counter() - t_start
     prof = None
     if trace and cuda:
-        per = work.expected_launches(traffic)
+        per = work.expected_launches(config, traffic)
         res, prof, spans, tries = profiling.profiled(
             lambda sp: window(driver, span_s, sp), lambda r: {k: v * r["steps"] for k, v in per.items()})
         if tries > 1:
@@ -159,6 +160,8 @@ def run_cell(name: str, config: dict, traffic: dict, seed: int, seconds: float, 
     driver.keep_last(res["last"])
     memory_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     bounds = work.bounds(driver, res) if (trace and cuda) else {}
+    if bounds:
+        log(f"{name}: bound ms a launch: {bounds}")
     driver.release()
     gc.collect()
     if cuda:
@@ -221,7 +224,9 @@ def main(argv=None, t_start: float = None) -> int:
     bench = manifest.load()
     try:
         cell = manifest.cell(bench, args.workload)
-    except KeyError as e:
+        config = manifest.config_file(cell["config"])
+        drivers.world_route(config)
+    except (KeyError, ValueError) as e:
         log(f"FATAL: {e.args[0]}")
         return 2
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
@@ -231,7 +236,7 @@ def main(argv=None, t_start: float = None) -> int:
         return 1
     dev = torch.device("cuda", 0)
     log(f"device: {card_line(dev)}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    record = run_cell(cell["name"], manifest.config_file(cell["config"]), manifest.traffic_file(cell["name"]),
+    record = run_cell(cell["name"], config, manifest.traffic_file(cell["name"]),
                       args.seed, args.seconds, bool(args.trace), dev, t_start, manifest.end_to_end(bench, cell["name"]),
                       manifest.per_layer(bench, cell["name"]), control=bool(args.control))
     bad = forbidden_modules()

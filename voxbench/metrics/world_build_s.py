@@ -1,6 +1,6 @@
-"""The world's build in the set-up: W1's slabs, the slot assignment and the
-line table with its brick lines, on the host clock with the card
-synchronised before and after."""
+"""The world's build in the set-up: W1's slabs, the slot assignment and,
+where the world has one, the line table with its brick lines, on the host
+clock with the card synchronised before and after."""
 
 LAYER = "world build"
 UNIT = "s"

@@ -19,9 +19,12 @@ import torch
 
 MARKER_KERNELS = 32
 TRIES = 3
-# a step's kernels, by a part of their names: K1's rays entry, its
-# secondary entry, the ray-setup and shading kernels
+# a step's kernels, by parts of their names: K1's rays entry (and its record
+# entry, OriginRaysRecord), its secondary entry; K4's alike, in either
+# instantiation (DenseSlotFetch, CompactFetch); the ray-setup and shading
+# kernels
 KERNEL_KINDS = {"k1_rays": ("bigtrace_kernel", "OriginRays"), "k1_secondary": ("bigtrace_kernel", "SecondaryRays"),
+                "k4_rays": ("bmtrace_kernel", "OriginRays"), "k4_secondary": ("bmtrace_kernel", "SecondaryRays"),
                 "rays": ("rays_kernel",), "shade": ("shade_kernel",)}
 
 

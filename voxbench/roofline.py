@@ -10,6 +10,9 @@ Frozen copies, so that a change to the program cannot move the yardstick:
 * :func:`hit_table_bytes`: ``chip_smoke.py:366-394`` over the TILED_LINEAR
   bit order of ``voxelengine_tpu_torch/core/layout.py:55-72``;
 * :func:`data_bytes`, :func:`grid_ray_bytes`: ``chip_smoke.py:413-423``;
+* :func:`slot_bytes`: ``chip_smoke.py:365-373, 3535-3540`` (commit
+  c5555df), K4-compact's phase: a compact world's walk without a line
+  table also reads each hit chunk's ``brick_idx`` word;
 * :func:`secondary_bytes`: ``chip_smoke.py:1236-1249``;
 * ``SHADE_OPS``, :func:`framebuffer_sector_bytes`, :func:`shade_bytes`:
   ``chip_smoke.py:3805-3852``, with the shaded frame's secondary inputs
@@ -77,6 +80,16 @@ def hit_table_bytes(hit, position, normal, world_dims, factor: int, wpb: int) ->
     chunk = c[:, 0] + c[:, 1] * gx + c[:, 2] * gx * gy
     word = _tiled_bit(fine[:, 0], fine[:, 1], fine[:, 2], factor) >> 5
     return 4 * (int(torch.unique(chunk * wpb + word).numel()) + int(torch.unique(chunk).numel()))
+
+
+def slot_bytes(hit, position, normal, world_dims, factor: int) -> int:
+    """The 4-byte ``brick_idx`` word of each distinct hit chunk, which K4's
+    compact instantiation reads besides :func:`hit_table_bytes`'s."""
+    v = torch.floor(position[hit] + 0.5 * normal[hit]).long()
+    v = torch.minimum(v.clamp_min(0), torch.tensor(world_dims, device=v.device) - 1)
+    c = v // factor
+    gx, gy = world_dims[0] // factor, world_dims[1] // factor
+    return 4 * int(torch.unique(c[:, 0] + c[:, 1] * gx + c[:, 2] * gx * gy).numel())
 
 
 def data_bytes(t) -> int:

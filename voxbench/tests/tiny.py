@@ -6,14 +6,20 @@ import copy
 from voxbench import manifest
 
 
-def cell(name: str):
+def cell(name: str, bricks: str = None, line_table: bool = None, macro: str = None):
     """``(config, traffic, end-to-end metrics, per-layer metrics)`` of cell
-    ``name`` cut to the tiny size."""
+    ``name`` cut to the tiny size; ``bricks``, ``line_table`` and ``macro``,
+    where given, replace the configuration's ``world.bricks``,
+    ``world.line_table`` and ``frame.macro``."""
     bench = manifest.load()
     w = manifest.cell(bench, name)
     cfg = copy.deepcopy(manifest.config_file(w["config"]))
     tr = copy.deepcopy(manifest.traffic_file(name))
     cfg["world"].update(dims=[128, 128, 128], octaves=4)
+    for group, key, value in (("world", "bricks", bricks), ("world", "line_table", line_table),
+                              ("frame", "macro", macro)):
+        if value is not None:
+            cfg[group][key] = value
     cfg["frame"].update(width=96, height=64)
     cam = tr["camera"]
     if cam["path"] == "orbit":

@@ -3,11 +3,15 @@ kernels must do, for their roofline shares.
 
 The work is counted after the traced window, on the steps' own inputs
 through the program's public calls (the primary rays of
-``render/frame.py::primary_rays``, their trace by ``ops/bigtrace.py::
-trace_brickmap_hbm``, the secondary walks by ``ops/secondary.py::
-secondary_plain`` over it), and priced by :mod:`voxbench.roofline`.  A
-bound is the least time a launch needs; a share is that bound over the
-launch's device time in the traced window.
+``render/frame.py::primary_rays``, their trace by the walk the world
+takes: ``ops/bigtrace.py::trace_brickmap_hbm`` through a line table,
+``ops/trace2.py::trace_brickmap_no_table`` without one; the secondary walks
+by ``ops/secondary.py::secondary_plain`` over it), and priced by
+:mod:`voxbench.roofline`.  The kinds are K1's (``k1_rays``,
+``k1_secondary``) where the world has a line table and K4's (``k4_rays``,
+``k4_secondary``) where it has none.  A bound is the least time a launch
+needs; a share is that bound over the launch's device time in the traced
+window.
 """
 
 from __future__ import annotations
@@ -59,18 +63,45 @@ class Run:
         return sum(s) / len(s) * 1e3 if self.entry == entry and s else None
 
 
-def expected_launches(traffic: dict) -> dict:
+def _kernel(config: dict) -> str:
+    """The traversal kernel of ``config``'s world: K1 through its line
+    table, K4 without one."""
+    return "k1" if config["world"]["line_table"] else "k4"
+
+
+def expected_launches(config: dict, traffic: dict) -> dict:
     """The port's kernels a step launches, by kind: a frame's ray-setup
-    kernel, K1's rays entry, one secondary entry a kind and the shading
-    kernel; a query's K1 rays entry."""
+    kernel, the traversal's rays entry (K1's or K4's), one secondary entry
+    a kind and the shading kernel; a query's record entry (a rays entry)."""
+    k = _kernel(config)
     if traffic["entry"] == "raytrace":
-        return {"k1_rays": 1}
+        return {f"{k}_rays": 1}
     sh = traffic["shading"]
     kinds = int(sh["shadows"]) + int(sh["reflections"]) + int(sh["ao_samples"] > 0)
-    out = {"rays": 1, "k1_rays": 1, "shade": 1}
+    out = {"rays": 1, f"{k}_rays": 1, "shade": 1}
     if kinds:
-        out["k1_secondary"] = kinds
+        out[f"{k}_secondary"] = kinds
     return out
+
+
+def _walk(bm, lt, use_macro: bool):
+    """``(walk(o, d, max_steps), table_bytes(out))``: the program's trace of
+    the world, through ``lt`` or without a table, and the table bytes its
+    hits need (a compact world's K4 also reads each hit chunk's slot)."""
+    from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm
+    from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table
+
+    dims, f, wpb = bm.world_dims, bm.factor, bm.words_per_brick
+
+    def table(out):
+        b = roofline.hit_table_bytes(out.hit, out.position, out.normal, dims, f, wpb)
+        if lt is None and not bm.dense_slots:
+            b += roofline.slot_bytes(out.hit, out.position, out.normal, dims, f)
+        return b
+
+    if lt is not None:
+        return (lambda o, d, ms: trace_brickmap_hbm(bm, lt, o, d, ms, use_macro=use_macro)), table
+    return (lambda o, d, ms: trace_brickmap_no_table(bm, o, d, ms)), table
 
 
 def _frame_world(driver):
@@ -80,19 +111,18 @@ def _frame_world(driver):
 
 
 def _frame_bounds(driver, g: int) -> dict:
-    from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm
     from voxelengine_tpu_torch.ops.secondary import frame_kinds, secondary_plain
     from voxelengine_tpu_torch.render.frame import primary_rays
 
     bm, lt, env = _frame_world(driver)
     cfg = driver.cfg
+    k = _kernel(driver.config)
+    walk, table = _walk(bm, lt, cfg.trace_use_macro)
     i = (driver.phase + g) % driver.period
     o, d, px, py, _ = primary_rays(cfg, driver.pos[i], driver.eul[i], g)
     n = o.shape[0]
-    out = trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=cfg.trace_use_macro)
-    dims, f, wpb = bm.world_dims, bm.factor, bm.words_per_brick
-    res = {"k1_rays": roofline.bound(n, roofline.hit_table_bytes(out.hit, out.position, out.normal, dims, f, wpb),
-                                     int(out.steps.sum()), roofline.grid_ray_bytes(o, d))}
+    out = walk(o, d, cfg.max_steps)
+    res = {f"{k}_rays": roofline.bound(n, table(out), int(out.steps.sum()), roofline.grid_ray_bytes(o, d))}
     kinds = frame_kinds(cfg)
     if kinds:
         total = 0.0
@@ -100,33 +130,31 @@ def _frame_bounds(driver, g: int) -> dict:
             walks = []
 
             def trace(oo, dd, ms, walks=walks):
-                r = trace_brickmap_hbm(bm, lt, oo, dd, ms, use_macro=cfg.trace_use_macro)
+                r = walk(oo, dd, ms)
                 walks.append(r)
                 return r
 
             secondary_plain(kind, trace, out, d, px, py, env, g, cfg)
-            table = sum(roofline.hit_table_bytes(r.hit, r.position, r.normal, dims, f, wpb) for r in walks)
             steps = sum(int(r.steps.sum()) for r in walks)
-            total += roofline.bound(n, table, steps, roofline.secondary_bytes(kind, d))
-        res["k1_secondary"] = total  # a frame's three launches together
+            total += roofline.bound(n, sum(table(r) for r in walks), steps, roofline.secondary_bytes(kind, d))
+        res[f"{k}_secondary"] = total  # a frame's three launches together
     shade_bytes = roofline.shade_bytes(cfg.width, cfg.height, out.hit, d, px, py, cfg.crosshair, bool(kinds))
     res["shade"] = max(shade_bytes / roofline.HBM_BYTES_PER_S * 1e3, roofline.shade_ops_ms(out.hit))
     return res
 
 
 def _query_bounds(driver, g: int) -> dict:
-    from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm
-
-    bm, lt = driver.rt.world, driver.rt.line_table
+    bm = driver.rt.world
+    walk, table = _walk(bm, driver.rt.line_table, False)
     o, d = driver.rays(g)
-    out = trace_brickmap_hbm(bm, lt, o, d, driver.max_steps, use_macro=False)
-    table = roofline.hit_table_bytes(out.hit, out.position, out.normal, bm.world_dims, bm.factor, bm.words_per_brick)
-    return {"k1_rays": roofline.bound(o.shape[0], table, int(out.steps.sum()), roofline.grid_ray_bytes(o, d))}
+    out = walk(o, d, driver.max_steps)
+    return {f"{_kernel(driver.config)}_rays": roofline.bound(o.shape[0], table(out), int(out.steps.sum()),
+                                                             roofline.grid_ray_bytes(o, d))}
 
 
 def bounds(driver, res: dict) -> dict:
-    """Mean bound ms a launch of each kind (K1's secondary: a frame's
-    launches together) over :data:`WORK_STEPS` steps of the window."""
+    """Mean bound ms a launch of each kind (the secondary entries: a
+    frame's launches together) over :data:`WORK_STEPS` steps of the window."""
     last = res["last"]
     steps = [g for g in range(last - WORK_STEPS + 1, last + 1) if g >= last - res["steps"] + 1]
     fn = _query_bounds if driver.traffic["entry"] == "raytrace" else _frame_bounds
