@@ -283,7 +283,7 @@ OPS_PER_STEP = 8
 EVENTS = ("mskip", "cadv", "desc", "fstep", "step2", "asc")
 SPARSE_RAYS = 1 << 18
 # threads a block of each library's kernels (csrc/*.cu)
-BLOCK_THREADS = {"bigtrace": 128, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256, "crossings": 32,
+BLOCK_THREADS = {"bigtrace": 1024, "rrtrace": 128, "gridtrace": 128, "bmtrace": 1024, "terrain": 256, "crossings": 32,
                  "zslab": 1024, "camera": 128, "rays": 256, "shade": 256, "secondary": 256}
 # the app's frame (apps/voxel_app.py:64-68,178-188): the 1024^3 world at
 # factor 32, 1280x720, shadows, AO 4, reflections; the facade's batch size
@@ -440,8 +440,10 @@ def phase_build():
             entry = line if "Compiling entry" in line else entry
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                # K3's staged instantiation picks 256 or 1024 threads at launch; 256 shown
-                threads = 256 if "staged" in entry else BLOCK_THREADS[name]
+                # K3's staged instantiation picks 256 or 1024 threads at launch (256 shown);
+                # K1's diag builds take 128
+                threads = 256 if "staged" in entry else (
+                    128 if re.search(r"bigtrace_kernelILb.ELb1E", entry) else BLOCK_THREADS[name])
                 warps = resident_warps(int(m.group(1)), threads)
                 say(f"build:   {name}: {m.group(1)} registers at {threads} threads a block: "
                     f"at most {warps} resident warps an SM (of 64)")

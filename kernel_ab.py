@@ -12,6 +12,7 @@ turns on one NVIDIA GPU.
     python3 kernel_ab.py --quick --only 'bench frame' --before _checkout/prev --sass sass_out  # the frame's kernels, in turns
     python3 kernel_ab.py --zsharded --before _checkout/prev  # the z-sharded shaded bench frame on 4 ranks, in turns
     python3 kernel_ab.py --quick --only 'app query' --before _checkout/prev  # raytrace of a query batch in two trees
+    python3 kernel_ab.py --quick --only 'turned' --before _checkout/prev  # K1 on the turning camera's frames, in turns
 
 The inputs are made once, in this process, on the card: the demo frame's
 460,800 rays over the 1024^3 terrain (``chip_smoke.py`` phase 5), the
@@ -37,7 +38,10 @@ alone (the ``shade`` entry: color and write, no composite) and 8 chained
 each kind of the shaded frame's secondary traces (the tree's
 ``_secondary_inputs``: one launch of K1's or K4-compact's secondary entry,
 or the eager rays around the rays entry's walks) and, through K1, the same
-kind's eager rays (made once) through the rays entry alone; K4-compact also on K4's random rays over the 128^3
+kind's eager rays (made once) through the rays entry alone; K1's rays entry and each kind of its
+secondary stage at 8 yaws, evenly spaced, of the benchmark's turning camera (the position and pitch of
+``voxbench/traffic/terrain8k_1080p.shaded.json``; each yaw's rays and primary trace made once), 8
+launches a call, reported a frame; K4-compact also on K4's random rays over the 128^3
 terrain made compact; K4-slab
 (``bmtrace_slab``) on the 1024^3 world with dense slots at 4 slabs: round
 0 on the slab that owns the 1280x720 frame's rays, round 1 on the rows it
@@ -91,6 +95,7 @@ import argparse
 import hashlib
 import importlib.util
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -102,7 +107,8 @@ ROOT = Path(__file__).resolve().parent
 REPEATS = 20  # launches (or dense frames) in one timed window
 WINDOWS = 5  # timed windows; the median is reported
 WARM_S = 0.3  # seconds of launches before the first window, so the card's clocks are up
-FRAME_KINDS = ("dense_frames", "bench_frames")  # cases timed as 8 chained frames, reported a frame
+# cases timed as 8 chained frames (or 8 yaws' launches), reported a frame
+FRAME_KINDS = ("dense_frames", "bench_frames", "turned_rays", "turned_secondary")
 ZS_RANKS = 4  # ranks of the z-sharded frame (--zsharded), sharing the card over gloo
 ZS_FRAMES = 5  # its timed frames a run, after an untimed one
 
@@ -244,7 +250,12 @@ BENCH_FRAME_CASES = (
     "bench frame, rank 0's band of 4, its composite alone (composite entry, the band its destination)",
     "bench frame secondary rays for a caller's tracer, build (3 kinds)",
     "bench frame secondary rays for a caller's tracer, reduce (AO)",
+    "K1 bench frame turned (8 yaws), rays entry",
+    *(f"K1 bench frame turned (8 yaws) {kind}, secondary entry" for kind in SECONDARY_KINDS),
 )
+# the turning camera of the benchmark's shaded 8k traffic, whose position and pitch the turned cases take
+TURN_TRAFFIC = ROOT / "voxbench" / "traffic" / "terrain8k_1080p.shaded.json"
+TURN_YAWS = 8  # yaws a turn, evenly spaced
 
 
 QUERY_CASE = "app query batch, raytrace call"
@@ -325,6 +336,15 @@ def bench_frame_cases(cases, dev):
     cases[next(names)] = ("dest_composite", (bm, lt, origin, euler), dict(frame_kw, rank=0, ranks=4))
     for part in ("build", "reduce"):
         cases[next(names)] = ("secondary_kernels", (bm, lt, origin, euler), dict(frame_kw, part=part, shaded=True))
+    # K1's rays and secondary entries at 8 yaws of the benchmark's turning camera
+    # (its position and pitch), where walk lengths vary more than at the fixed camera
+    cam = json.loads(TURN_TRAFFIC.read_text())["camera"]
+    yaws = torch.arange(TURN_YAWS, dtype=torch.float64) * (2 * math.pi / TURN_YAWS)
+    eulers = torch.stack([torch.full_like(yaws, cam["pitch"]), yaws, torch.zeros_like(yaws)], 1).float().to(dev)
+    turned = (bm, lt, torch.tensor(cam["position"], device=dev), eulers)
+    cases[next(names)] = ("turned_rays", turned, frame_kw)
+    for kind in SECONDARY_KINDS:
+        cases[next(names)] = ("turned_secondary", turned, dict(frame_kw, kind=kind))
 
 
 def slab_cases(cases, dev):
@@ -551,6 +571,28 @@ def tree_functions(torch):
             return (fb,)
         return run, (lambda out: out)
 
+    def turned_rays(args, kw):
+        """K1's rays entry on each yaw's primary rays (made once): 8 launches
+        a call."""
+        bm, lt, origin, eulers = args
+        cfg = bench_cfg(kw)
+        rays = [primary_rays(cfg, origin, e, 1)[:2] for e in eulers]
+        return (lambda: [trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=False) for o, d in rays]), (
+            lambda out: tuple(torch.cat(f) for f in zip(*out)))
+
+    def turned_secondary(args, kw):
+        """One kind's secondary stage on each yaw's primary trace (made once):
+        8 launches of K1's secondary entry a call (the eager rays around the
+        rays entry in a tree without it)."""
+        bm, lt, origin, eulers = args
+        cfg = bench_cfg(kw)
+        env = Environment.default(origin.device)
+        yaws = [primary((bm, lt, origin, e), cfg) for e in eulers]
+
+        def run():
+            return [render._secondary_inputs(bm, lt, out, d, px, py, env, 1, cfg) for _, d, px, py, _, out in yaws]
+        return run, (lambda res: tuple(torch.cat(f) for f in zip(*(secondary_digest(r) for r in res))))
+
     def k5_call(args, kw):
         bm, lt, o, d = args
         return (lambda: ops_bigtrace.trace_brickmap_hbm_rr(bm, lt, o, d, kw["max_steps"])), (lambda out: out)
@@ -659,7 +701,7 @@ def tree_functions(torch):
         "shade_stage": shade_stage, "bench_frames": bench_frames, "shade_entry": shade_entry,
         "secondary_stage": secondary_stage, "secondary_walks": secondary_walks, "k5_call": k5_call,
         "sharded_frame": sharded_frame, "slab_rays": slab_rays, "dest_composite": dest_composite,
-        "secondary_kernels": secondary_kernels,
+        "secondary_kernels": secondary_kernels, "turned_rays": turned_rays, "turned_secondary": turned_secondary,
     }
 
 

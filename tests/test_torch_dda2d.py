@@ -140,7 +140,8 @@ def test_trace_brickmap_2d_bit_equal(ref, name):
 def host_kernels(monkeypatch):
     """Route CPU tensors as card tensors into the kernel wrappers, whose
     launchers call the g++ build of the kernels' per-ray code (the same
-    arguments, minus the stream)."""
+    arguments, minus the stream; K1's also minus its work counter and
+    grid)."""
     import shutil
 
     from voxelengine_tpu_torch.kernels import build
@@ -148,7 +149,8 @@ def host_kernels(monkeypatch):
     if shutil.which("g++") is None and shutil.which("c++") is None:
         pytest.skip("no C++ compiler for the host build of csrc/dda.cuh")
     lib = build.load_dda_host()
-    kernels = SimpleNamespace(vx_bigtrace_rays=lib.vx_bigtrace_rays_host, vx_trace_grid=lib.vx_trace_grid_full_host)
+    kernels = SimpleNamespace(vx_bigtrace_rays=lambda *a: lib.vx_bigtrace_rays_host(*a[:-2]),
+                              vx_trace_grid=lib.vx_trace_grid_full_host)
     monkeypatch.setattr(dda2d, "_is_cuda", lambda t: True)
     monkeypatch.setattr(build, "require_cuda", lambda kernel, dev: None)
     monkeypatch.setattr(build, "load_kernel", lambda name: kernels)

@@ -167,13 +167,15 @@ def world():
 class _HostKernels:
     """The launchers the frame's routes reach, as their host entries (the
     same arguments, less the stream, which the fixture's ``launch`` drops;
-    K4's also less its instantiation flag and work counter)."""
+    K1's also less its work counter and grid, K4's less its instantiation
+    flag and work counter)."""
 
     def __init__(self):
         dda, cam, sh = build.load_dda_host(), build.load_host("camera_host"), build.load_host("shade_host")
         self.vx_rays_frame, self.vx_rays_pixels = cam.vx_rays_frame_host, cam.vx_rays_pixels_host
-        self.vx_bigtrace_rays = dda.vx_bigtrace_rays_host
-        self.vx_bigtrace_secondary = dda.vx_bigtrace_secondary_host
+        rays, sec = dda.vx_bigtrace_rays_host, dda.vx_bigtrace_secondary_host
+        self.vx_bigtrace_rays = lambda *a: rays(*a[:-2])
+        self.vx_bigtrace_secondary = lambda *a: sec(*a[:-2])
         dense, compact = dda.vx_trace_brickmap_dense_rays_host, dda.vx_trace_brickmap_compact_rays_host
         self.vx_trace_brickmap_dense_rays = lambda *a: dense(*a[:16], *a[18:])
         self.vx_trace_brickmap_compact_rays = lambda *a: compact(*a[:17], *a[19:])
@@ -494,9 +496,12 @@ def test_dense_frames_through_twins_equal_jax(ref, world, host_route):
 
 def test_launcher_signatures_are_the_host_entries():
     """Each launcher takes its host entry's arguments (and the stream,
-    added at load); K4's also its instantiation flag and work counter."""
-    for fn in ("vx_bigtrace_rays", "vx_bigtrace_secondary", "vx_shade", "vx_shade_composite"):
+    added at load); K1's also its work counter and grid, last; K4's also its
+    instantiation flag and work counter."""
+    for fn in ("vx_shade", "vx_shade_composite"):
         assert build.SIGNATURES[fn] == build.HOST_ENTRIES[f"{fn}_host"]
+    for fn in ("vx_bigtrace_rays", "vx_bigtrace_secondary"):
+        assert build.SIGNATURES[fn] == build.HOST_ENTRIES[f"{fn}_host"] + [build._P, build._P]
     for fn, outs in (("vx_trace_brickmap_dense_rays", 4), ("vx_trace_brickmap_compact_rays", 4),
                      ("vx_trace_brickmap_dense_secondary", 5), ("vx_trace_brickmap_compact_secondary", 5)):
         kernel, host = build.SIGNATURES[fn], build.HOST_ENTRIES[f"{fn}_host"]

@@ -75,12 +75,14 @@ def _raytracer(kind, dense):
 
 
 class _HostKernels:
-    """The record entries' launchers as their host twins (K4's without
-    its instantiation flag and work counter)."""
+    """The record entries' launchers as their host twins (K1's without its
+    work counter and grid, K4's without its instantiation flag and work
+    counter)."""
 
     def __init__(self):
         dda = build.load_dda_host()
-        self.vx_bigtrace_record = dda.vx_bigtrace_record_host
+        k1 = dda.vx_bigtrace_record_host
+        self.vx_bigtrace_record = lambda *a: k1(*a[:-2])
         dense, compact = dda.vx_trace_brickmap_dense_record_host, dda.vx_trace_brickmap_compact_record_host
         self.vx_trace_brickmap_dense_record = lambda *a: dense(*a[:16], *a[18:])
         self.vx_trace_brickmap_compact_record = lambda *a: compact(*a[:17], *a[19:])

@@ -8,8 +8,9 @@
 // use_macro it takes the TPU kernel's L1/L2/L3 macro skips over empty
 // regions (dda.cuh, MACRO); with a diag buffer it is the TPU kernel's
 // measurement build (return_iters / return_phases): the 10 phase counters
-// per ray, and the iteration count of the ray's warp, the loop count of its
-// longest lane, where the TPU reports its tile's lockstep iterations
+// per ray, and the iteration count of the ray's warp batch (32 consecutive
+// rays), the loop count of its longest lane, where the TPU reports its
+// tile's lockstep iterations
 // (pallas_bigtrace.py:1514).  Four instantiations, (macro, diag) each on or
 // off; the production ones (diag off) keep their instruction streams.
 //
@@ -33,12 +34,26 @@
 // (ray_setup.cuh::OriginRaysRecord): VoxelRaytracer3D.raytrace's card path,
 // one launch a call.
 //
-// Design: one thread per ray, in the order the caller gives (render_frame's
-// tile_order: 32x32-pixel blocks, so neighbouring threads walk neighbouring
-// chunks and share L1 lines), the loop of dda.cuh::trace_ray, tables read
-// through the read-only path.  None of the TPU kernel's machinery is
-// carried over: no line cache, no voted DMA, no select-chain fetch, no
-// deferred descend, no lockstep tile.
+// Design: one thread a ray, the loop of dda.cuh::trace_ray, tables read
+// through the read-only path, launched as K4 is (bmtrace.cu): a persistent
+// grid of 1024-thread blocks, as many as the card holds at once (asked once
+// a process for each instantiation, grid_cache.cuh), in which each warp
+// takes 32 rays at a time from a global work counter (lane 0 atomicAdd,
+// broadcast by __shfl_sync) until none are left.  The counter is zeroed on
+// the launch's stream before every launch.  Batches go out in the caller's
+// order (render_frame's tile_order: 32x32-pixel blocks).  A batch is
+// warp-uniform (no lane returns inside it), as the diag build's
+// __reduce_max_sync needs.  Why: walk lengths vary widely on a turning
+// camera (ground rays end in a few chunks, horizon and sky-bound reflection
+// rays cross the world); where a 128-thread block had 128 rays of its own,
+// its SM slot stayed taken until its slowest warp ended.  Measured on an
+// H100 against that launch (PERF.md): 3-4% less device time over the four
+// walks of a frame at 8 yaws of the benchmark's turning camera, and 6-7%
+// more on the primary rays of the one fixed camera; the same queue in
+// 128-, 256- or 512-thread blocks, or with a block taking 4-32 batches at a
+// time, was slower.  None of the TPU kernel's machinery is carried over: no
+// line cache, no voted DMA, no select-chain fetch, no deferred descend, no
+// lockstep tile.
 //
 // Least time: the bytes of the rays (40 B in, 32 B out per ray) plus the
 // table bytes the rays touch (at least the region entry and the brick word
@@ -51,11 +66,11 @@
 // L1) serves, with 80 registers (24 warps an SM) and the coarse and fine
 // phases on separate paths.  What the design does about it: the convergent
 // loop of dda.cuh, no division by the factor in the box test, and 64
-// registers (__launch_bounds__(128, 8): 32 warps an SM) for the production
-// builds, measured faster than the compiler's own 72 and than 256-thread
-// blocks; the macro build spills at 64 registers and measured 13% faster so
-// on the sparse world than at the 84 it takes uncapped.  The diag builds
-// keep the compiler's own budget.
+// registers (32 warps an SM) for the production builds, measured faster
+// than the compiler's own 72; the macro build spills at 64 registers and
+// measured 13% faster so on the sparse world than at the 84 it takes
+// uncapped.  The diag builds keep the compiler's own budget, in 128-thread
+// blocks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC  (kernels/build.py).
@@ -63,81 +78,110 @@
 // trace computes it; no fast-math, so 1.0f/d and (b - s)/d stay IEEE.
 #include <cuda_runtime.h>
 
+#include "grid_cache.cuh"
 #include "ray_setup.cuh"
 #include "secondary.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int MIN_BLOCKS = 8;  // 8 x 128 threads an SM: at most 64 registers a thread
+constexpr int THREADS = 1024;  // a production build's block: 1024 x 64 registers fill an SM's register file
+constexpr int DIAG_THREADS = 128;  // a diag build's block, at the compiler's own register budget
 
 // Rays: vx::PreparedRays, vx::OriginRays, vx::OriginRaysRecord (pos, normal
 // and steps: the record's hit_point, normal and steps), or
 // vx::SecondaryRays (DIAG off; it stores its own outputs).
 template <bool MACRO, bool DIAG, class Rays>
-__global__ void __launch_bounds__(THREADS, DIAG ? 1 : MIN_BLOCKS)
-bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, Rays R, float* __restrict__ pos,
-                float* __restrict__ normal, int* __restrict__ steps, int* __restrict__ diag) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if constexpr (!DIAG) {
-    if (i >= n) return;
-  }
-  int dg[vx::D_COUNT] = {};
-  if (i < n) {
-    if constexpr (Rays::SECONDARY) {
-      R.template run<MACRO>(P, F, i);
-    } else {
-      const vx::TraceResult r = R.template trace<MACRO, DIAG>(P, F, i, dg);
-      R.store(r, i, pos, normal, steps);
-    }
-  }
-  if constexpr (DIAG) {
-    // every lane of the warp is here (no early return in this build)
-    const int warp_iters = __reduce_max_sync(0xffffffffu, dg[vx::D_ITERS]);
+__global__ void __launch_bounds__(DIAG ? DIAG_THREADS : THREADS, 1)
+bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, int* __restrict__ counter, Rays R,
+                float* __restrict__ pos, float* __restrict__ normal, int* __restrict__ steps,
+                int* __restrict__ diag) {
+  const int lane = threadIdx.x & 31;
+  const int batches = (n >> 5) + ((n & 31) != 0);
+  for (;;) {
+    int b = 0;
+    if (lane == 0) b = atomicAdd(counter, 1);  // the warp's next batch of 32 rays
+    b = __shfl_sync(0xffffffffu, b, 0);
+    if (b >= batches) return;  // the same for every lane of the warp
+    const int i = b * 32 + lane;
+    int dg[vx::D_COUNT] = {};
     if (i < n) {
-      for (int k = 0; k < vx::D_ITERS; ++k) diag[(long long)k * n + i] = dg[k];
-      diag[(long long)vx::D_ITERS * n + i] = warp_iters;
+      if constexpr (Rays::SECONDARY) {
+        R.template run<MACRO>(P, F, i);
+      } else {
+        const vx::TraceResult r = R.template trace<MACRO, DIAG>(P, F, i, dg);
+        R.store(r, i, pos, normal, steps);
+      }
+    }
+    if constexpr (DIAG) {
+      // every lane of the warp is here: a batch has no early return
+      const int warp_iters = __reduce_max_sync(0xffffffffu, dg[vx::D_ITERS]);
+      if (i < n) {
+        for (int k = 0; k < vx::D_ITERS; ++k) diag[(long long)k * n + i] = dg[k];
+        diag[(long long)vx::D_ITERS * n + i] = warp_iters;
+      }
     }
   }
 }
 
+// As many blocks as the card holds at once, and no more warps than batches
+// of 32 rays; grid (when not null) gets the SMs, the blocks an SM and the
+// threads a block the grid was sized by.
 template <bool MACRO, bool DIAG, class Rays>
 int launch(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, const Rays& R, float* pos,
-           float* normal, int* steps, int* diag, cudaStream_t stream) {
-  const int blocks = (n + THREADS - 1) / THREADS;
-  bigtrace_kernel<MACRO, DIAG><<<blocks, THREADS, 0, stream>>>(P, F, n, R, pos, normal, steps, diag);
+           float* normal, int* steps, int* diag, int* counter, int* grid, cudaStream_t stream) {
+  constexpr int threads = DIAG ? DIAG_THREADS : THREADS;
+  static vx::GridCache cache;  // one for each instantiation
+  int sms = 0, per_sm = 0;
+  cudaError_t e = vx::resident_blocks(cache, bigtrace_kernel<MACRO, DIAG, Rays>, threads, 0, &sms, &per_sm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long warps = ((long long)n + 31) / 32;
+  const long long wanted = (warps + threads / 32 - 1) / (threads / 32);
+  const int blocks = (int)(wanted < (long long)per_sm * sms ? wanted : (long long)per_sm * sms);
+  e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bigtrace_kernel<MACRO, DIAG><<<blocks, threads, 0, stream>>>(P, F, n, counter, R, pos, normal, steps, diag);
+  if (grid) {
+    grid[0] = sms;
+    grid[1] = per_sm;
+    grid[2] = threads;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instantiation of (use_macro, diag != null).
 template <class Rays>
 int launch_any(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, const Rays& R, int use_macro,
-               float* pos, float* normal, int* steps, int* diag, void* stream) {
+               float* pos, float* normal, int* steps, int* diag, int* counter, int* grid, void* stream) {
   if (n == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   if (use_macro) {
-    return diag ? launch<true, true>(P, F, n, R, pos, normal, steps, diag, s)
-                : launch<true, false>(P, F, n, R, pos, normal, steps, diag, s);
+    return diag ? launch<true, true>(P, F, n, R, pos, normal, steps, diag, counter, grid, s)
+                : launch<true, false>(P, F, n, R, pos, normal, steps, diag, counter, grid, s);
   }
-  return diag ? launch<false, true>(P, F, n, R, pos, normal, steps, diag, s)
-              : launch<false, false>(P, F, n, R, pos, normal, steps, diag, s);
+  return diag ? launch<false, true>(P, F, n, R, pos, normal, steps, diag, counter, grid, s)
+              : launch<false, false>(P, F, n, R, pos, normal, steps, diag, counter, grid, s);
 }
 
 }  // namespace
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
-// `diag` is null, or int32[D_COUNT, n]: the 10 phase counters, then the
-// warp's iteration count.
+// Launches on `stream` without synchronising; returns the first CUDA error
+// (cudaGetLastError() after the launch).  `diag` is null, or
+// int32[D_COUNT, n]: the 10 phase counters, then the iteration count of the
+// ray's warp batch.  `counter` is one int of device scratch, zeroed here on
+// `stream`; `grid` is null or a host int[3], set to the SMs, the blocks an
+// SM and the threads a block that sized the grid
+// (kernels/bigtrace.py::launch_grid).
 extern "C" int vx_bigtrace(const float* start, const float* dir, const int* active,
                            const int* pad, const int* region_lines, const int* brick_lines,
                            const int* macro, const int* macro2, int n, int gx, int gy, int gz,
                            int rx, int ry, int rz, int factor, int wpb, int max_steps,
                            int brick_layout, int iter_limit, int use_macro, int* flags,
-                           float* pos, float* normal, int* steps, int* diag, void* stream) {
+                           float* pos, float* normal, int* steps, int* diag, int* counter, int* grid,
+                           void* stream) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
   const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
   const vx::PreparedRays R = {start, dir, active, pad, flags};
-  return launch_any(P, F, n, R, use_macro, pos, normal, steps, diag, stream);
+  return launch_any(P, F, n, R, use_macro, pos, normal, steps, diag, counter, grid, stream);
 }
 
 // The rays entry: origins and raw directions (f32[n, 3], row strides os
@@ -149,11 +193,11 @@ extern "C" int vx_bigtrace_rays(const float* origins, int os, const float* rays,
                                 const int* macro2, int n, int gx, int gy, int gz, int rx, int ry,
                                 int rz, int factor, int wpb, int max_steps, int brick_layout,
                                 int iter_limit, int use_macro, unsigned char* hit, float* pos,
-                                float* normal, int* steps, int* diag, void* stream) {
+                                float* normal, int* steps, int* diag, int* counter, int* grid, void* stream) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
   const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
   const vx::OriginRays R = {origins, os, rays, rs, hit};
-  return launch_any(P, F, n, R, use_macro, pos, normal, steps, diag, stream);
+  return launch_any(P, F, n, R, use_macro, pos, normal, steps, diag, counter, grid, stream);
 }
 
 // The record entry: vx_bigtrace_rays with the macro levels off and no diag
@@ -168,12 +212,13 @@ extern "C" int vx_bigtrace_record(const float* origins, int os, const float* ray
                                   const int* macro2, int n, int gx, int gy, int gz, int rx, int ry, int rz,
                                   int factor, int wpb, int max_steps, int brick_layout, int iter_limit,
                                   unsigned char* valid, float* hit_point, float* normal, float* distance,
-                                  int* voxel_index, int* steps, void* stream) {
+                                  int* voxel_index, int* steps, int* counter, int* grid, void* stream) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
   const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
   const vx::OriginRaysRecord R = {{origins, os, rays, rs, valid}, distance, voxel_index, gx * factor, gy * factor};
   if (n == 0) return 0;
-  return launch<false, false>(P, F, n, R, hit_point, normal, steps, nullptr, static_cast<cudaStream_t>(stream));
+  return launch<false, false>(P, F, n, R, hit_point, normal, steps, nullptr, counter, grid,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // The secondary entry: the shadow, reflection or AO rays (`kind`,
@@ -186,13 +231,14 @@ extern "C" int vx_bigtrace_record(const float* origins, int os, const float* ray
 extern "C" int vx_bigtrace_secondary(VX_SECONDARY_PARAMS, const int* region_lines, const int* brick_lines,
                                      const int* macro, const int* macro2, int n, int gx, int gy, int gz, int rx,
                                      int ry, int rz, int factor, int wpb, int max_steps, int brick_layout,
-                                     int iter_limit, int use_macro, VX_SECONDARY_OUTS, void* stream) {
+                                     int iter_limit, int use_macro, VX_SECONDARY_OUTS, int* counter, int* grid,
+                                     void* stream) {
   const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
   const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
   return vx::with_secondary_kind(kind, VX_SECONDARY_ARGS, [&](const auto& R) {
     if (n == 0) return 0;
     const auto s = static_cast<cudaStream_t>(stream);
-    return use_macro ? launch<true, false>(P, F, n, R, nullptr, nullptr, nullptr, nullptr, s)
-                     : launch<false, false>(P, F, n, R, nullptr, nullptr, nullptr, nullptr, s);
+    return use_macro ? launch<true, false>(P, F, n, R, nullptr, nullptr, nullptr, nullptr, counter, grid, s)
+                     : launch<false, false>(P, F, n, R, nullptr, nullptr, nullptr, nullptr, counter, grid, s);
   });
 }

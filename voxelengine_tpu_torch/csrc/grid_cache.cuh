@@ -1,9 +1,10 @@
-// The grid of a persistent launch (K4 in bmtrace.cu, K4-slab in zslab.cu):
-// as many blocks as the card holds at once, SMs x the kernel's resident
-// blocks at its shared-memory size.  The runtime is asked once a process
-// for each kernel, device and shared-memory size, not on every launch: the
-// three queries (SM count, the shared-memory attribute, the occupancy
-// calculator) cost the host more than the rest of a launch.  Host code.
+// The grid of a persistent launch (K1 in bigtrace.cu, K4 in bmtrace.cu,
+// K4-slab in zslab.cu): as many blocks as the card holds at once, SMs x the
+// kernel's resident blocks at its shared-memory size.  The runtime is asked
+// once a process for each kernel, device and shared-memory size, not on
+// every launch: the three queries (SM count, the shared-memory attribute,
+// the occupancy calculator) cost the host more than the rest of a launch.
+// Host code.
 #pragma once
 
 #include <mutex>

@@ -21,10 +21,17 @@ so a run can show that its main path reached the kernel;
 those of the secondary entry by kind.  The record entry's plain version
 is :func:`voxelengine_tpu_torch.engine.raytracer.results_from_trace` over
 ``trace_brickmap``.
+
+Every entry launches a persistent grid whose warps take 32 rays at a time
+from a work counter (``csrc/bigtrace.cu``, :func:`launch_grid`):
+``grid_blocks`` is the last launch's grid, ``queued_batches`` the batches
+all launches handed out after their grid's first wave (0 for a launch of
+no more rays than one wave of warps takes).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -38,6 +45,36 @@ record_launches = 0
 # launches of the secondary entry by kind (each counted in ``launches`` too)
 secondary_launches = dict.fromkeys(build.SECONDARY_KINDS, 0)
 DIAG_ROWS = 11  # 10 phase counters (ops/bigtrace.py::PHASES), then iterations
+THREADS = 1024  # csrc/bigtrace.cu: a block of the production builds (the diag builds': 128)
+grid_blocks = 0
+queued_batches = 0
+
+
+def launch_grid(n: int, sms: int, per_sm: int, threads: int = THREADS) -> tuple:
+    """``(blocks, queued)`` of a launch of ``n`` rays on a card of ``sms``
+    SMs that hold ``per_sm`` blocks of ``threads`` each
+    (``csrc/bigtrace.cu::launch``): as many blocks as the card holds at
+    once, and no more warps than 32-ray batches; ``queued`` is the batches
+    handed out after the grid's first wave, ``max(0, ceil(n / 32) -
+    resident warps)``."""
+    batches = -(-n // 32)
+    warps = threads // 32
+    resident = sms * per_sm
+    return min(-(-batches // warps), resident), max(0, batches - resident * warps)
+
+
+def _launch(kernel: str, entry: str, n: int, *args, dev) -> None:
+    """Launch K1's ``entry`` on ``args`` and its work counter, and count
+    the launch and its grid."""
+    global launches, grid_blocks, queued_batches
+    counter = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launcher on the stream
+    grid = (ctypes.c_int * 3)()  # the SMs, blocks an SM and threads a block the launcher sized its grid by
+    build.launch(kernel, getattr(build.load_kernel("bigtrace"), entry), *args, counter.data_ptr(),
+                 ctypes.addressof(grid), dev=dev)
+    if grid[2]:  # 0 where a host twin ran in the launcher's place: no grid
+        grid_blocks, queued = launch_grid(n, *grid)
+        queued_batches += queued
+    launches += 1
 
 
 def check_line_table(kernel: str, dev, region_lines, brick_lines, macro, macro2, region_dims, factor, use_macro):
@@ -95,7 +132,6 @@ def bigtrace(
     ray's warp.  Launches on the current stream without synchronising and
     raises if the launch is refused.
     """
-    global launches
     dev = build.check_rays("bigtrace", start, d, active, pad)
     mptrs = check_line_table("bigtrace", dev, region_lines, brick_lines, macro, macro2, region_dims, factor,
                              use_macro)
@@ -106,8 +142,8 @@ def bigtrace(
     if n == 0:
         return outs
     gx, gy, gz = grid_dims
-    build.launch(
-        "bigtrace", build.load_kernel("bigtrace").vx_bigtrace,
+    _launch(
+        "bigtrace", "vx_bigtrace", n,
         start.data_ptr(), d.data_ptr(), active.data_ptr(), pad.data_ptr(),
         region_lines.data_ptr(), brick_lines.data_ptr(), *mptrs,
         n, gx, gy, gz, *region_dims, factor, wpb, max_steps, brick_layout.value,
@@ -115,7 +151,6 @@ def bigtrace(
         int(use_macro), *(o.data_ptr() for o in outs[:4]), outs[4].data_ptr() if diag else None,
         dev=dev,
     )
-    launches += 1
     return outs
 
 
@@ -149,7 +184,6 @@ def bigtrace_rays(
     fifth ``i32[11, N]`` as :func:`bigtrace`'s.  Launches on the current
     stream without synchronising and raises if the launch is refused.
     """
-    global launches
     dev = origins.device
     build.require_cuda("bigtrace_rays", dev)
     n = origins.shape[0]
@@ -163,8 +197,8 @@ def bigtrace_rays(
     if n == 0:
         return outs
     gx, gy, gz = grid_dims
-    build.launch(
-        "bigtrace_rays", build.load_kernel("bigtrace").vx_bigtrace_rays,
+    _launch(
+        "bigtrace_rays", "vx_bigtrace_rays", n,
         rows[0].data_ptr(), rows[1], rows[2].data_ptr(), rows[3],
         region_lines.data_ptr(), brick_lines.data_ptr(), *mptrs,
         n, gx, gy, gz, *region_dims, factor, wpb, max_steps, brick_layout.value,
@@ -172,7 +206,6 @@ def bigtrace_rays(
         int(use_macro), *(o.data_ptr() for o in outs[:4]), outs[4].data_ptr() if diag else None,
         dev=dev,
     )
-    launches += 1
     return outs
 
 
@@ -202,7 +235,7 @@ def bigtrace_record(
     fields of ``RayTraceResults``.  Launches on the current stream without
     synchronising and raises if the launch is refused.
     """
-    global launches, record_launches
+    global record_launches
     dev = origins.device
     build.require_cuda("bigtrace_record", dev)
     n = origins.shape[0]
@@ -214,14 +247,13 @@ def bigtrace_record(
     if n == 0:
         return outs
     gx, gy, gz = grid_dims
-    build.launch(
-        "bigtrace_record", build.load_kernel("bigtrace").vx_bigtrace_record,
+    _launch(
+        "bigtrace_record", "vx_bigtrace_record", n,
         *build.pointers(rows), region_lines.data_ptr(), brick_lines.data_ptr(), *mptrs,
         n, gx, gy, gz, *region_dims, factor, wpb, max_steps, brick_layout.value,
         3 * max_steps + 64,  # iteration cap (pallas_bigtrace.py:1488)
         *build.pointers(outs), dev=dev,
     )
-    launches += 1
     record_launches += 1
     return outs
 
@@ -258,7 +290,6 @@ def bigtrace_secondary(
     ``build.secondary_args``; ``max_steps`` is the kind's walk budget (8
     for AO).  Tables as for :func:`bigtrace`.  Launches on the current
     stream without synchronising and raises if the launch is refused."""
-    global launches
     dev, n, head, outs, res = build.secondary_args(
         "bigtrace_secondary", kind, position, normal, light=light, dirs=dirs, px=px, py=py, width=width,
         frame_number=frame_number, ao_samples=ao_samples)
@@ -267,13 +298,12 @@ def bigtrace_secondary(
     if n == 0:
         return res
     gx, gy, gz = grid_dims
-    build.launch(
-        "bigtrace_secondary", build.load_kernel("bigtrace").vx_bigtrace_secondary,
+    _launch(
+        "bigtrace_secondary", "vx_bigtrace_secondary", n,
         *build.pointers(head), region_lines.data_ptr(), brick_lines.data_ptr(), *mptrs,
         n, gx, gy, gz, *region_dims, factor, wpb, max_steps, brick_layout.value,
         3 * max_steps + 64,  # iteration cap (pallas_bigtrace.py:1488)
         int(use_macro), *build.pointers(outs), dev=dev,
     )
-    launches += 1
     secondary_launches[kind] += 1
     return res

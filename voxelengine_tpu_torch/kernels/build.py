@@ -60,7 +60,10 @@ _SECONDARY = [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I]
 _SECONDARY_OUTS = [_P] * 5  # hit, position, normal, steps, ao (null where the kind writes none)
 # the secondary entries' kinds, by their `kind` argument (secondary.cuh::SecondaryKind)
 SECONDARY_KINDS = ("shadow", "reflection", "ao")
-SIGNATURES = {
+# K1's entries as their host twins take them; each launcher takes two more,
+# last: counter (int32 scratch) and grid (null, or a host int[3]: the SMs,
+# the blocks an SM and the threads a block that sized the grid)
+K1_HOST = {
     # ... outputs, diag (null, or int32[11, n])
     "vx_bigtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
     # the same from origins and raw directions; hit (uint8) in place of flags
@@ -69,6 +72,9 @@ SIGNATURES = {
     "vx_bigtrace_record": _ORIGIN_RAYS + _LINE_TABLE + _LINE_TABLE_INTS[:-1] + _RECORD_OUTS,
     # a kind of secondary rays built from the primary trace; the kind's outputs
     "vx_bigtrace_secondary": _SECONDARY + _LINE_TABLE + _LINE_TABLE_INTS + _SECONDARY_OUTS,
+}
+SIGNATURES = {
+    **{fn: args + [_P, _P] for fn, args in K1_HOST.items()},
     # ... max_rows, rows, nrows, outputs (the record instantiation of K1's loop)
     "vx_trace_crossings": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P, _P] + _OUTS,
     # ... refill, counter (int32 scratch), stats (null, or uint64[2]), outputs
@@ -135,23 +141,24 @@ SIGNATURES = {
     "vx_shade_composite": _SHADE + [_I] * 5 + [_P],
 }
 # host-build entry -> its C signature: the kernel launcher's it mirrors,
-# except K4's two, which have no instantiation flag and no work counter; and the
-# grid walk alone on prepared rays (vx_trace_grid_host, *_limbs_host)
+# except K1's, which have no work counter and no grid, and K4's, which have
+# no instantiation flag and no work counter; and the grid walk alone on
+# prepared rays (vx_trace_grid_host, *_limbs_host)
 HOST_ENTRIES = {
-    "vx_trace_host": SIGNATURES["vx_bigtrace"],
+    "vx_trace_host": K1_HOST["vx_bigtrace"],
     "vx_rrtrace_host": SIGNATURES["vx_rrtrace"],
     "vx_trace_crossings_host": SIGNATURES["vx_trace_crossings"],
     "vx_trace_grid_full_host": SIGNATURES["vx_trace_grid"],
     "vx_trace_grid_limbs_full_host": SIGNATURES["vx_trace_grid_limbs"],
     "vx_trace_brickmap_dense_host": _RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
     "vx_trace_brickmap_compact_host": _RAYS + [_P] * 3 + [_I] * 10 + _OUTS,
-    "vx_bigtrace_rays_host": SIGNATURES["vx_bigtrace_rays"],
+    "vx_bigtrace_rays_host": K1_HOST["vx_bigtrace_rays"],
     "vx_trace_brickmap_dense_rays_host": _ORIGIN_RAYS + [_P] * 2 + [_I] * 10 + _OUTS,
     "vx_trace_brickmap_compact_rays_host": _ORIGIN_RAYS + [_P] * 3 + [_I] * 10 + _OUTS,
-    "vx_bigtrace_record_host": SIGNATURES["vx_bigtrace_record"],
+    "vx_bigtrace_record_host": K1_HOST["vx_bigtrace_record"],
     "vx_trace_brickmap_dense_record_host": _ORIGIN_RAYS + [_P] * 2 + [_I] * 10 + _RECORD_OUTS,
     "vx_trace_brickmap_compact_record_host": _ORIGIN_RAYS + [_P] * 3 + [_I] * 10 + _RECORD_OUTS,
-    "vx_bigtrace_secondary_host": SIGNATURES["vx_bigtrace_secondary"],
+    "vx_bigtrace_secondary_host": K1_HOST["vx_bigtrace_secondary"],
     "vx_trace_brickmap_dense_secondary_host": _SECONDARY + [_P] * 2 + [_I] * 10 + _SECONDARY_OUTS,
     "vx_trace_brickmap_compact_secondary_host": _SECONDARY + [_P] * 3 + [_I] * 10 + _SECONDARY_OUTS,
     "vx_trace_grid_host": _RAYS + [_P] + [_I] * 6 + _OUTS,
