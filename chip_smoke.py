@@ -35,9 +35,8 @@ Phases, one stdout line each (plus the kernels' build logs):
    full frame of rays, 0 diffs allowed; the count against the
    chunk-by-chunk walk printed too), the phase counters and the
    ``return_iters`` warp-iteration statistics;
-6. times on each world: K1 (macro off and on), K5 at each refill and the
-   plain trace on that frame's rays, with CUDA events; K5's lanes-active
-   share at each refill (its counting instantiation) beside K1's;
+6. times on each world: K1's rays entry (macro off and on), K5's at each
+   refill and the plain trace on that frame's rays, with CUDA events;
 7. dense kernels vs plain: K2 and K3 against the plain ``trace_grid`` on a
    random 32^3 grid in each layout, and a 96x64 ``render_frame_dense``
    frame through K2 against the plain path;
@@ -58,17 +57,17 @@ Phases, one stdout line each (plus the kernels' build logs):
    random 512x256x512 world at factor 8 whose 512 KB of meta exceed
    shared memory (K4's global-meta instantiation); K4-compact on the
    128^3 rays over that world made compact against the plain trace;
-   times, K4 also on the 128^3 rays sorted by direction octant, then start
-   chunk;
+   K4's and K4-compact's rays entries against the plain trace on the
+   128^3 rays, 0 word diffs; times, K4 also on the 128^3 rays sorted by
+   direction octant, then start chunk;
 10. sparse world: the 16384x512x16384 world at factor 32 of
    ``tests/test_pallas_bigtrace.py:500-531`` (512x16x512 chunks, 8192
    regions, L2 and L3 real), 262,144 near, horizon and sky rays: K1 macro
    off, K1 macro on and K5 (``trace_brickmap_hbm_rr``: one launch of its
    rays entry, the ray setup and ``hit_imm`` fix-up in it) each against its
-   plain version, K1 against K5 and K5's rays entry against its prepared
-   entry after the eager setup (0 diffs), the phase counters (``mskip``
-   must be > 0) against the plain walk's; times, K5 at each refill, its
-   rays entry, and K5's lanes-active share beside K1's;
+   plain version, K1 against K5 and K5's rays entry against the plain macro
+   walk word for word (0 diffs), the phase counters (``mskip`` must be > 0)
+   against the plain walk's; times, K1's rays entry, K5's at each refill;
 11. the app's frame (``apps/voxel_app.py`` at its default size): the 1024^3
    world at factor 32 with dense slots built through W1
    (``build_brickmap_terrain``), its ``compact_brickmap`` against
@@ -129,8 +128,8 @@ Phases, one stdout line each (plus the kernels' build logs):
    (ray migration through K4-slab's batch form: round 0 over the whole
    batch, setup, ownership and fix-up in the launch) on a 1280x720 frame's
    rays and 4,096 axis-aligned rays against single-device K4, K4-slab's
-   prepared form and its batch form against their plain slab walks on each
-   rank's round 0, each batch-form launch of the two traces run again
+   batch form against its plain slab walk on each rank's round 0 over the
+   whole batch, each batch-form launch of the two traces run again
    alone (ranks in turns) beside its bound, the migration's shaded frame
    against its ``secondary_plain`` frame as above, and
    ``render_frame_zsharded``
@@ -180,9 +179,10 @@ Phases, one stdout line each (plus the kernels' build logs):
    diffs.
 18. the fused frame kernels on the bench frame (phase 5's cache): K1's
    rays entry (``vx_bigtrace_rays``: the ray setup, the walk and the
-   ``hit_imm`` fix-up in one launch) against ``vx_bigtrace`` after the
-   eager setup and fix-up, macro on and off, production and diag builds,
-   and K4-compact's rays entry against its prepared entry, 0 word diffs;
+   ``hit_imm`` fix-up in one launch) against the plain line-table walk on
+   the same rays, macro on and off, production and diag builds (the diag
+   counters against the plain walk's), and K4-compact's rays entry against
+   the plain trace, 0 word diffs;
    the launch gates by ``torch.profiler`` (the trace stage exactly 1 CUDA
    kernel, the primary frame exactly 3: the ray kernel, K1, the shading
    kernel); the shading kernel (``csrc/shade.cu``) against
@@ -195,8 +195,8 @@ Phases, one stdout line each (plus the kernels' build logs):
    crosshair without checkerboard, 1280x719 and a block permutation in
    phase 5; the dense frame (and its launch gate, 3 CUDA kernels) in phase
    8; the app frame with shadows, AO 4 and reflections in phase 11; K4's
-   and K4-compact's rays entries against their prepared entries on the
-   random rays in phase 9;
+   and K4-compact's rays entries against the plain trace on the random
+   rays in phase 9;
 19. the shaded bench frame (shadows, AO 4, reflections; phase 5's cache)
    through the secondary entries of K1 (the line table), K4-compact (no
    line table) and K4 (the world with dense slots): a warm-up plus 8
@@ -218,10 +218,9 @@ K1 on a 2D world, one ``trace_grid_2d`` call for K2 on it, one
 ``trace_ray_crossings`` for the record kernel; in phase 13 each sharded
 entry for K1, the pixel-sharded frames for the shading kernel's
 composite entry on a rank's part, the shaded z-sharded frames for the
-secondary kernels and the migration traces for K4-slab (its batch form;
-the prepared form, on no path, is gated and timed apart), counted in every
-rank; the phase-10 ``trace_brickmap_hbm_rr`` call for K5's rays entry (its
-prepared entry, on no path, is gated and timed apart);
+secondary kernels and the migration traces for K4-slab's batch form,
+counted in every rank; the phase-10 ``trace_brickmap_hbm_rr`` call for
+K5's rays entry;
 the harness's ``xla`` run on the bench world for K4-compact; phase 19's
 shaded bench frames for each secondary entry)
 runs
@@ -267,8 +266,8 @@ FRAMES = 8  # timed chained frames after the warm-up
 # the instruction issue rate, not the data sheet's 67e12 float32 rate (an
 # FMA counted as two)
 HBM_BYTES_PER_S = 3.35e12
-# the prepared-ray entries (K1's vx_bigtrace, K4's and K5's) read start,
-# dir, pad (12 B each) and active (4 B) and write flags, steps (4 B each),
+# the record kernel (csrc/crossings.cu), on prepared rays, reads start,
+# dir, pad (12 B each) and active (4 B) and writes flags, steps (4 B each),
 # position and normal (12 B each) per ray
 RAY_BYTES = 72
 # K2, K3 and the rays entries of K1 and K4 read origins and raw directions
@@ -852,32 +851,20 @@ def k5_times(t):
     return ", ".join(f"{ms:.4f} ms at refill {r}" for r, ms in t.items())
 
 
-def k5_sweep(args, kw, use_macro):
-    """K5 at each of :data:`K5_REFILLS`: ``({refill: ms}, {refill: lanes-
-    active share})``, the share from the counting instantiation (one extra
-    launch each, off any path)."""
-    import torch
-
+def k5_sweep(bm, lt, o, d, max_steps, use_macro):
+    """K5's rays entry (``trace_brickmap_hbm_rr``'s launch) on rays ``o``,
+    ``d`` at each of :data:`K5_REFILLS`: ``{refill: ms}``."""
     from voxelengine_tpu_torch.kernels import rrtrace
+    from voxelengine_tpu_torch.ops.bigtrace import _kernel_tables
 
-    times, share = {}, {}
-    for r in sorted(set(K5_REFILLS) | {rrtrace.REFILL}, reverse=True):
-        times[r] = cuda_ms(lambda: rrtrace.rrtrace(*args, use_macro=use_macro, refill=r, **kw), repeats=10)
-        stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
-        rrtrace.rrtrace(*args, use_macro=use_macro, refill=r, stats=stats, **kw)
-        lanes, iters = stats.tolist()
-        share[r] = lanes / (32 * iters)
-    return times, share
-
-
-def share_line(what, k1_share, share):
-    say(f"{what}: lanes active on the warp-iterations: K1 (diag build) {k1_share:.4f}; K5 (counting build) "
-        + ", ".join(f"{v:.4f} at refill {r}" for r, v in share.items()))
+    tables, kw = _kernel_tables(bm, lt, max_steps, use_macro)
+    return {r: cuda_ms(lambda: rrtrace.rrtrace_rays(o, d, *tables, refill=r, **kw), repeats=10)
+            for r in sorted(set(K5_REFILLS) | {rrtrace.REFILL}, reverse=True)}
 
 
 def line_kernel_args(bm, lt, o, d, max_steps):
-    """K1's and K5's arguments for rays ``o``, ``d`` (ray setup done here,
-    so a timing covers the kernel alone)."""
+    """The record kernel's arguments for rays ``o``, ``d`` (its prepared
+    rays: the ray setup done here, so a timing covers the kernel alone)."""
     import torch
 
     from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup
@@ -1091,31 +1078,26 @@ def main_path_frames(dev, world, bm, lt, memo):
                 int(got.hit.sum()))
     check_diag(f"main path ({world})", phases, iters, pdg)
     events = phase_counts(phases, f"main path ({world})")
-    k1_share = warp_iters_line(iters, pdg[-1], got.steps, f"main path ({world})")
+    warp_iters_line(iters, pdg[-1], got.steps, f"main path ({world})")
 
-    # times, macro off and on: K1's rays entry (the frame path's launch) and
-    # its prepared entry (the walk alone, ray setup excluded); K5 alone; the
-    # plain trace
-    args, kw = line_kernel_args(bm, lt, o, d, cfg.max_steps)
+    # times, macro off and on: K1's rays entry (the frame path's launch);
+    # K5's rays entry; the plain trace
     r_off = cuda_ms(k1_rays_call(bm, lt, o, d, cfg.max_steps, False), repeats=10)
     r_on = cuda_ms(k1_rays_call(bm, lt, o, d, cfg.max_steps, True), repeats=10)
-    t_off = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
-    t_on = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=True, **kw), repeats=10)
-    t_k5, k5_share = k5_sweep(args, kw, use_macro)
-    share_line(f"main path ({world})", k1_share, k5_share)
-    k_ms, walk_ms = (r_on, t_on) if use_macro else (r_off, t_off)
+    t_k5 = k5_sweep(bm, lt, o, d, cfg.max_steps, use_macro)
+    k_ms = r_on if use_macro else r_off
     plain = trace_brickmap_lt if use_macro else (lambda bm, lt, *a: trace_brickmap(bm, *a))
     _, p_ms = events_ms(lambda: plain(bm, lt, o, d, cfg.max_steps))
     steps_sum = int(got.steps.sum())
-    say(f"times ({world}): K1's rays entry macro off {r_off:.3f} ms, macro on {r_on:.3f} ms; the walk alone "
-        f"(vx_bigtrace) macro off {t_off:.3f} ms, macro on {t_on:.3f} ms; K5 (use_macro={use_macro}) {k5_times(t_k5)}, "
+    say(f"times ({world}): K1's rays entry macro off {r_off:.3f} ms, macro on {r_on:.3f} ms; K5's rays entry "
+        f"(use_macro={use_macro}) {k5_times(t_k5)}, "
         f"plain {'macro walk' if use_macro else 'trace'} {p_ms:.3f} ms, {o.shape[0]} frame rays, "
         f"sum(steps) {steps_sum}, executed events {events}, on {card_line()}")
     return kernel_entry(
         "bigtrace" if world == "full" else "bigtrace_demo_world", "bigtrace.cu",
         "voxelengine_tpu/ops/pallas_bigtrace.py:1348", launches, diffs[4], k_ms, p_ms,
         o.shape[0], hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick), steps_sum,
-        events if use_macro else None, ray_bytes=grid_ray_bytes(o, d), walk_ms=walk_ms, rays_launches=ray_launches,
+        events if use_macro else None, ray_bytes=grid_ray_bytes(o, d), rays_launches=ray_launches,
         shade_launches=shade_launches,
     )
 
@@ -1178,10 +1160,10 @@ def shade_gate(what, bm, lt, cfg, origin, euler, env, fn, trace, block_perm=None
 
 
 def prepared_result(outs, bm, o, d):
-    """A prepared-ray entry's outputs (K1's ``bigtrace``, K4's ``bmtrace``
-    and ``bmtrace_compact``) after the eager ray setup and ``hit_imm``
-    fix-up, as the frame path ran them until the rays entries
-    (``ops/trace.py::_ray_setup``, ``kernel_result``)."""
+    """The record kernel's results (``csrc/crossings.cu``, on prepared rays:
+    ``flags = hit | hit_imm << 1``) after the eager ray setup's ``hit_imm``
+    fix-up (``ops/trace.py::_ray_setup``, ``kernel_result``): the fields a
+    rays entry returns."""
     from voxelengine_tpu_torch.ops.trace import _ray_setup, kernel_result
 
     _, start_c, start_normal, _ = _ray_setup(bm.grid_dims, bm.factor, o, d)
@@ -1190,15 +1172,15 @@ def prepared_result(outs, bm, o, d):
 
 def rays_entry_gate(what, got, want, got_diag=None, want_diag=None):
     """0 word diffs in hit, steps, normal and position (and the diag
-    counters where given) between a rays entry and its prepared-ray entry
-    fed by the eager setup, or the run fails."""
+    counters where given) between a rays entry and the plain walk on the
+    same rays, or the run fails."""
     diffs = {k: word_diffs(getattr(got, k), getattr(want, k)) for k in ("hit", "steps", "normal", "position")}
     if got_diag is not None:
         diffs["diag"] = word_diffs(got_diag, want_diag)
     say(f"{what} (tolerance: equal words): diffs {json.dumps(diffs)}, {got.hit.shape[0]} rays, "
         f"{int(got.hit.sum())} hits")
     if any(diffs.values()):
-        raise SystemExit(f"{what}: the rays entry disagrees with the prepared-ray entry")
+        raise SystemExit(f"{what}: the rays entry disagrees with the plain walk")
 
 
 def launch_gate(what, fn, kernels):
@@ -1554,17 +1536,19 @@ def phase_dense_path(dev, err):
     ]
 
 
-def direction_sorted(*rays):
-    """``rays`` (start, direction, ...) reordered by direction octant, then
-    by the chunk of the clipped start."""
+def direction_sorted(bm, o, d):
+    """Rays ``o``, ``d`` reordered by direction octant, then by the chunk of
+    their clipped start in ``bm``."""
     import torch
 
-    start, d = rays[:2]
+    from voxelengine_tpu_torch.ops.trace import _ray_setup
+
+    _, start, _, _ = _ray_setup(bm.grid_dims, bm.factor, o, d)
     octant = ((d[:, 0] < 0).long() << 2) | ((d[:, 1] < 0).long() << 1) | (d[:, 2] < 0).long()
     c = start.floor().long().clamp_min(0)
     g = c.amax(dim=0) + 1
     order = torch.argsort(octant * int(g.prod()) + c[:, 0] + g[0] * (c[:, 1] + g[1] * c[:, 2]))
-    return tuple(t[order].contiguous() for t in rays)
+    return o[order].contiguous(), d[order].contiguous()
 
 
 def phase_bmtrace(dev):
@@ -1578,16 +1562,9 @@ def phase_bmtrace(dev):
     from voxelengine_tpu_torch.core.brickmap import build_brickmap, compact_brickmap
     from voxelengine_tpu_torch.core.layout import Layout
     from voxelengine_tpu_torch.kernels import bmtrace
-    from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup, trace_brickmap
+    from voxelengine_tpu_torch.ops.trace import trace_brickmap
     from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_mxu, trace_brickmap_no_table
     from voxelengine_tpu_torch.worldgen.terrain import generate_world
-
-    def kernel_args(bm, o, d):
-        dd, start_c, _, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
-        pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, dev), dd)
-        kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=2048,
-                  coarse_layout=bm.coarse_layout, brick_layout=bm.brick_layout)
-        return (start_c, dd, active.to(torch.int32), pad), kw
 
     def table_bytes(out, bm):
         return hit_table_bytes(out, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick)
@@ -1650,38 +1627,29 @@ def phase_bmtrace(dev):
     check_diffs(f"on-chip brickmap: K4-compact ({'shared' if bmtrace.meta_in_shared(cbm.num_chunks) else 'global'} "
                 "meta) vs plain, compact_brickmap of the 128^3 f8 world", cdiffs, o.shape[0], int(want.hit.sum()))
 
-    # the rays entries (the frame path's) against the prepared-ray entries
-    # fed by the eager setup, every word of every output
-    prepared = {
-        "K4": (got, lambda *a, **k: bmtrace.bmtrace(*a, bm.meta, bm.bricks, **k)),
-        "K4-compact": (cgot, lambda *a, **k: bmtrace.bmtrace_compact(*a, cbm.meta, cbm.brick_idx, cbm.bricks, **k)),
-    }
-    for what, (rays_out, entry) in prepared.items():
-        args, kw = kernel_args(bm, o, d)
-        want_k = prepared_result(entry(*args, **kw), bm, o, d)
-        rays_entry_gate(f"on-chip brickmap: {what}'s rays entry vs its prepared entry, 128^3 f8 random rays",
-                        rays_out, want_k)
+    # the rays entries (the frame path's) against the plain trace on the same
+    # rays, every word of every output
+    for what, rays_out in (("K4", got), ("K4-compact", cgot)):
+        rays_entry_gate(f"on-chip brickmap: {what}'s rays entry vs the plain trace, 128^3 f8 random rays",
+                        rays_out, want)
 
-    # times: the rays entry (the frame path's launch) and, ray setup
-    # excluded, the walk alone, also on the rays sorted by direction
-    args, kw = kernel_args(bm, o, d)
-    sargs = direction_sorted(*args[:4])
+    # times: the rays entry (the frame path's launch), also on the rays
+    # sorted by direction
+    so, sd = direction_sorted(bm, o, d)
     k_ms = cuda_ms(k4_rays_call(bm, o, d, 2048), repeats=10)
     g_ms = cuda_ms(k4_rays_call(gbm, go, gd, 2048), repeats=10)
-    walk_ms = cuda_ms(lambda: bmtrace.bmtrace(*args, bm.meta, bm.bricks, **kw), repeats=10)
-    sorted_ms = cuda_ms(lambda: bmtrace.bmtrace(*sargs, bm.meta, bm.bricks, **kw), repeats=10)
+    sorted_ms = cuda_ms(k4_rays_call(bm, so, sd, 2048), repeats=10)
     p_ms = cuda_ms(lambda: trace_brickmap(bm, o, d), repeats=1)
     gp_ms = cuda_ms(lambda: trace_brickmap(gbm, go, gd), repeats=1)
     steps_sum, g_steps = int(want.steps.sum()), int(gwant.steps.sum())
-    say(f"times: K4 (shared meta) {k_ms:.3f} ms (the walk alone {walk_ms:.3f} ms, on the same rays sorted by "
-        f"direction octant then start chunk {sorted_ms:.3f} ms, sorted/unsorted {sorted_ms / walk_ms:.3f}), plain trace_brickmap {p_ms:.3f} ms, "
+    say(f"times: K4 (shared meta) {k_ms:.3f} ms (on the same rays sorted by direction octant then start chunk "
+        f"{sorted_ms:.3f} ms, sorted/unsorted {sorted_ms / k_ms:.3f}), plain trace_brickmap {p_ms:.3f} ms, "
         f"{o.shape[0]} rays, sum(steps) {steps_sum}; K4 (global meta) {g_ms:.3f} ms, plain {gp_ms:.3f} ms on the "
         f"{gname} world's {go.shape[0]} rays, sum(steps) {g_steps}, on {card_line()}")
     replaces = "voxelengine_tpu/ops/pallas_trace2.py:39"
     return [
         kernel_entry("bmtrace", "bmtrace.cu", replaces, launches, err, k_ms, p_ms, o.shape[0],
-                     table_bytes(want, bm), steps_sum, ray_bytes=grid_ray_bytes(o, d), walk_ms=walk_ms,
-                     sorted_walk_ms=sorted_ms),
+                     table_bytes(want, bm), steps_sum, ray_bytes=grid_ray_bytes(o, d), sorted_ms=sorted_ms),
         kernel_entry("bmtrace_global_meta", "bmtrace.cu", replaces, g_launches, gdiffs[4], g_ms, gp_ms,
                      go.shape[0], table_bytes(gwant, gbm), g_steps, ray_bytes=grid_ray_bytes(go, gd)),
     ]
@@ -1746,13 +1714,12 @@ def warp_max(x):
 def phase_sparse(dev):
     """Phase 10: K1 (macro off and on) and K5 on the sparse 16k world
     (``trace_brickmap_hbm_rr``: one launch of K5's rays entry, the ray
-    setup and the ``hit_imm`` fix-up in it, against the prepared entry
-    after the eager setup and fix-up); returns K5's record: the rays entry
-    (the path's), with the prepared entry's time at the default refill."""
+    setup and the ``hit_imm`` fix-up in it, against the plain macro walk
+    word for word); returns K5's record: the rays entry (the path's)."""
     import torch
 
     from voxelengine_tpu_torch.config import MAX_STEPS
-    from voxelengine_tpu_torch.kernels import bigtrace, rrtrace
+    from voxelengine_tpu_torch.kernels import rrtrace
     from voxelengine_tpu_torch.ops.bigtrace import (
         make_line_table,
         materialize_brick_lines,
@@ -1784,17 +1751,14 @@ def phase_sparse(dev):
     check_diffs("sparse world: K1 macro off vs plain trace_brickmap", compare(k1_off, plain_off), n, hits)
     k1_on = trace_brickmap_hbm(bm, lt, o, d, ms)
     check_diffs("sparse world: K1 macro on vs plain macro walk", compare(k1_on, plain_on), n, hits)
-    rrtrace.launches = rrtrace.rays_launches = 0  # K5's path: trace_brickmap_hbm_rr on this batch
+    rrtrace.rays_launches = 0  # K5's path: trace_brickmap_hbm_rr on this batch
     k5 = trace_brickmap_hbm_rr(bm, lt, o, d, ms)
     torch.cuda.synchronize()
-    k5_launches, rays_launches = rrtrace.launches, rrtrace.rays_launches
-    if (k5_launches, rays_launches) != (0, 1):
-        raise SystemExit(f"trace_brickmap_hbm_rr launched K5's rays entry {rays_launches} times and its prepared "
-                         f"entry {k5_launches} times, not the rays entry once")
+    rays_launches = rrtrace.rays_launches
+    if rays_launches != 1:
+        raise SystemExit(f"trace_brickmap_hbm_rr launched K5's rays entry {rays_launches} times, not once")
     k5_diffs = compare(k5, plain_on)
-    k5_args, k5_kw = line_kernel_args(bm, lt, o, d, ms)
-    rays_entry_gate("sparse world: K5's rays entry (trace_brickmap_hbm_rr) vs vx_rrtrace after the eager setup",
-                    k5, prepared_result(rrtrace.rrtrace(*k5_args, use_macro=True, **k5_kw), bm, o, d))
+    rays_entry_gate("sparse world: K5's rays entry (trace_brickmap_hbm_rr) vs the plain macro walk", k5, plain_on)
     check_diffs("sparse world: K5 vs plain macro walk", k5_diffs, n, hits)
     check_diffs("sparse world: K1 macro on vs K5", compare(k1_on, k5), n, hits)
     chunk = compare(k1_on, plain_off)
@@ -1809,30 +1773,25 @@ def phase_sparse(dev):
         raise SystemExit("sparse world: no macro skip fired")
     k1_share = warp_iters_line(iters, pdg[-1], k1_on.steps, "sparse world")
 
-    args, kw = line_kernel_args(bm, lt, o, d, ms)
-    t_off = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=False, **kw), repeats=10)
-    t_on = cuda_ms(lambda: bigtrace.bigtrace(*args, use_macro=True, **kw), repeats=10)
-    t_k5, k5_share = k5_sweep(args, kw, True)
-    share_line("sparse world", k1_share, k5_share)
+    t_off = cuda_ms(k1_rays_call(bm, lt, o, d, ms, False), repeats=10)
+    t_on = cuda_ms(k1_rays_call(bm, lt, o, d, ms, True), repeats=10)
+    t_k5 = k5_sweep(bm, lt, o, d, ms, True)
     p_off = cuda_ms(lambda: trace_brickmap(bm, o, d, ms), repeats=1)
     p_on = cuda_ms(lambda: trace_brickmap_lt(bm, lt, o, d, ms), repeats=1)
     steps_sum = int(k1_on.steps.sum())
-    say(f"times: sparse world, {n} rays: K1 macro off {t_off:.3f} ms, K1 macro on {t_on:.3f} ms, K5 {k5_times(t_k5)}, "
+    say(f"times: sparse world, {n} rays: K1's rays entry macro off {t_off:.3f} ms, macro on {t_on:.3f} ms, K5's rays "
+        f"entry {k5_times(t_k5)}, "
         f"plain trace_brickmap {p_off:.3f} ms, plain macro walk {p_on:.3f} ms, sum(steps) {steps_sum}, "
         f"executed events {events} (macro off: sum(steps) {int(plain_off.steps.sum())}), on {card_line()}")
     t_rays = cuda_ms(lambda: trace_brickmap_hbm_rr(bm, lt, o, d, ms), repeats=10)
-    say(f"times: sparse world: K5's rays entry (trace_brickmap_hbm_rr, one launch) {t_rays:.4f} ms at refill "
-        f"{rrtrace.REFILL}, its prepared entry {t_k5[rrtrace.REFILL]:.4f} ms (the eager setup and fix-up not "
-        f"counted), on {card_line()}")
+    say(f"times: sparse world: trace_brickmap_hbm_rr (K5's rays entry, one launch) {t_rays:.4f} ms at refill "
+        f"{rrtrace.REFILL}, on {card_line()}")
     table = hit_table_bytes(plain_on, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick)
-    # K5 on its path is the rays entry; the prepared entry (vx_rrtrace), which no path runs, is timed off the
-    # path (prepared_ms, the refill sweep's) and gated above
     return [kernel_entry(
         "rrtrace_rays", "rrtrace.cu", "voxelengine_tpu/ops/pallas_bigtrace.py:1694 (and the wrapper's XLA setup "
         "around it, voxelengine_tpu/ops/pallas_bigtrace.py:1947)", rays_launches, k5_diffs[4], t_rays, p_on, n,
-        table, steps_sum, events, ray_bytes=grid_ray_bytes(o, d), refill=rrtrace.REFILL,
-        lanes_active=k5_share[rrtrace.REFILL], k1_lanes_active=k1_share, prepared_ms=t_k5[rrtrace.REFILL],
-        prepared_launches=k5_launches,
+        table, steps_sum, events, ray_bytes=grid_ray_bytes(o, d), refill=rrtrace.REFILL, refill_ms=t_k5,
+        k1_lanes_active=k1_share,
     )]
 
 
@@ -2409,7 +2368,7 @@ def phase_crossings(dev):
 
     from voxelengine_tpu_torch.config import MAX_STEPS
     from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain_compact
-    from voxelengine_tpu_torch.kernels import bigtrace, crossings
+    from voxelengine_tpu_torch.kernels import crossings
     from voxelengine_tpu_torch.ops import crossing_trace as C
     from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines
 
@@ -2425,17 +2384,17 @@ def phase_crossings(dev):
         for use_macro in (True, False):
             rec, p_ms = events_ms(lambda: C.record_crossings(bm, lt, o, d, MAX_STEPS, use_macro))
             plain, plain_ms = events_ms(lambda: C._record_plain(bm, lt, o, d, MAX_STEPS, use_macro))
-            args, kw = line_kernel_args(bm, lt, o, d, MAX_STEPS)
-            k1 = bigtrace.bigtrace(*args, use_macro=use_macro, **kw)
+            k1 = k1_rays_call(bm, lt, o, d, MAX_STEPS, use_macro)()  # K1's rays entry, its results fixed up
             nrows = rec[1].long()
             row_diffs = sum(int((rec[0][i, :nrows[i]] != plain[0][i, :nrows[i]]).any(dim=1).sum())
                             for i in range(o.shape[0]))
             out_diffs = [int((a != b).reshape(a.shape[0], -1).any(dim=1).sum()) for a, b in zip(rec[2:], plain[2:])]
-            k1_diffs = [int((a != b).reshape(a.shape[0], -1).any(dim=1).sum()) for a, b in zip(rec[2:], k1)]
+            k1_diffs = [int((a != b).reshape(a.shape[0], -1).any(dim=1).sum())
+                        for a, b in zip(prepared_result(rec[2:], bm, o, d), k1)]
             last = rec[0][torch.arange(o.shape[0], device=dev), (nrows - 1).clamp_min(0)]
             ran = nrows > 0
             last_diffs = int(((last[:, C.STEPS] != k1[3]) & ran).sum()
-                             + (((last[:, C.STATE] >> 2) & 1 != (k1[0] & 1)) & ran).sum())
+                             + ((((last[:, C.STATE] >> 2) & 1) != k1[0].to(torch.int32)) & ran).sum())
             say(f"record kernel ({name} world, macro {'on' if use_macro else 'off'}, {o.shape[0]} rays, "
                 f"{int(nrows.sum())} rows): rows against the plain record {row_diffs} diffs, row counts "
                 f"{int((rec[1] != plain[1]).sum())} diffs, results {out_diffs}; results against K1 {k1_diffs}, "
@@ -2575,17 +2534,12 @@ MD_FRAMES = 8  # timed chained frames of each sharded layout, after the warm-up
 MD_NCCL_FRAMES = 2  # the NCCL rank's (depth cut: its gates are the same)
 MD_RAYS = 1 << 20  # raytrace_sharded's batch
 MD_AXIS_RAYS = 4096  # axis-aligned rays through every slab of the app world
-# K4-slab's bytes a ray in round 0: start, dir, pad (12 B each) and active
-# (4 B) in, status and result (32 B) out; and a paused ray's state row (35
-# words) out.  The kernel writes a row for every ray, but a ray that is done
-# needs none, so the bound counts the paused rays' rows only.
-SLAB_RAY_BYTES = 40 + 4 + 32
-SLAB_ROW_BYTES = 4 * 35
 # K4-slab's batch form (vx_zslab_rays): a done ray's result out at its batch
-# index (hit as int32, position, normal, steps), and a paused ray's row and
-# batch index out; round 0 reads the batch's origins and directions
+# index (hit as int32, position, normal, steps), and a paused ray's state
+# row (35 words) and batch index out; round 0 reads the batch's origins and
+# directions
 SLAB_RESULT_BYTES = 32
-SLAB_PAUSED_BYTES = SLAB_ROW_BYTES + 4
+SLAB_PAUSED_BYTES = 4 * 35 + 4
 
 
 def md_label(n: int, backend: str) -> str:
@@ -2642,9 +2596,7 @@ def md_rank(mesh, cache, key, frames):
     from voxelengine_tpu_torch.kernels import bigtrace, bmtrace
     from voxelengine_tpu_torch.kernels import shade as shade_kernel
     from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines, trace_brickmap_hbm
-    from voxelengine_tpu_torch.ops.trace import (
-        TraceOut, _dims, _edge_pad, _init_state, _ray_setup, kernel_result, run_slab, unpack_slab_state,
-    )
+    from voxelengine_tpu_torch.ops.trace import TraceOut
     from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_mxu
     from voxelengine_tpu_torch.parallel import distributed as D
     from voxelengine_tpu_torch.parallel import sharded as S
@@ -2806,64 +2758,26 @@ def md_rank(mesh, cache, key, frames):
 
     for name, (o, d) in (("frame", (fo.contiguous(), fd)), ("axis", (xo, xd))):
         stats = []
-        bmtrace.slab_launches = bmtrace.slab_rays_launches = 0
+        bmtrace.slab_rays_launches = 0
         bmtrace.bmtrace_slab_rays = recording_slab
         try:
             zres, ms = sync_wall(lambda: D.trace_brickmap_zsharded(app, o, d, mesh, acfg.max_steps, stats))
         finally:
             bmtrace.bmtrace_slab_rays = real_slab
-        out[f"mig_{name}_ms"], out[f"mig_{name}_launches"] = ms, bmtrace.slab_launches
+        out[f"mig_{name}_ms"] = ms
         out[f"mig_{name}_rays_launches"] = bmtrace.slab_rays_launches
         out[f"mig_{name}_rounds"] = stats
         if r == 0:
             out[f"mig_{name}_diffs"] = list(full_diffs(zres, trace_brickmap_mxu(app, o, d, acfg.max_steps)))
             out[f"mig_{name}_hits"] = int(zres.hit.sum())
-        # K4 alone on the same rays, single-device, beside K4-slab's round 0
-        dd, start_c, start_normal, active = _ray_setup(app.grid_dims, app.factor, o, d)
-        pad = _edge_pad(start_c.to(torch.int32), _dims(app.grid_dims, torch.int32, dev), dd)
-        k4 = (start_c.contiguous(), dd.contiguous(), active.to(torch.int32), pad.contiguous())
-        out[f"k4_{name}_ms"] = md_in_turns(mesh, lambda: r == 0 and cuda_ms(lambda: bmtrace.bmtrace(
-            *k4, app.meta, app.bricks, grid_dims=app.grid_dims, factor=app.factor, max_steps=acfg.max_steps,
-            coarse_layout=app.coarse_layout, brick_layout=app.brick_layout), repeats=10))
-        # K4-slab against its plain version on this rank's round-0 rays
+        # K4's rays entry on the same rays, single-device, beside K4-slab's
+        out[f"k4_{name}_ms"] = md_in_turns(mesh, lambda: r == 0 and cuda_ms(
+            k4_rays_call(app, o, d, acfg.max_steps), repeats=10))
+        # K4-slab's batch form against its plain version on this rank's slab
         meta_s, bricks_s, _ = D.shard_world_z(app, n)
-        own = torch.nonzero(active & (torch.clamp(start_c.to(torch.int32)[:, 2] // slab_gz, 0, n - 1) == r)).squeeze(1)
-        setup = (start_c[own].contiguous(), dd[own].contiguous(), active[own].to(torch.int32), pad[own].contiguous())
         kw = dict(grid_dims=app.grid_dims, z0=r * slab_gz, slab_gz=slab_gz, factor=app.factor,
                   max_steps=acfg.max_steps, brick_layout=app.brick_layout)
-        k_ms = md_in_turns(mesh, lambda: own.numel() and cuda_ms(
-            lambda: bmtrace.bmtrace_slab(meta_s[r], bricks_s[r], rays=setup, **kw), repeats=10))
         out[f"slab_rays_{name}"] = md_slab_rays_check(app, meta_s[r], bricks_s[r], o, d, kw, mesh)
-        if own.numel() == 0:
-            continue
-        rows, status, *kres = bmtrace.bmtrace_slab(meta_s[r], bricks_s[r], rays=setup, **kw)
-        spec = app.grid_dims + (app.factor, app.coarse_layout, app.brick_layout)
-        local = D._slab_bm(spec, meta_s[r], bricks_s[r], slab_gz)
-        st = _init_state(local, o[own], d[own], full_gz=gz)
-        (p_rows, p_status, *pres), p_ms = events_ms(lambda: run_slab(local, st, acfg.max_steps, r * slab_gz, gz))
-        st = unpack_slab_state(p_rows)
-        paused = status == 1
-        done = ~paused
-        fin = kernel_result(*pres, start_c[own], start_normal[own], app.factor)
-        kr = kernel_result(*kres, start_c[own], start_normal[own], app.factor)
-        bad = {
-            "pause points": int((status != p_status).sum()),
-            "paused cell": int((rows[paused, bmtrace.STATE_CELL] != st["ccell"][paused]).any(1).sum()),
-            "paused tmax": int((rows[paused, bmtrace.STATE_TMAX].view(torch.float32) != st["ctmax"][paused]).any(1).sum()),
-            "paused entry t": int((rows[paused, bmtrace.STATE_TLAST].view(torch.float32) != st["centry_t"][paused]).sum()),
-            "paused steps": int((rows[paused, bmtrace.STATE_STEPS] != st["steps"][paused]).sum()),
-        }
-        bad.update({f"done {f}": v for f, v in zip(("hit", "steps", "normal", "position"),
-                                                   full_diffs(TraceOut(*(t[done] for t in kr)),
-                                                              TraceOut(*(t[done] for t in fin))))})
-        h = kr.hit & done
-        err = torch_max((kr.position[h] - fin.position[h]).abs(), (kr.normal[h] - fin.normal[h]).abs())
-        out[f"slab_{name}"] = {
-            "ms": k_ms, "plain_ms": p_ms, "rays": int(own.numel()), "paused": int(paused.sum()), "bad": bad,
-            "err": err, "steps": int(torch.where(paused, rows[:, bmtrace.STATE_STEPS], kres[3]).sum()),
-            "table": hit_table_bytes(TraceOut(*(t[done] for t in fin)), app.world_dims, app.brick_layout, app.factor,
-                                     app.words_per_brick),
-        }
 
     out["slab_launches"] = md_in_turns(mesh, lambda: [slab_launch_time(app, *c) for c in slab_calls])
     del slab_calls
@@ -3244,22 +3158,15 @@ def md_gates(label, res, card):
         say(f"multi-device ({label}): trace_brickmap_zsharded through K4-slab's batch form, app world, {name} rays vs "
             f"single-device K4 (tolerance: bit-equal): diffs (hit, steps, normal, position) "
             f"{r0[f'mig_{name}_diffs']}, hits {r0[f'mig_{name}_hits']}; batch-form launches "
-            f"{[x[f'mig_{name}_rays_launches'] for x in res]}, prepared-form launches "
-            f"{[x[f'mig_{name}_launches'] for x in res]} (must be 0) per rank, on {card}")
-        fails += [f"migration {name}"] * (any(r0[f"mig_{name}_diffs"]) or any(
-            x[f"mig_{name}_launches"] for x in res) or not sum(x[f"mig_{name}_rays_launches"] for x in res))
+            f"{[x[f'mig_{name}_rays_launches'] for x in res]} per rank, on {card}")
+        fails += [f"migration {name}"] * (any(r0[f"mig_{name}_diffs"]) or
+                                          not sum(x[f"mig_{name}_rays_launches"] for x in res))
         for x in res:
             s = x[f"slab_rays_{name}"]
             say(f"multi-device ({label}): K4-slab's batch form (vx_zslab_rays) vs its plain round 0 (_init_state, "
                 f"ownership, run_slab, kernel_result) on rank {x['rank']}'s slab, the whole {name} batch ({s['rays']} "
                 f"rays, {s['owned']} owned, {s['paused']} paused; tolerance: bit-equal): {json.dumps(s['bad'])}")
             fails += [f"K4-slab batch form rank {x['rank']}"] * any(s["bad"].values())
-        for x in res:
-            s = x.get(f"slab_{name}")
-            if s:
-                say(f"multi-device ({label}): K4-slab vs its plain slab walk on rank {x['rank']}'s round-0 {name} rays "
-                    f"({s['rays']} rays, {s['paused']} paused; tolerance: bit-equal): {json.dumps(s['bad'])}")
-                fails += [f"K4-slab rank {x['rank']}"] * any(s["bad"].values())
     for name, what in (("zframe_bench", f"K1's replicated walk, bench world {WORLDS['full'][1]}x{WORLDS['full'][2]}"),
                        ("zframe_app_migration", f"migration, app world {APP_SIZE[0]}x{APP_SIZE[1]}")):
         z = r0[name]
@@ -3302,10 +3209,8 @@ def md_times(label, res, wall_s, card):
         rounds = [[(s["sent_up"], s["sent_down"]) for s in x[f"mig_{name}_rounds"]] for x in res]
         say(f"multi-device ({tag}): migration ({name} rays): {len(res)} rounds, rays sent (up, down) per rank and "
             f"round {rounds}, K4-slab launches {sum(x[f'mig_{name}_rays_launches'] for x in res)}, trace "
-            f"{[round(x[f'mig_{name}_ms'], 2) for x in res]} ms (host wall); K4-slab alone on round 0 "
-            f"{ {x['rank']: round(x[f'slab_{name}']['ms'], 4) for x in res if f'slab_{name}' in x} } ms, its plain "
-            f"{ {x['rank']: round(x[f'slab_{name}']['plain_ms'], 1) for x in res if f'slab_{name}' in x} } ms; "
-            f"single-device K4 alone on the same {name} rays {res[0][f'k4_{name}_ms']:.4f} ms")
+            f"{[round(x[f'mig_{name}_ms'], 2) for x in res]} ms (host wall); single-device K4's rays entry on the "
+            f"same {name} rays {res[0][f'k4_{name}_ms']:.4f} ms")
     launches = [dict(x, rank=r["rank"]) for r in res for x in r["slab_launches"]]
     each = [(x["rank"], x["rays"], 0 if x["round0"] else "later", x["paused"], round(x["ms"], 4),
              round(x["bound_ms"], 5)) for x in launches]
@@ -3391,12 +3296,9 @@ def md_kernels(res):
             "kinds": z["kinds"], "timed_on": "rank 0's bench zw frame, its kinds' launches together",
         })
     # K4-slab on its path is the batch form: the migration traces' launches; timed on the rank owning the most
-    # frame rays.  The prepared form (vx_zslab), which no path runs, is gated and timed off the path on the rank's
-    # round-0 rays (prepared_*)
+    # frame rays
     sr = max(res, key=lambda x: x["slab_rays_frame"]["owned"])["slab_rays_frame"]
     each = [x for r in res for x in r["slab_launches"]]
-    owner = max((x for x in res if "slab_frame" in x), key=lambda x: x["slab_frame"]["rays"])
-    s = owner["slab_frame"]
     recs.append(kernel_entry(
         "zslab_rays", "zslab.cu", "voxelengine_tpu/ops/trace.py:221 _run_loop(slab=) and voxelengine_tpu/parallel/"
         "distributed.py:84-172 (XLA, no pallas_call)", sum(x[f"mig_{n}_rays_launches"] for x in res
@@ -3406,11 +3308,6 @@ def md_kernels(res):
         batch_rays=sr["rays"], owned=sr["owned"], paused=sr["paused"],
         launch_ms=[x["ms"] for x in each], launch_bound_ms=[x["bound_ms"] for x in each],
         launches_x_ms_minus_bound=sum(x["ms"] - x["bound_ms"] for x in each),
-        prepared_launches=sum(x["mig_frame_launches"] + x["mig_axis_launches"] for x in res),
-        prepared_max_abs_err=s["err"], prepared_ms=s["ms"], prepared_plain_ms=s["plain_ms"],
-        prepared_bound_ms=bound(s["rays"], s["table"], s["steps"],
-                                SLAB_RAY_BYTES + SLAB_ROW_BYTES * s["paused"] / s["rays"])[0],
-        prepared_timed_on=f"rank {owner['rank']}'s round-0 frame rays ({s['rays']})",
     ))
     return recs
 
@@ -3467,7 +3364,7 @@ def phase_harness(dev, cache, key):
     from voxelengine_tpu_torch.config import RenderConfig
     from voxelengine_tpu_torch.io.checkpoint import generate_or_load
     from voxelengine_tpu_torch.kernels import bigtrace, bmtrace, terrain
-    from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup, trace_brickmap
+    from voxelengine_tpu_torch.ops.trace import trace_brickmap
     from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table
     from voxelengine_tpu_torch.render.frame import primary_rays
 
@@ -3525,15 +3422,8 @@ def phase_harness(dev, cache, key):
     diffs = compare(got, want)
     check_diffs(f"bench harness: K4-compact ({meta} meta) vs plain on the bench frame's rays", diffs, o.shape[0],
                 int(want.hit.sum()))
-    dd, start_c, _, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
-    pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, dev), dd)
-    args = (start_c.contiguous(), dd.contiguous(), active.to(torch.int32), pad.contiguous(), bm.meta, bm.brick_idx,
-            bm.bricks)
-    kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=cfg.max_steps, coarse_layout=bm.coarse_layout,
-              brick_layout=bm.brick_layout)
-    # the rays entry (bench.run(xla)'s launch) and the walk alone
+    # the rays entry (bench.run(xla)'s launch)
     k_ms = cuda_ms(k4_rays_call(bm, o, d, cfg.max_steps), repeats=10)
-    walk_ms = cuda_ms(lambda: bmtrace.bmtrace_compact(*args, **kw), repeats=10)
     # the bound's table bytes: each distinct hit word and hit chunk's meta
     # word (hit_table_bytes), and the hit chunks' brick_idx words
     h = hit_voxels(want, bm.world_dims) // bm.factor
@@ -3542,14 +3432,14 @@ def phase_harness(dev, cache, key):
     table = hit_table_bytes(want, bm.world_dims, bm.brick_layout, bm.factor, bm.words_per_brick) + slot_bytes
     steps_sum = int(want.steps.sum())
     say(f"bench harness: K4-compact ({meta} meta; the xla run's launches {xla['K4-compact']}, "
-        f"{xla['shared']} of them shared meta) {k_ms:.4f} ms (the walk alone {walk_ms:.4f} ms), plain trace_brickmap {p_ms:.1f} ms on the bench "
+        f"{xla['shared']} of them shared meta) {k_ms:.4f} ms, plain trace_brickmap {p_ms:.1f} ms on the bench "
         f"frame's {o.shape[0]} rays, sum(steps) {steps_sum}; phase 14 in {time.perf_counter() - t_phase:.1f} s, "
         f"on {card}")
     return kernel_entry(
         "bmtrace_compact", "bmtrace.cu",
         "none: voxelengine_tpu/ops/trace.py:411,435 trace_brickmap / trace_brickmap_staged (XLA, no pallas_call)",
         xla["K4-compact"], diffs[4], k_ms, p_ms, o.shape[0], table, steps_sum, ray_bytes=grid_ray_bytes(o, d),
-        walk_ms=walk_ms, path="bench.run(backend='xla') on the bench world", table_form=f"compact, {meta} meta",
+        path="bench.run(backend='xla') on the bench world", table_form=f"compact, {meta} meta",
     )
 
 
@@ -3858,15 +3748,17 @@ def shade_bytes(cfg, out, o, d, px, py, write, shadow=False):
 
 def phase_frame_kernels(dev, cache, launches):
     """Phase 18 on the bench frame (phase 5's cache): K1's rays entry
-    against its prepared-ray entry fed by the eager setup, macro on and
-    off, the diag counters included, and K4-compact's likewise; the launch
-    gates (the trace stage 1 CUDA kernel, the primary frame 3); the
-    shading kernel against its plain versions at both parities and on 4
-    ranks' band and cyclic pixels; its times and its record, with
+    against the plain line-table walk on the same rays, macro on and off,
+    the diag counters included, and K4-compact's against the plain trace;
+    the launch gates (the trace stage 1 CUDA kernel, the primary frame 3);
+    the shading kernel against its plain versions at both parities and on
+    4 ranks' band and cyclic pixels; its times and its record, with
     ``launches`` from phase 5's frames."""
+    import torch
+
     from voxelengine_tpu_torch.experiments.scene import bench_scene
-    from voxelengine_tpu_torch.kernels import bigtrace, bmtrace
-    from voxelengine_tpu_torch.ops.bigtrace import _kernel_tables, prepared_rays, trace_brickmap_hbm, trace_brickmap_k1
+    from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm, trace_brickmap_k1, trace_brickmap_lt
+    from voxelengine_tpu_torch.ops.trace import trace_brickmap
     from voxelengine_tpu_torch.ops.trace2 import trace_brickmap_no_table
     from voxelengine_tpu_torch.parallel import sharded
     from voxelengine_tpu_torch.parallel.mesh import Mesh
@@ -3880,25 +3772,20 @@ def phase_frame_kernels(dev, cache, launches):
     ms = cfg.max_steps
     o, d, px, py, py_r = primary_rays(cfg, origin, euler, 1)
 
-    # K1's rays entry against vx_bigtrace after the eager setup, diag builds too
+    # K1's rays entry against the plain line-table walk, diag builds too:
+    # the phase counters equal, the iterations the warp maximum of the
+    # plain walk's own
     for use_macro in (False, True):
-        tables, kw = _kernel_tables(bm, lt, ms, use_macro)
-        start_c, dd, active, pad, _ = prepared_rays(bm, o, d)
+        want, pdg = trace_brickmap_lt(bm, lt, o, d, ms, use_macro, diag=True)
+        want_diag = torch.cat([pdg[:-1], warp_max(pdg[-1])[None]])
         for diag in (False, True):
             got = trace_brickmap_k1(bm, lt, o, d, ms, use_macro, diag=diag)
-            outs = bigtrace.bigtrace(start_c, dd, active, pad, *tables, diag=diag, **kw)
-            want = prepared_result(outs, bm, o, d)
-            rays_entry_gate(f"frame kernels: K1's rays entry vs vx_bigtrace, bench frame, use_macro={use_macro}, "
-                            f"diag={diag}", got[0] if diag else got, want, got[1] if diag else None,
-                            outs[4] if diag else None)
+            rays_entry_gate(f"frame kernels: K1's rays entry vs the plain line-table walk, bench frame, "
+                            f"use_macro={use_macro}, diag={diag}", got[0] if diag else got, want,
+                            got[1] if diag else None, want_diag if diag else None)
     # K4-compact's rays entry on the same rays (the bench world is compact)
-    kw4 = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=ms, coarse_layout=bm.coarse_layout,
-               brick_layout=bm.brick_layout)
-    start_c, dd, active, pad, _ = prepared_rays(bm, o, d)
-    want = prepared_result(bmtrace.bmtrace_compact(start_c, dd, active, pad, bm.meta, bm.brick_idx, bm.bricks, **kw4),
-                           bm, o, d)
-    rays_entry_gate("frame kernels: K4-compact's rays entry vs vx_trace_brickmap_compact, bench frame",
-                    trace_brickmap_no_table(bm, o, d, ms), want)
+    rays_entry_gate("frame kernels: K4-compact's rays entry vs the plain trace, bench frame",
+                    trace_brickmap_no_table(bm, o, d, ms), trace_brickmap(bm, o, d, ms))
 
     # the launch gates
     def trace(o_, d_):

@@ -5,7 +5,7 @@ turns on one NVIDIA GPU.
     python3 kernel_ab.py                          # this checkout alone
     python3 kernel_ab.py --before _checkout/prev  # an earlier checkout too, in turns (repeatable)
     python3 kernel_ab.py --quick                  # without the 1024^3 demo frame (~95 s of worldgen)
-    python3 kernel_ab.py --sass sass_out          # also write each K1/K4 library's SASS there
+    python3 kernel_ab.py --sass sass_out          # also write each traversal library's SASS there
     python3 kernel_ab.py --variant='-maxrregcount=72'  # this checkout built with other nvcc flags too
     python3 kernel_ab.py --only 'K4-compact|K4-slab'  # only the cases whose names match (inputs built for them)
     python3 kernel_ab.py --quick --only 'ray setup' --before _checkout/prev  # the bench frame's primary_rays in two trees
@@ -14,24 +14,26 @@ turns on one NVIDIA GPU.
     python3 kernel_ab.py --quick --only 'app query' --before _checkout/prev  # raytrace of a query batch in two trees
     python3 kernel_ab.py --quick --only 'turned' --before _checkout/prev  # K1 on the turning camera's frames, in turns
 
-The inputs are made once, in this process, on the card: the demo frame's
-460,800 rays over the 1024^3 terrain (``chip_smoke.py`` phase 5), the
-dense path's 64^3 terrain with the last dense frame's 460,800 rays and the
-config-2 batch of 1,048,576 rays (phase 8), the sparse 16k world's 262,144
-rays (phase 10), and K4's 1,048,576 random rays over the 128^3 terrain at
-factor 8 (phase 9), as given and sorted by direction octant, then by the
-chunk of the clipped start, and as given through the tree's whole
-``trace_brickmap_no_table`` call; without ``--quick`` also K4 on terrains of
-16-224 KB of meta with each of its two instantiations (shared or global
-meta, forced through the wrapper's limit).  K3 is also timed in its global
-instantiation (plain blocks, the four-plane fetch; forced through the
-wrapper's limit) on the config-2 batch.  On the bench frame's 1,036,800
-rays over the 8192x512x8192 world (built by W1), macro levels off: K4-compact
-(``bmtrace_compact``) alone and as the whole ``trace_brickmap_no_table``
-call, K1 alone (``bigtrace``, prepared rays) and as the whole
-``trace_brickmap_hbm`` call (the tree's ray setup, walk and ``hit_imm``
-fix-up: eager ops around ``vx_bigtrace``, or one launch of K1's rays
-entry), the frame's shading and composite (the shading kernel's composite
+K1, K4, K4-compact, K5 and K4-slab are timed through their rays entries
+(origins and raw directions in, the ray setup and the ``hit_imm`` fix-up in
+the launch), the wrapper called alone or through the tree's whole trace
+call.  The inputs are made once, in this process, on the card: the demo
+frame's 460,800 rays over the 1024^3 terrain (``chip_smoke.py`` phase 5),
+the dense path's 64^3 terrain with the last dense frame's 460,800 rays and
+the config-2 batch of 1,048,576 rays (phase 8), the sparse 16k world's
+262,144 rays (phase 10), and K4's 1,048,576 random rays over the 128^3
+terrain at factor 8 (phase 9), as given and sorted by direction octant,
+then by the chunk of the clipped start, and as given through the tree's
+whole ``trace_brickmap_no_table`` call; without ``--quick`` also K4 on
+terrains of 16-224 KB of meta with each of its two instantiations (shared
+or global meta, forced through the wrapper's limit).  K3 is also timed in
+its global instantiation (plain blocks, the four-plane fetch; forced
+through the wrapper's limit) on the config-2 batch.  On the bench frame's
+1,036,800 rays over the 8192x512x8192 world (built by W1), macro levels
+off: K4-compact (``bmtrace_compact_rays``) alone and as the whole
+``trace_brickmap_no_table`` call, K1 (``bigtrace_rays``) alone and as the
+whole ``trace_brickmap_hbm`` call, the frame's shading and composite (the
+shading kernel's composite
 entry, or the eager ``shade_traced`` and ``composite_frame``), the shading
 alone (the ``shade`` entry: color and write, no composite) and 8 chained
 ``render_frame`` frames, primary and shaded (shadows, AO 4, reflections);
@@ -42,11 +44,13 @@ kind's eager rays (made once) through the rays entry alone; K1's rays entry and 
 secondary stage at 8 yaws, evenly spaced, of the benchmark's turning camera (the position and pitch of
 ``voxbench/traffic/terrain8k_1080p.shaded.json``; each yaw's rays and primary trace made once), 8
 launches a call, reported a frame; K4-compact also on K4's random rays over the 128^3
-terrain made compact; K4-slab
-(``bmtrace_slab``) on the 1024^3 world with dense slots at 4 slabs: round
-0 on the slab that owns the 1280x720 frame's rays, round 1 on the rows it
-hands down (made once by this checkout's K4-slab), and the whole world as
-one slab (one rank's whole walk), beside K4 on the same rays.  The bench
+terrain made compact; K4-slab's
+batch form (``bmtrace_slab_rays``) on the 1024^3 world with dense slots at
+4 slabs: round 0 over the 1280x720 frame's whole batch on the slab that
+owns most of its rays, over the rays that slab owns and over 2,048 of them,
+round 1 on the rows it hands down (made once by this checkout's K4-slab),
+and the whole world as one slab (one rank's whole walk), beside K4's rays
+entry on the same rays.  The bench
 frame's ray setup: one ``primary_rays`` call at 1920x1080 (the ray-setup
 kernel, ``csrc/rays.cu``, in a tree that has it; an earlier tree's eager
 ops).  The ray API's call: ``VoxelRaytracer3D.raytrace`` of 1,048,576
@@ -57,8 +61,7 @@ kernel's launch; a tree whose kernel takes prepared rays gets them from
 its own ray setup, made once) and as the whole ``trace_grid_vpu`` /
 ``trace_grid_mxu`` call; the dense frame as 8 chained ``render_frame_dense``
 frames, whose CUDA kernels ``torch.profiler`` also counts; K5 at each
-refill of ``--refills`` (a tree whose K5 takes a ``batch`` runs the case of
-refill 32, which is the same schedule, as batch 32).  Each build (a tree,
+refill of ``--refills``.  Each build (a tree,
 or this checkout with extra nvcc flags) is
 then timed in a worker process of its own that imports that tree's
 ``voxelengine_tpu_torch`` wrappers (their Python signatures are the same
@@ -72,10 +75,11 @@ call also counts the card's idle gaps; a count of kernels a call that is
 not a whole number shows that the profiler lost events).  Each worker
 also prints a digest of every kernel's outputs (for K2 and K3 alone: of
 hit and steps, which are the same before the wrapper's zero-step fix-up),
-so the trees' results can be seen to be equal (K4-slab's: the statuses,
-the paused rays' rows and the done rays' results, since a tree may leave a
-done ray's row unwritten).  Prints each library's ptxas registers and
-spills, one JSON line per worker, and the card's name and power limit;
+so the trees' results can be seen to be equal (K4-slab's: the results, the
+counts and the paused rays' rows and batch indices in batch order, since
+the card appends them in its warps' order).  Prints each library's ptxas
+registers and spills, one JSON line per worker, and the card's name and
+power limit;
 with ``--sass``, also whether each kernel function of the first earlier
 tree has the same SASS in this checkout.  With ``--zsharded`` it times
 only the z-sharded shaded frame instead (shadows, AO 4, reflections; the
@@ -111,6 +115,8 @@ WARM_S = 0.3  # seconds of launches before the first window, so the card's clock
 FRAME_KINDS = ("dense_frames", "bench_frames", "turned_rays", "turned_secondary")
 ZS_RANKS = 4  # ranks of the z-sharded frame (--zsharded), sharing the card over gloo
 ZS_FRAMES = 5  # its timed frames a run, after an untimed one
+# the libraries whose SASS --sass writes and compares: the traversal kernels
+SASS_LIBRARIES = ("bigtrace", "rrtrace", "gridtrace", "bmtrace", "zslab")
 
 
 def say(*parts):
@@ -126,7 +132,6 @@ def make_inputs(dev, quick: bool, refills, only=None):
     from voxelengine_tpu_torch.config import MAX_STEPS, RenderConfig
     from voxelengine_tpu_torch.core.brickmap import build_brickmap, build_brickmap_terrain_compact, compact_brickmap
     from voxelengine_tpu_torch.ops.bigtrace import make_line_table, materialize_brick_lines
-    from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup
     from voxelengine_tpu_torch.render.frame import primary_rays
     from voxelengine_tpu_torch.worldgen.terrain import generate_world
 
@@ -160,7 +165,7 @@ def make_inputs(dev, quick: bool, refills, only=None):
 
     def k5_cases(what, args, kw):
         for r in refills:
-            cases[f"K5 {what} refill {r}"] = ("rrtrace", args, dict(kw, refill=r))
+            cases[f"K5 {what} refill {r}"] = ("rrtrace_rays", args, dict(kw, refill=r))
 
     if not quick:
         dims, W, H = cs.WORLDS["demo"]
@@ -170,28 +175,22 @@ def make_inputs(dev, quick: bool, refills, only=None):
         origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)
         euler = torch.tensor([-0.25, 0.75, 0.0], device=dev)
         o, d, _, _, _ = primary_rays(cfg, origin, euler + 1e-5 * cs.FRAMES, cs.FRAMES)
-        args, kw = cs.line_kernel_args(bm, lt, o, d, cfg.max_steps)
-        cases["K1 frame macro off"] = ("bigtrace", args, dict(kw, use_macro=False))
-        k5_cases("frame macro off", args, dict(kw, use_macro=False))
+        args, kw = line_args(bm, lt, o, d, cfg.max_steps, False)
+        cases["K1 frame macro off"] = ("bigtrace_rays", args, kw)
+        k5_cases("frame macro off", args, kw)
 
     bm = cs.sparse_world(dev)
     lt = materialize_brick_lines(bm, make_line_table(bm))
     o, d = cs.sparse_rays(cs.SPARSE_RAYS, dev)
-    args, kw = cs.line_kernel_args(bm, lt, o, d, MAX_STEPS)
-    cases["K1 sparse macro off"] = ("bigtrace", args, dict(kw, use_macro=False))
-    cases["K1 sparse macro on"] = ("bigtrace", args, dict(kw, use_macro=True))
+    args, kw = line_args(bm, lt, o, d, MAX_STEPS, False)
+    cases["K1 sparse macro off"] = ("bigtrace_rays", args, kw)
+    cases["K1 sparse macro on"] = ("bigtrace_rays", args, dict(kw, use_macro=True))
     k5_cases("sparse macro on", args, dict(kw, use_macro=True))
-    # the tree's whole trace_brickmap_hbm_rr call (eager setup and fix-up
-    # around the prepared entry, or one launch of K5's rays entry)
+    # the tree's whole trace_brickmap_hbm_rr call
     cases["K5 sparse macro on, trace_brickmap_hbm_rr call"] = ("k5_call", (bm, lt, o, d), dict(max_steps=MAX_STEPS))
 
     def k4_args(bm):
-        o, d = cs.random_rays(bm.world_dims, 1 << 20, 2.0, 109, dev)
-        dd, start_c, _, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
-        pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, dev), dd)
-        kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=2048,
-                  coarse_layout=bm.coarse_layout, brick_layout=bm.brick_layout)
-        return (start_c, dd, active.to(torch.int32), pad), kw
+        return cs.random_rays(bm.world_dims, 1 << 20, 2.0, 109, dev), k4_kw(bm, 2048)
 
     if not quick:
         # K4 with meta in shared and in global memory on terrains of growing
@@ -201,20 +200,18 @@ def make_inputs(dev, quick: bool, refills, only=None):
             rays, kw = k4_args(bm)
             name = f"K4 {dims[0]}x{dims[1]}x{dims[2]} ({bm.num_chunks * 4 // 1024} KB meta)"
             for where, limit in (("shared", bm.num_chunks * 4), ("global", 0)):
-                cases[f"{name} {where}"] = ("bmtrace", rays + (bm.meta, bm.bricks), dict(kw, _smem_limit=limit))
+                cases[f"{name} {where}"] = ("bmtrace_rays", rays + (bm.meta, bm.bricks), dict(kw, _smem_limit=limit))
 
     bm = build_brickmap(generate_world((128, 128, 128), octaves=8, device=dev), 8)
     rays, kw = k4_args(bm)
-    cases["K4 random"] = ("bmtrace", rays + (bm.meta, bm.bricks), kw)
-    # the same rays through the tree's whole trace call (eager setup around
-    # the prepared entry, or one launch of K4's rays entry)
-    cases["K4 random, trace_brickmap_no_table call"] = (
-        "k4_call", (bm, *cs.random_rays(bm.world_dims, 1 << 20, 2.0, 109, dev)), dict(max_steps=2048))
-    cases["K4 sorted"] = ("bmtrace", cs.direction_sorted(*rays) + (bm.meta, bm.bricks), kw)
+    cases["K4 random"] = ("bmtrace_rays", rays + (bm.meta, bm.bricks), kw)
+    # the same rays through the tree's whole trace call
+    cases["K4 random, trace_brickmap_no_table call"] = ("k4_call", (bm, *rays), dict(max_steps=2048))
+    cases["K4 sorted"] = ("bmtrace_rays", cs.direction_sorted(bm, *rays) + (bm.meta, bm.bricks), kw)
     # K4-compact on K4's random rays over the same terrain made compact
     cbm = compact_brickmap(bm)
     name = "K4-compact random rays, 128^3 compact"
-    cases[name] = ("bmtrace_compact", rays + (cbm.meta, cbm.brick_idx, cbm.bricks), kw)
+    cases[name] = ("bmtrace_compact_rays", rays + (cbm.meta, cbm.brick_idx, cbm.bricks), kw)
     if any(wanted(n) for n in BENCH_FRAME_CASES):
         bench_frame_cases(cases, dev)
     if wanted(QUERY_CASE):
@@ -224,17 +221,19 @@ def make_inputs(dev, quick: bool, refills, only=None):
     return {k: v for k, v in cases.items() if wanted(k)}
 
 
-def ray_args(bm, o, d, max_steps):
-    """K4's ray inputs and keywords for ``bm`` (its wrapper's ray setup)."""
-    import torch
+def line_args(bm, lt, o, d, max_steps, use_macro):
+    """The arguments and keywords of K1's and K5's rays entries for rays
+    ``o``, ``d`` through ``bm``'s line table ``lt``."""
+    from voxelengine_tpu_torch.ops.bigtrace import _kernel_tables
 
-    from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup
+    tables, kw = _kernel_tables(bm, lt, max_steps, use_macro)
+    return (o, d) + tables, kw
 
-    dd, start_c, _, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
-    pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, o.device), dd)
-    kw = dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=max_steps, coarse_layout=bm.coarse_layout,
-              brick_layout=bm.brick_layout)
-    return (start_c.contiguous(), dd.contiguous(), active.to(torch.int32), pad.contiguous()), kw
+
+def k4_kw(bm, max_steps):
+    """The keywords of K4's rays entries for ``bm``."""
+    return dict(grid_dims=bm.grid_dims, factor=bm.factor, max_steps=max_steps, coarse_layout=bm.coarse_layout,
+                brick_layout=bm.brick_layout)
 
 
 # the cases on the bench frame (bench_frame_cases); --only picks among them by these names
@@ -286,11 +285,9 @@ def query_case(cases, dev):
 def bench_frame_cases(cases, dev):
     """The bench frame's 1,036,800 rays over the bench world (``chip_smoke.py``
     phases 5, 14 and 18), macro levels off as the probe decides there:
-    K4-compact alone and as the whole ``trace_brickmap_no_table`` call, K1
-    alone (prepared rays) and as the whole ``trace_brickmap_hbm`` call (a
-    tree's ray setup, walk and fix-up: eager around ``vx_bigtrace``, or K1's
-    rays entry), the frame's shading and composite, and 8 chained
-    ``render_frame`` frames."""
+    K4-compact's and K1's rays entries alone and as the whole
+    ``trace_brickmap_no_table`` and ``trace_brickmap_hbm`` calls, the
+    frame's shading and composite, and 8 chained ``render_frame`` frames."""
     import torch
 
     import chip_smoke as cs
@@ -306,12 +303,10 @@ def bench_frame_cases(cases, dev):
     origin = torch.tensor([dims[0] / 2, 380.0, dims[2] / 2], device=dev)
     euler = torch.tensor(cs.CAMERAS[0], device=dev)
     o, d, _, _, _ = primary_rays(cfg, origin, euler, 1)
-    rays, kw = ray_args(bm, o, d, cfg.max_steps)
     names = iter(BENCH_FRAME_CASES)
-    cases[next(names)] = ("bmtrace_compact", rays + (bm.meta, bm.brick_idx, bm.bricks), kw)
+    cases[next(names)] = ("bmtrace_compact_rays", (o, d, bm.meta, bm.brick_idx, bm.bricks), k4_kw(bm, cfg.max_steps))
     cases[next(names)] = ("k4_call", (bm, o, d), dict(max_steps=cfg.max_steps))
-    args, kw1 = cs.line_kernel_args(bm, lt, o, d, cfg.max_steps)
-    cases[next(names)] = ("bigtrace", args, dict(kw1, use_macro=False))
+    cases[next(names)] = ("bigtrace_rays", *line_args(bm, lt, o, d, cfg.max_steps, False))
     cases[next(names)] = ("k1_call", (bm, lt, o, d), dict(max_steps=cfg.max_steps, use_macro=False))
     frame_kw = dict(width=W, height=H)
     cases[next(names)] = ("shade_stage", (bm, lt, origin, euler), frame_kw)
@@ -348,16 +343,18 @@ def bench_frame_cases(cases, dev):
 
 
 def slab_cases(cases, dev):
-    """K4-slab on the 1024^3 world with dense slots at 4 slabs (``chip_smoke.py``
-    phase 13's migration world and frame): round 0 on the slab that owns
-    the frame's rays, round 1 on the rows it hands down, the whole world
-    as one slab; K4 on the same rays."""
+    """K4-slab's batch form on the 1024^3 world with dense slots at 4 slabs
+    (``chip_smoke.py`` phase 13's migration world and frame): round 0 on
+    the slab that owns most of the frame's rays, over the whole batch, over
+    the rays it owns and over 2,048 of them; round 1 on the rows it hands
+    down; the whole world as one slab; K4's rays entry on the same rays."""
     import torch
 
     import chip_smoke as cs
     from voxelengine_tpu_torch.config import RenderConfig
     from voxelengine_tpu_torch.core.brickmap import build_brickmap_terrain
     from voxelengine_tpu_torch.kernels import bmtrace
+    from voxelengine_tpu_torch.ops.trace import _ray_setup
     from voxelengine_tpu_torch.parallel.distributed import shard_world_z
     from voxelengine_tpu_torch.render.frame import primary_rays
 
@@ -365,37 +362,43 @@ def slab_cases(cases, dev):
     cfg = RenderConfig(width=cs.APP_SIZE[0], height=cs.APP_SIZE[1], checkerboard=True, tile_order=True)
     origin = torch.tensor([cs.APP_WORLD[0] / 2, cs.APP_CAMERA_Y, cs.APP_WORLD[2] / 2], device=dev)
     o, d, _, _, _ = primary_rays(cfg, origin, torch.tensor([-0.25, 0.75, 0.0], device=dev), 1)
-    rays, kw4 = ray_args(app, o, d, cfg.max_steps)
+    o = o.contiguous()
     n = 4
     meta_s, bricks_s, slab_gz = shard_world_z(app, n)
-    owner = torch.clamp(rays[0][:, 2].to(torch.int32) // slab_gz, 0, n - 1)
-    k = int(torch.mode(owner[rays[2] != 0]).values)
-    idx = torch.nonzero((rays[2] != 0) & (owner == k)).squeeze(1)
-    own = tuple(t[idx].contiguous() for t in rays)
+    _, start_c, _, active = _ray_setup(app.grid_dims, app.factor, o, d)
+    owner = torch.clamp(start_c[:, 2].to(torch.int32) // slab_gz, 0, n - 1)
+    k = int(torch.mode(owner[active]).values)
+    idx = torch.nonzero(active & (owner == k)).squeeze(1)
+    own = (o[idx].contiguous(), d[idx].contiguous())
+    few = (own[0][:2048].contiguous(), own[1][:2048].contiguous())
     gz = app.grid_dims[2]
     skw = dict(grid_dims=app.grid_dims, slab_gz=slab_gz, factor=app.factor, max_steps=cfg.max_steps,
                brick_layout=app.brick_layout)
     slab = lambda j: (meta_s[j].clone(), bricks_s[j].clone())  # noqa: E731
-    # the batch form's round 0 over the whole frame batch (a tree that has it)
-    cases[f"K4-slab batch form round 0, slab {k} of 4, the whole frame batch ({o.shape[0]} rays)"] = (
-        "slab_rays", slab(k) + (o.contiguous(), d), dict(skw, z0=k * slab_gz))
-    rows, status, *_ = bmtrace.bmtrace_slab(*slab(k), rays=own, z0=k * slab_gz, **skw)
-    down = (status == 1) & (rows[:, bmtrace.STATE_CELL.start + 2] < k * slab_gz)
-    handed = rows[down].contiguous()
-    few = tuple(t[:2048].contiguous() for t in own)
+    # round 0 over the whole batch, with the rows handed down made once
+    outs = tuple(torch.zeros(shape, dtype=dt, device=dev) for shape, dt in
+                 (((o.shape[0],), torch.int32), ((o.shape[0], 3), torch.float32),
+                  ((o.shape[0], 3), torch.float32), ((o.shape[0],), torch.int32)))
+    rows, ridx, counts = bmtrace.bmtrace_slab_rays(*slab(k), o, d, outs, z0=k * slab_gz, **skw)
+    paused = int(counts[1])
+    down = rows[:paused, bmtrace.STATE_CELL.start + 2] < k * slab_gz
+    handed, hidx = rows[:paused][down].contiguous(), ridx[:paused][down].contiguous()
     groups = {
-        f"K4-slab round 0, slab {k} of 4 ({idx.numel()} frame rays)": (slab(k) + (own, None), dict(skw, z0=k * slab_gz)),
-        f"K4-slab round 0, slab {k} of 4, 2048 of its frame rays": (slab(k) + (few, None), dict(skw, z0=k * slab_gz)),
+        f"K4-slab batch form round 0, slab {k} of 4, the whole frame batch ({o.shape[0]} rays)":
+            (slab(k) + (o, d), dict(skw, z0=k * slab_gz)),
+        f"K4-slab round 0, slab {k} of 4 ({idx.numel()} frame rays)": (slab(k) + own, dict(skw, z0=k * slab_gz)),
+        f"K4-slab round 0, slab {k} of 4, 2048 of its frame rays": (slab(k) + few, dict(skw, z0=k * slab_gz)),
         f"K4-slab round 1, slab {k - 1} of 4 ({handed.shape[0]} handed-down rows)":
-            (slab(k - 1) + (None, handed), dict(skw, z0=(k - 1) * slab_gz)),
+            (slab(k - 1) + (o, d), dict(skw, z0=(k - 1) * slab_gz, rows=handed, idx=hidx)),
         f"K4-slab whole world as one slab ({o.shape[0]} frame rays)":
-            ((app.meta, app.bricks, rays, None), dict(skw, z0=0, slab_gz=gz)),
+            ((app.meta, app.bricks, o, d), dict(skw, z0=0, slab_gz=gz)),
     }
     for name, (args, kw) in groups.items():
-        cases[name] = ("bmtrace_slab", args, kw)
-    cases[f"K4-slab beside: K4 on slab {k}'s round-0 rays"] = ("bmtrace", own + (app.meta, app.bricks), kw4)
-    cases["K4-slab beside: K4 on 2048 of them"] = ("bmtrace", few + (app.meta, app.bricks), kw4)
-    cases["K4-slab beside: K4 on the whole frame"] = ("bmtrace", rays + (app.meta, app.bricks), kw4)
+        cases[name] = ("slab_rays", args, kw)
+    kw4 = k4_kw(app, cfg.max_steps)
+    cases[f"K4-slab beside: K4 on slab {k}'s round-0 rays"] = ("bmtrace_rays", own + (app.meta, app.bricks), kw4)
+    cases["K4-slab beside: K4 on 2048 of them"] = ("bmtrace_rays", few + (app.meta, app.bricks), kw4)
+    cases["K4-slab beside: K4 on the whole frame"] = ("bmtrace_rays", (o, d, app.meta, app.bricks), kw4)
 
 
 def tree_functions(torch):
@@ -416,7 +419,6 @@ def tree_functions(torch):
     from voxelengine_tpu_torch.render.frame import make_framebuffer, primary_rays, render_frame, render_frame_dense
 
     fused = "origins" in inspect.signature(gridtrace.gridtrace).parameters
-    has_refill = "refill" in inspect.signature(rrtrace.rrtrace).parameters
 
     def grid(o, d, words, dims, layout):
         g = BitGrid(words=words, dims=tuple(dims), layout=Layout(layout))
@@ -452,15 +454,6 @@ def tree_functions(torch):
                 render_frame_dense(g, fb, origin, euler + 1e-5 * i, env, i, cfg)
             return (fb,)
         return run, (lambda out: out)
-
-    def k5(args, kw):
-        kw = dict(kw)
-        refill = kw.pop("refill")
-        if has_refill:
-            kw["refill"] = refill
-        elif refill != 32:
-            return None
-        return (lambda: rrtrace.rrtrace(*args, **kw)), (lambda out: out)
 
     def plain(fn):
         return lambda args, kw: ((lambda: fn(*args, **kw)), (lambda out: out))
@@ -665,8 +658,6 @@ def tree_functions(torch):
         return reduces, (lambda r: r)
 
     def slab_rays(args, kw):
-        if not hasattr(bmtrace, "bmtrace_slab_rays"):
-            return None  # a tree without K4-slab's batch form
         meta, bricks, o, d = args
         n = o.shape[0]
         # the batch-wide outputs, written again alike by each launch
@@ -683,17 +674,9 @@ def tree_functions(torch):
             return outs + (counts, idx[:k][order], rows[:k][order])
         return run, digested
 
-    def slab(args, kw):
-        meta, bricks, rays, rows = args
-
-        def digested(out):  # statuses, paused rays' rows, done rays' results
-            paused = out[1] == 1
-            return (out[1], out[0][paused]) + tuple(t[~paused] for t in out[2:])
-        return (lambda: bmtrace.bmtrace_slab(meta, bricks, rays=rays, rows=rows, **kw)), digested
-
     return {
-        "bigtrace": plain(bigtrace.bigtrace), "bmtrace": plain(bmtrace.bmtrace), "rrtrace": k5,
-        "bmtrace_compact": plain(bmtrace.bmtrace_compact), "bmtrace_slab": slab,
+        "bigtrace_rays": plain(bigtrace.bigtrace_rays), "bmtrace_rays": plain(bmtrace.bmtrace_rays),
+        "rrtrace_rays": plain(rrtrace.rrtrace_rays), "bmtrace_compact_rays": plain(bmtrace.bmtrace_compact_rays),
         "grid": alone(gridtrace.gridtrace, lambda g: g.words),
         "grid_limbs": alone(gridtrace.gridtrace_limbs, lambda g: ops_grid.words_to_limb_rows(g.words)),
         "grid_call": call(ops_grid.trace_grid_vpu), "grid_limbs_call": call(ops_grid.trace_grid_mxu),
@@ -748,7 +731,7 @@ def worker(tree: Path, data: Path, defines: str) -> None:
             gridtrace.SMEM_WORDS_LIMIT = own_k3_limit if k3_limit is None else k3_limit
         made = fns[kind](args, kw)
         if made is None:
-            continue  # a K5 refill this tree does not have
+            continue  # a case this tree's wrappers do not have
         fn, digested = made
         outs = fn()  # the build, at first use
         torch.cuda.synchronize()
@@ -977,8 +960,8 @@ def main(argv=None):
             say(f"  {line}")
         if args.sass:
             args.sass.mkdir(parents=True, exist_ok=True)
-            for lib in sorted((tree / "voxelengine_tpu_torch" / "kernels" / "_build").glob("lib*trace_*.so")):
-                if not lib.name.startswith("libdda_host"):
+            for lib in sorted((tree / "voxelengine_tpu_torch" / "kernels" / "_build").glob("lib*.so")):
+                if lib.name.split("_")[0][3:] in SASS_LIBRARIES:
                     out = args.sass / f"{'after' if tree == ROOT else tree.name}_{lib.stem}.sass"
                     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
                     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True)

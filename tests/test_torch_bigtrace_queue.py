@@ -3,8 +3,8 @@ rays at a time from a work counter.
 
 The CPU lane holds :func:`kernels.bigtrace.launch_grid`, the grid and the
 count of batches handed out after the grid's first wave, against their
-formula.  The card lane runs each K1 entry (rays, macro off and on; prepared,
-and its diag build; record; the three secondary kinds) at the queue's edges
+formula.  The card lane runs each K1 entry (rays, macro off and on, and its
+diag build; record; the three secondary kinds) at the queue's edges
 (1, 31 and 33 rays, exactly one resident wave, three waves and 5 rays), twice
 back to back on one stream, and holds every result bit-equal to its host twin
 (``csrc/dda_host.cpp``) and the launch's counters to the formula.
@@ -17,7 +17,6 @@ from torch_shared import terrain_128x64x128_f32_o3
 from voxelengine_tpu_torch.config import Environment
 from voxelengine_tpu_torch.kernels import bigtrace, build
 from voxelengine_tpu_torch.ops import bigtrace as ops_bigtrace
-from voxelengine_tpu_torch.ops.trace import _dims, _edge_pad, _ray_setup
 
 MAX_STEPS = 256
 H100_SMS = 132
@@ -65,7 +64,7 @@ def test_host_route_counts_the_launch_and_no_grid(monkeypatch, tmp_path_factory)
 
 # ------------------------------------------------------------ card lane
 
-ENTRIES = ("rays", "rays macro", "prepared", "prepared macro diag", "record", "shadow", "reflection", "ao")
+ENTRIES = ("rays", "rays macro", "rays macro diag", "record", "shadow", "reflection", "ao")
 WIDTH = 1024  # the AO kind's pixel rows
 
 
@@ -83,8 +82,7 @@ class _HostKernels:
 
     def __init__(self):
         dda = build.load_dda_host()
-        self.entries = {fn: getattr(dda, "vx_trace_host" if fn == "vx_bigtrace" else f"{fn}_host")
-                        for fn in build.K1_HOST}
+        self.entries = {fn: getattr(dda, f"{fn}_host") for fn in build.K1_HOST}
 
     def __getattr__(self, fn):
         host = self.__dict__["entries"][fn]
@@ -112,12 +110,7 @@ def _entry(entry, tables, kw, o, d, primary):
     the primary trace ``primary``): the wrapper's outputs as a tuple."""
     macro = "macro" in entry
     if entry.startswith("rays"):
-        return bigtrace.bigtrace_rays(o, d, *tables, **dict(kw, use_macro=macro))
-    if entry.startswith("prepared"):
-        dd, start, _, active = _ray_setup(kw["grid_dims"], kw["factor"], o, d)
-        pad = _edge_pad(start.to(torch.int32), _dims(kw["grid_dims"], torch.int32, o.device), dd)
-        return bigtrace.bigtrace(start.contiguous(), dd.contiguous(), active.to(torch.int32), pad.contiguous(),
-                                 *tables, **dict(kw, use_macro=macro), diag="diag" in entry)
+        return bigtrace.bigtrace_rays(o, d, *tables, **dict(kw, use_macro=macro), diag="diag" in entry)
     if entry == "record":
         return bigtrace.bigtrace_record(o, d, *tables, **kw)
     pos, nrm = primary

@@ -222,17 +222,6 @@ def test_host_build_of_compact_instantiation_matches_plain_walk(ref, host_lib, n
         assert torch.equal(g, w), f
 
 
-def test_compact_launcher_signature_extends_the_host_entry():
-    """The compact launcher takes its host entry's arguments plus the
-    instantiation flag and the work-counter scratch, as the dense one."""
-    host = build.HOST_ENTRIES["vx_trace_brickmap_compact_host"]
-    kernel = build.SIGNATURES["vx_trace_brickmap_compact"]
-    assert kernel[:17] == host[:17] and kernel[-4:] == host[-4:]
-    assert kernel[17:19] == [build._I, build._P] and len(kernel) == len(host) + 2
-    assert host == build.HOST_ENTRIES["vx_trace_brickmap_dense_host"][:6] + [build._P] + \
-        build.HOST_ENTRIES["vx_trace_brickmap_dense_host"][6:]
-
-
 def test_compact_card_route_reaches_the_compact_entry(ref, host_lib, monkeypatch):
     """A compact world's card call goes to ``bmtrace_compact_rays`` (CPU
     tensors routed as card tensors; the entry replaced by its g++ build),
@@ -282,19 +271,10 @@ def test_instantiation_is_chosen_by_table_size(num_chunks, shared):
     assert bmtrace.meta_in_shared(num_chunks) is shared
 
 
-def test_launcher_signature_extends_the_host_entry():
-    """The launcher takes the host entry's arguments plus the instantiation
-    flag and the work-counter scratch (and the stream, added at load)."""
-    host = build.HOST_ENTRIES["vx_trace_brickmap_dense_host"]
-    kernel = build.SIGNATURES["vx_trace_brickmap_dense"]
-    assert kernel[:16] == host[:16] and kernel[-4:] == host[-4:]
-    assert kernel[16:18] == [build._I, build._P] and len(kernel) == len(host) + 2
-
-
 def _rays(n, dev="cpu"):
+    """``n`` origins and directions, all zero."""
     z3 = torch.zeros(n, 3, device=dev)
-    return z3, z3.clone(), torch.zeros(n, dtype=torch.int32, device=dev), torch.zeros(n, 3, dtype=torch.int32,
-                                                                                          device=dev)
+    return z3, z3.clone()
 
 
 KW = dict(factor=8, max_steps=16, coarse_layout=Layout.LINEAR, brick_layout=Layout.TILED_LINEAR)
@@ -303,11 +283,12 @@ KW = dict(factor=8, max_steps=16, coarse_layout=Layout.LINEAR, brick_layout=Layo
 def test_wrapper_refuses_cpu_tensors():
     before = (bmtrace.launches, bmtrace.shared_launches, bmtrace.compact_launches)
     with pytest.raises(ValueError, match="CUDA"):
-        bmtrace.bmtrace(*_rays(4), torch.zeros(64, dtype=torch.int32), torch.zeros(64, 16, dtype=torch.int32),
-                        grid_dims=(4, 4, 4), **KW)
+        bmtrace.bmtrace_rays(*_rays(4), torch.zeros(64, dtype=torch.int32), torch.zeros(64, 16, dtype=torch.int32),
+                             grid_dims=(4, 4, 4), **KW)
     with pytest.raises(ValueError, match="CUDA"):
-        bmtrace.bmtrace_compact(*_rays(4), torch.zeros(64, dtype=torch.int32), torch.zeros(64, dtype=torch.int32),
-                                torch.zeros(3, 16, dtype=torch.int32), grid_dims=(4, 4, 4), **KW)
+        bmtrace.bmtrace_compact_rays(*_rays(4), torch.zeros(64, dtype=torch.int32),
+                                     torch.zeros(64, dtype=torch.int32), torch.zeros(3, 16, dtype=torch.int32),
+                                     grid_dims=(4, 4, 4), **KW)
     assert (bmtrace.launches, bmtrace.shared_launches, bmtrace.compact_launches) == before
 
 
@@ -316,8 +297,9 @@ def test_compact_wrapper_refuses_brick_tables_outside_the_kernel():
     2^21 bricks of 1024 words are refused on a small grid."""
     big = torch.zeros(1, 1024, dtype=torch.int32).expand(2**21, 1024)  # no memory behind the rows
     with pytest.raises(ValueError, match="int32 indices"):
-        bmtrace.bmtrace_compact(*_rays(4), torch.zeros(64, dtype=torch.int32), torch.zeros(64, dtype=torch.int32),
-                                big, grid_dims=(4, 4, 4), **dict(KW, factor=32))
+        bmtrace.bmtrace_compact_rays(*_rays(4), torch.zeros(64, dtype=torch.int32),
+                                     torch.zeros(64, dtype=torch.int32), big, grid_dims=(4, 4, 4),
+                                     **dict(KW, factor=32))
 
 
 @pytest.mark.parametrize("grid,kw,match", [
@@ -328,8 +310,8 @@ def test_compact_wrapper_refuses_brick_tables_outside_the_kernel():
 ])
 def test_wrapper_refuses_grids_outside_the_kernel(grid, kw, match):
     with pytest.raises(ValueError, match=match):
-        bmtrace.bmtrace(*_rays(4), torch.zeros(1, dtype=torch.int32), torch.zeros(1, 16, dtype=torch.int32),
-                        grid_dims=grid, **dict(KW, **kw))
+        bmtrace.bmtrace_rays(*_rays(4), torch.zeros(1, dtype=torch.int32), torch.zeros(1, 16, dtype=torch.int32),
+                             grid_dims=grid, **dict(KW, **kw))
 
 
 # ------------------------------------------------------------ card lane
@@ -434,12 +416,12 @@ def test_wrapper_refuses_malformed_tables_on_card(cuda_device):
     rays = _rays(4, cuda_device)
     i32 = dict(dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="meta"):
-        bmtrace.bmtrace(*rays, torch.zeros(63, **i32), torch.zeros(64, 16, **i32), grid_dims=(4, 4, 4), **KW)
+        bmtrace.bmtrace_rays(*rays, torch.zeros(63, **i32), torch.zeros(64, 16, **i32), grid_dims=(4, 4, 4), **KW)
     with pytest.raises(ValueError, match="bricks"):
-        bmtrace.bmtrace(*rays, torch.zeros(64, **i32), torch.zeros(64, 15, **i32), grid_dims=(4, 4, 4), **KW)
+        bmtrace.bmtrace_rays(*rays, torch.zeros(64, **i32), torch.zeros(64, 15, **i32), grid_dims=(4, 4, 4), **KW)
     with pytest.raises(ValueError, match="meta"):
-        bmtrace.bmtrace(*rays, torch.zeros(64, dtype=torch.int64, device=cuda_device), torch.zeros(64, 16, **i32),
-                        grid_dims=(4, 4, 4), **KW)
+        bmtrace.bmtrace_rays(*rays, torch.zeros(64, dtype=torch.int64, device=cuda_device),
+                             torch.zeros(64, 16, **i32), grid_dims=(4, 4, 4), **KW)
 
 
 if __name__ == "__main__":

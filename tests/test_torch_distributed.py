@@ -21,7 +21,6 @@ port's side runs once, in 4 ranks (``parallel/mesh.py::run_ranks``) of
 ``parallel/cases.py::run_cases``, while the JAX side runs.
 """
 
-import ctypes
 import os
 import subprocess
 import sys
@@ -704,7 +703,7 @@ def _host_batch_round(lib, meta, bricks, grid, z0, slab_gz, factor, layout, max_
     return rows_out[:k], idx_out[:k], int(counts[2])
 
 
-def _batch_rounds(bm, o, d, slabs, max_steps):
+def _batch_rounds(bm, o, d, slabs, max_steps, batch_round=None):
     """The migration of rays ``o``, ``d`` over ``bm`` cut into ``slabs``
     z-slabs through K4-slab's batch form (host build) and, side by side,
     through ``_init_state`` + the prepared form's host build
@@ -714,8 +713,11 @@ def _batch_rounds(bm, o, d, slabs, max_steps):
     order) with the same state rows, and writes the done rays' results,
     ``hit_imm`` fix-up included, at their batch index and nothing else.
     Returns the final results (the slabs' result words summed, as the
-    card's ``psum`` of words) and the paused rays of each round."""
+    card's ``psum`` of words) and the paused rays of each round.
+    ``batch_round`` runs the batch form (by default its host build,
+    :func:`_host_batch_round`)."""
     lib = build.load_dda_host()
+    batch_round = batch_round or _host_batch_round
     meta, bricks, slab_gz = distributed.shard_world_z(bm, slabs)
     spec = bm.grid_dims + (bm.factor, bm.coarse_layout, bm.brick_layout)
     grid, gz, n = bm.grid_dims, bm.grid_dims[2], o.shape[0]
@@ -736,7 +738,7 @@ def _batch_rounds(bm, o, d, slabs, max_steps):
             idx = pending[k]
             args = (meta[k], bricks[k], grid, k * slab_gz, slab_gz, bm.factor, bm.brick_layout, max_steps)
             before = [t.clone() for t in outs[k]]
-            b_rows, b_idx, owned = _host_batch_round(lib, *args, o, d, outs[k], *batch[k])
+            b_rows, b_idx, owned = batch_round(lib, *args, o, d, outs[k], *batch[k])
             if rnd == 0:
                 assert owned == idx.numel(), f"slab {k}: owned rays"
                 sel = (start_c[idx].contiguous(), dd[idx].contiguous(), active[idx].to(torch.int32),
@@ -889,38 +891,20 @@ def test_dryrun_multichip_on_two_cpu_ranks():
 
 
 def test_bmtrace_slab_refuses_cpu_tensors_and_bad_slabs():
-    z = torch.zeros
-    rays = (z(4, 3), z(4, 3), z(4, dtype=torch.int32), z(4, 3, dtype=torch.int32))
-    kw = dict(grid_dims=(4, 4, 8), slab_gz=2, factor=8, max_steps=16, brick_layout=Layout.TILED_LINEAR)
-    before = bmtrace.slab_launches
-    with pytest.raises(ValueError, match="CUDA"):
-        bmtrace.bmtrace_slab(z(32, dtype=torch.int32), z(32, 16, dtype=torch.int32), z0=0, rays=rays, **kw)
-    with pytest.raises(ValueError, match="outside"):
-        bmtrace.bmtrace_slab(z(32, dtype=torch.int32), z(32, 16, dtype=torch.int32), z0=7, rays=rays, **kw)
-    with pytest.raises(ValueError, match="not both"):
-        bmtrace.bmtrace_slab(z(32, dtype=torch.int32), z(32, 16, dtype=torch.int32), z0=0, **kw)
-    assert bmtrace.slab_launches == before
-
-
-def test_zslab_launcher_signature_is_the_host_entrys():
-    assert build.HOST_ENTRIES["vx_zslab_host"] == build.SIGNATURES["vx_zslab"]
-    assert len(build.SIGNATURES["vx_zslab"]) == 25
-    assert isinstance(build.load_dda_host().vx_zslab_host, ctypes._CFuncPtr)
-
-
-def test_zslab_rays_launcher_signature_is_the_host_entrys():
-    assert build.HOST_ENTRIES["vx_zslab_rays_host"] == build.SIGNATURES["vx_zslab_rays"]
-    assert len(build.SIGNATURES["vx_zslab_rays"]) == 26
-    assert isinstance(build.load_dda_host().vx_zslab_rays_host, ctypes._CFuncPtr)
+    """K4-slab's batch form refuses CPU tensors, a slab outside the grid
+    and a later round without its batch indices, and launches nothing."""
     z = torch.zeros
     outs = (z(4, dtype=torch.int32), z(4, 3), z(4, 3), z(4, dtype=torch.int32))
-    kw = dict(grid_dims=(4, 4, 8), z0=0, slab_gz=2, factor=8, max_steps=16, brick_layout=Layout.TILED_LINEAR)
+    kw = dict(grid_dims=(4, 4, 8), slab_gz=2, factor=8, max_steps=16, brick_layout=Layout.TILED_LINEAR)
+    tables = (z(32, dtype=torch.int32), z(32, 16, dtype=torch.int32))
+    before = bmtrace.slab_rays_launches
     with pytest.raises(ValueError, match="CUDA"):
-        bmtrace.bmtrace_slab_rays(z(32, dtype=torch.int32), z(32, 16, dtype=torch.int32), z(4, 3), z(4, 3), outs,
-                                  **kw)
+        bmtrace.bmtrace_slab_rays(*tables, z(4, 3), z(4, 3), outs, z0=0, **kw)
+    with pytest.raises(ValueError, match="outside"):
+        bmtrace.bmtrace_slab_rays(*tables, z(4, 3), z(4, 3), outs, z0=7, **kw)
     with pytest.raises(ValueError, match="both"):
-        bmtrace.bmtrace_slab_rays(z(32, dtype=torch.int32), z(32, 16, dtype=torch.int32), z(4, 3), z(4, 3), outs,
-                                  rows=z(1, 35, dtype=torch.int32), **kw)
+        bmtrace.bmtrace_slab_rays(*tables, z(4, 3), z(4, 3), outs, z0=0, rows=z(1, 35, dtype=torch.int32), **kw)
+    assert bmtrace.slab_rays_launches == before
 
 
 # ------------------------------------------------------------ card lane
@@ -933,87 +917,55 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-def test_k4_slab_on_card_matches_plain_slab_walk(cuda_device):
-    """K4-slab's round 0 on each slab of the 64^3 world, launched on the
-    card, against the plain slab walk: pause points, paused cells and
-    steps, and the results of the rays that are done."""
-    inp = _inputs()
-    bm = build_brickmap(BitGrid.from_dense(torch.from_numpy(inp["dense"]).to(cuda_device)), 8,
-                        coarse_layout=Layout.LINEAR)
-    o, d = torch.from_numpy(inp["o"]).to(cuda_device), torch.from_numpy(inp["d"]).to(cuda_device)
-    meta, bricks, slab_gz = distributed.shard_world_z(bm, N)
-    spec = bm.grid_dims + (bm.factor, bm.coarse_layout, bm.brick_layout)
-    gz = bm.grid_dims[2]
-    dd, start_c, start_normal, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
-    pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, cuda_device), dd)
-    owner = torch.clamp(start_c.to(torch.int32)[:, 2] // slab_gz, 0, N - 1)
-    before = bmtrace.slab_launches
-    for k in range(N):
-        idx = torch.nonzero(active & (owner == k)).squeeze(1)
-        rows, status, *res = bmtrace.bmtrace_slab(
-            meta[k], bricks[k], grid_dims=bm.grid_dims, z0=k * slab_gz, slab_gz=slab_gz, factor=bm.factor,
-            max_steps=2048, brick_layout=bm.brick_layout,
-            rays=(start_c[idx].contiguous(), dd[idx].contiguous(), active[idx].to(torch.int32), pad[idx].contiguous()))
-        local = distributed._slab_bm(spec, meta[k], bricks[k], slab_gz)
-        p_rows, p_status, *p_res = run_slab(local, _init_state(local, o[idx], d[idx], full_gz=gz), 2048,
-                                            k * slab_gz, gz)
-        assert torch.equal(status, p_status)
-        paused = status == 1
-        st = unpack_slab_state(p_rows)
-        assert torch.equal(rows[paused, bmtrace.STATE_CELL], st["ccell"][paused])
-        assert torch.equal(rows[paused, bmtrace.STATE_STEPS], st["steps"][paused])
-        got = kernel_result(*res, start_c[idx], start_normal[idx], bm.factor)
-        want = kernel_result(*p_res, start_c[idx], start_normal[idx], bm.factor)
-        for g, w in zip(got, want):
-            assert torch.equal(g[~paused], w[~paused])
-    assert bmtrace.slab_launches == before + N
+def _card_batch_round(lib, meta, bricks, grid, z0, slab_gz, factor, layout, max_steps, o, d, outs, rows=None,
+                      idx=None):
+    """:func:`_host_batch_round` through K4-slab's batch form on the card
+    (``bmtrace_slab_rays``), the CPU tensors copied there and back; the
+    paused rays in the order of the round's input, as the host build gives
+    them (the card appends them in its warps' order).  A round with rays is
+    one launch, a round without none."""
+    dev = torch.device("cuda")
+    card = [t.to(dev) for t in outs]
+    before = bmtrace.slab_rays_launches
+    r, i, counts = bmtrace.bmtrace_slab_rays(
+        meta.to(dev), bricks.to(dev), o.to(dev), d.to(dev), card, grid_dims=grid, z0=z0, slab_gz=slab_gz,
+        factor=factor, max_steps=max_steps, brick_layout=layout, rows=None if rows is None else rows.to(dev),
+        idx=None if idx is None else idx.to(dev))
+    assert bmtrace.slab_rays_launches == before + (r.shape[0] > 0)
+    for t, c in zip(outs, card):
+        t.copy_(c.cpu())
+    counts = counts.cpu()
+    k = int(counts[1])
+    r, i = r[:k].cpu(), i[:k].cpu()
+    place = torch.arange(o.shape[0])  # each batch index's place in the round's input
+    if idx is not None:
+        place[idx.long()] = torch.arange(idx.shape[0])
+    order = torch.argsort(place[i.long()])
+    return r[order], i[order], int(counts[2])
 
 
 @pytest.mark.cuda
-def test_k4_slab_resumed_round_on_card_matches_plain_slab_walk(cuda_device):
-    """K4-slab over the 4 slabs of the 64^3 world with geometry in one
-    slab, round 0 then a handed-on round: statuses, paused rows and done
-    rays' results == the plain slab walk's, and the launches counted."""
+@pytest.mark.parametrize("slabs", [2, 4])
+def test_k4_slab_on_card_matches_plain_slab_walk(cuda_device, slabs):
+    """K4-slab's batch form launched on the card, every round and slab of a
+    2- and a 4-slab split, against ``_init_state`` + the prepared form's
+    host build + ``kernel_result`` (owned rays, paused rays and their state
+    rows, done rays' results at their batch index and nothing else), as
+    ``test_k4_slab_batch_form_host_build_matches_prepared_form`` holds the
+    batch form's host build; the assembled results equal the plain whole
+    grid's walk, word for word."""
+    bm, o, d = _random_rays_and_axis_rays()
     inp = _inputs()
-    bm = build_brickmap(BitGrid.from_dense(torch.from_numpy(inp["slab"]).to(cuda_device)), 8,
-                        coarse_layout=Layout.LINEAR)
-    o, d = torch.from_numpy(inp["o"]).to(cuda_device), torch.from_numpy(inp["d"]).to(cuda_device)
-    meta, bricks, slab_gz = distributed.shard_world_z(bm, N)
-    spec = bm.grid_dims + (bm.factor, bm.coarse_layout, bm.brick_layout)
-    gz = bm.grid_dims[2]
-    dd, start_c, start_normal, active = _ray_setup(bm.grid_dims, bm.factor, o, d)
-    pad = _edge_pad(start_c.to(torch.int32), _dims(bm.grid_dims, torch.int32, cuda_device), dd)
-    owner = torch.clamp(start_c.to(torch.int32)[:, 2] // slab_gz, 0, N - 1)
-    before = bmtrace.slab_launches
-    launched = 0
-    for k in range(N):
-        idx = torch.nonzero(active & (owner == k)).squeeze(1)
-        kw = dict(grid_dims=bm.grid_dims, z0=k * slab_gz, slab_gz=slab_gz, factor=bm.factor, max_steps=2048,
-                  brick_layout=bm.brick_layout)
-        local = distributed._slab_bm(spec, meta[k], bricks[k], slab_gz)
-        rays = (start_c[idx].contiguous(), dd[idx].contiguous(), active[idx].to(torch.int32), pad[idx].contiguous())
-        rows, status, *res = bmtrace.bmtrace_slab(meta[k], bricks[k], rays=rays, **kw)
-        p_rows, p_status, *p_res = run_slab(local, _init_state(local, o[idx], d[idx], full_gz=gz), 2048,
-                                            k * slab_gz, gz)
-        launched += idx.numel() > 0
-        paused = status == 1
-        assert torch.equal(status, p_status)
-        st = unpack_slab_state(p_rows)
-        assert torch.equal(rows[paused, bmtrace.STATE_CELL], st["ccell"][paused])
-        assert torch.equal(rows[paused, bmtrace.STATE_STEPS], st["steps"][paused])
-        got = kernel_result(*res, start_c[idx], start_normal[idx], bm.factor)
-        want = kernel_result(*p_res, start_c[idx], start_normal[idx], bm.factor)
-        for g, w in zip(got, want):
-            assert torch.equal(g[~paused], w[~paused])
-        # the paused rays resumed from the kernel's rows in this slab again:
-        # each pauses at once, where it stood
-        if bool(paused.any()):
-            again = bmtrace.bmtrace_slab(meta[k], bricks[k], rows=rows[paused].contiguous(), **kw)
-            launched += 1
-            assert bool((again[1] == 1).all())
-            assert torch.equal(again[0][:, :34], rows[paused][:, :34])  # word 34, the iterations, restarts
-    assert bmtrace.slab_launches == before + launched
+    io, idd = _hit_imm_rays(inp["dense"])
+    o, d = torch.cat([o, io]), torch.cat([d, idd])
+    got, paused = _batch_rounds(bm, o, d, slabs, 2048, _card_batch_round)
+    assert sum(paused) > 0
+    want = trace_brickmap(bm, o, d, 2048)
+    for f, g, w in zip(FIELDS, got, want):
+        assert torch.equal(_words(g), _words(w)), f
+    fbm, fo, fd = _far_face_world()
+    got, _ = _batch_rounds(fbm, fo, fd, slabs, 2048, _card_batch_round)
+    _assert_whole_grid(got, fbm, fo, fd)
 
 
 @pytest.mark.cuda

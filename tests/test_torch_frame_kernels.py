@@ -494,20 +494,49 @@ def test_dense_frames_through_twins_equal_jax(ref, world, host_route):
         np.testing.assert_array_equal(fb.numpy(), ref[f"dense/{fn}"], err_msg=f"dense {fn}")
 
 
-def test_launcher_signatures_are_the_host_entries():
-    """Each launcher takes its host entry's arguments (and the stream,
-    added at load); K1's also its work counter and grid, last; K4's also its
-    instantiation flag and work counter."""
-    for fn in ("vx_shade", "vx_shade_composite"):
-        assert build.SIGNATURES[fn] == build.HOST_ENTRIES[f"{fn}_host"]
-    for fn in ("vx_bigtrace_rays", "vx_bigtrace_secondary"):
-        assert build.SIGNATURES[fn] == build.HOST_ENTRIES[f"{fn}_host"] + [build._P, build._P]
-    for fn, outs in (("vx_trace_brickmap_dense_rays", 4), ("vx_trace_brickmap_compact_rays", 4),
-                     ("vx_trace_brickmap_dense_secondary", 5), ("vx_trace_brickmap_compact_secondary", 5)):
-        kernel, host = build.SIGNATURES[fn], build.HOST_ENTRIES[f"{fn}_host"]
-        k = len(host) - outs
-        assert kernel[:k] == host[:k] and kernel[-outs:] == host[-outs:] and kernel[k:k + 2] == [build._I, build._P]
-    assert build.KERNEL_SOURCES["shade"] == "shade.cu" and build.HOST_SOURCES["shade_host"] == "shade_host.cpp"
+# launcher -> (its host twin, where the launcher's own arguments go into
+# the twin's list (None: last), those arguments): K1's work counter and
+# grid; K4's instantiation flag and work counter, before the outputs
+_K1_OWN = (None, [build._P, build._P])
+_K4_OWN = [build._I, build._P]
+LAUNCHER_TWINS = {
+    "vx_bigtrace_rays": ("vx_bigtrace_rays_host", *_K1_OWN),
+    "vx_bigtrace_record": ("vx_bigtrace_record_host", *_K1_OWN),
+    "vx_bigtrace_secondary": ("vx_bigtrace_secondary_host", *_K1_OWN),
+    "vx_trace_brickmap_dense_rays": ("vx_trace_brickmap_dense_rays_host", -4, _K4_OWN),
+    "vx_trace_brickmap_compact_rays": ("vx_trace_brickmap_compact_rays_host", -4, _K4_OWN),
+    "vx_trace_brickmap_dense_record": ("vx_trace_brickmap_dense_record_host", -6, _K4_OWN),
+    "vx_trace_brickmap_compact_record": ("vx_trace_brickmap_compact_record_host", -6, _K4_OWN),
+    "vx_trace_brickmap_dense_secondary": ("vx_trace_brickmap_dense_secondary_host", -5, _K4_OWN),
+    "vx_trace_brickmap_compact_secondary": ("vx_trace_brickmap_compact_secondary_host", -5, _K4_OWN),
+    "vx_rrtrace_rays": ("vx_rrtrace_rays_host", None, []),
+    "vx_zslab_rays": ("vx_zslab_rays_host", None, []),
+    "vx_trace_crossings": ("vx_trace_crossings_host", None, []),
+    "vx_trace_grid": ("vx_trace_grid_full_host", None, []),
+    "vx_trace_grid_limbs": ("vx_trace_grid_limbs_full_host", None, []),
+    "vx_secondary_build": ("vx_secondary_build_host", None, []),
+    "vx_secondary_reduce": ("vx_secondary_reduce_host", None, []),
+    "vx_terrain_slab": ("vx_terrain_slab_host", None, []),
+    "vx_noise_points": ("vx_noise_points_host", None, []),
+    "vx_camera_basis": ("vx_camera_basis_host", None, []),
+    "vx_rays_frame": ("vx_rays_frame_host", None, []),
+    "vx_rays_pixels": ("vx_rays_pixels_host", None, []),
+    "vx_shade": ("vx_shade_host", None, []),
+    "vx_shade_composite": ("vx_shade_composite_host", None, []),
+}
+
+
+@pytest.mark.parametrize("launcher", sorted(build.SIGNATURES))
+def test_launcher_signatures_are_the_host_entries(launcher):
+    """Each launcher takes its host twin's arguments plus its own stated
+    ones (and the stream, added at load): every launcher has a twin, and
+    both are defined in the sources the libraries build."""
+    host, at, own = LAUNCHER_TWINS[launcher]
+    twin = build.HOST_ENTRIES[host]
+    at = len(twin) if at is None else at
+    assert build.SIGNATURES[launcher] == twin[:at] + own + twin[at:]
+    for sources, fn in ((build.KERNEL_SOURCES, launcher), (build.HOST_SOURCES, host)):
+        assert any(f'extern "C" int {fn}(' in (build.CSRC / src).read_text() for src in sources.values()), fn
 
 
 def test_wrappers_refuse_cpu_tensors(world):
@@ -654,7 +683,7 @@ def test_k5_rays_entry_twin_equals_plain(world, host_route, use_macro):
     from voxelengine_tpu_torch.kernels import rrtrace
 
     _, bm, lt = world
-    before = (rrtrace.launches, rrtrace.rays_launches)
+    before = rrtrace.rays_launches
     calls = 0
     for case, (o, d) in RAY_CASES.items():
         ot, dt = _rays(case, o, d)
@@ -665,7 +694,7 @@ def test_k5_rays_entry_twin_equals_plain(world, host_route, use_macro):
             _equal(got, want, (case, use_macro, refill))
         if case == "hit_imm":
             assert bool((want.hit & (want.steps == 0)).any())
-    assert (rrtrace.launches, rrtrace.rays_launches) == (before[0], before[1] + calls)
+    assert rrtrace.rays_launches == before + calls
     assert set(host_route) == {"rrtrace_rays"}
 
 
@@ -731,14 +760,6 @@ def test_composite_dest_drops_rank_0_halo(world, host_route, monkeypatch):
         first.append(got[0])
     assert bool((first[0] == 0.25).all())
     assert not bool((first[1][0::2] == 0.25).all(dim=-1).any()) and bool((first[1][1::2] == 0.25).all())
-
-
-def test_new_launcher_signatures_are_the_host_entries():
-    """The rays entry of K5 and the composite entry with its destination
-    take their host entries' arguments (and the stream, added at load)."""
-    for fn in ("vx_rrtrace_rays", "vx_shade_composite"):
-        assert build.SIGNATURES[fn] == build.HOST_ENTRIES[f"{fn}_host"]
-    assert build.SIGNATURES["vx_shade_composite"][:-6] == build.SIGNATURES["vx_shade"][:-2]
 
 
 # ---------------------------------------------------------------------------

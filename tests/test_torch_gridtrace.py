@@ -521,16 +521,16 @@ def test_host_build_of_dense_slot_step_matches_plain_trace(ref, host_lib, name):
 def test_kernel_wrappers_refuse_cpu_tensors_and_overflow():
     from voxelengine_tpu_torch.kernels import bmtrace, gridtrace
 
-    z3, zi, zi3 = torch.zeros(4, 3), torch.zeros(4, dtype=torch.int32), torch.zeros(4, 3, dtype=torch.int32)
+    z3 = torch.zeros(4, 3)
     kw = dict(dims=(32, 32, 32), layout=Layout.LINEAR, max_steps=16)
     with pytest.raises(ValueError, match="CUDA"):
         gridtrace.gridtrace(z3, z3, torch.zeros(1024, dtype=torch.int32), **kw)
     with pytest.raises(ValueError, match="CUDA"):
         gridtrace.gridtrace_limbs(z3, z3, torch.zeros(4, 8, 128, dtype=torch.uint8), **kw)
     with pytest.raises(ValueError, match="CUDA"):
-        bmtrace.bmtrace(z3, z3, zi, zi3, torch.zeros(64, dtype=torch.int32), torch.zeros(64, 16, dtype=torch.int32),
-                        grid_dims=(4, 4, 4), factor=8, max_steps=16, coarse_layout=Layout.LINEAR,
-                        brick_layout=Layout.TILED_LINEAR)
+        bmtrace.bmtrace_rays(z3, z3, torch.zeros(64, dtype=torch.int32), torch.zeros(64, 16, dtype=torch.int32),
+                             grid_dims=(4, 4, 4), factor=8, max_steps=16, coarse_layout=Layout.LINEAR,
+                             brick_layout=Layout.TILED_LINEAR)
     # the grid's dims are checked first: 2^31 voxels overflow the int32 bit
     # index, 2^30 do not (the device check then refuses the CPU tensors)
     words = torch.zeros(8, dtype=torch.int32)

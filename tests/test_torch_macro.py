@@ -506,16 +506,16 @@ def test_return_shapes_on_cpu(ref):
 def test_kernel_wrappers_refuse_bad_inputs():
     from voxelengine_tpu_torch.kernels import bigtrace, rrtrace
 
-    z3, zi = torch.zeros(4, 3), torch.zeros(4, dtype=torch.int32)
+    z3 = torch.zeros(4, 3)
     tables = (torch.zeros(8, 128, dtype=torch.int32), torch.zeros(8, 128, dtype=torch.int32))
     kw = dict(grid_dims=(8, 8, 8), region_dims=(1, 1, 1), factor=8, wpb=16, max_steps=16,
               brick_layout=Layout.TILED_LINEAR, use_macro=True)
-    for fn in (bigtrace.bigtrace, rrtrace.rrtrace):
+    for fn in (bigtrace.bigtrace_rays, rrtrace.rrtrace_rays):
         with pytest.raises(ValueError, match="CUDA"):
-            fn(z3, z3, zi, zi.new_zeros(4, 3), *tables, **kw)
+            fn(z3, z3, *tables, **kw)
     for refill in (0, 33):
         with pytest.raises(ValueError, match="1-32"):
-            rrtrace.rrtrace(z3, z3, zi, zi.new_zeros(4, 3), *tables, refill=refill, **kw)
+            rrtrace.rrtrace_rays(z3, z3, *tables, refill=refill, **kw)
 
 
 # ------------------------------------------------------- card lane (an H100)
@@ -606,31 +606,6 @@ def test_rrtrace_matches_plain_on_card(cuda_device, n):
             assert all(torch.equal(a, b) for a, b in zip(got, want))
     torch.cuda.synchronize()
     assert rrtrace.rays_launches == before + (2 * len(refills) if n else 0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("refill", RR_REFILLS)
-@pytest.mark.parametrize("name", list(CASES))
-def test_rrtrace_counting_build_on_card(cuda_device, name, refill):
-    """K5's counting instantiation on the card: results equal the plain
-    walk's, and its counting sums agree with the rays' own iterations
-    (``_assert_lane_counts``: the card's warps take rays in another order
-    than the host's one warp, but at refill 32 each takes 32 consecutive
-    rays)."""
-    from voxelengine_tpu_torch.kernels import rrtrace
-    from voxelengine_tpu_torch.ops.bigtrace import _kernel_tables, prepared_rays
-
-    max_steps, _ = CASES[name]
-    bm, o, d = _port_world(name, cuda_device)
-    lt = make_line_table(bm)
-    want, dg = trace_brickmap_lt(bm, lt, o, d, max_steps, diag=True)
-    start_c, dd, active, pad, start_normal = prepared_rays(bm, o, d)
-    tables, kw = _kernel_tables(bm, lt, max_steps, True)
-    stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
-    outs = rrtrace.rrtrace(start_c, dd, active, pad, *tables, refill=refill, stats=stats, **kw)
-    got = kernel_result(*outs, start_c, start_normal, bm.factor)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    _assert_lane_counts(stats.cpu(), dg[len(PHASES)].cpu(), refill)
 
 
 if __name__ == "__main__":

@@ -252,14 +252,6 @@ def test_host_twin_equals_jax_primary_rays(ref, host_route, name):
                     np.testing.assert_array_equal(g, w.astype(np.int64), err_msg=f"{name} {j} {fn} {k}")
 
 
-def test_launcher_signatures_are_the_host_entries():
-    """Each launcher takes its host entry's arguments (and the stream,
-    added at load)."""
-    for fn in ("vx_rays_frame", "vx_rays_pixels"):
-        assert build.SIGNATURES[fn] == build.HOST_ENTRIES[f"{fn}_host"]
-    assert build.KERNEL_SOURCES["rays"] == "rays.cu"
-
-
 def test_card_route_never_takes_the_plain_body(monkeypatch, host_route):
     """A card call of ``primary_rays`` and ``_rays_for_pixels`` reaches the
     wrapper and never the plain body."""

@@ -324,12 +324,6 @@ def test_wrappers_refuse_cpu_tensors_and_bad_inputs():
     assert secondary_kernel.ray_count("ao", 5, 4) == 20 and secondary_kernel.ray_count("shadow", 5, 4) == 5
 
 
-def test_launcher_signatures_are_the_host_entries():
-    for fn in ("vx_secondary_build", "vx_secondary_reduce"):
-        assert build.SIGNATURES[fn] == build.HOST_ENTRIES[f"{fn}_host"]
-    assert build.KERNEL_SOURCES["secondary"] == "secondary.cu"
-
-
 # ---------------------------------------------------------------------------
 # card lane
 # ---------------------------------------------------------------------------

@@ -303,10 +303,10 @@ def test_host_build_macro_route_matches_plain_macro_walk(ref, host_build, name):
 def test_kernel_wrapper_refuses_cpu_tensors():
     from voxelengine_tpu_torch.kernels import bigtrace
 
-    z3, zi = torch.zeros(4, 3), torch.zeros(4, dtype=torch.int32)
+    z3 = torch.zeros(4, 3)
     with pytest.raises(ValueError, match="CUDA"):
-        bigtrace.bigtrace(
-            z3, z3, zi, zi.new_zeros(4, 3), torch.zeros(8, 128, dtype=torch.int32),
+        bigtrace.bigtrace_rays(
+            z3, z3, torch.zeros(8, 128, dtype=torch.int32),
             torch.zeros(8, 128, dtype=torch.int32), grid_dims=(8, 8, 8), region_dims=(1, 1, 1),
             factor=8, wpb=16, max_steps=16, brick_layout=Layout.TILED_LINEAR,
         )

@@ -14,25 +14,25 @@
 // (pallas_bigtrace.py:1514).  Four instantiations, (macro, diag) each on or
 // off; the production ones (diag off) keep their instruction streams.
 //
-// Two entries over one kernel template, by the form of the rays
-// (ray_setup.cuh): vx_bigtrace_rays takes origins and raw directions and
+// Three entries over one kernel template, by the form of the rays
+// (ray_setup.cuh), each from origins and raw directions: vx_bigtrace_rays
 // computes trace_brickmap_hbm's card branch whole, the ray setup before the
 // walk and the hit_imm fix-up after it (ray_setup.cuh::trace_ray_full); it
 // is the frame path's K1, one launch a trace where the eager setup and
 // fix-up took ~69 more kernels and ~0.46 ms of device time on the bench
-// frame on an H100 (PERF.md).  vx_bigtrace takes the prepared rays of that
-// setup (start, direction, active, pad) and leaves the fix-up to its
-// caller: the walk alone, which kernel_ab.py times.  Each has the four
-// (macro, diag) instantiations.  A third, vx_bigtrace_secondary, takes the
-// primary trace's results and builds, walks and reduces the shading's
-// shadow, reflection or AO rays (secondary.cuh; macro on and off, three
-// kinds): a shaded frame's secondary traces are three launches where the
-// eager rays and AO's sample loop took ~540 kernels (PERF.md).  Its AO
-// kind walks all of a ray's samples in one thread and keeps the sum in a
-// register.  A fourth, vx_bigtrace_record, is vx_bigtrace_rays (macro off)
-// storing the ray API's result record instead of the trace's fields
+// frame on an H100 (PERF.md), and it has the four (macro, diag)
+// instantiations.  vx_bigtrace_secondary takes the primary trace's results
+// and builds, walks and reduces the shading's shadow, reflection or AO rays
+// (secondary.cuh; macro on and off, three kinds): a shaded frame's
+// secondary traces are three launches where the eager rays and AO's sample
+// loop took ~540 kernels (PERF.md).  Its AO kind walks all of a ray's
+// samples in one thread and keeps the sum in a register.
+// vx_bigtrace_record is vx_bigtrace_rays (macro off) storing the ray API's
+// result record instead of the trace's fields
 // (ray_setup.cuh::OriginRaysRecord): VoxelRaytracer3D.raytrace's card path,
-// one launch a call.
+// one launch a call.  The walk on prepared rays (ray_setup.cuh::
+// PreparedRays) has no launcher: its g++ twin, dda_host.cpp::vx_trace_host,
+// holds the shared loop to the JAX kernel on the kernel's own inputs.
 //
 // Design: one thread a ray, the loop of dda.cuh::trace_ray, tables read
 // through the read-only path, launched as K4 is (bmtrace.cu): a persistent
@@ -55,7 +55,7 @@
 // line cache, no voted DMA, no select-chain fetch, no deferred descend, no
 // lockstep tile.
 //
-// Least time: the bytes of the rays (40 B in, 32 B out per ray) plus the
+// Least time: the bytes of the rays (24 B in, 29 B out per ray) plus the
 // table bytes the rays touch (at least the region entry and the brick word
 // of each distinct hit) against the DDA work, one event per iteration.
 // What bounds it on this card (PERF.md): the latency of each
@@ -87,9 +87,9 @@ namespace {
 constexpr int THREADS = 1024;  // a production build's block: 1024 x 64 registers fill an SM's register file
 constexpr int DIAG_THREADS = 128;  // a diag build's block, at the compiler's own register budget
 
-// Rays: vx::PreparedRays, vx::OriginRays, vx::OriginRaysRecord (pos, normal
-// and steps: the record's hit_point, normal and steps), or
-// vx::SecondaryRays (DIAG off; it stores its own outputs).
+// Rays: vx::OriginRays, vx::OriginRaysRecord (pos, normal and steps: the
+// record's hit_point, normal and steps), or vx::SecondaryRays (DIAG off; it
+// stores its own outputs).
 template <bool MACRO, bool DIAG, class Rays>
 __global__ void __launch_bounds__(DIAG ? DIAG_THREADS : THREADS, 1)
 bigtrace_kernel(vx::TraceParams P, vx::LineTableFetch F, int n, int* __restrict__ counter, Rays R,
@@ -164,30 +164,16 @@ int launch_any(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, con
 
 }  // namespace
 
-// Launches on `stream` without synchronising; returns the first CUDA error
+// The rays entry: origins and raw directions (f32[n, 3], row strides os
+// and rs of 3, or 0 for one shared row); writes hit (one byte a ray, 0 or
+// 1), position and normal after the hit_imm fix-up, and steps.  Launches on
+// `stream` without synchronising; returns the first CUDA error
 // (cudaGetLastError() after the launch).  `diag` is null, or
 // int32[D_COUNT, n]: the 10 phase counters, then the iteration count of the
 // ray's warp batch.  `counter` is one int of device scratch, zeroed here on
 // `stream`; `grid` is null or a host int[3], set to the SMs, the blocks an
 // SM and the threads a block that sized the grid
 // (kernels/bigtrace.py::launch_grid).
-extern "C" int vx_bigtrace(const float* start, const float* dir, const int* active,
-                           const int* pad, const int* region_lines, const int* brick_lines,
-                           const int* macro, const int* macro2, int n, int gx, int gy, int gz,
-                           int rx, int ry, int rz, int factor, int wpb, int max_steps,
-                           int brick_layout, int iter_limit, int use_macro, int* flags,
-                           float* pos, float* normal, int* steps, int* diag, int* counter, int* grid,
-                           void* stream) {
-  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
-  const vx::LineTableFetch F = {region_lines, brick_lines, macro, macro2, rx, ry, rz, wpb};
-  const vx::PreparedRays R = {start, dir, active, pad, flags};
-  return launch_any(P, F, n, R, use_macro, pos, normal, steps, diag, counter, grid, stream);
-}
-
-// The rays entry: origins and raw directions (f32[n, 3], row strides os
-// and rs of 3, or 0 for one shared row); writes hit (one byte a ray, 0 or
-// 1), position and normal after the hit_imm fix-up, and steps.  Otherwise
-// as vx_bigtrace.
 extern "C" int vx_bigtrace_rays(const float* origins, int os, const float* rays, int rs,
                                 const int* region_lines, const int* brick_lines, const int* macro,
                                 const int* macro2, int n, int gx, int gy, int gz, int rx, int ry,

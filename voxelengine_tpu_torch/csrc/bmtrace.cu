@@ -10,21 +10,22 @@
 // one-hot bf16 limb matmuls exist because Mosaic has no per-lane gather;
 // here a thread reads the word it needs.
 //
-// vx_trace_brickmap_compact is the same kernel over a compact brickmap
-// (CompactFetch: the brick slot from brick_idx).  It has no TPU kernel: the
+// The vx_trace_brickmap_compact_* entries are the same kernel over a
+// compact brickmap (CompactFetch: the brick slot from brick_idx).  It has no TPU kernel: the
 // JAX package walks a compact world without a line table in XLA
 // (voxelengine_tpu/ops/trace.py:411,435, trace_brickmap and
 // trace_brickmap_staged, which give the same results), and the TPU kernel
 // takes dense slots only (pallas_trace2.py:335).  Its bound is K4's; a
 // descend costs one more dependent load, the slot word.
 //
-// What bounds it on this card: the bytes of the rays (40 B in, 32 B out per
+// What bounds it on this card: the bytes of the rays (24 B in, 29 B out per
 // ray) plus the table bytes the rays touch (at least the brick word and the
 // meta word of each distinct hit) against the DDA work, sum(steps) events.
-// Measured (PERF.md): on its 1,048,576 random rays the first build ran
-// at ~34x that bound, bound like K1 by each iteration's dependent chain;
-// the same rays sorted by direction octant, then start chunk, ran in 0.64
-// of the time, so divergence and scattered loads are about a third of it.
+// Measured (PERF.md): on its 1,048,576 random rays the first build (then
+// on prepared rays, 40 B in and 32 B out) ran at ~34x that bound, bound
+// like K1 by each iteration's dependent chain; the same rays sorted by
+// direction octant, then start chunk, ran in 0.64 of the time, so
+// divergence and scattered loads are about a third of it.
 //
 // Design: the JAX kernel keeps both tables in VMEM; here the meta words go
 // to shared memory and the bricks stay in global memory, read through the
@@ -39,21 +40,24 @@
 // global meta on terrains of 16-224 KB of meta (L1 holds most of the meta
 // words the rays touch either way).
 //
-// Each entry has a rays form (vx_trace_brickmap_dense_rays,
-// vx_trace_brickmap_compact_rays: origins and raw directions, the ray setup
-// and the hit_imm fix-up in the kernel, ray_setup.cuh::trace_ray_full), the
-// frame path's K4: one launch a trace where the eager setup and fix-up
-// (ops/trace2.py; pallas_trace2.py:344-356,395-405 in XLA) took ~69 more
-// kernels.  The prepared-ray entries stay for the walk alone.  And a
+// Each table form has three entries, all from origins and raw directions:
+// a rays form (vx_trace_brickmap_dense_rays, vx_trace_brickmap_compact_rays:
+// the ray setup and the hit_imm fix-up in the kernel,
+// ray_setup.cuh::trace_ray_full), the frame path's K4: one launch a trace
+// where the eager setup and fix-up (ops/trace2.py;
+// pallas_trace2.py:344-356,395-405 in XLA) took ~69 more kernels.  A
 // secondary form (vx_trace_brickmap_{dense,compact}_secondary): the
 // shading's shadow, reflection or AO rays built from the primary trace,
 // walked and reduced in the launch (secondary.cuh), as K1's.  And a record
 // form (vx_trace_brickmap_{dense,compact}_record): the rays form storing
 // the ray API's result record (ray_setup.cuh::OriginRaysRecord), as K1's
 // vx_bigtrace_record: VoxelRaytracer3D.raytrace's card path without a
-// line table, one launch a call.  The grid's
-// size is asked of the runtime once a process for each instantiation and
-// shared-memory size (grid_cache.cuh), not on every launch.
+// line table, one launch a call.  The walk on prepared rays has no
+// launcher: its g++ twins (dda_host.cpp::vx_trace_brickmap_{dense,compact}
+// _host) hold the shared loop to the JAX package on its own inputs.  The
+// grid's size is asked of the runtime once a process for each
+// instantiation and shared-memory size (grid_cache.cuh), not on every
+// launch.
 //
 // For each table form (dense slots, compact), two instantiations of one
 // template, chosen by the wrapper from the meta table's size alone
@@ -83,9 +87,9 @@ namespace {
 constexpr int THREADS = 1024;  // 1024 x 64 registers: one block fills an SM's register file
 
 // Fetch: DenseSlotFetch or CompactFetch, with meta in shared memory when
-// Fetch::SHARED; Rays: vx::PreparedRays, vx::OriginRays,
-// vx::OriginRaysRecord (pos, normal and steps: the record's hit_point,
-// normal and steps) or vx::SecondaryRays (which stores its own outputs).
+// Fetch::SHARED; Rays: vx::OriginRays, vx::OriginRaysRecord (pos, normal
+// and steps: the record's hit_point, normal and steps) or
+// vx::SecondaryRays (which stores its own outputs).
 template <class Fetch, class Rays>
 __global__ void __launch_bounds__(THREADS, 1)
 bmtrace_kernel(vx::TraceParams P, Fetch F, int n, int num_chunks, int* __restrict__ counter, Rays R,
@@ -174,42 +178,16 @@ int compact(const vx::TraceParams& P, const int* meta, const int* brick_idx, con
 
 }  // namespace
 
-// Launches on `stream` without synchronising; returns the first CUDA error
+// The rays forms: origins and raw directions (f32[n, 3], row strides os
+// and rs of 3, or 0 for one shared row); writes hit (one byte a ray, 0 or
+// 1), position and normal after the hit_imm fix-up, and steps.  Launches on
+// `stream` without synchronising; returns the first CUDA error
 // (cudaGetLastError() after the launch).  `counter` is one int of device
 // scratch, zeroed here on `stream`; `shared_meta` picks the instantiation
 // (the wrapper's choice by table size; a table over VX_SMEM_META_LIMIT is
-// refused with cudaErrorInvalidValue).
-extern "C" int vx_trace_brickmap_dense(const float* start, const float* dir, const int* active,
-                                       const int* pad, const int* meta, const int* bricks,
-                                       int n, int gx, int gy, int gz, int factor, int wpb,
-                                       int max_steps, int coarse_layout, int brick_layout,
-                                       int iter_limit, int shared_meta, int* counter, int* flags,
-                                       float* pos, float* normal, int* steps, void* stream) {
-  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
-  const vx::PreparedRays R = {start, dir, active, pad, flags};
-  return dense(P, meta, bricks, coarse_layout, wpb, n, shared_meta, counter, R, pos, normal, steps, stream);
-}
-
-// The compact instantiation: as vx_trace_brickmap_dense, with each chunk's
+// refused with cudaErrorInvalidValue).  The compact form takes each chunk's
 // brick slot in brick_idx (int32[num_chunks], -1 for an empty chunk) and
 // bricks int32[num_bricks, wpb].
-extern "C" int vx_trace_brickmap_compact(const float* start, const float* dir, const int* active,
-                                         const int* pad, const int* meta, const int* brick_idx,
-                                         const int* bricks, int n, int gx, int gy, int gz,
-                                         int factor, int wpb, int max_steps, int coarse_layout,
-                                         int brick_layout, int iter_limit, int shared_meta,
-                                         int* counter, int* flags, float* pos, float* normal,
-                                         int* steps, void* stream) {
-  const vx::TraceParams P = {gx, gy, gz, factor, max_steps, brick_layout, iter_limit};
-  const vx::PreparedRays R = {start, dir, active, pad, flags};
-  return compact(P, meta, brick_idx, bricks, coarse_layout, wpb, n, shared_meta, counter, R, pos, normal,
-                 steps, stream);
-}
-
-// The rays forms: origins and raw directions (f32[n, 3], row strides os
-// and rs of 3, or 0 for one shared row) in place of the prepared rays;
-// writes hit (one byte a ray, 0 or 1), position and normal after the
-// hit_imm fix-up, and steps.  Otherwise as the entries above.
 extern "C" int vx_trace_brickmap_dense_rays(const float* origins, int os, const float* rays, int rs,
                                             const int* meta, const int* bricks, int n, int gx, int gy,
                                             int gz, int factor, int wpb, int max_steps, int coarse_layout,
@@ -263,7 +241,7 @@ extern "C" int vx_trace_brickmap_compact_record(const float* origins, int os, co
 // The secondary entries: the shadow, reflection or AO rays (`kind`,
 // secondary.cuh) of n primary rays built, walked and reduced in the
 // launch, as bigtrace.cu::vx_bigtrace_secondary; max_steps is the kind's
-// (8 for AO).  Tables, instantiation and counter as the entries above.
+// (8 for AO).  Tables, instantiation and counter as the rays forms'.
 extern "C" int vx_trace_brickmap_dense_secondary(VX_SECONDARY_PARAMS, const int* meta, const int* bricks, int n,
                                                  int gx, int gy, int gz, int factor, int wpb, int max_steps,
                                                  int coarse_layout, int brick_layout, int iter_limit,

@@ -1,11 +1,15 @@
 // Host build of dda.cuh, crossings.cuh, grid_dda.cuh, ray_setup.cuh and zslab.cuh: the Hopper
 // kernels' per-ray logic compiled by a C++ compiler (-ffp-contract=off), so the CPU
 // tests can hold it against the plain torch traces and the JAX package
-// before the kernels ever run on the card.  One entry per kernel, taking its
-// launcher's arguments minus the stream (K4's also minus its instantiation
-// flag and work-counter scratch); K5's runs the kernel's per-lane schedule
-// for one warp.  vx_trace_grid_host and vx_trace_grid_limbs_host run the
-// grid walk alone on prepared rays (start, direction, active, pad).  The
+// before the kernels ever run on the card.  One entry per launcher, taking
+// its arguments minus the stream (K1's also minus its work counter and
+// grid, K4's minus its instantiation flag and work-counter scratch); K5's
+// runs the kernel's per-lane schedule for one warp.  The entries on
+// prepared rays (start, direction, active, pad) have no launcher: K1's
+// vx_trace_host, K4's vx_trace_brickmap_{dense,compact}_host, K5's
+// vx_rrtrace_host, K4-slab's vx_zslab_host and the grid walk alone,
+// vx_trace_grid_host and vx_trace_grid_limbs_host, hold the shared loops to
+// the JAX kernels on their own prepared inputs and to the plain walks.  The
 // *_rays_host entries are K1's and K4's rays entries: origins and raw
 // directions, the setup and the hit_imm fix-up included; the
 // *_record_host entries their record entries (the ray API's result record
@@ -115,7 +119,7 @@ void store(const vx::TraceResult& r, int i, int* flags, float* pos, float* norma
 // advanced in lockstep, an idle lane refilled from the queue in lane order
 // once at least `refill` lanes are idle (the kernel's lanes leave their own
 // loops at that point, which in lockstep is after the same iteration);
-// stats as the counting instantiation's.  RAYS: the rays entry's refill
+// stats, where given, the lanes iterating and the warp-iterations.  RAYS: the rays entry's refill
 // (ray_init_of from origins and raw directions at row strides os, rs) and
 // store (the hit_imm fix-up, hit one byte in `hit`); else the prepared
 // rays and flags.
@@ -183,8 +187,10 @@ void rr_warp(const vx::TraceParams& P, const vx::LineTableFetch& F, int n, int r
 
 }  // namespace
 
-// K1's step (bigtrace.cu::vx_bigtrace).  `diag` as the kernel's, except
-// that the iteration count is the ray's own (there is no warp here).
+// K1's walk (bigtrace.cu::bigtrace_kernel) on prepared rays, which no
+// launcher takes: the loop held to the JAX kernel on its own inputs.
+// `diag` as the kernel's, except that the iteration count is the ray's own
+// (there is no warp here).
 extern "C" int vx_trace_host(const float* start, const float* dir, const int* active,
                              const int* pad, const int* region_lines, const int* brick_lines,
                              const int* macro, const int* macro2, int n, int gx, int gy, int gz,
@@ -277,10 +283,11 @@ extern "C" int vx_trace_crossings_host(const float* start, const float* dir, con
   return 0;
 }
 
-// K5 (rrtrace.cu::vx_rrtrace) as one warp runs it: the per-lane refill
-// schedule over the whole queue, each lane's walk advanced by ray_iterate.
-// `counter` (the kernel's work-counter scratch) is not used; `stats`, when
-// given, receives the counting instantiation's two sums for this warp.
+// K5 (rrtrace.cu::rrtrace_kernel) on prepared rays, which no launcher
+// takes, as one warp runs it: the per-lane refill schedule over the whole
+// queue, each lane's walk advanced by ray_iterate.  `counter` is not used;
+// `stats`, when given, receives this warp's lanes iterating and its
+// warp-iterations (the card has no counting build).
 extern "C" int vx_rrtrace_host(const float* start, const float* dir, const int* active,
                                const int* pad, const int* region_lines, const int* brick_lines,
                                const int* macro, const int* macro2, int n, int gx, int gy,
@@ -325,9 +332,10 @@ extern "C" int vx_rrtrace_rays_host(const float* origins, int os, const float* r
   return 0;
 }
 
-// K4's step (bmtrace.cu::vx_trace_brickmap_dense), meta read where it lies;
-// the launcher's shared_meta and counter (its instantiation and its work
-// queue) have no host counterpart.
+// K4's walk (bmtrace.cu::bmtrace_kernel, dense slots) on prepared rays,
+// which no launcher takes, meta read where it lies; the launchers'
+// shared_meta and counter (their instantiation and work queue) have no
+// host counterpart.
 extern "C" int vx_trace_brickmap_dense_host(const float* start, const float* dir,
                                             const int* active, const int* pad, const int* meta,
                                             const int* bricks, int n, int gx, int gy, int gz,
@@ -339,8 +347,8 @@ extern "C" int vx_trace_brickmap_dense_host(const float* start, const float* dir
   return brickmap_rays(P, F, n, start, dir, active, pad, flags, pos, normal, steps);
 }
 
-// K4's compact instantiation (bmtrace.cu::vx_trace_brickmap_compact), as
-// the dense host entry: brick slots from brick_idx.
+// K4's compact instantiation (bmtrace.cu, CompactFetch) on prepared rays,
+// as the dense host entry: brick slots from brick_idx.
 extern "C" int vx_trace_brickmap_compact_host(const float* start, const float* dir,
                                               const int* active, const int* pad, const int* meta,
                                               const int* brick_idx, const int* bricks, int n,
@@ -417,8 +425,9 @@ extern "C" int vx_trace_grid_limbs_host(const float* start, const float* dir, co
                    normal, steps);
 }
 
-// K4-slab (zslab.cu::vx_zslab), ray by ray: one round of the z-sharded walk
-// over the rank's slab.  The launcher's counter has no host counterpart.
+// K4-slab's round (zslab.cuh::slab_round) on prepared rays, which no
+// launcher takes, ray by ray: one round of the z-sharded walk over the
+// rank's slab, round 0 from the caller's ray setup.  `counter` is not used.
 extern "C" int vx_zslab_host(const float* start, const float* dir, const int* active, const int* pad,
                              const int* rows_in, const int* meta, const int* bricks, int m, int gx, int gy,
                              int gz, int z0, int slab_gz, int factor, int wpb, int max_steps,

@@ -170,12 +170,14 @@ VX_HD void store_ray(const TraceResult& r, int i, float* pos, float* normal, int
   steps[i] = r.steps;
 }
 
-// The rays of a K1 or K4 launch, in one of three forms, and how a ray's
+// The rays of a K1 or K4 walk, in one of three forms, and how a ray's
 // result is stored (store(r, i, pos, normal, steps)):
-//   PreparedRays: the wrapper's ray setup done (start in chunk units,
+//   PreparedRays: the ray setup done by the caller (start in chunk units,
 //     normalized direction, active, edge pad); flags = hit | hit_imm << 1,
-//     the fix-up left to the wrapper, position, normal and steps as
-//     store_ray (vx_bigtrace, vx_trace_brickmap_*);
+//     the fix-up left to the caller, position, normal and steps as
+//     store_ray (no launcher: the host twins vx_trace_host and
+//     vx_trace_brickmap_{dense,compact}_host, dda_host.cpp, which hold the
+//     loop to the JAX kernels on their own prepared inputs);
 //   OriginRays: origins (voxels) and raw directions, f32[n, 3] at a row
 //     stride of 3, or 0 for one row shared by every ray (primary_rays
 //     broadcasts the origin, or an orthographic frame's direction);

@@ -17,8 +17,8 @@ parallel.mesh.Mesh` that names the rank and the size only), for N in
           ``[r H / N, (r + 1) H / N)``
   cyclic  pixel blocks dealt round-robin (``render_frame_cyclic``)
 
-K1 alone on each shard's own rays (its ray setup outside the timing), by
-CUDA events over ``--repeats`` launches; ``rest_N`` is rank 0's whole shard
+K1 alone on each shard's own rays (its rays entry, the launch that the
+sharded frames make), by CUDA events over ``--repeats`` launches; ``rest_N`` is rank 0's whole shard
 frame (chained frames by CUDA events) less its K1 time.  Printed: each
 layout's K1 time a rank, its max/mean imbalance and frame_N, beside N = 1
 (``render_frame`` and K1 on the whole frame); a layout the sharded frames
@@ -38,7 +38,7 @@ import torch
 
 from voxelengine_tpu_torch.experiments.scene import Scene, bench_scene, ms_timer
 from voxelengine_tpu_torch.kernels import bigtrace
-from voxelengine_tpu_torch.ops.bigtrace import _kernel_tables, prepared_rays
+from voxelengine_tpu_torch.ops.bigtrace import _kernel_tables
 from voxelengine_tpu_torch.parallel import sharded
 from voxelengine_tpu_torch.parallel.mesh import Mesh
 from voxelengine_tpu_torch.render.frame import block_geometry, make_framebuffer, primary_rays, render_frame
@@ -59,20 +59,20 @@ def shard_rays(scene: Scene, layout: str, n: int, rank: int):
 
 
 def k1_ms(scene: Scene, o, d, repeats: int) -> float:
-    """K1 alone on the rays ``o``, ``d`` (ray setup done before the
-    timing): mean ms over ``repeats`` launches after one untimed launch.
-    Rays on the CPU time the plain walk instead (tests)."""
+    """K1 alone on the rays ``o``, ``d``: its rays entry (the ray setup,
+    the walk and the fix-up in one launch), mean ms over ``repeats``
+    launches after one untimed launch.  Rays on the CPU time the plain walk
+    instead (tests)."""
     bm, lt, cfg = scene.bm, scene.lt, scene.cfg
     timed = ms_timer(scene.device)
     if not o.is_cuda:
         from voxelengine_tpu_torch.ops.bigtrace import trace_brickmap_hbm
 
         return timed(lambda: trace_brickmap_hbm(bm, lt, o, d, cfg.max_steps, use_macro=cfg.trace_use_macro))
-    start_c, dd, active, pad, _ = prepared_rays(bm, o, d)
     tables, kw = _kernel_tables(bm, lt, cfg.max_steps, cfg.trace_use_macro)
 
     def launch():
-        bigtrace.bigtrace(start_c, dd, active, pad, *tables, **kw)
+        bigtrace.bigtrace_rays(o, d, *tables, **kw)
 
     launch()
     return timed(lambda: [launch() for _ in range(repeats)]) / repeats

@@ -1,14 +1,16 @@
 """Wrapper of K1, the Hopper line-table traversal kernel (``csrc/bigtrace.cu``).
 
 It replaces ``voxelengine_tpu/ops/pallas_bigtrace.py::_bigtrace_kernel``.
-:func:`bigtrace_rays` is the frame path's entry: origins and raw
-directions in, the ray setup and the ``hit_imm`` fix-up inside the launch
-(``trace_brickmap_hbm``'s card branch whole); :func:`bigtrace` takes the
-prepared rays of that setup and leaves the fix-up to its caller (the walk
-alone); :func:`bigtrace_record` is :func:`bigtrace_rays` storing the ray
-API's result record in the launch (``VoxelRaytracer3D.raytrace``'s card
-path); :func:`bigtrace_secondary` builds, walks and reduces a kind of
-the shading's secondary rays from the primary trace's results.  Its plain
+Every entry takes one form of rays, origins and raw directions, and runs
+the ray setup and the ``hit_imm`` fix-up inside the launch:
+:func:`bigtrace_rays` is the frame path's entry (``trace_brickmap_hbm``'s
+card branch whole); :func:`bigtrace_record` is :func:`bigtrace_rays`
+storing the ray API's result record in the launch
+(``VoxelRaytracer3D.raytrace``'s card path); :func:`bigtrace_secondary`
+builds, walks and reduces a kind of the shading's secondary rays from the
+primary trace's results.  The walk on prepared rays is left to the g++
+twin (``csrc/dda_host.cpp::vx_trace_host``), which the CPU tests hold to
+the JAX kernel on its own inputs.  Its plain
 versions, which
 :func:`voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_hbm` runs for rays
 on the CPU, are :func:`voxelengine_tpu_torch.ops.bigtrace.trace_brickmap_lt`
@@ -100,60 +102,6 @@ def check_line_table(kernel: str, dev, region_lines, brick_lines, macro, macro2,
     return tuple(None if t is None else t.data_ptr() for t in (macro, macro2))
 
 
-def bigtrace(
-    start: torch.Tensor,
-    d: torch.Tensor,
-    active: torch.Tensor,
-    pad: torch.Tensor,
-    region_lines: torch.Tensor,
-    brick_lines: torch.Tensor,
-    macro: Optional[torch.Tensor] = None,
-    macro2: Optional[torch.Tensor] = None,
-    *,
-    grid_dims,
-    region_dims,
-    factor: int,
-    wpb: int,
-    max_steps: int,
-    brick_layout: Layout,
-    use_macro: bool = False,
-    diag: bool = False,
-):
-    """Trace N rays through the line table on the card, one thread a ray.
-
-    ``start`` (world-clipped start, chunk units) and ``d`` (normalized
-    direction) are ``f32[N, 3]``; ``active`` is ``i32[N]``, ``pad`` the
-    coarse edge pad ``i32[N, 3]`` (see ``ops/bigtrace.py``); ``macro`` and
-    ``macro2`` are the line table's occupancy levels, read when
-    ``use_macro``.  Returns ``(flags i32[N], position f32[N, 3], normal
-    f32[N, 3], steps i32[N])`` with ``flags = hit | hit_imm << 1`` (the
-    caller applies the ``hit_imm`` fix-up), and with ``diag`` a fifth
-    ``i32[11, N]``: the 10 phase counters, then the iteration count of each
-    ray's warp.  Launches on the current stream without synchronising and
-    raises if the launch is refused.
-    """
-    dev = build.check_rays("bigtrace", start, d, active, pad)
-    mptrs = check_line_table("bigtrace", dev, region_lines, brick_lines, macro, macro2, region_dims, factor,
-                             use_macro)
-    n = start.shape[0]
-    outs = build.ray_outputs(n, dev)
-    if diag:
-        outs += (torch.empty((DIAG_ROWS, n), dtype=torch.int32, device=dev),)
-    if n == 0:
-        return outs
-    gx, gy, gz = grid_dims
-    _launch(
-        "bigtrace", "vx_bigtrace", n,
-        start.data_ptr(), d.data_ptr(), active.data_ptr(), pad.data_ptr(),
-        region_lines.data_ptr(), brick_lines.data_ptr(), *mptrs,
-        n, gx, gy, gz, *region_dims, factor, wpb, max_steps, brick_layout.value,
-        3 * max_steps + 64,  # iteration cap (pallas_bigtrace.py:1488)
-        int(use_macro), *(o.data_ptr() for o in outs[:4]), outs[4].data_ptr() if diag else None,
-        dev=dev,
-    )
-    return outs
-
-
 def bigtrace_rays(
     origins: torch.Tensor,
     rays: torch.Tensor,
@@ -171,18 +119,21 @@ def bigtrace_rays(
     use_macro: bool = False,
     diag: bool = False,
 ):
-    """``trace_brickmap_hbm`` for N rays on the card in one launch: the ray
-    setup, :func:`bigtrace`'s walk and the ``hit_imm`` fix-up.
+    """``trace_brickmap_hbm`` for N rays on the card in one launch, one
+    thread a ray: the ray setup, the walk through the line table and the
+    ``hit_imm`` fix-up.
 
     ``origins`` (voxels) and ``rays`` (directions, not necessarily
     normalized) are ``f32[N, 3]`` whose rows are 3 contiguous floats, or one
     row broadcast (row stride 0, as ``primary_rays`` gives the origin, or an
-    orthographic frame's direction); anything else is copied first.  Tables
-    as for :func:`bigtrace`.  Returns ``(hit bool[N], position f32[N, 3],
-    normal f32[N, 3], steps i32[N])``, the fields of the
+    orthographic frame's direction); anything else is copied first.
+    ``macro`` and ``macro2`` are the line table's occupancy levels, read
+    when ``use_macro``.  Returns ``(hit bool[N], position f32[N, 3], normal
+    f32[N, 3], steps i32[N])``, the fields of the
     :class:`~voxelengine_tpu_torch.ops.trace.TraceOut`, and with ``diag`` a
-    fifth ``i32[11, N]`` as :func:`bigtrace`'s.  Launches on the current
-    stream without synchronising and raises if the launch is refused.
+    fifth ``i32[11, N]``: the 10 phase counters, then the iteration count of
+    each ray's warp.  Launches on the current stream without synchronising
+    and raises if the launch is refused.
     """
     dev = origins.device
     build.require_cuda("bigtrace_rays", dev)
@@ -288,7 +239,7 @@ def bigtrace_secondary(
     ``position`` and ``normal``, walks them as :func:`bigtrace_rays` does
     and keeps what shading reads.  Inputs and results as
     ``build.secondary_args``; ``max_steps`` is the kind's walk budget (8
-    for AO).  Tables as for :func:`bigtrace`.  Launches on the current
+    for AO).  Tables as for :func:`bigtrace_rays`.  Launches on the current
     stream without synchronising and raises if the launch is refused."""
     dev, n, head, outs, res = build.secondary_args(
         "bigtrace_secondary", kind, position, normal, light=light, dirs=dirs, px=px, py=py, width=width,

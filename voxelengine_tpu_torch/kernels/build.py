@@ -64,9 +64,8 @@ SECONDARY_KINDS = ("shadow", "reflection", "ao")
 # last: counter (int32 scratch) and grid (null, or a host int[3]: the SMs,
 # the blocks an SM and the threads a block that sized the grid)
 K1_HOST = {
-    # ... outputs, diag (null, or int32[11, n])
-    "vx_bigtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
-    # the same from origins and raw directions; hit (uint8) in place of flags
+    # origins and raw directions, tables, ints; hit (uint8), pos, normal,
+    # steps, diag (null, or int32[11, n])
     "vx_bigtrace_rays": _ORIGIN_RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
     # the same, macro off, no diag: the ray API's result record
     "vx_bigtrace_record": _ORIGIN_RAYS + _LINE_TABLE + _LINE_TABLE_INTS[:-1] + _RECORD_OUTS,
@@ -75,21 +74,18 @@ K1_HOST = {
 }
 SIGNATURES = {
     **{fn: args + [_P, _P] for fn, args in K1_HOST.items()},
-    # ... max_rows, rows, nrows, outputs (the record instantiation of K1's loop)
+    # prepared rays (start, dir, active, pad), tables and ints as K1's;
+    # max_rows, rows, nrows, outputs (the record instantiation of K1's loop)
     "vx_trace_crossings": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P, _P] + _OUTS,
-    # ... refill, counter (int32 scratch), stats (null, or uint64[2]), outputs
-    "vx_rrtrace": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P, _P] + _OUTS,
     # origins, its row stride, rays, its row stride, words; n, X, Y, Z,
     # layout, max_steps; hit (uint8), ...
     "vx_trace_grid": [_P, _I, _P, _I, _P] + [_I] * 6 + _OUTS,
     # ... limbs, plane in place of words; staged, words16, counter (int32 scratch)
     "vx_trace_grid_limbs": [_P, _I, _P, _I, _P, _L] + [_I] * 6 + [_I, _I, _P] + _OUTS,
-    # meta, bricks; n, gx, gy, gz, factor, wpb, max_steps, coarse_layout,
-    # brick_layout, iter_limit, shared_meta; counter (int32 scratch), outputs
-    "vx_trace_brickmap_dense": _RAYS + [_P] * 2 + [_I] * 11 + [_P] + _OUTS,
-    # ... meta, brick_idx, bricks; then as vx_trace_brickmap_dense
-    "vx_trace_brickmap_compact": _RAYS + [_P] * 3 + [_I] * 11 + [_P] + _OUTS,
-    # both from origins and raw directions; hit (uint8) in place of flags
+    # origins and raw directions; meta, bricks (the compact form: meta,
+    # brick_idx, bricks); n, gx, gy, gz, factor, wpb, max_steps,
+    # coarse_layout, brick_layout, iter_limit, shared_meta; counter (int32
+    # scratch); hit (uint8), pos, normal, steps
     "vx_trace_brickmap_dense_rays": _ORIGIN_RAYS + [_P] * 2 + [_I] * 11 + [_P] + _OUTS,
     "vx_trace_brickmap_compact_rays": _ORIGIN_RAYS + [_P] * 3 + [_I] * 11 + [_P] + _OUTS,
     # both storing the ray API's result record, as vx_bigtrace_record
@@ -98,15 +94,13 @@ SIGNATURES = {
     # both from the primary trace, as vx_bigtrace_secondary
     "vx_trace_brickmap_dense_secondary": _SECONDARY + [_P] * 2 + [_I] * 11 + [_P] + _SECONDARY_OUTS,
     "vx_trace_brickmap_compact_secondary": _SECONDARY + [_P] * 3 + [_I] * 11 + [_P] + _SECONDARY_OUTS,
-    # rays (round 0) or null, rows_in (later rounds) or null, meta, bricks;
-    # m, gx, gy, gz, z0, slab_gz, factor, wpb, max_steps, brick_layout,
-    # iter_limit; counter (int32 scratch), rows_out, status, outputs (K4-slab)
-    "vx_zslab": _RAYS + [_P] * 3 + [_I] * 11 + [_P] * 3 + _OUTS,
     # K4-slab's batch form: the batch's origins and directions; rows_in,
-    # idx_in (null in round 0), meta, bricks; the ints as vx_zslab's;
-    # counters (int32[3] scratch), rows_out, idx_out, hit (int32), ...
+    # idx_in (null in round 0), meta, bricks; m, gx, gy, gz, z0, slab_gz,
+    # factor, wpb, max_steps, brick_layout, iter_limit; counters (int32[3]
+    # scratch), rows_out, idx_out, hit (int32), pos, normal, steps
     "vx_zslab_rays": _ORIGIN_RAYS + [_P] * 4 + [_I] * 11 + [_P] * 3 + _OUTS,
-    # K5 from origins and raw directions; hit (uint8) in place of flags, no stats
+    # K5: origins and raw directions, tables, ints; refill, counter (int32
+    # scratch); hit (uint8), pos, normal, steps
     "vx_rrtrace_rays": _ORIGIN_RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P] + _OUTS,
     # secondary.cu: a kind's rays for a caller's tracer (origins, dirs out),
     # and the reduce of its results (the kind, the primary position,
@@ -142,11 +136,21 @@ SIGNATURES = {
 }
 # host-build entry -> its C signature: the kernel launcher's it mirrors,
 # except K1's, which have no work counter and no grid, and K4's, which have
-# no instantiation flag and no work counter; and the grid walk alone on
-# prepared rays (vx_trace_grid_host, *_limbs_host)
+# no instantiation flag and no work counter.  The entries on prepared rays
+# (start, dir, active, pad; flags = hit | hit_imm << 1) have no launcher:
+# K1's vx_trace_host, K4's vx_trace_brickmap_{dense,compact}_host, K5's
+# vx_rrtrace_host, K4-slab's vx_zslab_host and the grid walk alone
+# (vx_trace_grid_host, *_limbs_host) are test instruments, which hold the
+# shared per-ray loops (dda.cuh, grid_dda.cuh, zslab.cuh) to the JAX
+# kernels on their own prepared inputs and to the plain walks; no card
+# path runs that form.
 HOST_ENTRIES = {
-    "vx_trace_host": K1_HOST["vx_bigtrace"],
-    "vx_rrtrace_host": SIGNATURES["vx_rrtrace"],
+    # start, dir, active, pad; tables and ints as K1's; flags, pos, normal,
+    # steps, diag (null, or int32[11, n])
+    "vx_trace_host": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + _OUTS + [_P],
+    # the same rays, tables and ints; refill, counter (unused), stats (null,
+    # or uint64[2]), outputs
+    "vx_rrtrace_host": _RAYS + _LINE_TABLE + _LINE_TABLE_INTS + [_I, _P, _P] + _OUTS,
     "vx_trace_crossings_host": SIGNATURES["vx_trace_crossings"],
     "vx_trace_grid_full_host": SIGNATURES["vx_trace_grid"],
     "vx_trace_grid_limbs_full_host": SIGNATURES["vx_trace_grid_limbs"],
@@ -165,7 +169,9 @@ HOST_ENTRIES = {
     "vx_trace_grid_limbs_host": _RAYS + [_P, _L] + [_I] * 6 + _OUTS,
     # limbs, plane, words16, out: K3's staging alone
     "vx_limb_words_host": [_P, _L, _I, _P],
-    "vx_zslab_host": SIGNATURES["vx_zslab"],
+    # rays (round 0) or null, rows_in (later rounds) or null, meta, bricks;
+    # the ints as vx_zslab_rays'; counter (unused), rows_out, status, outputs
+    "vx_zslab_host": _RAYS + [_P] * 3 + [_I] * 11 + [_P] * 3 + _OUTS,
     "vx_zslab_rays_host": SIGNATURES["vx_zslab_rays"],
     "vx_rrtrace_rays_host": SIGNATURES["vx_rrtrace_rays"],
     "vx_secondary_build_host": SIGNATURES["vx_secondary_build"],

@@ -469,8 +469,9 @@ def trace_brickmap_lt(
 
 
 def prepared_rays(bm: BrickMap, origins, rays):
-    """Ray setup of the prepared-ray entries (the record kernel, K1's
-    ``bigtrace``, K5's ``rrtrace``): ``(start_c, d, active, pad,
+    """Ray setup of the prepared-ray form (the record kernel,
+    ``kernels/crossings.py``, and the host twins of K1, K4 and K5 that the
+    CPU tests hold to the JAX kernels): ``(start_c, d, active, pad,
     start_normal)``, contiguous, on the rays' device."""
     gdims = _dims(bm.grid_dims, I32, origins.device)
     d, start_c, start_normal, active0 = _ray_setup(bm.grid_dims, bm.factor, origins, rays)

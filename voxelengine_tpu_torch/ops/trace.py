@@ -383,10 +383,9 @@ def run_slab(bm: BrickMap, src, max_steps: int, z0: int, full_gz: int):
     :func:`_init_state` with ``full_gz``) or the state rows of rays paused
     elsewhere (:func:`pack_slab_state`), which resume where they stopped.
 
-    Returns what K4-slab's wrapper returns
-    (:func:`voxelengine_tpu_torch.kernels.bmtrace.bmtrace_slab`), of which
-    this is the plain version: ``(rows, status, flags, position, normal,
-    steps)``, each ray's state rows after the round, its status (0 done, 1
+    Returns what K4-slab's host twin on prepared rays writes
+    (``csrc/dda_host.cpp::vx_zslab_host``), of which this is the plain
+    version: ``(rows, status, flags, position, normal, steps)``, each ray's state rows after the round, its status (0 done, 1
     paused) and, for a ray that is done, its result with ``flags = hit |
     hit_imm << 1`` (zeros for a paused ray)."""
     if isinstance(src, torch.Tensor):
